@@ -9,12 +9,14 @@ Phases, each printed on its own line(s); any failure exits non-zero:
    every CUDA kernel from csrc/ (one nvcc per source, in parallel), timed,
    with ptxas's register and shared-memory report;
 2. kernels: each kernel against its plain PyTorch version on the card, at
-   the serving path's shapes (K1 skip-raster at B=32 with 64x64 and
-   128x128 pixels; K5 encode and K4 decode at B=32, J=21, S=64): error,
-   kernel and plain device time (CUDA events, warm L2, the host's enqueue
-   hidden behind a sleep kernel), and the bound (the larger
-   of bytes over 3.35 TB/s and float operations over 67 TFLOP/s, the
-   H100 SXM's published float32 non-tensor rate);
+   the shapes the serving and training paths give it (K1 skip-raster and
+   K2 raster moments at B=32 with 64x64 and 128x128 pixels; K5 encode,
+   K4 decode and their VJPs at B=32, J=21, S=64): error, kernel and plain
+   device time (CUDA events, warm L2, the host's enqueue hidden behind a
+   sleep kernel), the time of one PyTorch library call computing the same
+   function where there is one, and the bound (the larger of bytes over
+   3.35 TB/s and float operations over 67 TFLOP/s, the H100 SXM's
+   published float32 non-tensor rate);
 3. slice: the two-stage ManoOCRStage InferenceEngine at full width
    (ResNet-18 trunks, 128x128 crops, 21 joints, buckets (1, 8, 32), f32)
    with a synthetic MANO asset and seeded random weights, answering
@@ -22,7 +24,19 @@ Phases, each printed on its own line(s); any failure exits non-zero:
    before, must show every kernel of the path; outputs must be finite,
    the stage-2 render must cover > 2% of its pixels, and the outputs must
    agree with the same engine on the CPU (the kernels' plain versions);
-   then the median latency per bucket.
+   then the median latency per bucket;
+4. training: the two-stage Pretrain step (Trainer.train_step_fn) at full
+   width (ResNet-18 trunks, 128x128 crops, B=32, f32 without TF32) from
+   seeded weights, 5 steps.  The launch counters, zeroed just before, must
+   show every kernel of the path launched on every step; every loss must
+   be finite; then the median step time and the peak memory;
+5. GPU step = CPU step: one Pretrain loss and its gradients at B=4, on the
+   card (twice) and on the CPU (the kernels' plain versions), from the
+   same weights and the same synth batch; the synth batch's and the
+   stage-2 render's silhouette flips between the two devices are counted.
+   The same loss on the CPU in float64 is the witness: each float32
+   run's gradients are printed against it, and the GPU's second run
+   against its first.
 
 The last two lines are the kernels' JSON record and the device JSON.
 Without CUDA, or outside the repository, it exits non-zero and prints
@@ -48,7 +62,21 @@ BUCKETS = (1, 8, 32)
 REQUEST_SIZES = (1, 5, 32, 40)  # 40 > 32 exercises the chunking
 KERNEL_BATCH = 32
 LATENCY_CALLS = 25
+TRAIN_BATCH = 32                # the default config's batch
+TRAIN_STEPS = 5
+COMPARE_BATCH = 4               # GPU step vs CPU step
+# launches of each kernel in one two-stage Pretrain step: K1 renders the
+# synth batch and the stage-2 input; K5 encodes both stages' labels and
+# the stage-2 remap, whose VJP is the only one needed; K4 decodes both
+# stages; K2 is the stage-2 render's backward
+STEP_LAUNCHES = {"raster_skip": 2, "raster_moments": 1, "codec_encode": 3,
+                 "codec_encode_bwd": 1, "codec_decode": 2,
+                 "codec_decode_bwd": 2}
 HOLD_CYCLES = 200_000_000       # ~0.1 s of the card's clock, see time_ms
+# the codec's foreground test on a normalized depth image; the background
+# normalizes to 1.0, or just under it in float32 when the crop centre's
+# depth is large
+FG = 0.99
 
 
 class SmokeFailure(RuntimeError):
@@ -115,12 +143,12 @@ def raster_pair_count(proj, faces, rays):
     return total
 
 
-def check_raster(renderer, B, stride, rng, record):
-    import torch
+def raster_scene(renderer, B, stride, rng):
+    """Posed hands in their crops: projected vertices, the crop's sample
+    rays at ``stride``, the faces and the pixel layout."""
     from dsf_tpu_torch import demo
     from dsf_tpu_torch import geometry as geo
     from dsf_tpu_torch.mano import model as mano
-    from dsf_tpu_torch.ops import raster_kernel
     from dsf_tpu_torch.ops import rasterize as ras
 
     para, center, cube = demo.posed_params(renderer, B, rng)
@@ -131,8 +159,16 @@ def check_raster(renderer, B, stride, rng, record):
     M = geo.crop_matrix(com, cube, renderer.paras, renderer.crop_size)
     rays = ras.crop_pixel_rays(M, renderer.crop_size, stride).contiguous()
     proj = ras.project_verts(verts, renderer.paras)
-    faces = renderer.mano.faces
     H = W = renderer.crop_size[0] // stride
+    return proj, rays, renderer.mano.faces, H, W
+
+
+def check_raster(renderer, B, stride, rng, record):
+    import torch
+    from dsf_tpu_torch.ops import raster_kernel
+    from dsf_tpu_torch.ops import rasterize as ras
+
+    proj, rays, faces, H, W = raster_scene(renderer, B, stride, rng)
     P = H * W
     F = faces.shape[0]
 
@@ -222,6 +258,130 @@ def check_codec(renderer, B, rng):
     return out
 
 
+def check_moments(renderer, B, stride, rng, record):
+    """K2 on the face ids of a real raster and the rows the raster backward
+    builds from them (random cotangent)."""
+    import torch
+    from dsf_tpu_torch.ops import moments_kernel, raster_kernel
+    from dsf_tpu_torch.ops import rasterize as ras
+
+    proj, rays, faces, H, W = raster_scene(renderer, B, stride, rng)
+    T = faces.shape[0]
+    rows, cbox = ras.skip_tables(proj, faces)
+    _, idx = raster_kernel.raster_skip_cuda(rows, cbox, rays, (H, W))
+    g = torch.from_numpy(rng.randn(B, H * W).astype(np.float32)).cuda()
+    gm = g * (idx >= 0).float()
+    upd = torch.stack([gm, gm * rays[..., 0], gm * rays[..., 1]], -1).contiguous()
+    got = moments_kernel.face_moments_cuda(idx, upd, T)
+    ref = moments_kernel.face_moments_plain(idx, upd.double(), T)
+    absum = moments_kernel.face_moments_plain(idx, upd.abs().double(), T)
+    torch.cuda.synchronize()
+    err = float((got.double() - ref).abs().max())
+    # a float32 sum of n rows in any order rounds within n 2^-24 of the sum
+    # of |rows|; a face covers at most ~300 pixels here: 2e-5
+    worst = float(((got.double() - ref).abs() / (absum + 1e-30)).max())
+
+    flat = (idx.long().clamp_min(0)
+            + torch.arange(B, device=idx.device)[:, None] * T).reshape(-1)
+    flat_rows = upd.reshape(-1, 3)
+    ms = time_ms(lambda: moments_kernel.face_moments_cuda(idx, upd, T), 50)
+    plain_ms = time_ms(lambda: moments_kernel.face_moments_plain(idx, upd, T), 20)
+    lib_ms = time_ms(lambda: torch.zeros((B * T, 3), device=idx.device)
+                     .index_add_(0, flat, flat_rows), 20)
+    hits = int((idx >= 0).sum())
+    # every id is read; only a covered pixel's row adds anything, so only
+    # those rows are read; each face's 3 sums are written once
+    nbytes = idx.numel() * 4 + hits * 3 * 4 + B * T * 3 * 4
+    bms, by = bound_ms(nbytes, 3 * hits)
+    say(f"kernel K2 raster_moments B={B} {H}x{W} T={T}: max_abs_err {err:.3g} "
+        f"(vs float64; worst / sum|rows| {worst:.3g}), {hits} covered pixels, "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ "
+        f"{lib_ms:.4f} ms, bound {bms:.6f} ms by {by}")
+    need(worst <= 2e-5, f"K2 disagrees with its plain version: {worst}")
+    if record:
+        return {"name": "raster_moments", "route": "cuda",
+                "source": "dsf_tpu_torch/csrc/moments.cu",
+                "replaces": "dsf_tpu/ops/pallas_raster.py:169",
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
+    return None
+
+
+def check_codec_bwd(renderer, B, rng):
+    """K5 bwd and K4 bwd against autograd of the plain versions on rendered
+    hands, with random cotangents."""
+    import torch
+    from dsf_tpu_torch import demo
+    from dsf_tpu_torch.ops import codec_kernel
+    from dsf_tpu_torch.ops import offset_codec as oc
+    from dsf_tpu_torch.render import renderer as rnd
+
+    para, center, cube = demo.posed_params(renderer, B, rng)
+    img, juvd, _, _ = rnd.render_params(renderer, para, center, cube,
+                                        img_stride=2)
+    img, juvd = img.contiguous(), juvd.contiguous()
+    J, S = juvd.shape[1], img.shape[-1]
+    P = S * S
+    g_enc = torch.from_numpy(rng.randn(B, 4 * J, S, S).astype(np.float32)).cuda()
+    g_dec = torch.from_numpy(rng.randn(B, J, 3).astype(np.float32)).cuda()
+    offset = (oc.joint2offset_plain(juvd, img, 0.8) + 0.05 * g_enc).contiguous()
+    # the work this data needs: the encode VJP reads g only where a joint's
+    # cone meets the foreground (elsewhere the field is 0 whatever the
+    # joint); the decode VJP reads the field only at foreground pixels (the
+    # mask zeroes the rest), but every pixel keeps its softmax mass, so its
+    # weight, its share of the sums and its depth gradient (~10 operations
+    # per joint) remain.  The images, the joints and every output are read
+    # or written whole.
+    fg = img < FG
+    coords = oc._coords(img, S)
+    dist = ((juvd[..., None, None] - coords[:, None]) ** 2).sum(2).sqrt()
+    cone = int(((dist <= 0.8) & fg).sum())
+    n_fg = int(fg.sum())
+
+    def vjp(f, xs, g):
+        xs = [x.detach().requires_grad_(True) for x in xs]
+        with torch.enable_grad():
+            return torch.autograd.grad(f(*xs), xs, g)
+
+    enc_plain = lambda: vjp(lambda j, d: oc.joint2offset_plain(j, d, 0.8),
+                            (juvd, img), g_enc)
+    dec_plain = lambda: vjp(lambda o, d: oc.offset2joint_plain(o, d, 0.8, 30.0),
+                            (offset, img), g_dec)
+    enc_k = lambda: codec_kernel.encode_bwd_cuda(juvd, img, g_enc, 0.8)
+    dec_k = lambda: codec_kernel.decode_bwd_cuda(offset, img, g_dec, 0.8, 30.0)
+    out = []
+    for name, kfn, pfn, nbytes, flops, replaces in (
+            ("codec_encode_bwd", enc_k, enc_plain,
+             (2 * B * J * 3 + 2 * B * P + 4 * cone) * 4, 40 * cone,
+             "dsf_tpu/ops/pallas_codec.py:280"),
+            ("codec_decode_bwd", dec_k, dec_plain,
+             (4 * J * n_fg + B * 4 * J * P + 2 * B * P + B * J * 3) * 4,
+             55 * J * n_fg + 10 * J * (B * P - n_fg),
+             "dsf_tpu/ops/pallas_codec.py:154")):
+        got, ref = kfn(), pfn()
+        torch.cuda.synchronize()
+        err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+        rel = max(float((a - b).abs().max() / b.abs().max())
+                  for a, b in zip(got, ref))
+        ms = time_ms(kfn, 50)
+        plain_ms = time_ms(pfn, 20)
+        bms, by = bound_ms(nbytes, flops)
+        say(f"kernel {name} B={B} J={J} S={S}: max_abs_err {err:.3g} "
+            f"({rel:.3g} of the gradient's largest entry), kernel {ms:.4f} ms, "
+            f"plain (autograd) {plain_ms:.4f} ms, bound {bms:.6f} ms by {by} "
+            f"({n_fg} foreground pixels of {B * P}, {cone} joint-pixel pairs "
+            "in a cone)")
+        # sums over pixels and joints in other orders; near a joint the
+        # encode's 1/dist^2 amplifies rounding
+        need(rel <= 1e-4, f"{name} disagrees with its plain version: {rel}")
+        out.append({"name": name, "route": "cuda",
+                    "source": "dsf_tpu_torch/csrc/codec.cu",
+                    "replaces": replaces, "max_abs_err": err, "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                    "library_ms": None})
+    return out
+
+
 # ----------------------------------------------------------------- phase 3
 
 def atol_for(key):
@@ -259,8 +419,10 @@ def run_slice(mano_path):
     bucket_calls = sum(-(-n // BUCKETS[-1]) for n in sizes)
     say(f"slice launches over requests {sizes} ({bucket_calls} bucket "
         f"calls): {json.dumps(counts)}")
-    need(counts == {"raster_skip": bucket_calls, "codec_encode": bucket_calls,
-                    "codec_decode": 2 * bucket_calls},
+    # inference: no backward, so the training path's kernels stay at 0
+    need(counts == {"raster_skip": bucket_calls, "raster_moments": 0,
+                    "codec_encode": bucket_calls, "codec_encode_bwd": 0,
+                    "codec_decode": 2 * bucket_calls, "codec_decode_bwd": 0},
          f"predict did not go through every kernel once per call: {counts}")
 
     for n, out in zip(sizes, outs):
@@ -274,7 +436,7 @@ def run_slice(mano_path):
             eng.renderer, torch.from_numpy(outs[-1]["mano_para_0"]).cuda(),
             torch.from_numpy(r[1]).cuda(), torch.from_numpy(r[3]).cuda(),
             img_stride=2)
-    cover = float((img2 < 1.0).float().mean())
+    cover = float((img2 < FG).float().mean())
     say(f"slice stage-2 render coverage {cover:.4f} of {tuple(img2.shape)}")
     need(cover > 0.02, f"stage-2 render covers {cover} <= 2% of its pixels")
 
@@ -288,7 +450,7 @@ def run_slice(mano_path):
             eng.renderer, torch.from_numpy(out["mano_para_0"]).cuda(),
             torch.from_numpy(r[1]).cuda(), torch.from_numpy(r[3]).cuda(),
             img_stride=2)
-        flips = int(((img2_gpu.cpu() < 1.0) != (img2_cpu < 1.0)).sum())
+        flips = int(((img2_gpu.cpu() < FG) != (img2_cpu < FG)).sum())
         say(f"slice request {n}: stage-2 render silhouette pixels that differ "
             f"between the GPU and CPU engines: {flips} of {img2_cpu.numel()}")
         for k in out:
@@ -316,6 +478,185 @@ def run_slice(mano_path):
         + f"; bucket {top} throughput {top * 1e3 / lat[top]:.1f} images/s")
     say(f"slice peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     return counts
+
+
+# ----------------------------------------------------------------- phase 4
+
+def run_training(mano_path):
+    """TRAIN_STEPS Pretrain steps at full width; returns the launch counts."""
+    import torch
+    from dsf_tpu_torch import kernels
+    from dsf_tpu_torch.config import Config
+    from dsf_tpu_torch.data.synth_params import random_param_source
+    from dsf_tpu_torch.training.trainer import Trainer
+
+    cfg = Config(dataset="nyu", batch_size=TRAIN_BATCH, stage_num=2,
+                 input_size=INPUT_SIZE, seed=SEED, mano_model_path=mano_path)
+    tr = Trainer(cfg, mano_path, device="cuda")
+    state = tr.init_state()
+    src = random_param_source(TRAIN_BATCH, seed=SEED)
+    batches = [dict(zip(("model_para", "cube_synth"), next(src)))
+               for _ in range(TRAIN_STEPS)]
+    draws = [tr.draw(TRAIN_BATCH) for _ in range(TRAIN_STEPS)]
+    step = tr.train_step_fn("Pretrain")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    kernels.reset_launch_counts()
+    times, losses = [], []
+    for i in range(TRAIN_STEPS):
+        before = dict(kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        state, metrics = step(state, draws[i], batches[i])
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        delta = {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES}
+        need(delta == STEP_LAUNCHES,
+             f"train step {i} did not launch every kernel of the path as "
+             f"expected: {delta} != {STEP_LAUNCHES}")
+        need(np.isfinite(losses[-1]), f"train step {i}: loss {losses[-1]}")
+    counts = dict(kernels.LAUNCHES)
+    say(f"train launches over {TRAIN_STEPS} Pretrain steps (B={TRAIN_BATCH}, "
+        f"{INPUT_SIZE}^2): {json.dumps(counts)}")
+    say("train losses: " + json.dumps([float(f"{x:.6g}") for x in losses])
+        + f"; updates applied {state.updates}/{TRAIN_STEPS}")
+    say("train step ms (host clock, to a synchronized loss): "
+        + json.dumps([round(t, 3) for t in times])
+        + f"; median {float(np.median(times)):.3f} ms, "
+        f"{TRAIN_BATCH * 1e3 / float(np.median(times)):.1f} images/s")
+    say(f"train peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    return counts
+
+
+# ----------------------------------------------------------------- phase 5
+
+def grad_tol(name):
+    """The MANO heads and the stage-2 offset head feed the losses only, so
+    their gradients are well-conditioned: 1e-2 relative L2.  Every other
+    layer's gradient passes through BatchNorm trunks, where at random
+    weights it is ill-conditioned.  This phase's float64 witness shows it
+    (H100 80GB HBM3 at 700 W, B=4, 128^2): the CPU's float32 gradients lie
+    up to 0.101 (median 0.060) from the float64 ones, the GPU's up to
+    0.152 (median 0.111), and the two float32 runs up to 0.125 from each
+    other.  So 0.2, against the CPU's float32 and against float64."""
+    return 1e-2 if name.startswith(("mano_regress", "finals_s2")) else 0.2
+
+
+# the GPU's float32 gradients may lie at most this many times further from
+# float64, in the median over parameters, than the CPU's (1.86 measured,
+# as in grad_tol): a fault on the card would move them all
+MEDIAN_RATIO = 3.0
+
+
+def float64_renderer(r):
+    """``r`` with its MANO constants in float64 (the faces stay int64)."""
+    import dataclasses
+    import torch
+    m = r.mano
+    f64 = {f.name: getattr(m, f.name).double() for f in dataclasses.fields(m)
+           if torch.is_tensor(getattr(m, f.name))
+           and getattr(m, f.name).is_floating_point()}
+    return dataclasses.replace(r, mano=dataclasses.replace(m, **f64))
+
+
+def rel_l2(a, b):
+    return {n: float((a[n].double() - b[n]).norm() / (b[n].norm() + 1e-30))
+            for n in b}
+
+
+def spread(errs):
+    v = np.array(list(errs.values()))
+    top = max(errs, key=errs.get)
+    return f"median {float(np.median(v)):.3g}, max {v.max():.3g} ({top})"
+
+
+def compare_step(mano_path):
+    """One Pretrain loss and its gradients on the card and on the CPU, from
+    the same weights, on the card's synth batch; and the same loss on the
+    CPU in float64, the witness that says how far float32 rounding alone
+    moves each gradient."""
+    import copy
+    import torch
+    from dsf_tpu_torch.config import Config
+    from dsf_tpu_torch.data.synth_params import random_param_source
+    from dsf_tpu_torch.device import exact_float32
+    from dsf_tpu_torch.render import renderer as rnd
+    from dsf_tpu_torch.training import phases
+    from dsf_tpu_torch.training.trainer import Trainer
+
+    B = COMPARE_BATCH
+    cfg = Config(dataset="nyu", batch_size=B, stage_num=2,
+                 input_size=INPUT_SIZE, seed=SEED + 2,
+                 mano_model_path=mano_path)
+    gpu = Trainer(cfg, mano_path, device="cuda")
+    cpu = Trainer(cfg, mano_path, device="cpu")
+    sg, sc = gpu.init_state(), cpu.init_state()
+    net64 = copy.deepcopy(sc.net).double()
+    r64 = float64_renderer(cpu.renderer)
+    para, cube = next(random_param_source(B, seed=SEED + 3))
+    para, cube = torch.from_numpy(para), torch.from_numpy(cube)
+    draws = gpu.draw(B)
+    with exact_float32():
+        sample_g = phases.pretrain_sample(gpu.renderer, draws.to("cuda"),
+                                          para.cuda(), cube.cuda())
+        sample_c = phases.pretrain_sample(cpu.renderer, draws, para, cube)
+        img_g, img_c = sample_g[0].cpu(), sample_c[0]
+        synth_flips = int(((img_g < FG) != (img_c < FG)).sum())
+        synth_far = int(((img_g - img_c).abs() > 1e-3).sum())
+        on_cpu = [x.cpu() for x in sample_g]
+        # the GPU twice: cuDNN may pick algorithms whose sums run in another
+        # order from call to call
+        runs = {"gpu": (sg.net, gpu.renderer, sample_g),
+                "gpu_again": (sg.net, gpu.renderer, sample_g),
+                "cpu": (sc.net, cpu.renderer, on_cpu),
+                "cpu64": (net64, r64, [x.double() for x in on_cpu])}
+
+        # the stage-2 input render of each run's stage-1 MANO, from copies
+        # of the nets (their BatchNorm statistics move in train mode)
+        sil = {}
+        for key, (net, r, smp) in runs.items():
+            with torch.no_grad():
+                img, _, _, _, _, center, cube_s, _ = smp
+                para0 = copy.deepcopy(net)(img, r, center, cube_s)[0][1]
+                img2, _, _, _ = rnd.render_params(r, para0, center, cube_s,
+                                                  img_stride=2)
+                sil[key] = (img2 < FG).cpu()
+
+        loss, grads = {}, {}
+        for key, (net, r, smp) in runs.items():
+            net.zero_grad(set_to_none=True)
+            value, _ = phases.pretrain_loss(net, r, smp, cfg, 2)
+            value.backward()
+            loss[key] = value.item()
+            grads[key] = {n: p.grad.detach().cpu()
+                          for n, p in net.named_parameters()}
+    flips = {k: int((sil[k] != sil["cpu"]).sum()) for k in ("gpu", "cpu64")}
+    gpu_gpu = rel_l2(grads["gpu_again"], grads["gpu"])
+    say(f"compare B={B} {INPUT_SIZE}^2: synth batch GPU vs CPU: {synth_flips} "
+        f"silhouette flips and {synth_far} pixels beyond 1e-3 of {img_c.numel()}; "
+        f"stage-2 render silhouette flips against the CPU's: GPU {flips['gpu']}, "
+        f"CPU float64 {flips['cpu64']} of {sil['cpu'].numel()}")
+    gpu_cpu = rel_l2(grads["gpu"], grads["cpu"])
+    gpu_64 = rel_l2(grads["gpu"], grads["cpu64"])
+    cpu_64 = rel_l2(grads["cpu"], grads["cpu64"])
+    say(f"compare loss GPU {loss['gpu']:.7g} CPU {loss['cpu']:.7g} CPU float64 "
+        f"{loss['cpu64']:.10g}; gradient relative L2 per parameter: GPU vs CPU "
+        f"{spread(gpu_cpu)}; GPU vs float64 {spread(gpu_64)}; CPU vs float64 "
+        f"{spread(cpu_64)}; GPU vs GPU again {spread(gpu_gpu)}")
+    rel_loss = abs(loss["gpu"] - loss["cpu"]) / abs(loss["cpu"])
+    # the loss sums ~10^5 float32 terms in other orders on the two devices
+    need(rel_loss <= 1e-4, f"GPU loss {loss['gpu']} differs from the CPU's "
+         f"{loss['cpu']}")
+    bad = {k: v for k, v in gpu_cpu.items() if not v <= grad_tol(k)}
+    need(not bad, f"GPU gradients differ from the CPU's: {bad}")
+    bad = {k: v for k, v in gpu_64.items() if not v <= grad_tol(k)}
+    need(not bad, f"GPU gradients differ from the float64 ones: {bad}")
+    ratio = (float(np.median(list(gpu_64.values())))
+             / float(np.median(list(cpu_64.values()))))
+    need(ratio <= MEDIAN_RATIO, f"GPU gradients lie {ratio:.3g} times further "
+         "from float64 than the CPU's, in the median over parameters")
 
 
 def main():
@@ -360,9 +701,19 @@ def main():
                                        record=True))
             check_raster(renderer, KERNEL_BATCH, 1, rng, record=False)
             record += check_codec(renderer, KERNEL_BATCH, rng)
-        counts = run_slice(path)
+        record.append(check_moments(renderer, KERNEL_BATCH, 2, rng,
+                                    record=True))
+        check_moments(renderer, KERNEL_BATCH, 1, rng, record=False)
+        record += check_codec_bwd(renderer, KERNEL_BATCH, rng)
+        serve_counts = run_slice(path)
+        train_counts = run_training(path)
+        compare_step(path)
     for rec in record:
-        rec["launches"] = counts[rec["name"]]
+        by_path = {"serve": serve_counts[rec["name"]],
+                   "train": train_counts[rec["name"]]}
+        rec["launches"] = sum(by_path.values())
+        rec["launches_by_path"] = by_path
+        need(rec["launches"] > 0, f"{rec['name']} never launched on a path")
     say(json.dumps({"kernels": record}))
     say(smi)
     print(json.dumps({"ok": True, "device": {

@@ -10,14 +10,20 @@ held against on the card.
 
 Ported so far: the serving path — ``serving.InferenceEngine.predict`` over
 the two-stage ``ManoOCRStage`` (stage-2 re-render through the skip-raster
-kernel, offset-codec encode/decode kernels, MANO LBS).
+kernel, offset-codec encode/decode kernels, MANO LBS) — and the two-stage
+Pretrain training step, ``training.trainer.Trainer.train_step_fn`` (synth
+factory, train-mode BatchNorm, the raster's moment backward and the
+codec's VJPs as kernels, AdamW behind a finite guard).
 
 Layer map:
   config, geometry — configuration, camera/crop math
   mano             — MANO LBS, static tables, synthetic asset
-  ops              — rasterizer + K1 skip-raster, offset codec + K4/K5
-  render           — crop-frame renderer (render_params, get_mesh_xyz)
+  ops              — rasterizer + K1 skip-raster + K2 moments (backward),
+                     offset codec + K4/K5 (forward and backward)
+  render           — crop-frame renderer (render_params, synth_sample)
   models           — ManoOCRStage (reference state-dict names), weights
+  losses, training — SmoothL1; the Pretrain phase and its trainer
+  data             — MANO-parameter sources (numpy)
   serving          — bucketed InferenceEngine
   kernels, csrc    — CUDA sources and their build
 """

@@ -200,3 +200,16 @@ def rodrigues(theta):
     half = angle * 0.5
     quat = torch.cat([torch.cos(half), torch.sin(half) * normalized], dim=-1)
     return quat_to_mat(quat)
+
+
+def rotate_points_about(points, center, rot_vec):
+    """Rotate (..., N, 3) points about ``center`` (..., 3) by the
+    axis-angle ``rot_vec`` (..., 3) (ref: RotationPoints).  The products
+    are written out elementwise, so they stay full float32 on every
+    backend."""
+    R = rodrigues(rot_vec)[..., None, :, :]               # (..., 1, 3, 3)
+    p = points - center[..., None, :]
+    x, y, z = p[..., 0], p[..., 1], p[..., 2]
+    p = torch.stack([R[..., i, 0] * x + R[..., i, 1] * y + R[..., i, 2] * z
+                     for i in range(3)], dim=-1)
+    return p + center[..., None, :]

@@ -10,8 +10,9 @@ from __future__ import annotations
 
 from typing import Dict
 
-LAUNCHES: Dict[str, int] = {"raster_skip": 0, "codec_encode": 0,
-                            "codec_decode": 0}
+LAUNCHES: Dict[str, int] = {"raster_skip": 0, "raster_moments": 0,
+                            "codec_encode": 0, "codec_encode_bwd": 0,
+                            "codec_decode": 0, "codec_decode_bwd": 0}
 
 
 def reset_launch_counts() -> None:

@@ -106,7 +106,7 @@ class ManoOCRStage(nn.Module):
         # at the decoder resolution (img_stride=2: the remap codec would
         # nearest-downsample a full render to that size anyway)
         mano_img, mano_joint_uvd, _, _ = rnd.render_params(
-            render, mano_para.float(), center, cube, img_stride=2)
+            render, mano_para, center, cube, img_stride=2)
         remap = joint2offset(mano_joint_uvd, mano_img, 0.8,
                              img_result.shape[-1])
         fusion = torch.cat([c0, img_feature, img_result,

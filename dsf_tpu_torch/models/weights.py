@@ -20,7 +20,8 @@ import torch
 
 
 def _t(x) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(x, np.float32)))
+    # a copy: jax arrays convert to read-only numpy arrays
+    return torch.from_numpy(np.array(x, np.float32))
 
 
 def _kernel(x) -> torch.Tensor:

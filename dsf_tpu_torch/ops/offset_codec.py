@@ -8,9 +8,13 @@ softmax(scale * heatmap)-weighted vote of coords + offset * dist.
 Feature layout: (B, 4J, S, S) = [3J offset channels | J heatmap channels].
 
 ``*_plain`` are the plain PyTorch versions (the JAX package's jnp paths,
-with three-term sums written out left to right).  The public functions
-resize the image to the feature size, then take the plain version for
-CPU tensors and the CUDA kernel (K5 encode, K4 decode) for GPU tensors.
+with three-term sums written out left to right); on the CPU their
+gradients are plain autograd, the jnp paths' autodiff.  The public
+functions resize the image to the feature size (outside the kernels, as
+in the JAX package, so the resize's gather gradient is torch's), then
+take the plain version for CPU tensors and, for GPU tensors, the
+``autograd.Function`` whose forward and backward are the CUDA kernels
+(``codec_kernel.EncodeFn``: K5, ``DecodeFn``: K4).
 """
 
 from __future__ import annotations
@@ -73,9 +77,9 @@ def joint2offset(joint, img, kernel_size, feature_size):
     if joint.device.type == "cpu":
         return joint2offset_plain(joint, img_s, kernel_size)
     if joint.device.type == "cuda":
-        return codec_kernel.encode_cuda(joint.float().contiguous(),
-                                        img_s.float().contiguous(),
-                                        kernel_size)
+        return codec_kernel.EncodeFn.apply(joint.float().contiguous(),
+                                           img_s.float().contiguous(),
+                                           kernel_size)
     raise ValueError(f"no codec path for device {joint.device}")
 
 
@@ -88,7 +92,7 @@ def offset2joint_softmax(offset, depth, kernel_size, scale=30.0):
     if offset.device.type == "cpu":
         return offset2joint_plain(offset, depth, kernel_size, scale)
     if offset.device.type == "cuda":
-        return codec_kernel.decode_cuda(offset.float().contiguous(),
-                                        depth.float().contiguous(),
-                                        kernel_size, scale)
+        return codec_kernel.DecodeFn.apply(offset.float().contiguous(),
+                                           depth.float().contiguous(),
+                                           kernel_size, scale)
     raise ValueError(f"no codec path for device {offset.device}")

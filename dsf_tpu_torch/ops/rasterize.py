@@ -1,5 +1,4 @@
-"""Depth rasterizer at crop pixels (counterpart of dsf_tpu/ops/rasterize.py),
-forward only: the serving path needs no gradient through the zbuf.
+"""Depth rasterizer at crop pixels (counterpart of dsf_tpu/ops/rasterize.py).
 
 Each crop pixel is mapped through M^-1 to its continuous full-frame
 position and the nearest covering face is found there (blur=0,
@@ -17,7 +16,12 @@ its own (no fused multiply-add), in the order written; the CUDA kernel
 intrinsics so the two are bitwise-equal on the same coefficients.
 
 ``raster_skip`` is the dispatch: the plain version for tensors on the
-CPU, the K1 kernel for tensors on a GPU, an error otherwise.
+CPU, the K1 kernel for tensors on a GPU, an error otherwise.  Either runs
+on gradient-stopped vertices; ``AttachRasterGrad`` then attaches the JAX
+package's hard blur=0 gradient (``_attach_raster_grad``): through the hit
+face's depth plane only, from the per-face moments of the cotangent (K2
+on a GPU, ``index_add_`` on the CPU).  The pixel -> face assignment gets
+no gradient.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ from __future__ import annotations
 import torch
 
 from dsf_tpu_torch import geometry as geo
-from dsf_tpu_torch.ops import raster_kernel
+from dsf_tpu_torch.ops import moments_kernel, raster_kernel
 
 INF = 1e10
 FACE_CHUNK = 256
@@ -142,16 +146,77 @@ def skip_tables(proj, faces):
     return rows.contiguous(), cbox.contiguous()
 
 
+def face_moments(idx, upd, num_faces):
+    """Per-face sums of the rows upd (B, P, 3) over the pixels of each face
+    id in idx (B, P): the plain version for CPU tensors, K2 for GPU
+    tensors."""
+    if idx.device.type == "cpu":
+        return moments_kernel.face_moments_plain(idx, upd, num_faces)
+    if idx.device.type == "cuda":
+        return moments_kernel.face_moments_cuda(
+            idx.to(torch.int32).contiguous(), upd.float().contiguous(),
+            num_faces)
+    raise ValueError(f"no moments path for device {idx.device}")
+
+
+def face_sum(proj, faces, mom):
+    """sum over faces t of (az_t Su_t + bz_t Sv_t + cz_t S1_t), with the
+    depth-plane coefficients of ``face_coeffs`` (already divided by the
+    face's doubled area, zero for degenerate faces): the cotangent-weighted
+    depth sum of every covered pixel, written through the per-face moments
+    mom (B, T, 3) = [S1, Su, Sv].  Its gradient in ``proj`` is the
+    raster's (ref: face_sum in rasterize._attach_bwd)."""
+    _, _, _, az, bz, cz, _ = face_coeffs(proj, faces)
+    return (az * mom[..., 1] + bz * mom[..., 2] + cz * mom[..., 0]).sum()
+
+
+class AttachRasterGrad(torch.autograd.Function):
+    """Identity on zbuf (B, P) that attaches the raster's gradient with
+    respect to proj (B, V, 3) (ref: rasterize._attach_raster_grad).
+
+    Backward: the rows [g*hit, g*hit*u, g*hit*v] of every pixel, their
+    per-face moments (B, T, 3) keyed by the winning face id, and
+    d proj = grad of ``face_sum`` at those moments.  The depth of a face is
+    linear in the pixel position, so the three moments carry all of the
+    cotangent that reaches it.  pix_uv, idx and faces get no gradient."""
+
+    @staticmethod
+    def forward(ctx, proj, zbuf, idx, pix_uv, faces):
+        ctx.save_for_backward(proj, idx, pix_uv, faces)
+        return zbuf.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        proj, idx, pix_uv, faces = ctx.saved_tensors
+        gm = g * (idx >= 0).to(g.dtype)
+        upd = torch.stack([gm, gm * pix_uv[..., 0], gm * pix_uv[..., 1]],
+                          dim=-1)
+        mom = face_moments(idx, upd, faces.shape[0])
+        with torch.enable_grad():
+            p = proj.detach().requires_grad_(True)
+            (dproj,) = torch.autograd.grad(face_sum(p, faces, mom), p)
+        return dproj, None, None, None, None
+
+
 def raster_skip(proj, pix_uv, faces, layout_hw):
-    """Nearest-face depth and face id at each sample position.
+    """Nearest-face depth and face id at each sample position:
+    zbuf (B, P), differentiable in ``proj`` with the hard blur=0 gradient,
+    and idx (B, P) int32.
 
     ``layout_hw`` (H, W): pix_uv is row-major over an H x W pixel grid,
     which the kernel tiles 16 x 16.  CPU tensors take ``raster_scan``;
-    CUDA tensors launch the K1 kernel (``raster_kernel.raster_skip_cuda``)."""
-    if proj.device.type == "cpu":
-        return raster_scan(proj, pix_uv, faces)
-    if proj.device.type == "cuda":
-        rows, cbox = skip_tables(proj, faces)
-        return raster_kernel.raster_skip_cuda(rows, cbox,
-                                              pix_uv.contiguous(), layout_hw)
-    raise ValueError(f"no raster path for device {proj.device}")
+    CUDA tensors launch the K1 kernel (``raster_kernel.raster_skip_cuda``).
+    Both run on the detached vertices."""
+    with torch.no_grad():
+        p = proj.detach()
+        if p.device.type == "cpu":
+            zbuf, idx = raster_scan(p, pix_uv, faces)
+        elif p.device.type == "cuda":
+            rows, cbox = skip_tables(p, faces)
+            zbuf, idx = raster_kernel.raster_skip_cuda(
+                rows, cbox, pix_uv.contiguous(), layout_hw)
+        else:
+            raise ValueError(f"no raster path for device {proj.device}")
+    if torch.is_grad_enabled() and proj.requires_grad:
+        zbuf = AttachRasterGrad.apply(proj, zbuf, idx, pix_uv, faces)
+    return zbuf, idx

@@ -1,18 +1,20 @@
-"""Where the serving predict's time goes on the card.
+"""Where the serving predict's and the Pretrain step's time goes on the
+card.
 
     python -m dsf_tpu_torch.profiling
 
 Builds the full-width two-stage engine from seeded inputs (demo.py),
 warms it up, then, for each of its buckets (1, 8, 32), runs ``CALLS``
-predicts under
-torch.profiler (CPU + CUDA activities) and prints, per call: the host
-wall time (timed without the profiler), the device time summed over
-kernels, the device busy share (that sum over the wall time; one stream,
-so kernels do not overlap), the device time by kernel family and by the
-top kernels, and the predict's float operations (torch.utils.flop_counter)
-over the convolutions' device time, against the card's float32 rate
-outside the tensor cores.  One JSON summary line per bucket.  Needs a
-CUDA card; exits non-zero without one.
+predicts under torch.profiler (CPU + CUDA activities).  Then the same for
+``CALLS`` two-stage Pretrain train steps at B=32 (Trainer, seeded
+weights, 128x128 crops).  For each it prints, per call: the host wall
+time (timed without the profiler), the device time summed over kernels,
+the device busy share (that sum over the wall time; one stream, so
+kernels do not overlap), the device time by kernel family and by the top
+kernels, and the float operations (torch.utils.flop_counter) over the
+convolutions' device time, against the card's float32 rate outside the
+tensor cores.  One JSON summary line per bucket and one for the step.
+Needs a CUDA card; exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -30,15 +32,22 @@ from torch.profiler import ProfilerActivity, profile
 from torch.utils.flop_counter import FlopCounterMode
 
 from dsf_tpu_torch import demo
+from dsf_tpu_torch.config import Config
+from dsf_tpu_torch.data.synth_params import random_param_source
 from dsf_tpu_torch.mano import synthetic
+from dsf_tpu_torch.training.trainer import Trainer
 
 PEAK_F32_FLOPS = 67e12          # H100 SXM float32, CUDA cores
-CALLS = 10                      # profiled predicts per bucket
+CALLS = 10                      # profiled predicts per bucket, and steps
+TRAIN_BATCH = 32                # the default config's batch
 
 FAMILIES = (
     ("K1 raster_skip", ("raster_skip_kernel",)),
+    ("K2 raster moments", ("moments_kernel",)),
     ("K5 codec encode", ("encode_fwd_kernel",)),
+    ("K5 codec encode VJP", ("encode_bwd",)),
     ("K4 codec decode", ("decode_fwd_kernel",)),
+    ("K4 codec decode VJP", ("decode_bwd",)),
     ("batchnorm", ("batch_norm", "bn_fw", "bn_bw")),
     ("convolution", ("conv", "cudnn", "xmma", "implicit_gemm", "winograd",
                      "dgrad", "wgrad", "fprop", "cutlass", "fft",
@@ -63,35 +72,63 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         path = synthetic.save_synthetic_mano(os.path.join(tmp, "mano.npz"))
         eng = demo.engine(path, "cuda")
+        trainer = Trainer(Config(dataset="nyu", batch_size=TRAIN_BATCH,
+                                 stage_num=2), path, device="cuda")
     for bucket in eng.buckets:
         profile_bucket(eng, bucket)
+    profile_pretrain(trainer)
     return 0
 
 
 def profile_bucket(eng, bucket: int) -> None:
     req = demo.requests(eng.renderer, bucket, np.random.RandomState(1))
+    measure(f"bucket {bucket}", {"bucket": bucket}, "predict calls",
+            lambda: eng.predict(*req))
+
+
+def profile_pretrain(trainer: Trainer) -> None:
+    state = trainer.init_state()
+    step = trainer.train_step_fn("Pretrain")
+    src = random_param_source(TRAIN_BATCH, seed=1)
+
+    def one():
+        para, cube = next(src)
+        step(state, trainer.draw(TRAIN_BATCH),
+             {"model_para": para, "cube_synth": cube})
+
+    measure(f"Pretrain step B={TRAIN_BATCH}", {"phase": "Pretrain",
+                                               "batch": TRAIN_BATCH},
+            "train steps", one)
+
+
+def measure(label: str, key: dict, what: str, call) -> None:
+    """Warm ``call`` up, count its float operations, time ``CALLS`` calls
+    on the host clock, then profile ``CALLS`` more and print the report."""
     for _ in range(5):
-        eng.predict(*req)
+        call()
     torch.cuda.synchronize()
     with FlopCounterMode(display=False) as counter:
-        eng.predict(*req)
+        call()
     flops = counter.get_total_flops()
 
     # the wall time is taken without the profiler, which slows the host
     t0 = time.perf_counter()
     for _ in range(CALLS):
-        eng.predict(*req)
+        call()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / CALLS
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(CALLS):
-            eng.predict(*req)
+            call()
         torch.cuda.synchronize()
 
-    # device-side events only: a CPU op's device time repeats its kernels'
+    # device-side kernels only: a CPU op's device time repeats its kernels',
+    # and a user annotation's device range (the optimizer's step) spans
+    # kernels that are counted on their own
     by_name = defaultdict(float)
     for ev in prof.key_averages():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
+        if (ev.device_type == torch.autograd.DeviceType.CUDA
+                and not ev.is_user_annotation):
             by_name[ev.key] += ev.self_device_time_total / 1e3 / CALLS
     device_ms = sum(by_name.values())
     fams = defaultdict(float)
@@ -99,7 +136,7 @@ def profile_bucket(eng, bucket: int) -> None:
         fams[family(name)] += ms
     conv_ms = fams.get("convolution", 0.0)
     conv_share = flops / (conv_ms * 1e-3) / PEAK_F32_FLOPS if conv_ms else 0.0
-    print(f"bucket {bucket}: {CALLS} predict calls, host wall "
+    print(f"{label}: {CALLS} {what}, host wall "
           f"{wall_ms:.3f} ms/call, device kernels {device_ms:.3f} ms/call, "
           f"device busy share {device_ms / wall_ms:.3f}, "
           f"{flops / 1e9:.1f} GFLOP/call, convolutions at "
@@ -109,13 +146,12 @@ def profile_bucket(eng, bucket: int) -> None:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     for name, ms in top:
         print(f"  kernel {ms:8.3f} ms/call  {name[:110]}")
-    print(json.dumps({"bucket": bucket, "wall_ms": wall_ms,
-                      "device_ms": device_ms,
-                      "busy_share": device_ms / wall_ms,
-                      "gflop": flops / 1e9,
-                      "conv_share_of_f32_peak": conv_share,
-                      "families_ms": dict(fams),
-                      "device": torch.cuda.get_device_name(0)}))
+    print(json.dumps(dict(key, wall_ms=wall_ms, device_ms=device_ms,
+                          busy_share=device_ms / wall_ms,
+                          gflop=flops / 1e9,
+                          conv_share_of_f32_peak=conv_share,
+                          families_ms=dict(fams),
+                          device=torch.cuda.get_device_name(0))))
 
 
 if __name__ == "__main__":

@@ -15,8 +15,9 @@ from dsf_tpu_torch import kernels
 from dsf_tpu_torch.config import Config
 from dsf_tpu_torch.device import resolve_device
 from dsf_tpu_torch.mano.model import load_model
-from dsf_tpu_torch.ops import codec_kernel, raster_kernel
+from dsf_tpu_torch.ops import codec_kernel, moments_kernel, raster_kernel
 from dsf_tpu_torch.serving import InferenceEngine
+from dsf_tpu_torch.training.trainer import Trainer
 
 torch.set_num_threads(2)
 
@@ -69,9 +70,11 @@ def test_default_device_is_cuda_and_raises_without_it(tmp_path, monkeypatch):
     # the engine checks the device before it touches weights or assets
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         InferenceEngine(Config(mano_model_path=str(tmp_path / "none.npz")), {})
-    # so does the MANO loader, the other public constructor
+    # so do the MANO loader and the trainer, the other public constructors
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         load_model(str(tmp_path / "none.npz"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(Config(), str(tmp_path / "none.npz"))
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -86,8 +89,20 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         codec_kernel.decode_cuda(torch.zeros(1, 84, 8, 8),
                                  torch.zeros(1, 1, 8, 8), 0.8, 30.0)
-    assert kernels.LAUNCHES == {"raster_skip": 0, "codec_encode": 0,
-                                "codec_decode": 0}
+    with pytest.raises(ValueError, match="CUDA"):
+        codec_kernel.encode_bwd_cuda(torch.zeros(1, 21, 3),
+                                     torch.zeros(1, 1, 8, 8),
+                                     torch.zeros(1, 84, 8, 8), 0.8)
+    with pytest.raises(ValueError, match="CUDA"):
+        codec_kernel.decode_bwd_cuda(torch.zeros(1, 84, 8, 8),
+                                     torch.zeros(1, 1, 8, 8),
+                                     torch.zeros(1, 21, 3), 0.8, 30.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        moments_kernel.face_moments_cuda(torch.zeros(1, 16, dtype=torch.int32),
+                                         torch.zeros(1, 16, 3), 8)
+    assert kernels.LAUNCHES == {name: 0 for name in (
+        "raster_skip", "raster_moments", "codec_encode", "codec_encode_bwd",
+        "codec_decode", "codec_decode_bwd")}
 
 
 def test_kernel_sources_and_build_flags():
@@ -96,9 +111,12 @@ def test_kernel_sources_and_build_flags():
     from dsf_tpu_torch.kernels import build
     assert "-gencode=arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert not any("fast_math" in f for f in build.NVCC_FLAGS)
-    for name, tpu in (("raster_skip", "raster_pallas_skip"),
-                      ("codec", "_encode_fwd_call")):
+    for name, tpus in (("raster_skip", ("raster_pallas_skip",)),
+                       ("moments", ("face_moments_pallas",)),
+                       ("codec", ("_encode_fwd_call", "_decode_fwd_call",
+                                  "_encode_bwd", "_decode_bwd"))):
         with open(os.path.join(build.CSRC, name + ".cu")) as f:
             src = f.read()
-        assert tpu in src and "Replaces:" in src
-    assert np.array_equal(sorted(build.SOURCES), ["codec", "raster_skip"])
+        assert all(t in src for t in tpus) and "Replaces:" in src
+    assert np.array_equal(sorted(build.SOURCES),
+                          ["codec", "moments", "raster_skip"])
