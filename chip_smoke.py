@@ -11,7 +11,9 @@ Phases, each printed on its own line(s); any failure exits non-zero:
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the serving and training paths give it (K1 skip-raster and
    K2 raster moments at B=32 with 64x64 and 128x128 pixels; K5 encode,
-   K4 decode and their VJPs at B=32, J=21, S=64): error, kernel and plain
+   K4 decode and their VJPs at B=32, J=21, S=64; K3 point->mesh argmin at
+   the FinetuneStage step's 128 clouds x 2048 points x 1554 faces under the
+   ICP's 16-column part table): error, kernel and plain
    device time (CUDA events, warm L2, the host's enqueue hidden behind a
    sleep kernel), the time of one PyTorch library call computing the same
    function where there is one, and the bound (the larger of bytes over
@@ -25,18 +27,21 @@ Phases, each printed on its own line(s); any failure exits non-zero:
    the stage-2 render must cover > 2% of its pixels, and the outputs must
    agree with the same engine on the CPU (the kernels' plain versions);
    then the median latency per bucket;
-4. training: the two-stage Pretrain step (Trainer.train_step_fn) at full
-   width (ResNet-18 trunks, 128x128 crops, B=32, f32 without TF32) from
-   seeded weights, 5 steps.  The launch counters, zeroed just before, must
-   show every kernel of the path launched on every step; every loss must
-   be finite; then the median step time and the peak memory;
-5. GPU step = CPU step: one Pretrain loss and its gradients at B=4, on the
-   card (twice) and on the CPU (the kernels' plain versions), from the
-   same weights and the same synth batch; the synth batch's and the
-   stage-2 render's silhouette flips between the two devices are counted.
-   The same loss on the CPU in float64 is the witness: each float32
-   run's gradients are printed against it, and the GPU's second run
-   against its first.
+4. training: the two-stage Pretrain step and the two-stage FinetuneStage
+   step (Trainer.train_step_fn) at full width (ResNet-18 trunks, 128x128
+   crops, B=32, f32 without TF32) from seeded weights, 5 steps each; the
+   FinetuneStage step's real half is demo.real_batch (rendered hands).
+   The launch counters, zeroed just before each path, must show every
+   kernel of the path launched the expected number of times on every
+   step; every loss must be finite; then the median step time and the
+   peak memory;
+5. GPU step = CPU step: one Pretrain loss and one FinetuneStage loss and
+   their gradients at B=4, on the card (twice) and on the CPU (the
+   kernels' plain versions), from the same weights and the same synth
+   (and real) batch; silhouette flips, part labels and nearest faces that
+   differ between the devices are counted.  The same loss on the CPU in
+   float64 is the witness: each float32 run's gradients and metrics are
+   printed against it, and the GPU's second run against its first.
 
 The last two lines are the kernels' JSON record and the device JSON.
 Without CUDA, or outside the repository, it exits non-zero and prints
@@ -45,6 +50,7 @@ no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -71,7 +77,18 @@ COMPARE_BATCH = 4               # GPU step vs CPU step
 # stages; K2 is the stage-2 render's backward
 STEP_LAUNCHES = {"raster_skip": 2, "raster_moments": 1, "codec_encode": 3,
                  "codec_encode_bwd": 1, "codec_decode": 2,
-                 "codec_decode_bwd": 2}
+                 "codec_decode_bwd": 2, "point_mesh_argmin": 0}
+# ... and in one FinetuneStage step: K1 renders the synth batch (B), the
+# stage-2 input inside the stacked forward (2B) and both stages' loss
+# render (2B), and K2 is the backward of the last two; K5 encodes the synth
+# labels and the stage-2 remap (whose VJP is needed); K4 decodes the synth
+# outputs of both stages, the teacher (no VJP) and the real outputs of both
+# stages; K3 is the ICP's one nearest-face pass over 4B clouds
+FS_STEP_LAUNCHES = {"raster_skip": 3, "raster_moments": 2, "codec_encode": 2,
+                    "codec_encode_bwd": 1, "codec_decode": 3,
+                    "codec_decode_bwd": 2, "point_mesh_argmin": 1}
+ICP_POINTS = 2048               # points per cloud of the FinetuneStage step
+FS_PER_PAIR_FLOPS = 63          # K3's float adds and multiplies per pair
 HOLD_CYCLES = 200_000_000       # ~0.1 s of the card's clock, see time_ms
 # the codec's foreground test on a normalized depth image; the background
 # normalizes to 1.0, or just under it in float32 when the crop centre's
@@ -382,6 +399,90 @@ def check_codec_bwd(renderer, B, rng):
     return out
 
 
+def check_point_mesh(renderer, B, rng):
+    """K3 at the FinetuneStage step's shape: the ICP's 4B clouds of 2048
+    points against the 2B stage meshes (each mesh twice: its full cloud
+    admits every face, part 15; its joint cloud's points take a bone part
+    0..14 or -1, none), 1554 faces, the 16-column part table.  Held by the
+    exact distance of the kernel's winning face against the plain minimum;
+    index disagreements are counted."""
+    import torch
+    from dsf_tpu_torch import demo
+    from dsf_tpu_torch.ops import point_mesh as pm
+    from dsf_tpu_torch.ops import point_mesh_kernel as pk
+    from dsf_tpu_torch.render import renderer as rnd
+
+    para, _, _ = demo.posed_params(renderer, B, rng)
+    _, mesh = rnd.get_mesh_xyz(renderer, para)
+    mesh = torch.cat([mesh, mesh])                     # (2B, V, 3)
+    N, P = 2 * B, ICP_POINTS
+    dev = mesh.device
+    idx = torch.from_numpy(rng.randint(0, 778, (N, P))).to(dev)
+    noise = torch.from_numpy((rng.randn(N, P, 3) * 0.03).astype(np.float32))
+    pts = (torch.gather(mesh, 1, idx[..., None].expand(N, P, 3))
+           + noise.to(dev)).contiguous()
+    part = torch.cat([torch.full((B, P), 15, device=dev),
+                      torch.from_numpy(rng.randint(-1, 15, (B, P))).to(dev)])
+    faces = renderer.mano.faces
+    T = faces.shape[0]
+    table = torch.cat([renderer.mano.joint_face_mask,
+                       torch.ones(T, 1, dtype=torch.bool, device=dev)], dim=1)
+    tris = mesh[:, faces].contiguous()
+
+    dk, ik = pk.argmin_faces_cuda(pts, tris, table, part)
+    dp, ip = pm.argmin_faces_plain(pts, tris, table, part)
+    torch.cuda.synchronize()
+    none = dp >= 1e10
+    win = torch.gather(tris, 1, ik.long()[..., None, None].expand(N, P, 3, 3))
+    d_win = pm.point_tri_sqdist(pts, win)
+    err = float((d_win - dp)[~none].abs().max())
+    # the divide-free form subtracts p.p + v.v ~ 1 in these unit-sized
+    # coordinates: its rounding, ~1e-7, may pick a face that much further
+    worst = float(((d_win - dp).abs() - 1e-5 * dp.abs())[~none].max())
+    idx_diff = int((ik != ip).sum())
+    none_ok = bool((ik[none] == 0).all()) and bool((dk[none] >= 1e10).all())
+    admissible = bool(table[ik[~none].long(), part[~none]].all())
+
+    fc = pk.face_constants(tris)
+    words = pk.part_words(table)
+    parts = torch.where((part >= 0) & (part < 16), part,
+                        torch.full_like(part, 16)).to(torch.int32).contiguous()
+    ms = time_ms(lambda: pk.argmin_faces_launch(pts, fc, words, parts), 20)
+    prep_ms = time_ms(lambda: (pk.face_constants(tris), pk.part_words(table)),
+                      20)
+    plain_ms = time_ms(lambda: pm.argmin_faces_plain(pts, tris, table, part),
+                       3, 1)
+    # the pairs this data needs: each point against the faces its part
+    # admits (none for part -1); bytes: points, triangles, the table and
+    # the parts read once, dmin and imin written once
+    per_part = torch.cat([table.sum(0), torch.zeros(1, device=dev,
+                                                    dtype=torch.long)])
+    pairs = int(per_part[torch.where(part >= 0, part,
+                                     torch.full_like(part, 16))].sum())
+    nbytes = (pts.numel() * 4 + tris.numel() * 4 + table.numel()
+              + part.numel() * 8 + N * P * 8)
+    bms, by = bound_ms(nbytes, FS_PER_PAIR_FLOPS * pairs)
+    say(f"kernel K3 point_mesh_argmin {N} clouds x {P} points x {T} faces, "
+        f"K=16: winning-face distance max_abs_err {err:.3g} against the plain "
+        f"minimum, index disagreements {idx_diff} of {N * P}, points that "
+        f"admit no face {int(none.sum())} (imin 0 there: {none_ok}), winners "
+        f"admissible: {admissible}; kernel {ms:.4f} ms (+ face rows and part "
+        f"words {prep_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {bms:.6f} ms "
+        f"by {by} ({pairs} admissible pairs of {N * P * T}, {nbytes} bytes)")
+    need(worst <= 1e-6, f"K3's winners lie {worst} beyond 1e-5 relative + 1e-6 "
+         "from the plain minimum")
+    # the index may differ where faces tie: a point nearest to a vertex is
+    # as near to every face around it, and the two distance forms round
+    # those equal distances differently
+    need(none_ok and admissible, "K3 returned an inadmissible face or a "
+         "nonzero index where no face is admissible")
+    return {"name": "point_mesh_argmin", "route": "cuda",
+            "source": "dsf_tpu_torch/csrc/point_mesh.cu",
+            "replaces": "dsf_tpu/ops/pallas_point_mesh.py:316",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": None}
+
+
 # ----------------------------------------------------------------- phase 3
 
 def atol_for(key):
@@ -422,7 +523,8 @@ def run_slice(mano_path):
     # inference: no backward, so the training path's kernels stay at 0
     need(counts == {"raster_skip": bucket_calls, "raster_moments": 0,
                     "codec_encode": bucket_calls, "codec_encode_bwd": 0,
-                    "codec_decode": 2 * bucket_calls, "codec_decode_bwd": 0},
+                    "codec_decode": 2 * bucket_calls, "codec_decode_bwd": 0,
+                    "point_mesh_argmin": 0},
          f"predict did not go through every kernel once per call: {counts}")
 
     for n, out in zip(sizes, outs):
@@ -527,6 +629,70 @@ def run_training(mano_path):
         f"{TRAIN_BATCH * 1e3 / float(np.median(times)):.1f} images/s")
     say(f"train peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    return counts
+
+
+def run_finetune_stage(mano_path):
+    """TRAIN_STEPS FinetuneStage steps at full width; returns the launch
+    counts."""
+    import torch
+    from dsf_tpu_torch import demo, kernels
+    from dsf_tpu_torch.config import Config
+    from dsf_tpu_torch.data.synth_params import random_param_source
+    from dsf_tpu_torch.training.trainer import Trainer
+
+    cfg = Config(dataset="nyu", batch_size=TRAIN_BATCH, stage_num=2,
+                 input_size=INPUT_SIZE, seed=SEED, mano_model_path=mano_path)
+    tr = Trainer(cfg, mano_path, device="cuda")
+    state = tr.init_state()
+    src = random_param_source(TRAIN_BATCH, seed=SEED + 5)
+    rng = np.random.RandomState(SEED + 6)
+    batches = [dict(zip(("model_para", "cube_synth"), next(src)),
+                    **demo.real_batch(tr.renderer, TRAIN_BATCH, rng))
+               for _ in range(TRAIN_STEPS)]
+    draws = [tr.draw(TRAIN_BATCH, "FinetuneStage") for _ in range(TRAIN_STEPS)]
+    step = tr.train_step_fn("FinetuneStage")
+    before_params = [p.detach().clone() for p in state.net.parameters()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    kernels.reset_launch_counts()
+    times, losses, metrics = [], [], []
+    for i in range(TRAIN_STEPS):
+        before = dict(kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        state, m = step(state, draws[i], batches[i])
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+        delta = {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES}
+        need(delta == FS_STEP_LAUNCHES,
+             f"FinetuneStage step {i} did not launch every kernel of the path "
+             f"as expected: {delta} != {FS_STEP_LAUNCHES}")
+        need(all(np.isfinite(v) for v in metrics[-1].values()),
+             f"FinetuneStage step {i}: non-finite metrics {metrics[-1]}")
+    counts = dict(kernels.LAUNCHES)
+    moved = sum(int(not torch.equal(a, b.detach()))
+                for a, b in zip(before_params, state.net.parameters()))
+    med = float(np.median(times))
+    say(f"finetune_stage launches over {TRAIN_STEPS} FinetuneStage steps "
+        f"(B={TRAIN_BATCH} synth + {TRAIN_BATCH} real, {INPUT_SIZE}^2): "
+        f"{json.dumps(counts)}")
+    say("finetune_stage losses: "
+        + json.dumps([float(f"{x:.6g}") for x in losses])
+        + f"; updates applied {state.updates}/{TRAIN_STEPS}; parameter "
+        f"tensors moved {moved} of {len(before_params)}")
+    say("finetune_stage first step metrics: "
+        + json.dumps({k: float(f"{v:.5g}") for k, v in metrics[0].items()}))
+    say("finetune_stage step ms (host clock, to a synchronized loss): "
+        + json.dumps([round(t, 3) for t in times])
+        + f"; median {med:.3f} ms, {2 * TRAIN_BATCH * 1e3 / med:.1f} images/s "
+        f"(B synth + B real images a step)")
+    say(f"finetune_stage peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    need(state.updates == TRAIN_STEPS and moved >= 0.95 * len(before_params),
+         "FinetuneStage updates were not applied")
     return counts
 
 
@@ -659,6 +825,172 @@ def compare_step(mano_path):
          "from float64 than the CPU's, in the median over parameters")
 
 
+@contextlib.contextmanager
+def recording(module, name, into):
+    """Record the last result of ``module.name`` in ``into[name]`` for the
+    duration (the FinetuneStage loss calls it through the module)."""
+    orig = getattr(module, name)
+
+    def wrapper(*args, **kw):
+        into[name] = orig(*args, **kw)
+        return into[name]
+
+    setattr(module, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+# the FinetuneStage metrics held in phase 5, each against a tolerance set
+# from its witnesses: 3x the larger of the CPU's distance to float64 and the
+# GPU's to its own second run, plus 1e-3 of the float64 value
+FS_METRICS = ("d2m_0", "d2m_1", "pd2m_0", "pd2m_1", "m2d_0", "m2d_1",
+              "coll_0", "coll_1", "P2M", "M2P")
+
+
+def compare_finetune_stage(mano_path):
+    """One FinetuneStage loss and its gradients on the card and on the CPU,
+    from the same weights, on the card's synth batch and one real batch
+    (the same cloud-sampling scores); the same loss on the CPU in float64
+    is the witness.  The stage-1 MANO head feeds the losses and, through
+    the stage-2 remap render, the stage-2 trunk: the share of its gradient
+    that comes that way (measured on the CPU run) is held at the trunks'
+    tolerance, the rest at the heads'.  On the card (H100 80GB HBM3 at
+    700 W) the GPU lay a median 0.0496 (max 0.0696) from the CPU in the
+    trunks and 0.00398 in that head; the CPU lay a median 0.0908 from
+    float64, and 0.0709 in that head."""
+    import copy
+    import torch
+    from dsf_tpu_torch import demo
+    from dsf_tpu_torch.config import Config
+    from dsf_tpu_torch.data.synth_params import random_param_source
+    from dsf_tpu_torch.device import exact_float32
+    from dsf_tpu_torch.ops import point_mesh as pm
+    from dsf_tpu_torch.training import phases
+    from dsf_tpu_torch.training.trainer import Trainer
+
+    B = COMPARE_BATCH
+    cfg = Config(dataset="nyu", batch_size=B, stage_num=2,
+                 input_size=INPUT_SIZE, seed=SEED + 7,
+                 mano_model_path=mano_path)
+    gpu = Trainer(cfg, mano_path, device="cuda")
+    cpu = Trainer(cfg, mano_path, device="cpu")
+    sg, sc = gpu.init_state(), cpu.init_state()
+    net64 = copy.deepcopy(sc.net).double()
+    r64 = float64_renderer(cpu.renderer)
+    para, cube = next(random_param_source(B, seed=SEED + 8))
+    para, cube = torch.from_numpy(para), torch.from_numpy(cube)
+    draws = gpu.draw(B, "FinetuneStage")
+    real = demo.real_batch(cpu.renderer, B, np.random.RandomState(SEED + 9))
+    keys = ("img", "center", "cube", "M", "xyz_gt")
+    with exact_float32():
+        sample_g = phases.finetune_stage_sample(
+            gpu.renderer, draws.to("cuda"), para.cuda(), cube.cuda())
+        on_cpu = [x.cpu() for x in sample_g]
+        runs = {"gpu": (sg.net, gpu.renderer, sample_g,
+                        [real[k].cuda() for k in keys], draws.scores.cuda()),
+                "cpu": (sc.net, cpu.renderer, on_cpu,
+                        [real[k] for k in keys], draws.scores),
+                "cpu64": (net64, r64, [x.double() for x in on_cpu],
+                          [real[k].double() for k in keys],
+                          draws.scores.double())}
+        runs["gpu_again"] = runs["gpu"]
+        loss, grads, mets, rec = {}, {}, {}, {}
+        for key, (net, r, smp, rb, scores) in runs.items():
+            net.zero_grad(set_to_none=True)
+            rec[key] = {}
+            outs, head_in = [], []
+
+            def keep(module, inputs, out):
+                out = [[t.clone() for t in o] for o in out]
+                out[0][1].retain_grad()
+                outs.append(out)
+                return out
+
+            hooks = [net.register_forward_hook(keep),
+                     net.mano_regress[2].register_forward_hook(
+                         lambda m, inputs, o: head_in.append(inputs[0]))]
+            with recording(phases, "_prep_real", rec[key]), \
+                    recording(pm, "argmin_faces", rec[key]):
+                value, m = phases.finetune_stage_loss(net, r, smp, scores,
+                                                      *rb, cfg)
+            value.backward()
+            for h in hooks:
+                h.remove()
+            loss[key] = value.item()
+            mets[key] = {k: float(v) for k, v in m.items()}
+            grads[key] = {n: p.grad.detach().cpu()
+                          for n, p in net.named_parameters()}
+            if key == "cpu":
+                g_para = outs[0][0][1].grad
+                tail_only = g_para.T @ head_in[0].detach()
+    share = float((grads["cpu"]["mano_regress.2.weight"] - tail_only).norm()
+                  / grads["cpu"]["mano_regress.2.weight"].norm())
+    seg_diff = int((rec["gpu"]["_prep_real"][2].cpu()
+                    != rec["cpu"]["_prep_real"][2]).sum())
+    win_diff = int((rec["gpu"]["argmin_faces"][1].cpu()
+                    != rec["cpu"]["argmin_faces"][1]).sum())
+    n_pts = rec["cpu"]["_prep_real"][2].numel()
+    say(f"compare FinetuneStage B={B} {INPUT_SIZE}^2: joint-cloud part labels "
+        f"that differ between the GPU and CPU runs {seg_diff} of {n_pts}; "
+        f"ICP nearest faces (K3 against the plain argmin) {win_diff} of "
+        f"{4 * n_pts}")
+    gpu_cpu = rel_l2(grads["gpu"], grads["cpu"])
+    gpu_64 = rel_l2(grads["gpu"], grads["cpu64"])
+    cpu_64 = rel_l2(grads["cpu"], grads["cpu64"])
+    gpu_gpu = rel_l2(grads["gpu_again"], grads["gpu"])
+    say(f"compare FinetuneStage loss GPU {loss['gpu']:.7g} CPU "
+        f"{loss['cpu']:.7g} CPU float64 {loss['cpu64']:.10g}; gradient "
+        f"relative L2 per parameter: GPU vs CPU {spread(gpu_cpu)}; GPU vs "
+        f"float64 {spread(gpu_64)}; CPU vs float64 {spread(cpu_64)}; GPU vs "
+        f"GPU again {spread(gpu_gpu)}; the stage-1 MANO head's share through "
+        f"the stage-2 trunk {share:.4g}")
+    rows = {}
+    for k in mets["cpu"]:
+        v = {run: mets[run][k] for run in mets}
+        rows[k] = {run: float(f"{x:.7g}") for run, x in v.items()}
+    say("compare FinetuneStage metrics (GPU, GPU again, CPU, CPU float64): "
+        + json.dumps(rows))
+    rel_loss = abs(loss["gpu"] - loss["cpu"]) / abs(loss["cpu"])
+    need(rel_loss <= 1e-4, f"FinetuneStage GPU loss {loss['gpu']} differs "
+         f"from the CPU's {loss['cpu']}")
+    for k in FS_METRICS:
+        m64 = mets["cpu64"][k]
+        tol = (3 * max(abs(mets["cpu"][k] - m64),
+                       abs(mets["gpu"][k] - mets["gpu_again"][k]))
+               + 1e-3 * abs(m64))
+        need(abs(mets["gpu"][k] - mets["cpu"][k]) <= tol,
+             f"FinetuneStage metric {k}: GPU {mets['gpu'][k]} CPU "
+             f"{mets['cpu'][k]} float64 {m64} (tolerance {tol:.3g})")
+
+    heads = {k: (float(f"{gpu_cpu[k]:.3g}"), float(f"{cpu_64[k]:.3g}"))
+             for k in gpu_cpu if k.startswith(("mano_regress", "finals_s2"))}
+    say("compare FinetuneStage heads' gradients (GPU vs CPU, CPU vs float64): "
+        + json.dumps(heads))
+
+    def tol(name):
+        """Pretrain's tolerance, with the stage-1 MANO head's share through
+        the stage-2 trunk held at the trunks'."""
+        if name.startswith("mano_regress."):
+            return grad_tol(name) + grad_tol("trunk") * share
+        return grad_tol(name)
+
+    bad = {k: v for k, v in gpu_cpu.items() if not v <= tol(k)}
+    need(not bad, f"FinetuneStage GPU gradients differ from the CPU's: {bad}")
+    # against float64, also twice the CPU's own distance where float32
+    # rounding alone moves a gradient further: the part labels, nearest
+    # faces and silhouettes the losses select move with it, and a second
+    # float32 run that far from float64 may lie twice as far
+    bad = {k: v for k, v in gpu_64.items()
+           if not v <= max(tol(k), 2 * cpu_64[k])}
+    need(not bad, f"FinetuneStage GPU gradients differ from float64: {bad}")
+    ratio = (float(np.median(list(gpu_64.values())))
+             / float(np.median(list(cpu_64.values()))))
+    need(ratio <= MEDIAN_RATIO, f"FinetuneStage GPU gradients lie {ratio:.3g} "
+         "times further from float64 than the CPU's, in the median")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -705,12 +1037,17 @@ def main():
                                     record=True))
         check_moments(renderer, KERNEL_BATCH, 1, rng, record=False)
         record += check_codec_bwd(renderer, KERNEL_BATCH, rng)
+        with torch.inference_mode():
+            record.append(check_point_mesh(renderer, 2 * TRAIN_BATCH, rng))
         serve_counts = run_slice(path)
         train_counts = run_training(path)
+        fs_counts = run_finetune_stage(path)
         compare_step(path)
+        compare_finetune_stage(path)
     for rec in record:
         by_path = {"serve": serve_counts[rec["name"]],
-                   "train": train_counts[rec["name"]]}
+                   "train": train_counts[rec["name"]],
+                   "finetune_stage": fs_counts[rec["name"]]}
         rec["launches"] = sum(by_path.values())
         rec["launches_by_path"] = by_path
         need(rec["launches"] > 0, f"{rec['name']} never launched on a path")

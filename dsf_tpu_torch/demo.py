@@ -1,6 +1,7 @@
 """Seeded inputs for smoke runs and profiles of the port, made without any
 asset or checkpoint: the synthetic MANO asset, a random reference-layout
-state dict, and requests that are rendered MANO hands.
+state dict, and requests and "real" training batches that are rendered
+MANO hands.
 
 Nothing here is random beyond numpy generators the caller seeds.
 """
@@ -12,6 +13,7 @@ import torch
 
 from dsf_tpu_torch import geometry as geo
 from dsf_tpu_torch.config import CAMERA, Config
+from dsf_tpu_torch.mano.constants import transfer_for_dataset
 from dsf_tpu_torch.models.weights import random_reference_state_dict
 from dsf_tpu_torch.render import renderer as rnd
 
@@ -40,6 +42,24 @@ def requests(renderer, n: int, rng: np.random.RandomState):
         com = geo.xyz_to_uvd(center[:, None], PARAS)[:, 0]
         M = geo.crop_matrix(com, cube, PARAS, renderer.crop_size)
     return [t.cpu().numpy() for t in (img, center, M, cube)]
+
+
+def real_batch(renderer, B: int, rng: np.random.RandomState) -> dict:
+    """A seeded NYU-shaped "real" batch for the FinetuneStage step, as
+    tensors on the renderer's device: rendered MANO hands from
+    ``posed_params`` as normalized depth crops ("img" (B, 1, S, S)),
+    "center", "cube", "M" (B, 3, 3), and "xyz_gt" (B, 14, 3), the rendered
+    joints in NYU's joint order (``transfer_for_dataset("nyu")``) for its
+    first 12 joints; NYU's last two have no MANO counterpart and repeat
+    the wrist (the step reads the first 12)."""
+    para, center, cube = posed_params(renderer, B, rng)
+    with torch.no_grad():
+        img, _, joint_xyz, _ = rnd.render_params(renderer, para, center, cube)
+        com = geo.xyz_to_uvd(center[:, None], PARAS)[:, 0]
+        M = geo.crop_matrix(com, cube, PARAS, renderer.crop_size)
+    xyz_gt = joint_xyz[:, transfer_for_dataset("nyu") + [0, 0]]
+    return {"img": img, "center": center, "cube": cube, "M": M,
+            "xyz_gt": xyz_gt}
 
 
 def engine(mano_path: str, device, input_size: int = 128,

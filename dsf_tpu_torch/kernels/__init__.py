@@ -12,7 +12,8 @@ from typing import Dict
 
 LAUNCHES: Dict[str, int] = {"raster_skip": 0, "raster_moments": 0,
                             "codec_encode": 0, "codec_encode_bwd": 0,
-                            "codec_decode": 0, "codec_decode_bwd": 0}
+                            "codec_decode": 0, "codec_decode_bwd": 0,
+                            "point_mesh_argmin": 0}
 
 
 def reset_launch_counts() -> None:

@@ -6,8 +6,9 @@ product is float32 (the JAX package runs them at Precision.HIGHEST); on a
 GPU the caller keeps TF32 off (``device.exact_float32``), since LBS feeds
 millimetre-level outputs.
 
-Only what the serving path needs is ported: the part-segmentation tables
-(vertex/face masks for the ICP losses) come with the training slice.
+Of the part-segmentation tables, the two the FinetuneStage losses read
+are ported: ``joint_face_mask`` (the joint ICP's admissible faces) and
+``vertex_joint_mask`` (the sphere radii's vertices).
 """
 
 from __future__ import annotations
@@ -27,7 +28,9 @@ class ManoModel:
     """MANO constants.  Shapes for the real model: v_template (778, 3),
     shapedirs (10, 2334), J_regressor (778, 21) [16 kinematic + 5
     fingertip rows], hands_comp (45, 45), hands_mean (45,), posedirs
-    (135, 2334), weights (778, 16), faces (1554, 3) int64 [wrist-capped]."""
+    (135, 2334), weights (778, 16), faces (1554, 3) int64 [wrist-capped],
+    joint_face_mask (1554, 15) bool [face t touches a vertex skinned > 0.1
+    to joint k + 1], vertex_joint_mask (778, 21) bool [J_regressor > 0]."""
 
     v_template: torch.Tensor
     shapedirs: torch.Tensor
@@ -37,6 +40,8 @@ class ManoModel:
     posedirs: torch.Tensor
     weights: torch.Tensor
     faces: torch.Tensor
+    joint_face_mask: torch.Tensor
+    vertex_joint_mask: torch.Tensor
     parents: tuple
     n_verts: int
 
@@ -45,10 +50,20 @@ class ManoModel:
         return self.v_template.device
 
 
+def _face_membership(faces: np.ndarray, vert_sets) -> np.ndarray:
+    """(T, K) bool: face t touches any vertex in vert_sets[k] (the
+    reference's per-joint face lists as fixed-shape masks)."""
+    out = np.zeros((faces.shape[0], len(vert_sets)), dtype=bool)
+    for k, vs in enumerate(vert_sets):
+        out[:, k] = np.isin(faces, np.asarray(list(vs))).any(axis=1)
+    return out
+
+
 def load_model(npz_path: str, device=None) -> ManoModel:
     """Build a ManoModel from a converted npz, with the reference's
     constructor transforms: reshaped blend-shape bases, the joint
-    regressor extended by 5 fingertip vertices, 16 wrist-capping faces.
+    regressor extended by 5 fingertip vertices, 16 wrist-capping faces,
+    the part tables (ref: mano_layer.py:149-185).
     ``device`` defaults to ``cuda`` and raises without it (see
     ``device.resolve_device``)."""
     device = resolve_device(device)
@@ -71,6 +86,8 @@ def load_model(npz_path: str, device=None) -> ManoModel:
     parents = ((-1,) + parents[1:]) if parents[0] != -1 else parents
     faces = np.concatenate([raw["f"].astype(np.int64),
                             C.WRIST_FACES.astype(np.int64)], axis=0)
+    weights = raw["weights"].astype(np.float32)                 # (778, 16)
+    vertex_joint = [np.nonzero(weights[:, j] > 0.1)[0] for j in range(16)]
 
     def t(x):
         return torch.as_tensor(np.ascontiguousarray(x), device=device)
@@ -82,8 +99,10 @@ def load_model(npz_path: str, device=None) -> ManoModel:
         hands_comp=t(raw["hands_components"].astype(np.float32)),
         hands_mean=t(raw["hands_mean"].astype(np.float32)),
         posedirs=t(posedirs),
-        weights=t(raw["weights"].astype(np.float32)),
+        weights=t(weights),
         faces=t(faces),
+        joint_face_mask=t(_face_membership(faces, vertex_joint[1:])),
+        vertex_joint_mask=t(J_regressor > 0),
         parents=parents,
         n_verts=n_verts,
     )

@@ -19,8 +19,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from dsf_tpu_torch.models.layers import (ConvBNRelu, DeconvBNRelu,
-                                         batch_norm, conv, max_pool_3x3_s2)
+from dsf_tpu_torch.models.layers import (BatchNorm2d, ConvBNRelu,
+                                         DeconvBNRelu, batch_norm, conv,
+                                         max_pool_3x3_s2)
 from dsf_tpu_torch.models.resnet import RESNET_SPECS, res_layer
 from dsf_tpu_torch.ops.offset_codec import joint2offset
 from dsf_tpu_torch.render import renderer as rnd
@@ -31,8 +32,12 @@ MANO_PARAM_DIM = 3 + 45 + 10 + 4
 class ManoOCRStage(nn.Module):
     """Dual-branch two-stage net (ref: MANO_OCR_stage, backbone.py:188-323).
 
-    ``forward(img, render, center, cube)`` -> [[img_result, mano_para]]
-    per stage: img_result (B, 4J, S/2, S/2), mano_para (B, 62)."""
+    ``forward(img, render, center, cube, bn_groups=1)`` ->
+    [[img_result, mano_para]] per stage: img_result (B, 4J, S/2, S/2),
+    mano_para (B, 62).  ``bn_groups`` > 1 runs that many stacked batches
+    (the self-supervised phases' [synth | real]) as one forward whose
+    train-mode BatchNorms keep statistics per group (``BatchNorm2d.groups``):
+    the same parameters and buffers, the stage-2 render once for all."""
 
     def __init__(self, joint_num: int = 21, depth: int = 18,
                  refine: bool = True):
@@ -95,7 +100,10 @@ class ManoOCRStage(nn.Module):
         return img_result, mano_para, feat
 
     def forward(self, img, render: rnd.Renderer = None, center=None,
-                cube=None):
+                cube=None, bn_groups: int = 1):
+        for m in self.modules():
+            if isinstance(m, BatchNorm2d):
+                m.groups = bn_groups
         c0 = self.pre(img)
         c4 = self._trunk(c0, "")
         img_result, mano_para, img_feature = self._heads(c4, "")

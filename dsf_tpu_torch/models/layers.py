@@ -31,11 +31,28 @@ class BatchNorm2d(nn.BatchNorm2d):
     torch's forward the running variance is corrected per channel:
     ``running -= (running - (1 - momentum) * old) / n``, which turns
     ``momentum * var_unbiased`` into ``momentum * var_biased``.  Eval mode
-    is ``nn.BatchNorm2d``'s."""
+    is ``nn.BatchNorm2d``'s.
+
+    ``groups`` > 1 (train mode only) treats the batch as that many stacked
+    batches, as Flax's grouped BatchNorm does (dsf_tpu/models/layers.py:
+    _GroupedBN): each group is normalized by its own statistics and the
+    running statistics take one EMA update per group, in group order, as
+    sequential calls would.  Each group is one ``F.batch_norm`` call on a
+    contiguous slice of the batch; the outputs are concatenated (one copy
+    of the activation, no extra statistics pass).  ``ManoOCRStage`` sets
+    it for the length of a forward."""
+
+    groups = 1
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if self.groups == 1:
+            return self._train_forward(x)
+        return torch.cat([self._train_forward(h)
+                          for h in x.chunk(self.groups)])
+
+    def _train_forward(self, x):
         # torch's EMA of the variance goes into a copy: the CPU backward
         # keeps the running variance it was given
         ema = self.running_var.clone()

@@ -1,4 +1,4 @@
-"""Where the serving predict's and the Pretrain step's time goes on the
+"""Where the serving predict's and the training steps' time goes on the
 card.
 
     python -m dsf_tpu_torch.profiling
@@ -6,8 +6,10 @@ card.
 Builds the full-width two-stage engine from seeded inputs (demo.py),
 warms it up, then, for each of its buckets (1, 8, 32), runs ``CALLS``
 predicts under torch.profiler (CPU + CUDA activities).  Then the same for
-``CALLS`` two-stage Pretrain train steps at B=32 (Trainer, seeded
-weights, 128x128 crops).  For each it prints, per call: the host wall
+``CALLS`` two-stage Pretrain train steps and ``CALLS`` two-stage
+FinetuneStage train steps at B=32 (Trainer, seeded weights, 128x128
+crops; the FinetuneStage real half is demo.real_batch).  For each it
+prints, per call: the host wall
 time (timed without the profiler), the device time summed over kernels,
 the device busy share (that sum over the wall time; one stream, so
 kernels do not overlap), the device time by kernel family and by the top
@@ -48,6 +50,7 @@ FAMILIES = (
     ("K5 codec encode VJP", ("encode_bwd",)),
     ("K4 codec decode", ("decode_fwd_kernel",)),
     ("K4 codec decode VJP", ("decode_bwd",)),
+    ("K3 point-mesh argmin", ("point_mesh_argmin_kernel",)),
     ("batchnorm", ("batch_norm", "bn_fw", "bn_bw")),
     ("convolution", ("conv", "cudnn", "xmma", "implicit_gemm", "winograd",
                      "dgrad", "wgrad", "fprop", "cutlass", "fft",
@@ -77,6 +80,7 @@ def main() -> int:
     for bucket in eng.buckets:
         profile_bucket(eng, bucket)
     profile_pretrain(trainer)
+    profile_finetune_stage(trainer)
     return 0
 
 
@@ -98,6 +102,23 @@ def profile_pretrain(trainer: Trainer) -> None:
 
     measure(f"Pretrain step B={TRAIN_BATCH}", {"phase": "Pretrain",
                                                "batch": TRAIN_BATCH},
+            "train steps", one)
+
+
+def profile_finetune_stage(trainer: Trainer) -> None:
+    state = trainer.init_state()
+    step = trainer.train_step_fn("FinetuneStage")
+    src = random_param_source(TRAIN_BATCH, seed=2)
+    real = demo.real_batch(trainer.renderer, TRAIN_BATCH,
+                           np.random.RandomState(3))
+
+    def one():
+        para, cube = next(src)
+        step(state, trainer.draw(TRAIN_BATCH, "FinetuneStage"),
+             dict(real, model_para=para, cube_synth=cube))
+
+    measure(f"FinetuneStage step B={TRAIN_BATCH}",
+            {"phase": "FinetuneStage", "batch": TRAIN_BATCH},
             "train steps", one)
 
 

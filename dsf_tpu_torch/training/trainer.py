@@ -1,18 +1,19 @@
-"""Trainer: the Pretrain train step, its optimizer and learning-rate
-schedule (counterpart of dsf_tpu/training/trainer.py; ref:
-train_render.py:38-864).
+"""Trainer: the Pretrain and FinetuneStage train steps, their optimizer
+and learning-rate schedule (counterpart of dsf_tpu/training/trainer.py;
+ref: train_render.py:38-864).
 
-One step: draw (or take) the synth draws, render the synth batch
-(``phases.pretrain_sample``), run ``phases.pretrain_loss`` on it with the
-net in train mode (BatchNorm statistics update in the forward,
-whatever the guard decides, as in the JAX step), backpropagate, then
-AdamW(weight_decay=0.01) at the schedule's learning rate behind a finite
-guard: a non-finite gradient skips the update and the moment update,
-unless it is the 9th or later in a row (ref: ``_apply_if_finite_select``
-with max_consecutive_errors=8).  Float32 with TF32 off.
+One step: draw (or take) the random draws, render the synth batch
+(``phases.pretrain_sample`` / ``phases.finetune_stage_sample``), run the
+phase's loss with the net in train mode (BatchNorm statistics update in
+the forward, whatever the guard decides, as in the JAX step),
+backpropagate, then AdamW(weight_decay=0.01) at the schedule's learning
+rate behind a finite guard: a non-finite gradient skips the update and the
+moment update, unless it is the 9th or later in a row (ref:
+``_apply_if_finite_select`` with max_consecutive_errors=8).  Float32 with
+TF32 off.
 
-Ported so far: the Pretrain phase.  Finetune and FinetuneStage raise
-``NotImplementedError``.
+Ported so far: Pretrain, and FinetuneStage on the NYU camera (its real
+batch is NYU-shaped).  The 1-stage Finetune raises ``NotImplementedError``.
 
 Example::
 
@@ -22,6 +23,11 @@ Example::
     para, cube = next(random_param_source(cfg.batch_size))
     state, metrics = step(state, tr.draw(cfg.batch_size),
                           {"model_para": para, "cube_synth": cube})
+
+    step = tr.train_step_fn("FinetuneStage")         # + a real batch
+    real = demo.real_batch(tr.renderer, cfg.batch_size, rng)
+    state, metrics = step(state, tr.draw(cfg.batch_size, "FinetuneStage"),
+                          {"model_para": para, "cube_synth": cube, **real})
 """
 
 from __future__ import annotations
@@ -179,26 +185,45 @@ class Trainer:
         return TrainState(net=net,
                           optimizer=make_optimizer(cfg, net.parameters()))
 
-    def draw(self, batch_size: int) -> phases.PretrainDraws:
-        """The next step's random draws, from the trainer's generator
-        (seeded with ``cfg.seed``); the sphere occlusion's with
+    def draw(self, batch_size: int, phase_name: str = "Pretrain"):
+        """The next step's random draws for a phase, from the trainer's
+        generator (seeded with ``cfg.seed``); the sphere occlusion's with
         ``cfg.mask``."""
+        if phase_name == "FinetuneStage":
+            return phases.draw_finetune_stage(
+                self.generator, batch_size, self.renderer.depth_range,
+                self.cfg.input_size, mask=self.cfg.mask)
         return phases.draw_pretrain(self.generator, batch_size,
                                     self.renderer.depth_range,
                                     mask=self.cfg.mask)
 
     def train_step_fn(self, phase_name: str):
         """The train step of a phase: ``step(state, draws, batch) ->
-        (state, metrics)``, with ``batch`` = {"model_para" (B, 62),
-        "cube_synth" (B, 3)} as arrays or tensors and ``draws`` from
-        ``draw`` (or the caller's own).  The state is updated in place and
-        returned; metrics are 0-d tensors on the device, ``loss``
-        included."""
-        if phase_name != "Pretrain":
-            raise NotImplementedError(
-                f"phase {phase_name!r}: the port has the Pretrain step only; "
-                "FinetuneStage is ROADMAP Queue 1, item 8, and Finetune item 9")
-        return self._pretrain_step
+        (state, metrics)``, with ``draws`` from ``draw(B, phase_name)`` (or
+        the caller's own) and ``batch`` of arrays or tensors:
+        {"model_para" (B, 62), "cube_synth" (B, 3)} for Pretrain, and for
+        FinetuneStage also the real batch {"img" (B, 1, S, S), "center"
+        (B, 3), "cube" (B, 3), "M" (B, 3, 3), "xyz_gt" (B, 14, 3)}.  The
+        state is updated in place and returned; metrics are 0-d tensors on
+        the device, ``loss`` included."""
+        if phase_name == "Pretrain":
+            return self._pretrain_step
+        if phase_name == "FinetuneStage":
+            if self.cfg.dataset != "nyu" or self.cfg.stage_num != 2:
+                raise NotImplementedError(
+                    f"FinetuneStage on {self.cfg.dataset!r} with stage_num "
+                    f"{self.cfg.stage_num}: the port has the two-stage NYU "
+                    "step only")
+            return self._finetune_stage_step
+        raise NotImplementedError(
+            f"phase {phase_name!r}: the port has the Pretrain and "
+            "FinetuneStage steps; Finetune is ROADMAP Queue 1, item 9")
+
+    def _update(self, state: TrainState, loss) -> None:
+        loss.backward()
+        guarded_update(state, list(state.net.parameters()),
+                       self.schedule(state.updates))
+        state.step += 1
 
     def _pretrain_step(self, state: TrainState, draws: phases.PretrainDraws,
                        batch: Mapping) -> tuple:
@@ -213,9 +238,26 @@ class Trainer:
             sample = phases.pretrain_sample(self.renderer, draws, para, cube)
             loss, metrics = phases.pretrain_loss(net, self.renderer, sample,
                                                  cfg, cfg.stage_num)
-            loss.backward()
-            guarded_update(state, list(net.parameters()),
-                           self.schedule(state.updates))
-        state.step += 1
+            self._update(state, loss)
+        metrics: Dict[str, torch.Tensor] = dict(metrics, loss=loss.detach())
+        return state, metrics
+
+    def _finetune_stage_step(self, state: TrainState,
+                             draws: phases.FinetuneStageDraws,
+                             batch: Mapping) -> tuple:
+        net, dev = state.net, self.device
+        para, cube, img_r, center_r, cube_r, M_r, xyz_gt = [
+            _tensor(batch[k], dev) for k in ("model_para", "cube_synth", "img",
+                                             "center", "cube", "M", "xyz_gt")]
+        draws = draws.to(dev)
+        net.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        with exact_float32():
+            sample = phases.finetune_stage_sample(self.renderer, draws, para,
+                                                  cube)
+            loss, metrics = phases.finetune_stage_loss(
+                net, self.renderer, sample, draws.scores, img_r, center_r,
+                cube_r, M_r, xyz_gt, self.cfg)
+            self._update(state, loss)
         metrics: Dict[str, torch.Tensor] = dict(metrics, loss=loss.detach())
         return state, metrics

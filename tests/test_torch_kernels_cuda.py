@@ -18,6 +18,7 @@ from dsf_tpu_torch import kernels
 from dsf_tpu_torch.mano import model as mano, synthetic
 from dsf_tpu_torch.ops import codec_kernel, moments_kernel, raster_kernel
 from dsf_tpu_torch.ops import offset_codec as oc
+from dsf_tpu_torch.ops import point_mesh as pm
 from dsf_tpu_torch.ops import rasterize as ras
 from dsf_tpu_torch.render import renderer as rnd
 
@@ -34,10 +35,15 @@ def cuda():
 
 
 @pytest.fixture(scope="module")
-def renderer(cuda, tmp_path_factory):
+def mano_path(cuda, tmp_path_factory):
     path = str(tmp_path_factory.mktemp("mano") / "syn.npz")
     synthetic.save_synthetic_mano(path)
-    return rnd.Renderer.create(mano.load_model(path, device=cuda), "nyu",
+    return path
+
+
+@pytest.fixture(scope="module")
+def renderer(cuda, mano_path):
+    return rnd.Renderer.create(mano.load_model(mano_path, device=cuda), "nyu",
                                PARAS, (640, 480), (96, 96))
 
 
@@ -214,7 +220,8 @@ def test_cuda_path_carries_the_training_gradient(renderer):
         out[dev] = [idx.cpu()] + [t.grad.cpu() for t in (p, j, d, o, d2)]
     assert {k: kernels.LAUNCHES[k] - before[k] for k in before} == {
         "raster_skip": 1, "raster_moments": 1, "codec_encode": 1,
-        "codec_encode_bwd": 1, "codec_decode": 1, "codec_decode_bwd": 1}
+        "codec_encode_bwd": 1, "codec_decode": 1, "codec_decode_bwd": 1,
+        "point_mesh_argmin": 0}
     assert torch.equal(out["cuda"][0], out["cpu"][0])
     assert (out["cpu"][0] >= 0).float().mean() > 0.05
     for got, ref in zip(out["cuda"][1:], out["cpu"][1:]):
@@ -242,3 +249,83 @@ def test_train_batchnorm_on_the_card_matches_cpu(cuda, shape):
         stats.append([m.running_mean.cpu().numpy(), m.running_var.cpu().numpy()])
     for got, ref in zip(stats[1], stats[0]):
         np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
+
+
+def test_point_mesh_kernel_matches_plain(renderer):
+    """K3 against its plain version on posed hands, under the ICP's
+    16-column part table with parts -1 and 16 (out of range) among the
+    points.  Held by the exact distance of the kernel's winning face
+    against the plain minimum: 1e-5 relative plus 1e-6 (the kernel's
+    divide-free form subtracts p.p + v.v ~ 1 in these unit-sized
+    coordinates, so its rounding, ~1e-7, may pick a face that much
+    further); the indices differ only there, and on exact ties.  A point
+    that admits no face gets imin 0 from both."""
+    para, center, cube = _scene(renderer, 4, 13)
+    verts, _ = mano.get_mano_vertices(renderer.mano, *mano.split_params(para),
+                                      global_scale=1.0 / 125.0)
+    gen = torch.Generator(device=verts.device).manual_seed(3)
+    B, P = 4, 2048
+    idx = torch.randint(0, 778, (B, P), device=verts.device, generator=gen)
+    pts = (torch.gather(verts, 1, idx[..., None].expand(B, P, 3))
+           + 0.03 * torch.randn(B, P, 3, device=verts.device, generator=gen))
+    tris = verts[:, renderer.mano.faces]
+    T = tris.shape[1]
+    table = torch.cat([renderer.mano.joint_face_mask,
+                       torch.ones(T, 1, dtype=torch.bool, device=verts.device)],
+                      dim=1)
+    part = torch.randint(-1, 17, (B, P), device=verts.device, generator=gen)
+    before = kernels.LAUNCHES["point_mesh_argmin"]
+    dk, ik = pm.argmin_faces(pts, tris, table, part)
+    assert kernels.LAUNCHES["point_mesh_argmin"] == before + 1
+    dp, ip = pm.argmin_faces_plain(pts, tris, table, part)
+    none = dp >= 1e10
+    assert none.sum() > 100 and (ik[none] == 0).all() and (dk[none] >= 1e10).all()
+    win = torch.gather(tris, 1, ik.long()[..., None, None].expand(B, P, 3, 3))
+    d_win = pm.point_tri_sqdist(pts, win)
+    torch.testing.assert_close(d_win[~none], dp[~none], rtol=1e-5, atol=1e-6)
+    assert (ik == ip).float().mean() > 0.9
+    assert table[ik[~none].long(), part[~none]].all()
+
+
+def test_finetune_stage_step_icp_gradient_reaches_stage2_head(cuda, mano_path):
+    """One FinetuneStage loss at B=2, 64^2 on the card launches K3 once, and
+    the ICP terms (d2m, pd2m) move the stage-2 MANO head's gradient: with
+    their weights at 0 it changes by more than 1e-3 of its size, and that
+    change agrees with the CPU's (the plain argmin) to 5e-2 in relative L2
+    (a few cloud points may take another part label or another nearest
+    face of almost the same distance on the two devices)."""
+    import dataclasses
+    from dsf_tpu_torch import demo
+    from dsf_tpu_torch.config import Config
+    from dsf_tpu_torch.data.synth_params import random_param_source
+    from dsf_tpu_torch.device import exact_float32
+    from dsf_tpu_torch.training import phases
+    from dsf_tpu_torch.training.trainer import Trainer
+    B, S = 2, 64
+    cfg = Config(dataset="nyu", batch_size=B, stage_num=2, input_size=S)
+    no_icp = dataclasses.replace(cfg, model_weight=0.0, partICP_weight=0.0)
+    para, cube = [torch.from_numpy(x) for x in next(random_param_source(B))]
+    icp_part = {}
+    for dev in (cuda, "cpu"):
+        tr = Trainer(cfg, mano_path, device=dev)
+        net = tr.init_state().net
+        draws = tr.draw(B, "FinetuneStage").to(dev)
+        real = demo.real_batch(tr.renderer, B, np.random.RandomState(4))
+        head = []
+        before = kernels.LAUNCHES["point_mesh_argmin"]
+        for c in (cfg, no_icp):
+            net.zero_grad(set_to_none=True)
+            with exact_float32():
+                sample = phases.finetune_stage_sample(
+                    tr.renderer, draws, para.to(dev), cube.to(dev))
+                loss, _ = phases.finetune_stage_loss(
+                    net, tr.renderer, sample, draws.scores, real["img"],
+                    real["center"], real["cube"], real["M"], real["xyz_gt"], c)
+                loss.backward()
+            head.append(net.mano_regress_s2[2].weight.grad.cpu())
+        launched = kernels.LAUNCHES["point_mesh_argmin"] - before
+        assert launched == (2 if dev == cuda else 0)
+        icp_part[str(dev)] = head[0] - head[1]
+        assert icp_part[str(dev)].norm() > 1e-3 * head[0].norm()
+    got, ref = icp_part["cuda"], icp_part["cpu"]
+    assert (got - ref).norm() <= 5e-2 * ref.norm()

@@ -15,7 +15,8 @@ from dsf_tpu_torch import kernels
 from dsf_tpu_torch.config import Config
 from dsf_tpu_torch.device import resolve_device
 from dsf_tpu_torch.mano.model import load_model
-from dsf_tpu_torch.ops import codec_kernel, moments_kernel, raster_kernel
+from dsf_tpu_torch.ops import (codec_kernel, moments_kernel,
+                               point_mesh_kernel, raster_kernel)
 from dsf_tpu_torch.serving import InferenceEngine
 from dsf_tpu_torch.training.trainer import Trainer
 
@@ -100,9 +101,17 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         moments_kernel.face_moments_cuda(torch.zeros(1, 16, dtype=torch.int32),
                                          torch.zeros(1, 16, 3), 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        point_mesh_kernel.argmin_faces_cuda(torch.zeros(1, 16, 3),
+                                            torch.zeros(1, 4, 3, 3))
+    with pytest.raises(ValueError, match="CUDA"):
+        point_mesh_kernel.argmin_faces_launch(
+            torch.zeros(1, 16, 3), torch.zeros(1, 4, 28),
+            torch.zeros(4, dtype=torch.int32),
+            torch.zeros(1, 16, dtype=torch.int32))
     assert kernels.LAUNCHES == {name: 0 for name in (
         "raster_skip", "raster_moments", "codec_encode", "codec_encode_bwd",
-        "codec_decode", "codec_decode_bwd")}
+        "codec_decode", "codec_decode_bwd", "point_mesh_argmin")}
 
 
 def test_kernel_sources_and_build_flags():
@@ -114,9 +123,10 @@ def test_kernel_sources_and_build_flags():
     for name, tpus in (("raster_skip", ("raster_pallas_skip",)),
                        ("moments", ("face_moments_pallas",)),
                        ("codec", ("_encode_fwd_call", "_decode_fwd_call",
-                                  "_encode_bwd", "_decode_bwd"))):
+                                  "_encode_bwd", "_decode_bwd")),
+                       ("point_mesh", ("argmin_faces_pallas",))):
         with open(os.path.join(build.CSRC, name + ".cu")) as f:
             src = f.read()
         assert all(t in src for t in tpus) and "Replaces:" in src
     assert np.array_equal(sorted(build.SOURCES),
-                          ["codec", "moments", "raster_skip"])
+                          ["codec", "moments", "point_mesh", "raster_skip"])

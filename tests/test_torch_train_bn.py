@@ -87,3 +87,56 @@ def test_batchnorm_keeps_state_dict_names_and_eval_mode():
     m.eval()
     ref.eval()
     assert torch.equal(m(x), ref(x))
+
+
+def test_grouped_batchnorm_matches_flax_grouped_bn():
+    """``groups=2`` over a stacked [synth | real] batch against the Flax
+    grouped BatchNorm (dsf_tpu.models.layers._GroupedBN) the JAX trainer's
+    stacked forward uses: per-half statistics, the EMA composed synth then
+    real.  Output, gradients and running statistics after one and after two
+    calls to 1e-6 (of each quantity's scale): the halves' statistics are
+    independent, so mixing them would miss by far more."""
+    from dsf_tpu.models.layers import BatchNorm as FlaxBN
+    rng = np.random.RandomState(7)
+    N, C, H, W = 6, 5, 4, 4
+    x = [(rng.randn(N, C, H, W) * s + o).astype(np.float32)
+         for s, o in ((1.0, 0.0), (2.5, 1.0))]
+    x = [np.concatenate([a[:N // 2], b[N // 2:] * 3 - 2]) for a, b in (x, x[::-1])]
+    gy = rng.randn(N, C, H, W).astype(np.float32)
+    bn = FlaxBN(groups=2)
+    to_nhwc = lambda a: np.transpose(a, (0, 2, 3, 1))
+    variables = bn.init(jax.random.PRNGKey(0), to_nhwc(x[0]))
+    params = {"bn": {"scale": rng.uniform(0.8, 1.2, C).astype(np.float32),
+                     "bias": rng.randn(C).astype(np.float32)}}
+    stats = variables["batch_stats"]
+
+    m = batch_norm(C)
+    m.groups = 2
+    with torch.no_grad():
+        m.weight.copy_(torch.from_numpy(params["bn"]["scale"]))
+        m.bias.copy_(torch.from_numpy(params["bn"]["bias"]))
+    m.train()
+    for xi in x:                                   # one call, then two
+        def f(xh, p):
+            y, mut = bn.apply({"params": p, "batch_stats": stats}, xh,
+                              mutable=["batch_stats"])
+            return jnp.sum(y * to_nhwc(gy)), (y, mut["batch_stats"])
+
+        (_, (y_r, stats)), (gx_r, gp_r) = jax.value_and_grad(
+            f, argnums=(0, 1), has_aux=True)(to_nhwc(xi), params)
+        m.weight.grad = m.bias.grad = None
+        xt = torch.from_numpy(xi).requires_grad_(True)
+        y = m(xt)
+        (y * torch.from_numpy(gy)).sum().backward()
+        back = lambda a: np.transpose(np.asarray(a), (0, 3, 1, 2))
+        for got, ref in ((y.detach().numpy(), back(y_r)),
+                         (xt.grad.numpy(), back(gx_r)),
+                         (m.weight.grad.numpy(), gp_r["bn"]["scale"]),
+                         (m.bias.grad.numpy(), gp_r["bn"]["bias"])):
+            ref = np.asarray(ref)
+            np.testing.assert_allclose(got, ref, rtol=0,
+                                       atol=1e-6 * max(1.0, np.abs(ref).max()))
+        for got, ref in ((m.running_mean, stats["bn"]["mean"]),
+                         (m.running_var, stats["bn"]["var"])):
+            np.testing.assert_allclose(got.numpy(), np.asarray(ref),
+                                       rtol=1e-6, atol=1e-7)

@@ -89,14 +89,20 @@ def test_guard_gives_parameters_without_gradient_a_zero_one():
 
 
 def test_trainer_phases_other_than_pretrain_raise(tmp_path):
+    """Pretrain and FinetuneStage are ported; the 1-stage Finetune, the
+    FinetuneStage step off the NYU camera, and the CycleGAN transfer net
+    raise."""
     from dsf_tpu_torch.mano import synthetic
     path = str(tmp_path / "syn.npz")
     synthetic.save_synthetic_mano(path)
     tr = TT.Trainer(Config(input_size=64), path, device="cpu")
     assert callable(tr.train_step_fn("Pretrain"))
-    for phase in ("Finetune", "FinetuneStage"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tr.train_step_fn(phase)
+    assert callable(tr.train_step_fn("FinetuneStage"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tr.train_step_fn("Finetune")
+    with pytest.raises(NotImplementedError, match="NYU"):
+        TT.Trainer(Config(dataset="icvl", input_size=64), path,
+                   device="cpu").train_step_fn("FinetuneStage")
     with pytest.raises(NotImplementedError, match="CycleGAN"):
         TT.Trainer(Config(transferNet_pth="g.pth"), path, device="cpu")
     with pytest.raises(NotImplementedError, match="AdamW"):

@@ -1,9 +1,11 @@
 """Shared by the port's training parity tests: the JAX package's random
-draws of one Pretrain step, taken from a key with the same splits as
-``dsf_tpu.training.phases._aug_keys``, ``renderer.synth_sample`` and
-``renderer.mask_img``, handed to the port as tensors."""
+draws of one Pretrain or FinetuneStage step, taken from a key with the same
+splits as ``dsf_tpu.training.phases._aug_keys``, ``renderer.synth_sample``,
+``renderer.mask_img`` and ``ops.cloud.img_to_pcl``, handed to the port as
+tensors."""
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
@@ -45,6 +47,19 @@ def jax_pretrain_draws(key, batch, depth_range, mask=True):
     return TP.PretrainDraws(_t(shape), _t(center), _t(size), _t(z), mask_draws)
 
 
+def jax_finetune_stage_draws(key, batch, depth_range, crop_size, mask=True):
+    """phases.finetune_stage_loss's draws from its key: the split into
+    (k_aug, k_prep, _), _aug_keys(k_aug) with its random view and the synth
+    factory's draws as for Pretrain, and img_to_pcl's scores from k_prep
+    (2B crops of crop_size^2, the clouds' feature size)."""
+    k_aug, k_prep, _ = jax.random.split(key, 3)
+    synth = jax_pretrain_draws(k_aug, batch, depth_range, mask=mask)
+    k4 = jax.random.split(k_aug, 6)[3]
+    view = jax.random.uniform(k4, (batch, 3)) * jnp.pi * 2.0
+    scores = jax.random.uniform(k_prep, (2 * batch, crop_size * crop_size))
+    return TP.FinetuneStageDraws(synth, _t(view), _t(scores))
+
+
 def gradient_spread(seed=0, batch=2, size=64):
     """The conditioning numbers test_torch_train_step.py states: on its
     inputs (seeded weights, batch and key), the relative L2 distance per
@@ -52,7 +67,6 @@ def gradient_spread(seed=0, batch=2, size=64):
     gradients, with the JAX factory's own images (``own``) and with the
     port's synth image fed to both (``one image``), and the port's
     gradient against each.  Slow: the eager run compiles op by op."""
-    import jax.numpy as jnp
     from dsf_tpu.config import Config as JConfig
     from dsf_tpu.mano import model as JM, synthetic as JS
     from dsf_tpu.models import torch_import as TI
