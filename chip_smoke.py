@@ -13,7 +13,10 @@ Phases, each printed on its own line(s); any failure exits non-zero:
    K2 raster moments at B=32 with 64x64 and 128x128 pixels; K5 encode,
    K4 decode and their VJPs at B=32, J=21, S=64; K3 point->mesh argmin at
    the FinetuneStage step's 128 clouds x 2048 points x 1554 faces under the
-   ICP's 16-column part table): error, kernel and plain
+   ICP's 16-column part table; K9, the CycleGAN generator's tail conv, on
+   the generator's own head input at the training steps' B=32, 64 x 134^2,
+   from the seeded stand-in generator on rendered hands): error, kernel
+   and plain
    device time (CUDA events, warm L2, the host's enqueue hidden behind a
    sleep kernel), the time of one PyTorch library call computing the same
    function where there is one, and the bound (the larger of bytes over
@@ -27,21 +30,27 @@ Phases, each printed on its own line(s); any failure exits non-zero:
    the stage-2 render must cover > 2% of its pixels, and the outputs must
    agree with the same engine on the CPU (the kernels' plain versions);
    then the median latency per bucket;
-4. training: the two-stage Pretrain step and the two-stage FinetuneStage
-   step (Trainer.train_step_fn) at full width (ResNet-18 trunks, 128x128
-   crops, B=32, f32 without TF32) from seeded weights, 5 steps each; the
-   FinetuneStage step's real half is demo.real_batch (rendered hands).
-   The launch counters, zeroed just before each path, must show every
-   kernel of the path launched the expected number of times on every
-   step; every loss must be finite; then the median step time and the
-   peak memory;
-5. GPU step = CPU step: one Pretrain loss and one FinetuneStage loss and
-   their gradients at B=4, on the card (twice) and on the CPU (the
-   kernels' plain versions), from the same weights and the same synth
-   (and real) batch; silhouette flips, part labels and nearest faces that
-   differ between the devices are counted.  The same loss on the CPU in
-   float64 is the witness: each float32 run's gradients and metrics are
-   printed against it, and the GPU's second run against its first.
+4. training: the two-stage Pretrain step, the two-stage FinetuneStage step
+   and the one-stage Finetune step (Trainer.train_step_fn) at full width
+   (ResNet-18 trunks, 128x128 crops, B=32, f32 without TF32) from seeded
+   weights, 5 steps each, each with the frozen CycleGAN generator
+   (ngf 64, 9 blocks) on its synth batch: ``transferNet_pth`` names a
+   missing file, so the trainer builds the seeded stand-in, as the JAX
+   package's bench does; the self-supervised steps' real half is
+   demo.real_batch (rendered hands).  The launch counters, zeroed just
+   before each path, must show every kernel of the path launched the
+   expected number of times on every step; every loss must be finite;
+   then the median step time and the peak memory;
+5. GPU = CPU: one Pretrain loss and one FinetuneStage loss (without the
+   generator) and their gradients at B=4, on the card (twice) and on the
+   CPU (the kernels' plain versions), from the same weights and the same
+   synth (and real) batch; silhouette flips, part labels and nearest
+   faces that differ between the devices are counted.  The same loss on
+   the CPU in float64 is the witness: each float32 run's gradients and
+   metrics are printed against it, and the GPU's second run against its
+   first.  Then the stand-in generator's image of a B=4 synth batch on the
+   card against the CPU's and float64's, and one Finetune loss with the
+   generator and its gradients, held as the FinetuneStage loss is.
 
 The last two lines are the kernels' JSON record and the device JSON.
 Without CUDA, or outside the repository, it exits non-zero and prints
@@ -51,6 +60,7 @@ no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -77,7 +87,8 @@ COMPARE_BATCH = 4               # GPU step vs CPU step
 # stages; K2 is the stage-2 render's backward
 STEP_LAUNCHES = {"raster_skip": 2, "raster_moments": 1, "codec_encode": 3,
                  "codec_encode_bwd": 1, "codec_decode": 2,
-                 "codec_decode_bwd": 2, "point_mesh_argmin": 0}
+                 "codec_decode_bwd": 2, "point_mesh_argmin": 0,
+                 "tail_conv": 1}
 # ... and in one FinetuneStage step: K1 renders the synth batch (B), the
 # stage-2 input inside the stacked forward (2B) and both stages' loss
 # render (2B), and K2 is the backward of the last two; K5 encodes the synth
@@ -86,7 +97,21 @@ STEP_LAUNCHES = {"raster_skip": 2, "raster_moments": 1, "codec_encode": 3,
 # stages; K3 is the ICP's one nearest-face pass over 4B clouds
 FS_STEP_LAUNCHES = {"raster_skip": 3, "raster_moments": 2, "codec_encode": 2,
                     "codec_encode_bwd": 1, "codec_decode": 3,
-                    "codec_decode_bwd": 2, "point_mesh_argmin": 1}
+                    "codec_decode_bwd": 2, "point_mesh_argmin": 1,
+                    "tail_conv": 1}
+# ... and in one Finetune step: K1 renders the synth batch and the real
+# outputs' loss render, K2 is the latter's backward; K5 encodes the synth
+# labels (no VJP: the labels are data); K4 decodes the synth and the real
+# outputs (both with VJPs); K3 is the ICP's pass over 2B clouds.  In every
+# step K9 is the generator's head, once (no backward: the generator is
+# frozen)
+F_STEP_LAUNCHES = {"raster_skip": 2, "raster_moments": 1, "codec_encode": 1,
+                   "codec_encode_bwd": 0, "codec_decode": 2,
+                   "codec_decode_bwd": 2, "point_mesh_argmin": 1,
+                   "tail_conv": 1}
+# a transferNet_pth that names no file: the trainer's seeded stand-in
+# generator, as the JAX package's bench.py and __graft_entry__.py set it
+STAND_IN = "__random_init__"
 ICP_POINTS = 2048               # points per cloud of the FinetuneStage step
 FS_PER_PAIR_FLOPS = 63          # K3's float adds and multiplies per pair
 HOLD_CYCLES = 200_000_000       # ~0.1 s of the card's clock, see time_ms
@@ -483,6 +508,51 @@ def check_point_mesh(renderer, B, rng):
             "bound_ms": bms, "bound_by": by, "library_ms": None}
 
 
+def check_tail_conv(renderer, B, rng):
+    """K9 on the generator's own head input at the training steps' shape:
+    the stand-in generator run up to its head on B rendered hands, (B, 64,
+    S+6, S+6).  Held within 1e-5 absolute on the tanh output against the
+    plain version; the library call is one cuDNN convolution with its bias
+    and a tanh, TF32 off, as the plain version computes it."""
+    import torch
+    from dsf_tpu_torch import demo
+    from dsf_tpu_torch.ops import tapsum, tapsum_kernel
+    from dsf_tpu_torch.training.trainer import load_transfer_net
+
+    gen = load_transfer_net(STAND_IN, "cuda")
+    img = demo.real_batch(renderer, B, rng)["img"]
+    head = gen.model[-1]
+    x = gen.model[:-1](img).contiguous()
+    w, b = head.weight.contiguous(), head.bias.contiguous()
+    got = tapsum_kernel.tail_conv_cuda(x, w, b)
+    ref = tapsum.tail_conv_tanh_plain(x, w, b)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    ms = time_ms(lambda: tapsum_kernel.tail_conv_cuda(x, w, b), 50)
+    plain_ms = time_ms(lambda: tapsum.tail_conv_tanh_plain(x, w, b), 50)
+    lib_ms = time_ms(lambda: torch.tanh(torch.nn.functional.conv2d(x, w, b)),
+                     50)
+    gen_ms = time_ms(lambda: gen(img), 5, 1)
+    _, C, Hp, Wp = x.shape
+    H, W = Hp - 6, Wp - 6
+    # x, w and b read once, the output written once; a multiply-add per
+    # tap and channel, the bias add (tanh not counted)
+    nbytes = (x.numel() + w.numel() + 1 + B * H * W) * 4
+    bms, by = bound_ms(nbytes, B * H * W * (2 * C * 49 + 1))
+    sat = float((ref.abs() > 0.99).float().mean())
+    say(f"kernel K9 tail_conv x {tuple(x.shape)} -> {tuple(got.shape)}: "
+        f"max_abs_err {err:.3g} (tanh output; {sat:.3f} of it beyond 0.99), "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, cuDNN conv2d + tanh "
+        f"{lib_ms:.4f} ms, bound {bms:.6f} ms by {by}; the whole stand-in "
+        f"generator on {tuple(img.shape)} {gen_ms:.3f} ms")
+    need(err <= 1e-5, f"K9 disagrees with its plain version: {err}")
+    return {"name": "tail_conv", "route": "cuda",
+            "source": "dsf_tpu_torch/csrc/tail_conv.cu",
+            "replaces": "dsf_tpu/ops/pallas_tapsum.py:122",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
+
+
 # ----------------------------------------------------------------- phase 3
 
 def atol_for(key):
@@ -524,7 +594,7 @@ def run_slice(mano_path):
     need(counts == {"raster_skip": bucket_calls, "raster_moments": 0,
                     "codec_encode": bucket_calls, "codec_encode_bwd": 0,
                     "codec_decode": 2 * bucket_calls, "codec_decode_bwd": 0,
-                    "point_mesh_argmin": 0},
+                    "point_mesh_argmin": 0, "tail_conv": 0},
          f"predict did not go through every kernel once per call: {counts}")
 
     for n, out in zip(sizes, outs):
@@ -584,17 +654,27 @@ def run_slice(mano_path):
 
 # ----------------------------------------------------------------- phase 4
 
+def train_config(mano_path, stage_num, seed):
+    """The training phases' full-width config, with the stand-in
+    generator."""
+    from dsf_tpu_torch.config import Config
+    return Config(dataset="nyu", batch_size=TRAIN_BATCH, stage_num=stage_num,
+                  input_size=INPUT_SIZE, seed=seed, mano_model_path=mano_path,
+                  transferNet_pth=STAND_IN)
+
+
 def run_training(mano_path):
     """TRAIN_STEPS Pretrain steps at full width; returns the launch counts."""
     import torch
     from dsf_tpu_torch import kernels
-    from dsf_tpu_torch.config import Config
     from dsf_tpu_torch.data.synth_params import random_param_source
     from dsf_tpu_torch.training.trainer import Trainer
 
-    cfg = Config(dataset="nyu", batch_size=TRAIN_BATCH, stage_num=2,
-                 input_size=INPUT_SIZE, seed=SEED, mano_model_path=mano_path)
-    tr = Trainer(cfg, mano_path, device="cuda")
+    tr = Trainer(train_config(mano_path, 2, SEED), mano_path, device="cuda")
+    need(tr.transfer_net is not None, "no transfer net")
+    say(f"train: transferNet_pth {STAND_IN!r} names no file: the trainer "
+        "runs its seeded stand-in generator (ngf 64, 9 blocks) on every "
+        "synth batch")
     state = tr.init_state()
     src = random_param_source(TRAIN_BATCH, seed=SEED)
     batches = [dict(zip(("model_para", "cube_synth"), next(src)))
@@ -632,27 +712,29 @@ def run_training(mano_path):
     return counts
 
 
-def run_finetune_stage(mano_path):
-    """TRAIN_STEPS FinetuneStage steps at full width; returns the launch
-    counts."""
+def run_self_supervised(mano_path, phase):
+    """TRAIN_STEPS Finetune (one stage) or FinetuneStage (two stages) steps
+    at full width; returns the launch counts."""
     import torch
     from dsf_tpu_torch import demo, kernels
-    from dsf_tpu_torch.config import Config
     from dsf_tpu_torch.data.synth_params import random_param_source
     from dsf_tpu_torch.training.trainer import Trainer
 
-    cfg = Config(dataset="nyu", batch_size=TRAIN_BATCH, stage_num=2,
-                 input_size=INPUT_SIZE, seed=SEED, mano_model_path=mano_path)
-    tr = Trainer(cfg, mano_path, device="cuda")
+    stages = 1 if phase == "Finetune" else 2
+    expected = F_STEP_LAUNCHES if stages == 1 else FS_STEP_LAUNCHES
+    tag = phase.lower() if stages == 1 else "finetune_stage"
+    tr = Trainer(train_config(mano_path, stages, SEED), mano_path,
+                 device="cuda")
     state = tr.init_state()
     src = random_param_source(TRAIN_BATCH, seed=SEED + 5)
     rng = np.random.RandomState(SEED + 6)
     batches = [dict(zip(("model_para", "cube_synth"), next(src)),
                     **demo.real_batch(tr.renderer, TRAIN_BATCH, rng))
                for _ in range(TRAIN_STEPS)]
-    draws = [tr.draw(TRAIN_BATCH, "FinetuneStage") for _ in range(TRAIN_STEPS)]
-    step = tr.train_step_fn("FinetuneStage")
+    draws = [tr.draw(TRAIN_BATCH, phase) for _ in range(TRAIN_STEPS)]
+    step = tr.train_step_fn(phase)
     before_params = [p.detach().clone() for p in state.net.parameters()]
+    gen_before = [p.detach().clone() for p in tr.transfer_net.parameters()]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -667,32 +749,36 @@ def run_finetune_stage(mano_path):
         times.append((time.perf_counter() - t0) * 1e3)
         metrics.append({k: float(v) for k, v in m.items()})
         delta = {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES}
-        need(delta == FS_STEP_LAUNCHES,
-             f"FinetuneStage step {i} did not launch every kernel of the path "
-             f"as expected: {delta} != {FS_STEP_LAUNCHES}")
+        need(delta == expected,
+             f"{phase} step {i} did not launch every kernel of the path "
+             f"as expected: {delta} != {expected}")
         need(all(np.isfinite(v) for v in metrics[-1].values()),
-             f"FinetuneStage step {i}: non-finite metrics {metrics[-1]}")
+             f"{phase} step {i}: non-finite metrics {metrics[-1]}")
     counts = dict(kernels.LAUNCHES)
     moved = sum(int(not torch.equal(a, b.detach()))
                 for a, b in zip(before_params, state.net.parameters()))
+    gen_moved = sum(int(not torch.equal(a, b))
+                    for a, b in zip(gen_before, tr.transfer_net.parameters()))
     med = float(np.median(times))
-    say(f"finetune_stage launches over {TRAIN_STEPS} FinetuneStage steps "
-        f"(B={TRAIN_BATCH} synth + {TRAIN_BATCH} real, {INPUT_SIZE}^2): "
-        f"{json.dumps(counts)}")
-    say("finetune_stage losses: "
+    say(f"{tag} launches over {TRAIN_STEPS} {phase} steps "
+        f"(B={TRAIN_BATCH} synth + {TRAIN_BATCH} real, {INPUT_SIZE}^2, "
+        f"stand-in generator): {json.dumps(counts)}")
+    say(f"{tag} losses: "
         + json.dumps([float(f"{x:.6g}") for x in losses])
         + f"; updates applied {state.updates}/{TRAIN_STEPS}; parameter "
-        f"tensors moved {moved} of {len(before_params)}")
-    say("finetune_stage first step metrics: "
+        f"tensors moved {moved} of {len(before_params)}; generator tensors "
+        f"moved {gen_moved}")
+    say(f"{tag} first step metrics: "
         + json.dumps({k: float(f"{v:.5g}") for k, v in metrics[0].items()}))
-    say("finetune_stage step ms (host clock, to a synchronized loss): "
+    say(f"{tag} step ms (host clock, to a synchronized loss): "
         + json.dumps([round(t, 3) for t in times])
         + f"; median {med:.3f} ms, {2 * TRAIN_BATCH * 1e3 / med:.1f} images/s "
         f"(B synth + B real images a step)")
-    say(f"finetune_stage peak device memory "
+    say(f"{tag} peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     need(state.updates == TRAIN_STEPS and moved >= 0.95 * len(before_params),
-         "FinetuneStage updates were not applied")
+         f"{phase} updates were not applied")
+    need(gen_moved == 0, f"{phase} moved the frozen generator")
     return counts
 
 
@@ -718,7 +804,6 @@ MEDIAN_RATIO = 3.0
 
 def float64_renderer(r):
     """``r`` with its MANO constants in float64 (the faces stay int64)."""
-    import dataclasses
     import torch
     m = r.mano
     f64 = {f.name: getattr(m, f.name).double() for f in dataclasses.fields(m)
@@ -991,6 +1076,122 @@ def compare_finetune_stage(mano_path):
          "times further from float64 than the CPU's, in the median")
 
 
+# the Finetune metrics held in phase 5, as FS_METRICS
+F_METRICS = ("d2m", "pd2m", "m2d", "coll", "P2M", "M2P")
+
+
+def compare_finetune(mano_path):
+    """One Finetune loss with the stand-in generator and its gradients on
+    the card and on the CPU, from the same weights (net and generator), on
+    the card's synth batch and one real batch (the same cloud-sampling
+    scores); the same loss on the CPU in float64 (net, generator, MANO and
+    batch) is the witness.  The generator's image of the synth batch is
+    printed against the CPU's and float64's first: the card's cuDNN
+    convolutions may take FFT or Winograd algorithms, whose float32
+    rounding differs from the CPU's, so it is held to 1e-3 on its tanh
+    output.  The one-stage heads feed the losses only, so they are held
+    at grad_tol's 1e-2 and every trunk layer at 0.2, against float64 also
+    twice the CPU's own distance where that is larger, as FinetuneStage's;
+    the metrics as FinetuneStage's."""
+    import copy
+    import torch
+    from dsf_tpu_torch import demo
+    from dsf_tpu_torch.data.synth_params import random_param_source
+    from dsf_tpu_torch.device import exact_float32
+    from dsf_tpu_torch.training import phases
+    from dsf_tpu_torch.training.trainer import Trainer
+
+    B = COMPARE_BATCH
+    cfg = dataclasses.replace(train_config(mano_path, 1, SEED + 10),
+                              batch_size=B)
+    gpu = Trainer(cfg, mano_path, device="cuda")
+    cpu = Trainer(cfg, mano_path, device="cpu")
+    sg, sc = gpu.init_state(), cpu.init_state()
+    net64 = copy.deepcopy(sc.net).double()
+    gen64 = copy.deepcopy(cpu.transfer_net).double()
+    r64 = float64_renderer(cpu.renderer)
+    para, cube = next(random_param_source(B, seed=SEED + 11))
+    para, cube = torch.from_numpy(para), torch.from_numpy(cube)
+    draws = gpu.draw(B, "Finetune")
+    real = demo.real_batch(cpu.renderer, B, np.random.RandomState(SEED + 12))
+    keys = ("img", "center", "cube", "M", "xyz_gt")
+
+    def transfer64(img):
+        with torch.no_grad():
+            return gen64(img)
+
+    with exact_float32():
+        sample_g = phases.finetune_stage_sample(
+            gpu.renderer, draws.to("cuda"), para.cuda(), cube.cuda())
+        on_cpu = [x.cpu() for x in sample_g]
+        img_t = {"gpu": gpu.transfer(sample_g[0]).cpu(),
+                 "cpu": cpu.transfer(on_cpu[0]),
+                 "cpu64": transfer64(on_cpu[0].double())}
+        runs = {"gpu": (sg.net, gpu.renderer, sample_g,
+                        [real[k].cuda() for k in keys], draws.scores.cuda(),
+                        gpu.transfer),
+                "cpu": (sc.net, cpu.renderer, on_cpu,
+                        [real[k] for k in keys], draws.scores, cpu.transfer),
+                "cpu64": (net64, r64, [x.double() for x in on_cpu],
+                          [real[k].double() for k in keys],
+                          draws.scores.double(), transfer64)}
+        runs["gpu_again"] = runs["gpu"]
+        loss, grads, mets = {}, {}, {}
+        for key, (net, r, smp, rb, scores, transfer) in runs.items():
+            net.zero_grad(set_to_none=True)
+            value, m = phases.finetune_loss(net, r, smp, scores, *rb, cfg,
+                                            transfer)
+            value.backward()
+            loss[key] = value.item()
+            mets[key] = {k: float(v) for k, v in m.items()}
+            grads[key] = {n: p.grad.detach().cpu()
+                          for n, p in net.named_parameters()}
+    gen_gpu_cpu = float((img_t["gpu"] - img_t["cpu"]).abs().max())
+    gen_gpu_64 = float((img_t["gpu"].double() - img_t["cpu64"]).abs().max())
+    gen_cpu_64 = float((img_t["cpu"].double() - img_t["cpu64"]).abs().max())
+    say(f"compare generator B={B} {INPUT_SIZE}^2 (stand-in, on the synth "
+        f"batch): max abs GPU vs CPU {gen_gpu_cpu:.3g}, GPU vs float64 "
+        f"{gen_gpu_64:.3g}, CPU vs float64 {gen_cpu_64:.3g}")
+    need(gen_gpu_cpu <= 1e-3, f"the generator's image on the card differs "
+         f"from the CPU's by {gen_gpu_cpu}")
+    gpu_cpu = rel_l2(grads["gpu"], grads["cpu"])
+    gpu_64 = rel_l2(grads["gpu"], grads["cpu64"])
+    cpu_64 = rel_l2(grads["cpu"], grads["cpu64"])
+    gpu_gpu = rel_l2(grads["gpu_again"], grads["gpu"])
+    say(f"compare Finetune B={B} {INPUT_SIZE}^2 with the generator: loss GPU "
+        f"{loss['gpu']:.7g} CPU {loss['cpu']:.7g} CPU float64 "
+        f"{loss['cpu64']:.10g}; gradient relative L2 per parameter: GPU vs "
+        f"CPU {spread(gpu_cpu)}; GPU vs float64 {spread(gpu_64)}; CPU vs "
+        f"float64 {spread(cpu_64)}; GPU vs GPU again {spread(gpu_gpu)}")
+    say("compare Finetune metrics (GPU, GPU again, CPU, CPU float64): "
+        + json.dumps({k: {run: float(f"{mets[run][k]:.7g}") for run in mets}
+                      for k in mets["cpu"]}))
+    rel_loss = abs(loss["gpu"] - loss["cpu"]) / abs(loss["cpu"])
+    need(rel_loss <= 1e-4, f"Finetune GPU loss {loss['gpu']} differs from "
+         f"the CPU's {loss['cpu']}")
+    for k in F_METRICS:
+        m64 = mets["cpu64"][k]
+        tol = (3 * max(abs(mets["cpu"][k] - m64),
+                       abs(mets["gpu"][k] - mets["gpu_again"][k]))
+               + 1e-3 * abs(m64))
+        need(abs(mets["gpu"][k] - mets["cpu"][k]) <= tol,
+             f"Finetune metric {k}: GPU {mets['gpu'][k]} CPU "
+             f"{mets['cpu'][k]} float64 {m64} (tolerance {tol:.3g})")
+
+    def tol(name):
+        return 1e-2 if name.startswith(("mano_regress", "finals")) else 0.2
+
+    bad = {k: v for k, v in gpu_cpu.items() if not v <= tol(k)}
+    need(not bad, f"Finetune GPU gradients differ from the CPU's: {bad}")
+    bad = {k: v for k, v in gpu_64.items()
+           if not v <= max(tol(k), 2 * cpu_64[k])}
+    need(not bad, f"Finetune GPU gradients differ from float64: {bad}")
+    ratio = (float(np.median(list(gpu_64.values())))
+             / float(np.median(list(cpu_64.values()))))
+    need(ratio <= MEDIAN_RATIO, f"Finetune GPU gradients lie {ratio:.3g} "
+         "times further from float64 than the CPU's, in the median")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1039,15 +1240,19 @@ def main():
         record += check_codec_bwd(renderer, KERNEL_BATCH, rng)
         with torch.inference_mode():
             record.append(check_point_mesh(renderer, 2 * TRAIN_BATCH, rng))
+            record.append(check_tail_conv(renderer, TRAIN_BATCH, rng))
         serve_counts = run_slice(path)
         train_counts = run_training(path)
-        fs_counts = run_finetune_stage(path)
+        fs_counts = run_self_supervised(path, "FinetuneStage")
+        f_counts = run_self_supervised(path, "Finetune")
         compare_step(path)
         compare_finetune_stage(path)
+        compare_finetune(path)
     for rec in record:
         by_path = {"serve": serve_counts[rec["name"]],
                    "train": train_counts[rec["name"]],
-                   "finetune_stage": fs_counts[rec["name"]]}
+                   "finetune_stage": fs_counts[rec["name"]],
+                   "finetune": f_counts[rec["name"]]}
         rec["launches"] = sum(by_path.values())
         rec["launches_by_path"] = by_path
         need(rec["launches"] > 0, f"{rec['name']} never launched on a path")

@@ -25,7 +25,7 @@ from typing import Dict
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("raster_skip", "moments", "codec", "point_mesh")
+SOURCES = ("raster_skip", "moments", "codec", "point_mesh", "tail_conv")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

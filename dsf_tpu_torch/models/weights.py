@@ -9,10 +9,15 @@ port (counterpart of dsf_tpu/models/torch_import.py).
   dense   flax (in, out)                          -> torch (out, in)
   bn      scale / bias + batch_stats mean / var   -> weight / bias /
           running_mean / running_var
+
+``generator_state_dict_from_jax`` is the inverse of
+``convert_cyclegan_generator`` for the frozen CycleGAN generator, with the
+same conv and deconv rules.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Mapping
 
 import numpy as np
@@ -171,4 +176,110 @@ def random_reference_state_dict(rng: np.random.RandomState,
         bn("fusion.1", 256)
         res_layers("_s2", 256)
         heads("_s2")
+    return sd
+
+
+# ---------------------------------------------------------------------------
+# The CycleGAN generator (the frozen transfer net of the training steps)
+# ---------------------------------------------------------------------------
+
+def _generator_blocks(params: Mapping) -> int:
+    return sum(1 for k in params if k.startswith("res"))
+
+
+def generator_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``ResnetGenerator`` tree ``{"params": {stem,
+    down0, down1, res{i}/{c1, c2}, up0, up1, head}}`` (numpy or jax
+    arrays) -> the port's ``ResnetGenerator`` state dict, the reference's
+    pix2pix names (the inverse of the JAX package's
+    ``torch_import.convert_cyclegan_generator``)."""
+    P = variables["params"]
+    n = _generator_blocks(P)
+    sd: Dict[str, torch.Tensor] = {}
+
+    def put(dst, p):
+        sd[f"{dst}.weight"] = _kernel(p["kernel"])
+        sd[f"{dst}.bias"] = _t(p["bias"])
+
+    put("model.1", P["stem"]["conv"])
+    put("model.4", P["down0"]["conv"])
+    put("model.7", P["down1"]["conv"])
+    for i in range(n):
+        for j, c in ((1, "c1"), (5, "c2")):
+            put(f"model.{10 + i}.conv_block.{j}", P[f"res{i}"][c]["conv"])
+    put(f"model.{10 + n}", P["up0"]["deconv"])
+    put(f"model.{13 + n}", P["up1"]["deconv"])
+    put(f"model.{17 + n}", P["head"]["conv"])
+    return sd
+
+
+def load_reference_generator(path_or_dir: str) -> Dict[str, torch.Tensor]:
+    """A reference CycleGAN generator checkpoint (``latest_net_G_A.pth``,
+    or a directory holding it) -> CPU tensors under the reference names.
+    Instance-norm statistics of old pix2pix checkpoints are dropped, as
+    pix2pix's own loader drops them: the norm keeps none."""
+    path = path_or_dir
+    if os.path.isdir(path):
+        path = os.path.join(path, "latest_net_G_A.pth")
+    sd = load_reference_state_dict(path)
+    return {k: v for k, v in sd.items()
+            if not k.endswith(("running_mean", "running_var",
+                               "num_batches_tracked"))}
+
+
+def load_generator_npz(path: str) -> Dict[str, torch.Tensor]:
+    """A generator exported by the JAX package's CycleGAN pipeline
+    (``transfer_G_A.npz``: each leaf of the variables tree under its
+    "/"-joined path, as ``pipelines.save_variables_npz`` writes it) -> the
+    port's state dict."""
+    tree: Dict = {}
+    with np.load(path) as raw:
+        for key in raw.files:
+            node = tree
+            parts = key.split("/")
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = raw[key]
+    return generator_state_dict_from_jax(tree)
+
+
+def _truncated_normal(rng: np.random.RandomState, shape, std):
+    """N(0, std^2 / 0.8796^2) truncated to two of its standard deviations:
+    flax's ``variance_scaling(..., "truncated_normal")``, whose scale puts
+    the truncated variance at std^2."""
+    n = int(np.prod(shape))
+    out = np.empty(0)
+    while out.size < n:
+        z = rng.randn(2 * n)
+        out = np.concatenate([out, z[np.abs(z) <= 2.0]])
+    return (out[:n].reshape(shape) * std / 0.87962566103423978).astype(np.float32)
+
+
+def random_generator_state_dict(rng: np.random.RandomState, ngf: int = 64,
+                                n_blocks: int = 9) -> Dict[str, np.ndarray]:
+    """A seeded stand-in for the frozen generator (1 -> 1 channels), in the
+    reference's names, drawn with numpy from the JAX generator's init
+    distributions: lecun-normal (truncated) for the convs (flax ``nn.Conv``),
+    N(0, 0.001^2) for the two deconvs (``layers.ConvTranspose``'s
+    ``normal001_init``), zero biases."""
+    sd: Dict[str, np.ndarray] = {}
+
+    def conv(name, out_c, in_c, k):
+        sd[f"{name}.weight"] = _truncated_normal(
+            rng, (out_c, in_c, k, k), np.sqrt(1.0 / (in_c * k * k)))
+        sd[f"{name}.bias"] = np.zeros(out_c, np.float32)
+
+    def deconv(name, in_c, out_c):
+        sd[f"{name}.weight"] = (rng.randn(in_c, out_c, 3, 3) * 1e-3).astype(np.float32)
+        sd[f"{name}.bias"] = np.zeros(out_c, np.float32)
+
+    conv("model.1", ngf, 1, 7)
+    conv("model.4", 2 * ngf, ngf, 3)
+    conv("model.7", 4 * ngf, 2 * ngf, 3)
+    for i in range(n_blocks):
+        for j in (1, 5):
+            conv(f"model.{10 + i}.conv_block.{j}", 4 * ngf, 4 * ngf, 3)
+    deconv(f"model.{10 + n_blocks}", 4 * ngf, 2 * ngf)
+    deconv(f"model.{13 + n_blocks}", 2 * ngf, ngf)
+    conv(f"model.{17 + n_blocks}", 1, ngf, 7)
     return sd

@@ -1,16 +1,21 @@
 """Training phases as loss functions (counterpart of
 dsf_tpu/training/phases.py; ref: train_render.py:415-864).
 
-Ported so far:
+Ported:
 
 * Pretrain, the synth-only supervised phase: ``pretrain_sample`` (the
   synth batch) and ``pretrain_loss`` (the net and the losses on it);
+* Finetune, the one-stage self-supervised phase on the NYU camera:
+  ``finetune_stage_sample`` (its synth batch is FinetuneStage's) and
+  ``finetune_loss``;
 * FinetuneStage, the two-stage self-supervised phase with stage 2 as the
   teacher, on the NYU camera: ``finetune_stage_sample`` and
   ``finetune_stage_loss``.
 
 The net is an ``nn.Module`` in train mode, so its BatchNorm running
-statistics update in the forward.
+statistics update in the forward.  ``transfer`` is the frozen CycleGAN
+generator's forward, or None: the net sees the transferred synth image,
+and the offset codec keeps reading the raw one, as in the JAX package.
 
 Random draws come in as tensors (``PretrainDraws``,
 ``FinetuneStageDraws``): ``draw_pretrain`` and ``draw_finetune_stage``
@@ -24,7 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -99,17 +104,24 @@ def pretrain_sample(r: rnd.Renderer, draws: PretrainDraws, model_para,
         augment_size=draws.size, mask=draws.mask)
 
 
-def pretrain_loss(net, r: rnd.Renderer, sample: tuple, cfg, stage_num: int
+def _transferred(img, transfer: Optional[Callable]):
+    """The net's synth input: the frozen generator's image, or img."""
+    return img if transfer is None else transfer(img)
+
+
+def pretrain_loss(net, r: rnd.Renderer, sample: tuple, cfg, stage_num: int,
+                  transfer: Optional[Callable] = None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The Pretrain phase's losses (ref: train_render.py:435-488) on a synth
-    batch from ``pretrain_sample``: run the net on it (train mode:
-    BatchNorm statistics update) and sum per stage the codec SmoothL1
-    terms, the MANO joint / vertex SmoothL1 terms, the shape prior and the
-    scale penalty.  Returns (loss, metrics)."""
+    batch from ``pretrain_sample``: run the net on it (on its transferred
+    image when ``transfer`` is given; train mode: BatchNorm statistics
+    update) and sum per stage the codec SmoothL1 terms, the MANO joint /
+    vertex SmoothL1 terms, the shape prior and the scale penalty.  Returns
+    (loss, metrics)."""
     img, juvd_gt, _, jxyz_gt, vxyz_gt, center, cube_s, M = sample
     # the losses run in the net's type: float32 (the JAX package's _apply
     # casts its bfloat16 outputs to float32; the port trains float32 only)
-    outputs = net(img, r, center, cube_s)
+    outputs = net(_transferred(img, transfer), r, center, cube_s)
 
     loss = 0.0
     metrics = {}
@@ -141,7 +153,7 @@ def pretrain_loss(net, r: rnd.Renderer, sample: tuple, cfg, stage_num: int
 
 
 # ---------------------------------------------------------------------------
-# FinetuneStage (ref: train_render.py:622-823)
+# Finetune and FinetuneStage (ref: train_render.py:490-823)
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
@@ -215,26 +227,36 @@ def _prep_real(r: rnd.Renderer, S: int, scores, img_r, center_r, M_r,
     return crop_img, joint_pcl, seg, pcl
 
 
-def _m2d(crop_img, mano_img_crop):
-    """(B, 1) mean |depth difference| over the union of the two
-    silhouettes, FinetuneStage's masked numerator (ref :730-731)."""
+def _m2d(crop_img, mano_img_crop, masked_numerator=True):
+    """(B, 1) |depth difference| over the union of the two silhouettes,
+    divided by the union's size.  FinetuneStage masks the numerator (ref
+    :730-731); the one-stage Finetune divides the unmasked sum (ref :557)."""
     mask = ((crop_img < 0.99) | (mano_img_crop < 0.99)).to(crop_img.dtype)
-    diff = torch.abs(crop_img - mano_img_crop) * mask
+    diff = torch.abs(crop_img - mano_img_crop)
+    if masked_numerator:
+        diff = diff * mask
     return diff.sum((-1, -2)) / (mask.sum((-1, -2)) + 1e-8)
 
 
-def _m2p_mask(crop_img, mano_img_crop, d2m_batch, pd2m_joint):
-    """(B, 21) bool: the M2P gate (ref :785-795).  A sample passes when
-    its depth difference over the silhouettes' intersection, divided by
-    their union, is below 0.04 and its ICP distance below 1e-3; a joint
-    passes when its bone's part ICP is below 1e-3 (the wrist always; the
-    five tips take their last bone's)."""
+def _m2p_mask(crop_img, mano_img_crop, d2m_batch, pd2m_joint, thresh=0.99,
+              union_denominator=True):
+    """(B, 21) bool: the M2P gate.  A sample passes when its depth
+    difference over the silhouettes' intersection (pixels below
+    ``thresh``), divided by their union (FinetuneStage, thresh 0.99, ref
+    :785-795) or by the intersection (Finetune, thresh 0.95, ref :586-589;
+    an empty one fails), is below 0.04 and its ICP distance below 1e-3; a
+    joint passes when its bone's part ICP is below 1e-3 (the wrist always;
+    the five tips take their last bone's)."""
     B = crop_img.shape[0]
-    a, b = crop_img < 0.99, mano_img_crop < 0.99
+    a, b = crop_img < thresh, mano_img_crop < thresh
     both = (a & b).to(crop_img.dtype)
-    union = (a | b).to(crop_img.dtype)
+    denom = (a | b).to(crop_img.dtype) if union_denominator else both
     num = (torch.abs(crop_img - mano_img_crop) * both).sum((-1, -2))
-    depth_mask = (num / (union.sum((-1, -2)) + 1e-8) < 0.04).squeeze(-1)
+    denom_sum = denom.sum((-1, -2))
+    depth_mask = num / (denom_sum + 1e-8) < 0.04
+    if not union_denominator:
+        depth_mask = depth_mask & (denom_sum > 0)
+    depth_mask = depth_mask.squeeze(-1)
     mano_mask = depth_mask & (d2m_batch < 1e-3)                     # (B,)
     joint_mask = pd2m_joint < 1e-3                                  # (B, 15)
     joint_mask = torch.cat(
@@ -257,15 +279,104 @@ def _masked_select_sl1(a, b, mask_joint):
                        (per_joint * m).sum() / torch.clamp_min(n, 1.0))
 
 
+def finetune_loss(net, r: rnd.Renderer, sample: tuple, scores, img_r,
+                  center_r, cube_r, M_r, xyz_gt_r, cfg,
+                  transfer: Optional[Callable] = None
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The one-stage Finetune phase's losses (ref: train_render.py:490-619)
+    on the synth batch from ``finetune_stage_sample`` and a real batch, as
+    ``finetune_stage_loss`` takes them, for a one-stage net
+    (``ManoOCRStage(refine=False)``).
+
+    The reference's two net calls run as one stacked [synth | real]
+    forward with per-group BatchNorm statistics, as in the JAX package.
+    Synth: the codec, MANO joint and vertex SmoothL1 terms and the
+    collision.  Real, from the student's own detached predictions: the
+    loss render, the real-image prep, the crop of the rendered image with
+    its own MANO joints, one ICP over the 2B clouds, P2M, M2P (gated on
+    the uncropped render), m2d (unmasked numerator) and the collision.
+    Returns (loss, metrics)."""
+    img, juvd_gt, _, jxyz_gt, vxyz_gt, center_s, cube_s, _ = sample
+    B = img.shape[0]
+    S = cfg.input_size
+    fp = cfg.feature_para[0]
+
+    out = net(torch.cat([_transferred(img, transfer), img_r]), r,
+              torch.cat([center_s, center_r]), torch.cat([cube_s, cube_r]),
+              bn_groups=2)
+    (pixel_2b, para_2b), = out
+    pixel_pd, para_pd = pixel_2b[:B], para_2b[:B]
+    pixel_r, para_r = pixel_2b[B:], para_2b[B:]
+
+    # ---- synth (ref :506-514)
+    pixel_gt = joint2offset(juvd_gt, img, fp, pixel_pd.shape[-1])
+    juvd_pd = offset2joint_softmax(pixel_pd, img, fp)
+    loss = smooth_l1(pixel_pd, pixel_gt) * cfg.deconv_weight
+    loss = loss + smooth_l1(juvd_pd, juvd_gt) * cfg.coord_weight
+    mano_jxyz_s, mesh_s = rnd.get_mesh_xyz(r, para_pd)
+    loss = loss + smooth_l1(mano_jxyz_s, jxyz_gt) * cfg.coord_weight
+    loss = loss + smooth_l1(mesh_s, vxyz_gt) * cfg.coord_weight
+    loss = loss + sph.collision_loss(r.mano, mano_jxyz_s,
+                                     mesh_s.detach()).mean() * cfg.coll_weight
+
+    # ---- real (ref :517-600)
+    juvd_r = offset2joint_softmax(pixel_r, img_r, fp)
+    jxyz_r = geo.uvd_nl_to_xyz_nl(juvd_r, center_r, M_r, cube_r, r.paras, S,
+                                  r.flip)
+    mano_img_r, mano_juvd_r, mano_jxyz_r, mesh_r = rnd.render_params(
+        r, para_r, center_r, cube_r)
+    coll = sph.collision_loss(r.mano, mano_jxyz_r, mesh_r.detach()).mean()
+    crop_img, joint_pcl, seg, pcl = _prep_real(
+        r, S, scores, img_r, center_r, M_r, cube_r, jxyz_r.detach(),
+        mano_jxyz_r.detach(), mesh_r.detach())
+    # the one-stage phase crops its render with its own joints (ref :555)
+    mano_img_crop = cloud.crop_hand(mano_img_r, mano_jxyz_r.detach(),
+                                    center_r, M_r, cube_r, r.paras, S,
+                                    flip=r.flip)
+    m2d = _m2d(crop_img, mano_img_crop, masked_numerator=False).mean()
+    d2m_b, pd2m_joint = icp_and_joint_icp(mesh_r, pcl, joint_pcl,
+                                          r.mano.faces,
+                                          r.mano.joint_face_mask, seg)
+    pd2m = pd2m_joint.mean()
+    d2m = d2m_b.mean()
+    p2m = smooth_l1(mano_juvd_r, juvd_r.detach()) * cfg.coord_weight
+    m2p_mask = _m2p_mask(crop_img, mano_img_r.detach(), d2m_b.detach(),
+                         pd2m_joint.detach(), thresh=0.95,
+                         union_denominator=False)
+    m2p = _masked_select_sl1(juvd_r, mano_juvd_r.detach(),
+                             m2p_mask) * cfg.coord_weight
+
+    loss = loss + p2m
+    loss = loss + m2d * 0.1 * cfg.model_weight
+    loss = loss + d2m * cfg.model_weight
+    loss = loss + pd2m * cfg.partICP_weight
+    loss = loss + m2p * cfg.M2P_weight
+    loss = loss + coll * cfg.coll_weight
+
+    nt = len(TRANSFER_NYU)
+    with torch.no_grad():
+        metrics = {
+            "pixel_error": xyz2error_mm(jxyz_r[:, TRANSFER_NYU],
+                                        xyz_gt_r[:, :nt], center_r, cube_r),
+            "mano_error": xyz2error_mm(mano_jxyz_r[:, TRANSFER_NYU],
+                                       xyz_gt_r[:, :nt], center_r, cube_r)}
+    metrics.update({k: v.detach() for k, v in (
+        ("m2d", m2d), ("pd2m", pd2m), ("P2M", p2m), ("coll", coll),
+        ("M2P", m2p), ("d2m", d2m))})
+    return loss, metrics
+
+
 def finetune_stage_loss(net, r: rnd.Renderer, sample: tuple, scores, img_r,
-                        center_r, cube_r, M_r, xyz_gt_r, cfg
+                        center_r, cube_r, M_r, xyz_gt_r, cfg,
+                        transfer: Optional[Callable] = None
                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The FinetuneStage phase's losses (ref: train_render.py:622-823) on
     the synth batch from ``finetune_stage_sample`` and a real batch:
     img_r (B, 1, S, S) normalized depth crops, center_r (B, 3) and cube_r
     (B, 3) mm, M_r (B, 3, 3) crop matrices, xyz_gt_r (B, >=12, 3)
     normalized NYU ground truth (its first 12 joints are read, for the
-    error metrics only).  ``scores`` are the cloud-sampling draws.
+    error metrics only).  ``scores`` are the cloud-sampling draws.  The
+    net sees the synth image through ``transfer`` when it is given.
 
     The JAX package's restructure is kept: the reference's two net calls
     (synth, real) run as one stacked [synth | real] forward with per-group
@@ -283,8 +394,9 @@ def finetune_stage_loss(net, r: rnd.Renderer, sample: tuple, scores, img_r,
     def two(x):
         return torch.cat([x, x])
 
-    out = net(torch.cat([img, img_r]), r, torch.cat([center_s, center_r]),
-              torch.cat([cube_s, cube_r]), bn_groups=2)
+    out = net(torch.cat([_transferred(img, transfer), img_r]), r,
+              torch.cat([center_s, center_r]), torch.cat([cube_s, cube_r]),
+              bn_groups=2)
     outputs = [[o[0][:B], o[1][:B]] for o in out]
     outputs_r = [[o[0][B:], o[1][B:]] for o in out]
 

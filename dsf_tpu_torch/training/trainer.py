@@ -1,19 +1,22 @@
-"""Trainer: the Pretrain and FinetuneStage train steps, their optimizer
-and learning-rate schedule (counterpart of dsf_tpu/training/trainer.py;
-ref: train_render.py:38-864).
+"""Trainer: the Pretrain, Finetune and FinetuneStage train steps, their
+optimizer and learning-rate schedule, and the frozen CycleGAN transfer net
+(counterpart of dsf_tpu/training/trainer.py; ref: train_render.py:38-864).
 
 One step: draw (or take) the random draws, render the synth batch
 (``phases.pretrain_sample`` / ``phases.finetune_stage_sample``), run the
 phase's loss with the net in train mode (BatchNorm statistics update in
-the forward, whatever the guard decides, as in the JAX step),
-backpropagate, then AdamW(weight_decay=0.01) at the schedule's learning
-rate behind a finite guard: a non-finite gradient skips the update and the
-moment update, unless it is the 9th or later in a row (ref:
+the forward, whatever the guard decides, as in the JAX step) on the synth
+image, passed through the frozen generator when ``cfg.transferNet_pth``
+is set, backpropagate, then AdamW(weight_decay=0.01) at the schedule's
+learning rate behind a finite guard: a non-finite gradient skips the
+update and the moment update, unless it is the 9th or later in a row (ref:
 ``_apply_if_finite_select`` with max_consecutive_errors=8).  Float32 with
 TF32 off.
 
-Ported so far: Pretrain, and FinetuneStage on the NYU camera (its real
-batch is NYU-shaped).  The 1-stage Finetune raises ``NotImplementedError``.
+Ported: Pretrain; Finetune (one stage, ``cfg.stage_num=1``) and
+FinetuneStage (two stages) on the NYU camera, whose real batch is
+NYU-shaped.  Not yet: the bfloat16 compute dtype, and the self-supervised
+steps on other datasets.
 
 Example::
 
@@ -28,27 +31,41 @@ Example::
     real = demo.real_batch(tr.renderer, cfg.batch_size, rng)
     state, metrics = step(state, tr.draw(cfg.batch_size, "FinetuneStage"),
                           {"model_para": para, "cube_synth": cube, **real})
+
+With ``Config(transferNet_pth=...)`` every step runs the net on the
+generator's image: a ``.npz`` exported by the JAX package's CycleGAN
+pipeline, a reference ``.pth`` (or a directory holding
+``latest_net_G_A.pth``), or, when the path does not exist, a seeded random
+generator, as the JAX trainer does (it logs a warning).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import logging
+import os
 from typing import Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from dsf_tpu_torch.config import CAMERA, Config
 from dsf_tpu_torch.device import exact_float32, resolve_device
 from dsf_tpu_torch.mano import model as mano_model
 from dsf_tpu_torch.models.backbone import ManoOCRStage
-from dsf_tpu_torch.models.weights import (load_into,
+from dsf_tpu_torch.models.cyclegan import ResnetGenerator
+from dsf_tpu_torch.models.weights import (load_generator_npz, load_into,
+                                          load_reference_generator,
+                                          random_generator_state_dict,
                                           random_reference_state_dict,
                                           state_dict_from_jax)
 from dsf_tpu_torch.render import renderer as rnd
 from dsf_tpu_torch.training import phases
 
 MAX_CONSECUTIVE_ERRORS = 8
+TRANSFER_RANGE = "transfer_net"     # the profiler range around the generator
 
 
 def lr_schedule(cfg: Config, steps_per_epoch: int) -> Callable[[int], float]:
@@ -128,6 +145,27 @@ def guarded_update(state: TrainState, params, lr: float) -> bool:
     return accept
 
 
+def load_transfer_net(path: str, device) -> Optional[ResnetGenerator]:
+    """The frozen CycleGAN generator of ``cfg.transferNet_pth`` on
+    ``device``, in eval mode with no parameter requiring a gradient; None
+    for an empty path.  As the JAX trainer (trainer.py:196-218): a path
+    ending in ``.npz`` is the JAX pipeline's export, another existing path
+    a reference checkpoint, and a missing path gives a seeded random
+    generator (numpy seed 0, the JAX trainer's PRNGKey(0)) with a
+    warning."""
+    if not path:
+        return None
+    if os.path.exists(path):
+        sd = (load_generator_npz(path) if path.endswith(".npz")
+              else load_reference_generator(path))
+    else:
+        logging.warning("transferNet_pth %r not found; using a randomly "
+                        "initialized frozen generator", path)
+        sd = random_generator_state_dict(np.random.RandomState(0))
+    gen = ResnetGenerator.from_state_dict(sd)
+    return gen.to(device).eval().requires_grad_(False)
+
+
 def _tensor(x, device) -> torch.Tensor:
     t = x if isinstance(x, torch.Tensor) else torch.from_numpy(
         np.asarray(x, np.float32))
@@ -138,8 +176,9 @@ class Trainer:
     """The port's trainer.
 
     Args:
-      cfg: a ``Config``; ``cfg.net`` must be a ResNet, ``cfg.compute_dtype``
-        float32 and ``cfg.transferNet_pth`` empty (no CycleGAN yet).
+      cfg: a ``Config``; ``cfg.net`` must be a ResNet and
+        ``cfg.compute_dtype`` float32.  ``cfg.transferNet_pth`` names the
+        frozen CycleGAN generator (``load_transfer_net``), or is empty.
       mano_npz: the converted MANO asset.
       steps_per_epoch: for the epoch-based learning-rate schedule.
       device: ``cuda`` when None; raises if CUDA is missing.  ``"cpu"``
@@ -154,10 +193,6 @@ class Trainer:
             raise NotImplementedError(
                 f"compute_dtype {cfg.compute_dtype}: the port trains float32 "
                 "(ROADMAP Queue 1, item 8)")
-        if cfg.transferNet_pth:
-            raise NotImplementedError(
-                "transferNet_pth: the CycleGAN transfer net is not ported "
-                "(ROADMAP Queue 1, item 6)")
         self.cfg = cfg
         self.device = resolve_device(device)
         paras, img_size = CAMERA[cfg.dataset]
@@ -166,6 +201,21 @@ class Trainer:
             paras, img_size, (cfg.input_size, cfg.input_size))
         self.schedule = lr_schedule(cfg, steps_per_epoch)
         self.generator = torch.Generator().manual_seed(cfg.seed)
+        self.transfer_net = load_transfer_net(cfg.transferNet_pth,
+                                              self.device)
+
+    @property
+    def transfer(self) -> Optional[Callable]:
+        """The phases' ``transfer``: the frozen generator's forward, or
+        None without a transfer net."""
+        return None if self.transfer_net is None else self._run_transfer_net
+
+    def _run_transfer_net(self, img):
+        """The frozen generator's image of ``img``, with no gradient (the
+        JAX step's stop_gradient), inside the profiler range
+        ``TRANSFER_RANGE``."""
+        with torch.no_grad(), record_function(TRANSFER_RANGE):
+            return self.transfer_net(img)
 
     def init_state(self, variables: Optional[Mapping] = None) -> TrainState:
         """A fresh state: the net from ``variables`` (the JAX package's
@@ -188,8 +238,9 @@ class Trainer:
     def draw(self, batch_size: int, phase_name: str = "Pretrain"):
         """The next step's random draws for a phase, from the trainer's
         generator (seeded with ``cfg.seed``); the sphere occlusion's with
-        ``cfg.mask``."""
-        if phase_name == "FinetuneStage":
+        ``cfg.mask``.  Finetune takes FinetuneStage's draws (the JAX
+        phases split their keys alike)."""
+        if phase_name in ("Finetune", "FinetuneStage"):
             return phases.draw_finetune_stage(
                 self.generator, batch_size, self.renderer.depth_range,
                 self.cfg.input_size, mask=self.cfg.mask)
@@ -202,22 +253,26 @@ class Trainer:
         (state, metrics)``, with ``draws`` from ``draw(B, phase_name)`` (or
         the caller's own) and ``batch`` of arrays or tensors:
         {"model_para" (B, 62), "cube_synth" (B, 3)} for Pretrain, and for
-        FinetuneStage also the real batch {"img" (B, 1, S, S), "center"
-        (B, 3), "cube" (B, 3), "M" (B, 3, 3), "xyz_gt" (B, 14, 3)}.  The
-        state is updated in place and returned; metrics are 0-d tensors on
-        the device, ``loss`` included."""
+        Finetune and FinetuneStage also the real batch {"img" (B, 1, S, S),
+        "center" (B, 3), "cube" (B, 3), "M" (B, 3, 3), "xyz_gt" (B, 14,
+        3)}.  The state is updated in place and returned; metrics are 0-d
+        tensors on the device, ``loss`` included."""
         if phase_name == "Pretrain":
             return self._pretrain_step
-        if phase_name == "FinetuneStage":
-            if self.cfg.dataset != "nyu" or self.cfg.stage_num != 2:
-                raise NotImplementedError(
-                    f"FinetuneStage on {self.cfg.dataset!r} with stage_num "
-                    f"{self.cfg.stage_num}: the port has the two-stage NYU "
-                    "step only")
-            return self._finetune_stage_step
-        raise NotImplementedError(
-            f"phase {phase_name!r}: the port has the Pretrain and "
-            "FinetuneStage steps; Finetune is ROADMAP Queue 1, item 9")
+        stages = {"Finetune": 1, "FinetuneStage": 2}.get(phase_name)
+        if stages is None:
+            raise NotImplementedError(
+                f"phase {phase_name!r}: the port has Pretrain, Finetune and "
+                "FinetuneStage; not yet ported: the bfloat16 compute dtype "
+                "and the self-supervised steps off the NYU camera")
+        if self.cfg.dataset != "nyu" or self.cfg.stage_num != stages:
+            raise NotImplementedError(
+                f"{phase_name} on {self.cfg.dataset!r} with stage_num "
+                f"{self.cfg.stage_num}: the port has the {stages}-stage NYU "
+                "step only (datasets other than NYU are not ported)")
+        return functools.partial(self._self_supervised_step,
+                                 phases.finetune_loss if stages == 1
+                                 else phases.finetune_stage_loss)
 
     def _update(self, state: TrainState, loss) -> None:
         loss.backward()
@@ -237,14 +292,15 @@ class Trainer:
         with exact_float32():
             sample = phases.pretrain_sample(self.renderer, draws, para, cube)
             loss, metrics = phases.pretrain_loss(net, self.renderer, sample,
-                                                 cfg, cfg.stage_num)
+                                                 cfg, cfg.stage_num,
+                                                 self.transfer)
             self._update(state, loss)
         metrics: Dict[str, torch.Tensor] = dict(metrics, loss=loss.detach())
         return state, metrics
 
-    def _finetune_stage_step(self, state: TrainState,
-                             draws: phases.FinetuneStageDraws,
-                             batch: Mapping) -> tuple:
+    def _self_supervised_step(self, loss_fn, state: TrainState,
+                              draws: phases.FinetuneStageDraws,
+                              batch: Mapping) -> tuple:
         net, dev = state.net, self.device
         para, cube, img_r, center_r, cube_r, M_r, xyz_gt = [
             _tensor(batch[k], dev) for k in ("model_para", "cube_synth", "img",
@@ -255,9 +311,9 @@ class Trainer:
         with exact_float32():
             sample = phases.finetune_stage_sample(self.renderer, draws, para,
                                                   cube)
-            loss, metrics = phases.finetune_stage_loss(
+            loss, metrics = loss_fn(
                 net, self.renderer, sample, draws.scores, img_r, center_r,
-                cube_r, M_r, xyz_gt, self.cfg)
+                cube_r, M_r, xyz_gt, self.cfg, self.transfer)
             self._update(state, loss)
         metrics: Dict[str, torch.Tensor] = dict(metrics, loss=loss.detach())
         return state, metrics

@@ -16,7 +16,8 @@ import torch
 
 from dsf_tpu_torch import kernels
 from dsf_tpu_torch.mano import model as mano, synthetic
-from dsf_tpu_torch.ops import codec_kernel, moments_kernel, raster_kernel
+from dsf_tpu_torch.ops import (codec_kernel, moments_kernel, raster_kernel,
+                               tapsum, tapsum_kernel)
 from dsf_tpu_torch.ops import offset_codec as oc
 from dsf_tpu_torch.ops import point_mesh as pm
 from dsf_tpu_torch.ops import rasterize as ras
@@ -221,7 +222,7 @@ def test_cuda_path_carries_the_training_gradient(renderer):
     assert {k: kernels.LAUNCHES[k] - before[k] for k in before} == {
         "raster_skip": 1, "raster_moments": 1, "codec_encode": 1,
         "codec_encode_bwd": 1, "codec_decode": 1, "codec_decode_bwd": 1,
-        "point_mesh_argmin": 0}
+        "point_mesh_argmin": 0, "tail_conv": 0}
     assert torch.equal(out["cuda"][0], out["cpu"][0])
     assert (out["cpu"][0] >= 0).float().mean() > 0.05
     for got, ref in zip(out["cuda"][1:], out["cpu"][1:]):
@@ -329,3 +330,57 @@ def test_finetune_stage_step_icp_gradient_reaches_stage2_head(cuda, mano_path):
         assert icp_part[str(dev)].norm() > 1e-3 * head[0].norm()
     got, ref = icp_part["cuda"], icp_part["cpu"]
     assert (got - ref).norm() <= 5e-2 * ref.norm()
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 134, 134), (3, 5, 45, 37)])
+def test_tail_conv_kernel_matches_plain(cuda, shape):
+    """K9 against its plain version (cuDNN's convolution without TF32, then
+    tanh) at the generator's head shape and at a ragged one (tiles and a
+    channel chunk cut short): each output within 1e-6 of the sum of its
+    products' magnitudes (about 16 units of float32 rounding), the same
+    float32 sum in another order (tanh has slope at most 1), as
+    test_torch_cyclegan.py holds the CPU's.  The gradient of the autograd.Function is the plain
+    version's (its backward recomputes through it)."""
+    from dsf_tpu_torch.device import exact_float32
+    gen = torch.Generator(device=cuda).manual_seed(shape[1])
+    x = torch.randn(*shape, device=cuda, generator=gen)
+    w = 0.1 * torch.randn(1, shape[1], 7, 7, device=cuda, generator=gen)
+    b = torch.randn(1, device=cuda, generator=gen)
+    with exact_float32():
+        before = kernels.LAUNCHES["tail_conv"]
+        got = tapsum_kernel.tail_conv_cuda(x, w, b)
+        assert kernels.LAUNCHES["tail_conv"] == before + 1
+        ref = tapsum.tail_conv_tanh_plain(x, w, b)
+        absum = torch.nn.functional.conv2d(x.double().abs(), w.double().abs())
+        assert got.shape == ref.shape == (shape[0], 1, shape[2] - 6,
+                                          shape[3] - 6)
+        assert ((got - ref).abs() <= 1e-6 * absum).all()
+        xs = [t.clone().requires_grad_(True) for t in (x, w, b)]
+        cot = torch.randn(ref.shape, device=cuda, generator=gen)
+        tapsum.tail_conv_tanh(*xs).backward(cot)
+        rs = [t.clone().requires_grad_(True) for t in (x, w, b)]
+        tapsum.tail_conv_tanh_plain(*rs).backward(cot)
+    for a, r in zip(xs, rs):
+        torch.testing.assert_close(a.grad, r.grad, rtol=0,
+                                   atol=1e-5 * float(r.grad.abs().max()))
+
+
+def test_generator_on_the_card_matches_cpu(cuda):
+    """The full-width generator (ngf 64, 9 blocks) on the stand-in weights
+    at B=2, 64x64: one K9 launch, and the output within 1e-4 of the CPU's
+    (cuDNN's float32 convolutions and instance norms against the CPU's,
+    through 22 layers; tanh output in [-1, 1])."""
+    from dsf_tpu_torch.device import exact_float32
+    from dsf_tpu_torch.models.cyclegan import ResnetGenerator
+    from dsf_tpu_torch.models.weights import random_generator_state_dict
+    gen = ResnetGenerator.from_state_dict(
+        random_generator_state_dict(np.random.RandomState(0))).eval()
+    x = torch.from_numpy(np.random.RandomState(1).uniform(
+        -1, 1, (2, 1, 64, 64)).astype(np.float32))
+    with torch.no_grad(), exact_float32():
+        ref = gen(x)
+        before = kernels.LAUNCHES["tail_conv"]
+        got = gen.to(cuda)(x.to(cuda)).cpu()
+    assert kernels.LAUNCHES["tail_conv"] == before + 1
+    assert ref.abs().max() > 0.5
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-4)

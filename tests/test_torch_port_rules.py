@@ -16,7 +16,8 @@ from dsf_tpu_torch.config import Config
 from dsf_tpu_torch.device import resolve_device
 from dsf_tpu_torch.mano.model import load_model
 from dsf_tpu_torch.ops import (codec_kernel, moments_kernel,
-                               point_mesh_kernel, raster_kernel)
+                               point_mesh_kernel, raster_kernel,
+                               tapsum_kernel)
 from dsf_tpu_torch.serving import InferenceEngine
 from dsf_tpu_torch.training.trainer import Trainer
 
@@ -109,9 +110,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
             torch.zeros(1, 16, 3), torch.zeros(1, 4, 28),
             torch.zeros(4, dtype=torch.int32),
             torch.zeros(1, 16, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        tapsum_kernel.tail_conv_cuda(torch.zeros(1, 8, 14, 14),
+                                     torch.zeros(1, 8, 7, 7), torch.zeros(1))
     assert kernels.LAUNCHES == {name: 0 for name in (
         "raster_skip", "raster_moments", "codec_encode", "codec_encode_bwd",
-        "codec_decode", "codec_decode_bwd", "point_mesh_argmin")}
+        "codec_decode", "codec_decode_bwd", "point_mesh_argmin", "tail_conv")}
 
 
 def test_kernel_sources_and_build_flags():
@@ -124,9 +128,12 @@ def test_kernel_sources_and_build_flags():
                        ("moments", ("face_moments_pallas",)),
                        ("codec", ("_encode_fwd_call", "_decode_fwd_call",
                                   "_encode_bwd", "_decode_bwd")),
-                       ("point_mesh", ("argmin_faces_pallas",))):
+                       ("point_mesh", ("argmin_faces_pallas",)),
+                       ("tail_conv", ("pallas_tapsum.py:tail_conv_tanh",
+                                      "_fast_tail"))):
         with open(os.path.join(build.CSRC, name + ".cu")) as f:
             src = f.read()
         assert all(t in src for t in tpus) and "Replaces:" in src
     assert np.array_equal(sorted(build.SOURCES),
-                          ["codec", "moments", "point_mesh", "raster_skip"])
+                          ["codec", "moments", "point_mesh", "raster_skip",
+                           "tail_conv"])

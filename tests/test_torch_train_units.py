@@ -89,21 +89,32 @@ def test_guard_gives_parameters_without_gradient_a_zero_one():
 
 
 def test_trainer_phases_other_than_pretrain_raise(tmp_path):
-    """Pretrain and FinetuneStage are ported; the 1-stage Finetune, the
-    FinetuneStage step off the NYU camera, and the CycleGAN transfer net
-    raise."""
+    """Pretrain, Finetune (one stage) and FinetuneStage (two stages) are
+    ported, the last two on the NYU camera at their own stage count, and
+    so is the CycleGAN transfer net; other phases, the self-supervised
+    steps off the NYU camera or at the other stage count, bfloat16 and
+    optimizers other than AdamW raise."""
     from dsf_tpu_torch.mano import synthetic
     path = str(tmp_path / "syn.npz")
     synthetic.save_synthetic_mano(path)
     tr = TT.Trainer(Config(input_size=64), path, device="cpu")
     assert callable(tr.train_step_fn("Pretrain"))
     assert callable(tr.train_step_fn("FinetuneStage"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="1-stage NYU"):
         tr.train_step_fn("Finetune")
+    one = TT.Trainer(Config(input_size=64, stage_num=1), path, device="cpu")
+    assert callable(one.train_step_fn("Finetune"))
+    with pytest.raises(NotImplementedError, match="2-stage NYU"):
+        one.train_step_fn("FinetuneStage")
+    with pytest.raises(NotImplementedError, match="Pretrain, Finetune"):
+        tr.train_step_fn("CycleGAN")
     with pytest.raises(NotImplementedError, match="NYU"):
         TT.Trainer(Config(dataset="icvl", input_size=64), path,
                    device="cpu").train_step_fn("FinetuneStage")
-    with pytest.raises(NotImplementedError, match="CycleGAN"):
-        TT.Trainer(Config(transferNet_pth="g.pth"), path, device="cpu")
+    assert TT.Trainer(Config(input_size=64, transferNet_pth=str(
+        tmp_path / "missing.pth")), path, device="cpu").transfer_net is not None
+    assert tr.transfer_net is None
+    with pytest.raises(NotImplementedError, match="float32"):
+        TT.Trainer(Config(compute_dtype="bfloat16"), path, device="cpu")
     with pytest.raises(NotImplementedError, match="AdamW"):
         TT.make_optimizer(Config(opt="sgd"), [torch.nn.Parameter(torch.ones(1))])
