@@ -15,8 +15,12 @@ Phases, each printed on its own line(s); any failure exits non-zero:
    the FinetuneStage step's 128 clouds x 2048 points x 1554 faces under the
    ICP's 16-column part table; K9, the CycleGAN generator's tail conv, on
    the generator's own head input at the training steps' B=32, 64 x 134^2,
-   from the seeded stand-in generator on rendered hands): error, kernel
-   and plain
+   from the seeded stand-in generator on rendered hands; K7, the ICP argmin
+   with its admissibility skip words, and K8, the culled ICP argmin, at
+   K3's shape; K6, the dense raster, at the pre-render's B=32 NYU frames of
+   640x480; K10, the binned raster, on B=32 crops of 64x64, the serving
+   path's stage-2 render, and of 128x128, each also with its overflow flag
+   set, so that every tile takes the dense branch): error, kernel and plain
    device time (CUDA events, warm L2, the host's enqueue hidden behind a
    sleep kernel), the time of one PyTorch library call computing the same
    function where there is one, and the bound (the larger of bytes over
@@ -29,7 +33,10 @@ Phases, each printed on its own line(s); any failure exits non-zero:
    before, must show every kernel of the path; outputs must be finite,
    the stage-2 render must cover > 2% of its pixels, and the outputs must
    agree with the same engine on the CPU (the kernels' plain versions);
-   then the median latency per bucket;
+   then the same requests with the skip raster switched off
+   (``rasterize.USE_PALLAS_SKIP``): K10 in K1's place, outputs as the skip
+   route's, and K10 held against its plain version on each call's own
+   inputs; then the median latency per bucket;
 4. training: the two-stage Pretrain step, the two-stage FinetuneStage step
    and the one-stage Finetune step (Trainer.train_step_fn) at full width
    (ResNet-18 trunks, 128x128 crops, B=32, f32 without TF32) from seeded
@@ -40,7 +47,12 @@ Phases, each printed on its own line(s); any failure exits non-zero:
    demo.real_batch (rendered hands).  The launch counters, zeroed just
    before each path, must show every kernel of the path launched the
    expected number of times on every step; every loss must be finite;
-   then the median step time and the peak memory;
+   then the median step time and the peak memory.  FinetuneStage runs
+   twice more, with ``point_mesh.USE_V2_KERNEL`` (K7 in K3's place) and
+   with ``USE_CULLED_KERNEL`` (K8).  Then the offline pre-render
+   (tools/prerender.py) of 64 seeded parameter sets at NYU's 640x480 in
+   batches of 32: K6 once a batch, the PNGs read back, the hands'
+   foreground median in 400-800 mm, and two frames against the CPU's;
 5. GPU = CPU: one Pretrain loss and one FinetuneStage loss (without the
    generator) and their gradients at B=4, on the card (twice) and on the
    CPU (the kernels' plain versions), from the same weights and the same
@@ -50,7 +62,11 @@ Phases, each printed on its own line(s); any failure exits non-zero:
    metrics are printed against it, and the GPU's second run against its
    first.  Then the stand-in generator's image of a B=4 synth batch on the
    card against the CPU's and float64's, and one Finetune loss with the
-   generator and its gradients, held as the FinetuneStage loss is.
+   generator and its gradients, held as the FinetuneStage loss is.  Last,
+   a Finetune loss whose real half is rendered from the net's own MANO
+   prediction (its MANO head's weight zeroed, so the prediction is the
+   head's bias whatever the image), so that the M2P gate passes: the M2P
+   term and its gradient on the card against the CPU and float64.
 
 The last two lines are the kernels' JSON record and the device JSON.
 Without CUDA, or outside the repository, it exits non-zero and prints
@@ -81,39 +97,54 @@ LATENCY_CALLS = 25
 TRAIN_BATCH = 32                # the default config's batch
 TRAIN_STEPS = 5
 COMPARE_BATCH = 4               # GPU step vs CPU step
+KERNELS = ("raster_skip", "raster_moments", "codec_encode",
+           "codec_encode_bwd", "codec_decode", "codec_decode_bwd",
+           "point_mesh_argmin", "tail_conv", "icp_argmin_v2",
+           "icp_argmin_culled", "raster_dense", "raster_binned")
+
+
+def launches(**counts):
+    """Every kernel's launch count: those named, 0 for the rest."""
+    return {k: counts.get(k, 0) for k in KERNELS}
+
+
 # launches of each kernel in one two-stage Pretrain step: K1 renders the
 # synth batch and the stage-2 input; K5 encodes both stages' labels and
 # the stage-2 remap, whose VJP is the only one needed; K4 decodes both
 # stages; K2 is the stage-2 render's backward
-STEP_LAUNCHES = {"raster_skip": 2, "raster_moments": 1, "codec_encode": 3,
-                 "codec_encode_bwd": 1, "codec_decode": 2,
-                 "codec_decode_bwd": 2, "point_mesh_argmin": 0,
-                 "tail_conv": 1}
+STEP_LAUNCHES = launches(raster_skip=2, raster_moments=1, codec_encode=3,
+                         codec_encode_bwd=1, codec_decode=2,
+                         codec_decode_bwd=2, tail_conv=1)
 # ... and in one FinetuneStage step: K1 renders the synth batch (B), the
 # stage-2 input inside the stacked forward (2B) and both stages' loss
 # render (2B), and K2 is the backward of the last two; K5 encodes the synth
 # labels and the stage-2 remap (whose VJP is needed); K4 decodes the synth
 # outputs of both stages, the teacher (no VJP) and the real outputs of both
-# stages; K3 is the ICP's one nearest-face pass over 4B clouds
-FS_STEP_LAUNCHES = {"raster_skip": 3, "raster_moments": 2, "codec_encode": 2,
-                    "codec_encode_bwd": 1, "codec_decode": 3,
-                    "codec_decode_bwd": 2, "point_mesh_argmin": 1,
-                    "tail_conv": 1}
+# stages; K3 is the ICP's one nearest-face pass over 4B clouds (K7 or K8
+# under their switches)
+FS_STEP_LAUNCHES = launches(raster_skip=3, raster_moments=2, codec_encode=2,
+                            codec_encode_bwd=1, codec_decode=3,
+                            codec_decode_bwd=2, point_mesh_argmin=1,
+                            tail_conv=1)
 # ... and in one Finetune step: K1 renders the synth batch and the real
 # outputs' loss render, K2 is the latter's backward; K5 encodes the synth
 # labels (no VJP: the labels are data); K4 decodes the synth and the real
 # outputs (both with VJPs); K3 is the ICP's pass over 2B clouds.  In every
 # step K9 is the generator's head, once (no backward: the generator is
 # frozen)
-F_STEP_LAUNCHES = {"raster_skip": 2, "raster_moments": 1, "codec_encode": 1,
-                   "codec_encode_bwd": 0, "codec_decode": 2,
-                   "codec_decode_bwd": 2, "point_mesh_argmin": 1,
-                   "tail_conv": 1}
+F_STEP_LAUNCHES = launches(raster_skip=2, raster_moments=1, codec_encode=1,
+                           codec_decode=2, codec_decode_bwd=2,
+                           point_mesh_argmin=1, tail_conv=1)
 # a transferNet_pth that names no file: the trainer's seeded stand-in
 # generator, as the JAX package's bench.py and __graft_entry__.py set it
 STAND_IN = "__random_init__"
 ICP_POINTS = 2048               # points per cloud of the FinetuneStage step
-FS_PER_PAIR_FLOPS = 63          # K3's float adds and multiplies per pair
+# K3's, K7's and K8's bound: 63 float adds and multiplies per admissible
+# pair, the divide-free form's; the three compute one function, and K8's
+# divide form costs more per pair than the function needs
+ICP_PER_PAIR_FLOPS = 63
+PRERENDER_N = 64                # parameter sets of the pre-render path
+PRERENDER_BATCH = 32            # the pre-render tool's default batch
 HOLD_CYCLES = 200_000_000       # ~0.1 s of the card's clock, see time_ms
 # the codec's foreground test on a normalized depth image; the background
 # normalizes to 1.0, or just under it in float32 when the crop centre's
@@ -424,17 +455,14 @@ def check_codec_bwd(renderer, B, rng):
     return out
 
 
-def check_point_mesh(renderer, B, rng):
-    """K3 at the FinetuneStage step's shape: the ICP's 4B clouds of 2048
-    points against the 2B stage meshes (each mesh twice: its full cloud
-    admits every face, part 15; its joint cloud's points take a bone part
-    0..14 or -1, none), 1554 faces, the 16-column part table.  Held by the
-    exact distance of the kernel's winning face against the plain minimum;
-    index disagreements are counted."""
+def icp_scene(renderer, B, rng):
+    """The FinetuneStage step's ICP shape: 4B clouds of 2048 points near
+    the 2B stage meshes (each mesh twice: its full cloud admits every face,
+    part 15; its joint cloud's points take a bone part 0..14 or -1, none),
+    1554 faces, the 16-column part table; and the admissible pairs and the
+    bytes that any of the argmin kernels must read and write."""
     import torch
     from dsf_tpu_torch import demo
-    from dsf_tpu_torch.ops import point_mesh as pm
-    from dsf_tpu_torch.ops import point_mesh_kernel as pk
     from dsf_tpu_torch.render import renderer as rnd
 
     para, _, _ = demo.posed_params(renderer, B, rng)
@@ -452,18 +480,53 @@ def check_point_mesh(renderer, B, rng):
     T = faces.shape[0]
     table = torch.cat([renderer.mano.joint_face_mask,
                        torch.ones(T, 1, dtype=torch.bool, device=dev)], dim=1)
-    tris = mesh[:, faces].contiguous()
+    # the pairs this data needs: each point against the faces its part
+    # admits (none for part -1); bytes: points, triangles, the table and
+    # the parts read once, dmin and imin written once
+    per_part = torch.cat([table.sum(0), torch.zeros(1, device=dev,
+                                                    dtype=torch.long)])
+    pairs = int(per_part[torch.where(part >= 0, part,
+                                     torch.full_like(part, 16))].sum())
+    nbytes = (pts.numel() * 4 + N * T * 9 * 4 + table.numel()
+              + part.numel() * 8 + N * P * 8)
+    return dict(mesh=mesh, pts=pts, part=part, faces=faces, table=table,
+                tris=mesh[:, faces].contiguous(), N=N, P=P, T=T, pairs=pairs,
+                nbytes=nbytes)
 
+
+def hold_winners(name, sc, tris, ik, dp):
+    """A kernel's winners by their exact distance against the plain minimum
+    dp: within 1e-5 relative + 1e-6 (the kernels' distance forms subtract
+    p.p + v.v ~ 1 in these unit-sized coordinates, so their rounding, ~1e-7,
+    may pick a face that much further).  Returns (max_abs_err, points that
+    admit no face)."""
+    import torch
+    from dsf_tpu_torch.ops import point_mesh as pm
+    N, P = sc["N"], sc["P"]
+    none = dp >= 1e10
+    win = torch.gather(tris, 1, ik.long()[..., None, None].expand(N, P, 3, 3))
+    d_win = pm.point_tri_sqdist(sc["pts"], win)
+    err = float((d_win - dp)[~none].abs().max())
+    worst = float(((d_win - dp).abs() - 1e-5 * dp.abs())[~none].max())
+    need(worst <= 1e-6, f"{name}'s winners lie {worst} beyond 1e-5 relative "
+         "+ 1e-6 from the plain minimum")
+    return err, none
+
+
+def check_point_mesh(sc):
+    """K3 at the FinetuneStage step's shape (``icp_scene``).  Held by the
+    exact distance of the kernel's winning face against the plain minimum;
+    index disagreements are counted."""
+    import torch
+    from dsf_tpu_torch.ops import point_mesh as pm
+    from dsf_tpu_torch.ops import point_mesh_kernel as pk
+
+    pts, tris, table, part = sc["pts"], sc["tris"], sc["table"], sc["part"]
+    N, P, T = sc["N"], sc["P"], sc["T"]
     dk, ik = pk.argmin_faces_cuda(pts, tris, table, part)
     dp, ip = pm.argmin_faces_plain(pts, tris, table, part)
     torch.cuda.synchronize()
-    none = dp >= 1e10
-    win = torch.gather(tris, 1, ik.long()[..., None, None].expand(N, P, 3, 3))
-    d_win = pm.point_tri_sqdist(pts, win)
-    err = float((d_win - dp)[~none].abs().max())
-    # the divide-free form subtracts p.p + v.v ~ 1 in these unit-sized
-    # coordinates: its rounding, ~1e-7, may pick a face that much further
-    worst = float(((d_win - dp).abs() - 1e-5 * dp.abs())[~none].max())
+    err, none = hold_winners("K3", sc, tris, ik, dp)
     idx_diff = int((ik != ip).sum())
     none_ok = bool((ik[none] == 0).all()) and bool((dk[none] >= 1e10).all())
     admissible = bool(table[ik[~none].long(), part[~none]].all())
@@ -477,25 +540,15 @@ def check_point_mesh(renderer, B, rng):
                       20)
     plain_ms = time_ms(lambda: pm.argmin_faces_plain(pts, tris, table, part),
                        3, 1)
-    # the pairs this data needs: each point against the faces its part
-    # admits (none for part -1); bytes: points, triangles, the table and
-    # the parts read once, dmin and imin written once
-    per_part = torch.cat([table.sum(0), torch.zeros(1, device=dev,
-                                                    dtype=torch.long)])
-    pairs = int(per_part[torch.where(part >= 0, part,
-                                     torch.full_like(part, 16))].sum())
-    nbytes = (pts.numel() * 4 + tris.numel() * 4 + table.numel()
-              + part.numel() * 8 + N * P * 8)
-    bms, by = bound_ms(nbytes, FS_PER_PAIR_FLOPS * pairs)
+    bms, by = bound_ms(sc["nbytes"], ICP_PER_PAIR_FLOPS * sc["pairs"])
     say(f"kernel K3 point_mesh_argmin {N} clouds x {P} points x {T} faces, "
         f"K=16: winning-face distance max_abs_err {err:.3g} against the plain "
         f"minimum, index disagreements {idx_diff} of {N * P}, points that "
         f"admit no face {int(none.sum())} (imin 0 there: {none_ok}), winners "
         f"admissible: {admissible}; kernel {ms:.4f} ms (+ face rows and part "
         f"words {prep_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {bms:.6f} ms "
-        f"by {by} ({pairs} admissible pairs of {N * P * T}, {nbytes} bytes)")
-    need(worst <= 1e-6, f"K3's winners lie {worst} beyond 1e-5 relative + 1e-6 "
-         "from the plain minimum")
+        f"by {by} ({sc['pairs']} admissible pairs of {N * P * T}, "
+        f"{sc['nbytes']} bytes)")
     # the index may differ where faces tie: a point nearest to a vertex is
     # as near to every face around it, and the two distance forms round
     # those equal distances differently
@@ -506,6 +559,254 @@ def check_point_mesh(renderer, B, rng):
             "replaces": "dsf_tpu/ops/pallas_point_mesh.py:316",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by, "library_ms": None}
+
+
+def check_icp_v2(sc):
+    """K7 on K3's scene, over the faces in part order as
+    ``point_face_distance`` sorts them under ``USE_V2_KERNEL``, against
+    its plain version with the same skip words: held as K3 by the winning
+    face's exact distance; the share of (128-point tile, 128-face chunk)
+    blocks its words run is printed."""
+    import torch
+    from dsf_tpu_torch.ops import point_mesh as pm
+    from dsf_tpu_torch.ops import point_mesh_kernel as pk
+
+    pts, part = sc["pts"], sc["part"]
+    N, P, T = sc["N"], sc["P"], sc["T"]
+    faces, mask = pm._static_part_perm(sc["faces"], sc["table"])
+    tris = sc["mesh"][:, faces].contiguous()
+    skip = pm.v2_words(mask, part, N, P, T, pts.device)
+    dk, ik = pk.argmin_faces_v2_cuda(pts, tris, mask, part, skip)
+    dp, ip = pm.argmin_faces_v2_plain(pts, tris, mask, part, skip)
+    torch.cuda.synchronize()
+    err, none = hold_winners("K7", sc, tris, ik, dp)
+    need(bool((ik[none] == 0).all()) and bool((dk[none] >= 1e10).all())
+         and bool(mask[ik[~none].long(), part[~none]].all()),
+         "K7 returned an inadmissible face or a nonzero index where no face "
+         "is admissible")
+    nc = -(-T // pm.CHUNK)
+    bits = (skip[..., None] >> torch.arange(nc, device=pts.device)) & 1
+    share = float(bits.float().mean())
+    share_joint = float(bits[N // 2:].float().mean())
+    words, parts = pk._words_and_parts(mask, part, N, P, T, pts.device)
+    fc = pk.face_constants(tris)
+    ms = time_ms(lambda: pk.argmin_faces_v2_launch(pts, fc, words, parts,
+                                                   skip), 20)
+    prep_ms = time_ms(lambda: (pm._static_part_perm(sc["faces"], sc["table"]),
+                               pk.face_constants(tris),
+                               pk._words_and_parts(mask, part, N, P, T,
+                                                   pts.device),
+                               pm.v2_words(mask, part, N, P, T, pts.device)),
+                      20)
+    plain_ms = time_ms(lambda: pm.argmin_faces_v2_plain(pts, tris, mask,
+                                                        part, skip), 3, 1)
+    bms, by = bound_ms(sc["nbytes"], ICP_PER_PAIR_FLOPS * sc["pairs"])
+    say(f"kernel K7 icp_argmin_v2 {N} clouds x {P} points x {T} part-sorted "
+        f"faces, K=16: winning-face distance max_abs_err {err:.3g} against "
+        f"its plain version's minimum, index disagreements "
+        f"{int((ik != ip).sum())} of {N * P}; blocks run {share:.4f} of "
+        f"{N * skip.shape[1] * nc} (joint clouds {share_joint:.4f}); kernel "
+        f"{ms:.4f} ms (+ sort, face rows, words {prep_ms:.4f} ms), plain "
+        f"{plain_ms:.4f} ms, bound {bms:.6f} ms by {by}")
+    return {"name": "icp_argmin_v2", "route": "cuda",
+            "source": "dsf_tpu_torch/csrc/point_mesh_v2.cu",
+            "replaces": "dsf_tpu/ops/pallas_point_mesh.py:479",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "blocks_run": share}
+
+
+def check_icp_culled(sc):
+    """K8 on K3's scene: on the sorted points, part-sorted face rows and run
+    table of ``point_mesh.culled_tables``, against its plain version on the
+    same (the same 16-constant arithmetic: dmin within 1e-5 relative +
+    1e-6), and through ``argmin_faces_culled`` (un-sorted, the caller's
+    face ids) against the plain dense argmin by the winning face's exact
+    distance, as K3; the share of blocks its run table keeps is printed."""
+    import torch
+    from dsf_tpu_torch.ops import point_mesh as pm
+    from dsf_tpu_torch.ops import point_mesh_kernel as pk
+
+    pts, tris, table, part = sc["pts"], sc["tris"], sc["table"], sc["part"]
+    N, P, T = sc["N"], sc["P"], sc["T"]
+
+    def tables():
+        perm = pm.face_part_perm(table)
+        tris_s, mask_s = tris[:, perm], table[perm]
+        order, pts_s, parts_s, run = pm.culled_tables(pts, tris_s, mask_s,
+                                                      part)
+        ext, _ = pm._extend_part_tables(mask_s, part)
+        return perm, pts_s, pm.face_constants16(tris_s), ext, parts_s, run
+
+    perm, pts_s, fc, ext, parts_s, run = tables()
+    dks, iks = pk.argmin_faces_culled_cuda(pts_s, fc, ext, parts_s, run)
+    dps, ips = pm.argmin_faces_culled_plain(pts_s, fc, ext, parts_s, run)
+    dk, ik = pm.argmin_faces_culled(pts, tris, table, part)
+    dp, _ = pm.argmin_faces_plain(pts, tris, table, part)
+    torch.cuda.synchronize()
+    live = dps < 1e10
+    sorted_err = float((dks - dps)[live].abs().max())
+    need(bool((dks >= 1e10)[~live].all()) and bool(
+        ((dks - dps).abs() <= 1e-5 * dps.abs() + 1e-6)[live].all()),
+         f"K8 disagrees with its plain version on the sorted points: "
+         f"{sorted_err}")
+    err, none = hold_winners("K8", sc, tris, ik, dp)
+    need(bool((ik[none] == int(perm[0])).all())
+         and bool(table[ik[~none].long(), part[~none]].all()),
+         "K8 returned an inadmissible face, or another id than the first "
+         "part-sorted face's where no face is admissible")
+    share = float(run.float().mean())
+    share_joint = float(run[N // 2:].float().mean())
+    ms = time_ms(lambda: pk.argmin_faces_culled_cuda(pts_s, fc, ext, parts_s,
+                                                     run), 20)
+    prep_ms = time_ms(tables, 10)
+    plain_ms = time_ms(lambda: pm.argmin_faces_culled_plain(
+        pts_s, fc, ext, parts_s, run), 3, 1)
+    bms, by = bound_ms(sc["nbytes"], ICP_PER_PAIR_FLOPS * sc["pairs"])
+    say(f"kernel K8 icp_argmin_culled {N} clouds x {P} points x {T} faces, "
+        f"K=16: against its plain version on the sorted points max_abs_err "
+        f"{sorted_err:.3g} (index disagreements {int((iks != ips).sum())}); "
+        f"winning-face distance max_abs_err {err:.3g} against the plain "
+        f"dense minimum; blocks run {share:.4f} of {run.numel()} (joint "
+        f"clouds {share_joint:.4f}); kernel {ms:.4f} ms (+ sort, spheres, "
+        f"bounds, run table, face rows {prep_ms:.4f} ms), plain "
+        f"{plain_ms:.4f} ms, bound {bms:.6f} ms by {by}")
+    return {"name": "icp_argmin_culled", "route": "cuda",
+            "source": "dsf_tpu_torch/csrc/point_mesh_culled.cu",
+            "replaces": "dsf_tpu/ops/pallas_point_mesh.py:633",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "blocks_run": share}
+
+
+def prerender_params(n, rng):
+    """n seeded MANO parameter sets for the pre-render: random poses and
+    global rotations, scale 1, the hand 550-700 mm in front of the NYU
+    camera and up to 60 mm off its axis."""
+    params = np.zeros((n, 62), np.float32)
+    params[:, :3] = rng.randn(n, 3) * 0.2
+    params[:, 3:48] = rng.randn(n, 45) * 0.3
+    params[:, 58] = 1.0
+    params[:, 59:61] = rng.uniform(-60, 60, (n, 2))
+    params[:, 61] = rng.uniform(550, 700, n)
+    return params
+
+
+def frame_pair_count(proj, faces, W, H):
+    """(pixel, face) pairs of a W x H integer pixel grid whose pixel lies in
+    the face's screen bbox, by counting the grid points in each bbox."""
+    import torch
+    tri = proj[:, faces][..., :2]
+    lo, hi = tri.amin(2), tri.amax(2)
+    lo = torch.clamp(torch.ceil(lo), min=0)
+    hi = torch.minimum(torch.floor(hi),
+                       torch.tensor([W - 1.0, H - 1.0], device=proj.device))
+    n = torch.clamp(hi - lo + 1, min=0)
+    return int((n[..., 0] * n[..., 1]).sum())
+
+
+def check_raster_dense(renderer, B, rng):
+    """K6 at the pre-render's shape: B NYU frames of 640x480 of seeded
+    hands (``prerender_params``), every face against every pixel, against
+    its plain version (``raster_scan``): zbuf bitwise, ids equal."""
+    import torch
+    from dsf_tpu_torch import demo
+    from dsf_tpu_torch.mano import model as mano
+    from dsf_tpu_torch.ops import raster_kernel
+    from dsf_tpu_torch.ops import rasterize as ras
+
+    W, H = renderer.img_size
+    params = torch.from_numpy(prerender_params(B, rng)).cuda()
+    verts, _ = mano.get_mano_vertices(renderer.mano, *mano.split_params(params))
+    proj = ras.project_verts(verts, demo.PARAS)
+    rays = ras.full_frame_pixel_rays((W, H), "cuda").expand(B, -1, -1)
+    rays = rays.contiguous()
+    faces = renderer.mano.faces
+    F, P = faces.shape[0], W * H
+    rows = ras.face_rows(proj, faces)
+    zk, ik = raster_kernel.raster_dense_cuda(rows, rays)
+    zp, ip = ras.raster_scan(proj, rays, faces)
+    torch.cuda.synchronize()
+    z_bad, i_bad = int((zk != zp).sum()), int((ik != ip).sum())
+    covered = int((zp > 0).sum())
+    err = float((zk - zp).abs().max())
+    ms = time_ms(lambda: raster_kernel.raster_dense_cuda(rows, rays), 5, 1)
+    rows_ms = time_ms(lambda: ras.face_rows(proj, faces), 20)
+    plain_ms = time_ms(lambda: ras.raster_scan(proj, rays, faces), 3, 1)
+    nbytes = B * F * 13 * 4 + rays.numel() * 4 + B * P * 8
+    pairs = frame_pair_count(proj, faces, W, H)
+    bms, by = bound_ms(nbytes, 16 * pairs)
+    say(f"kernel K6 raster_dense B={B} {W}x{H} F={F}: zbuf mismatches "
+        f"{z_bad}, id mismatches {i_bad}, covered pixels {covered}/{B * P}, "
+        f"max_abs_err {err}, kernel {ms:.4f} ms (+ face rows {rows_ms:.4f} "
+        f"ms), plain {plain_ms:.4f} ms, bound {bms:.6f} ms by {by} ({pairs} "
+        f"pixel-face pairs in bbox of {B * P * F}, {nbytes} bytes)")
+    need(z_bad == 0 and i_bad == 0, "K6 disagrees with its plain version")
+    need(covered > 0.01 * B * P, "K6 scene covers too little of the frame")
+    return {"name": "raster_dense", "route": "cuda",
+            "source": "dsf_tpu_torch/csrc/raster_dense.cu",
+            "replaces": "dsf_tpu/ops/pallas_raster.py:484",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": None}
+
+
+def check_raster_binned(renderer, B, stride, rng):
+    """K10 on B crops of posed hands at ``stride`` (2: 64x64, the serving
+    path's stage-2 render, which takes K10 when the skip route is off; 1:
+    128x128): its tables (``rasterize.binned_tables``), then the kernel
+    against its plain version on them: zbuf bitwise, ids equal.  Then the
+    same scene with the overflow flag set, so that every tile takes the
+    dense branch (scans every face), held the same way.  K10's record is
+    taken on the serving path's own inputs (``binned_serving_record``)."""
+    import torch
+    from dsf_tpu_torch.ops import raster_kernel
+    from dsf_tpu_torch.ops import rasterize as ras
+
+    proj, rays, faces, H, W = raster_scene(renderer, B, stride, rng)
+    P, F = H * W, faces.shape[0]
+    rows = ras.face_rows(proj, faces)
+    lists, counts, overflow = ras.binned_tables(proj, rays, faces, (H, W),
+                                                rows)
+    forced = torch.ones_like(overflow)
+    res = {}
+    for name, flag in (("lists", overflow), ("dense", forced)):
+        zk, ik = raster_kernel.raster_binned_cuda(rows, rays, lists, counts,
+                                                  flag, (H, W))
+        zp, ip = ras.raster_binned_plain(rows, rays, (H, W), lists, counts,
+                                         flag)
+        torch.cuda.synchronize()
+        res[name] = (int((zk != zp).sum()), int((ik != ip).sum()),
+                     float((zk - zp).abs().max()), int((zp > 0).sum()))
+    z_bad, i_bad, err, covered = res["lists"]
+    ms = time_ms(lambda: raster_kernel.raster_binned_cuda(
+        rows, rays, lists, counts, overflow, (H, W)), 50)
+    dense_ms = time_ms(lambda: raster_kernel.raster_binned_cuda(
+        rows, rays, lists, counts, forced, (H, W)), 20)
+    tables_ms = time_ms(lambda: ras.binned_tables(proj, rays, faces, (H, W),
+                                                  ras.face_rows(proj, faces)),
+                        20)
+    plain_ms = time_ms(lambda: ras.raster_binned_plain(
+        rows, rays, (H, W), lists, counts, overflow), 3, 1)
+    # the function's inputs (face rows, positions) read once, its outputs
+    # written once; 16 operations per pixel in a face's bbox
+    nbytes = B * F * 13 * 4 + rays.numel() * 4 + B * P * 8
+    pairs = raster_pair_count(proj, faces, rays)
+    bms, by = bound_ms(nbytes, 16 * pairs)
+    d_z, d_i, d_err, _ = res["dense"]
+    say(f"kernel K10 raster_binned B={B} {H}x{W} F={F}: zbuf mismatches "
+        f"{z_bad}, id mismatches {i_bad}, covered pixels {covered}/{B * P}, "
+        f"overflow {int(overflow)}, faces per tile mean "
+        f"{float(counts.float().mean()):.1f} max {int(counts.max())} (cap "
+        f"{ras.BIN_CAP}), max_abs_err {err}, kernel {ms:.4f} ms (+ tables "
+        f"{tables_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {bms:.6f} ms "
+        f"by {by} ({pairs} pixel-face pairs in bbox, {nbytes} bytes); with "
+        f"the overflow flag set (every tile scans every face): zbuf "
+        f"mismatches {d_z}, id mismatches {d_i}, max_abs_err {d_err}, "
+        f"kernel {dense_ms:.4f} ms")
+    need(z_bad == 0 and i_bad == 0, "K10 disagrees with its plain version")
+    need(d_z == 0 and d_i == 0,
+         "K10's dense branch disagrees with its plain version")
+    need(covered > 0.02 * B * P, "K10 scene covers too little of the crop")
 
 
 def check_tail_conv(renderer, B, rng):
@@ -570,9 +871,66 @@ def atol_for(key):
     return 1e-4 if stage1 else 5e-3
 
 
+def binned_serving_record(kept):
+    """K10 against its plain version on each binned serving call's own
+    inputs, as the path gave them (zbuf bitwise, ids equal; after the
+    path's counts are read: these launches are checks, not the path's),
+    and its record timed and bounded on the largest call's."""
+    import torch
+    from dsf_tpu_torch.ops import raster_kernel
+    from dsf_tpu_torch.ops import rasterize as ras
+
+    err = 0.0
+    for proj, pix_uv, faces, hw, rows, (lists, cnt, flag) in kept:
+        with torch.inference_mode():
+            zk, ik = raster_kernel.raster_binned_cuda(
+                rows, pix_uv.contiguous(), lists, cnt, flag, hw)
+            zp, ip = ras.raster_binned_plain(rows, pix_uv, hw, lists, cnt,
+                                             flag)
+        z_bad, i_bad = int((zk != zp).sum()), int((ik != ip).sum())
+        err = max(err, float((zk - zp).abs().max()))
+        say(f"slice binned call B={rows.shape[0]} {hw[0]}x{hw[1]}: K10 "
+            f"against its plain version on the call's inputs: zbuf "
+            f"mismatches {z_bad}, id mismatches {i_bad}, overflow "
+            f"{int(flag)}, faces per tile max {int(cnt.max())}")
+        need(z_bad == 0 and i_bad == 0, "K10 disagrees with its plain "
+             "version on a serving call's inputs")
+    proj, pix_uv, faces, hw, rows, tables = max(
+        kept, key=lambda k: k[4].shape[0])
+    pix_uv = pix_uv.contiguous()
+    B, F = rows.shape[0], rows.shape[1]
+    P = hw[0] * hw[1]
+    with torch.inference_mode():
+        ms = time_ms(lambda: raster_kernel.raster_binned_cuda(
+            rows, pix_uv, *tables, hw), 50)
+        tables_ms = time_ms(lambda: ras.binned_tables(
+            proj, pix_uv, faces, hw, ras.face_rows(proj, faces)), 20)
+        plain_ms = time_ms(lambda: ras.raster_binned_plain(
+            rows, pix_uv, hw, *tables), 3, 1)
+        pairs = raster_pair_count(proj, faces, pix_uv)
+    # the function's inputs (face rows, positions) read once, its outputs
+    # written once; 16 operations per pixel in a face's bbox
+    nbytes = B * F * 13 * 4 + pix_uv.numel() * 4 + B * P * 8
+    bms, by = bound_ms(nbytes, 16 * pairs)
+    say(f"kernel K10 raster_binned on the serving path's B={B} {hw[0]}x"
+        f"{hw[1]} stage-2 render (overflow {int(tables[2])}): kernel "
+        f"{ms:.4f} ms (+ tables {tables_ms:.4f} ms), plain {plain_ms:.4f} "
+        f"ms, bound {bms:.6f} ms by {by} ({pairs} pixel-face pairs in "
+        f"bbox, {nbytes} bytes)")
+    return {"name": "raster_binned", "route": "cuda",
+            "source": "dsf_tpu_torch/csrc/raster_binned.cu",
+            "replaces": "dsf_tpu/ops/pallas_raster.py:85",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": None}
+
+
 def run_slice(mano_path):
+    """Serving through the skip raster (K1), then through the binned one
+    (K10); returns both paths' launch counts and K10's record, from its
+    inputs on the binned path (``binned_serving_record``)."""
     import torch
     from dsf_tpu_torch import demo, kernels
+    from dsf_tpu_torch.ops import rasterize as ras
     from dsf_tpu_torch.render import renderer as rnd
 
     eng = demo.engine(mano_path, "cuda", INPUT_SIZE, BUCKETS, SEED)
@@ -591,10 +949,9 @@ def run_slice(mano_path):
     say(f"slice launches over requests {sizes} ({bucket_calls} bucket "
         f"calls): {json.dumps(counts)}")
     # inference: no backward, so the training path's kernels stay at 0
-    need(counts == {"raster_skip": bucket_calls, "raster_moments": 0,
-                    "codec_encode": bucket_calls, "codec_encode_bwd": 0,
-                    "codec_decode": 2 * bucket_calls, "codec_decode_bwd": 0,
-                    "point_mesh_argmin": 0, "tail_conv": 0},
+    need(counts == launches(raster_skip=bucket_calls,
+                            codec_encode=bucket_calls,
+                            codec_decode=2 * bucket_calls),
          f"predict did not go through every kernel once per call: {counts}")
 
     for n, out in zip(sizes, outs):
@@ -633,6 +990,47 @@ def run_slice(mano_path):
     say("slice GPU vs CPU engine max abs diff: "
         + json.dumps({k: float(f"{v:.3g}") for k, v in worst.items()}))
 
+    # the binned route: the same requests with the skip raster off; each
+    # call's K10 inputs are kept (proj, positions, faces, layout, rows and
+    # the tables, whose overflow flag says a tile held more than BIN_CAP
+    # faces: the dense answer)
+    skip, tables = ras.USE_PALLAS_SKIP, ras.binned_tables
+    kept = []
+
+    def kept_tables(proj, pix_uv, faces, tile_hw, rows):
+        out = tables(proj, pix_uv, faces, tile_hw, rows)
+        kept.append((proj, pix_uv, faces, tile_hw, rows, out))
+        return out
+
+    ras.USE_PALLAS_SKIP, ras.binned_tables = False, kept_tables
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        outs_b = [eng.predict(*r) for r in reqs]
+        torch.cuda.synchronize()
+        binned = dict(kernels.LAUNCHES)
+    finally:
+        ras.USE_PALLAS_SKIP, ras.binned_tables = skip, tables
+    say(f"slice launches with rasterize.USE_PALLAS_SKIP off: "
+        f"{json.dumps(binned)}; calls whose stage-2 render overflowed a "
+        f"tile's {ras.BIN_CAP} faces (K10 scanned every face): "
+        f"{sum(int(k[5][2]) for k in kept)} of {len(kept)}")
+    k10 = binned_serving_record(kept)
+    need(binned == launches(raster_binned=bucket_calls,
+                            codec_encode=bucket_calls,
+                            codec_decode=2 * bucket_calls),
+         f"predict without the skip raster did not launch K10 in K1's "
+         f"place once per call: {binned}")
+    diff = {}
+    for n, out, out_b in zip(sizes, outs, outs_b):
+        for k in out:
+            d = float(np.abs(out_b[k] - out[k]).max())
+            diff[k] = max(diff.get(k, 0.0), d)
+            need(d <= atol_for(k), f"request {n}: {k} of the binned route "
+                 f"differs from the skip route's by {d} > {atol_for(k)}")
+    say("slice binned vs skip route max abs diff: "
+        + json.dumps({k: float(f"{v:.3g}") for k, v in diff.items()}))
+
     lat = {}
     for b in BUCKETS:
         r = demo.requests(eng.renderer, b, rng)
@@ -649,7 +1047,7 @@ def run_slice(mano_path):
         "host clock, to numpy): " + json.dumps(lat)
         + f"; bucket {top} throughput {top * 1e3 / lat[top]:.1f} images/s")
     say(f"slice peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
-    return counts
+    return counts, binned, k10
 
 
 # ----------------------------------------------------------------- phase 4
@@ -712,17 +1110,47 @@ def run_training(mano_path):
     return counts
 
 
-def run_self_supervised(mano_path, phase):
+ICP_SWITCHES = {None: ("point_mesh_argmin", {}),
+                "v2": ("icp_argmin_v2", {"USE_V2_KERNEL": True}),
+                "culled": ("icp_argmin_culled", {"USE_CULLED_KERNEL": True})}
+
+
+@contextlib.contextmanager
+def icp_switch(icp):
+    """``point_mesh``'s switches set for the ICP variant ``icp`` (None: K3,
+    "v2": K7, "culled": K8), restored after."""
+    from dsf_tpu_torch.ops import point_mesh as pm
+    saved = {k: getattr(pm, k) for k in ("USE_V2_KERNEL", "USE_CULLED_KERNEL")}
+    for k in saved:
+        setattr(pm, k, ICP_SWITCHES[icp][1].get(k, False))
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(pm, k, v)
+
+
+def run_self_supervised(mano_path, phase, icp=None):
     """TRAIN_STEPS Finetune (one stage) or FinetuneStage (two stages) steps
-    at full width; returns the launch counts."""
+    at full width, the ICP's argmin by ``icp`` (``icp_switch``); returns the
+    launch counts."""
+    with icp_switch(icp):
+        return _run_self_supervised(mano_path, phase, icp)
+
+
+def _run_self_supervised(mano_path, phase, icp):
     import torch
     from dsf_tpu_torch import demo, kernels
     from dsf_tpu_torch.data.synth_params import random_param_source
     from dsf_tpu_torch.training.trainer import Trainer
 
     stages = 1 if phase == "Finetune" else 2
-    expected = F_STEP_LAUNCHES if stages == 1 else FS_STEP_LAUNCHES
+    expected = dict(F_STEP_LAUNCHES if stages == 1 else FS_STEP_LAUNCHES)
+    expected[ICP_SWITCHES[icp][0]] = expected.pop("point_mesh_argmin")
+    expected = launches(**expected)
     tag = phase.lower() if stages == 1 else "finetune_stage"
+    if icp:
+        tag += "_" + icp
     tr = Trainer(train_config(mano_path, stages, SEED), mano_path,
                  device="cuda")
     state = tr.init_state()
@@ -762,7 +1190,8 @@ def run_self_supervised(mano_path, phase):
     med = float(np.median(times))
     say(f"{tag} launches over {TRAIN_STEPS} {phase} steps "
         f"(B={TRAIN_BATCH} synth + {TRAIN_BATCH} real, {INPUT_SIZE}^2, "
-        f"stand-in generator): {json.dumps(counts)}")
+        f"stand-in generator, ICP argmin {ICP_SWITCHES[icp][0]}): "
+        f"{json.dumps(counts)}")
     say(f"{tag} losses: "
         + json.dumps([float(f"{x:.6g}") for x in losses])
         + f"; updates applied {state.updates}/{TRAIN_STEPS}; parameter "
@@ -779,6 +1208,60 @@ def run_self_supervised(mano_path, phase):
     need(state.updates == TRAIN_STEPS and moved >= 0.95 * len(before_params),
          f"{phase} updates were not applied")
     need(gen_moved == 0, f"{phase} moved the frozen generator")
+    return counts
+
+
+def run_prerender(mano_path):
+    """The offline pre-render of PRERENDER_N seeded parameter sets at NYU's
+    640x480 in batches of PRERENDER_BATCH: K6 once a batch and no other
+    kernel; every PNG read back (tools.prerender.read_png16) with its hand
+    at 400-800 mm (the foreground median, as tests/test_prerender.py
+    checks the JAX tool); the first two frames against the same tool on
+    the CPU (the plain raster): at most 1e-3 of their pixels differ, 1e-4
+    by more than 1 mm (truncation of float32 depths that the two devices
+    round apart, and silhouette flips).  Returns the launch counts."""
+    import torch
+    from dsf_tpu_torch import kernels
+    from dsf_tpu_torch.tools import prerender as pre
+
+    params = prerender_params(PRERENDER_N, np.random.RandomState(SEED + 20))
+    with tempfile.TemporaryDirectory() as out:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        n = pre.prerender_dataset(mano_path, params, os.path.join(out, "gpu"),
+                                  batch_size=PRERENDER_BATCH)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = dict(kernels.LAUNCHES)
+        batches = -(-PRERENDER_N // PRERENDER_BATCH)
+        say(f"prerender launches over {n} frames of 640x480 in batches of "
+            f"{PRERENDER_BATCH}: {json.dumps(counts)}; {secs:.3f} s "
+            f"({n / secs:.1f} frames/s, PNG writing included)")
+        need(n == PRERENDER_N and counts == launches(raster_dense=batches),
+             f"the pre-render did not launch K6 once a batch: {counts}")
+        names = sorted(os.listdir(os.path.join(out, "gpu")))
+        need(names == [f"render_{i:07d}.png" for i in range(1, n + 1)],
+             f"the pre-render wrote {names[:3]}...")
+        imgs = [pre.read_png16(os.path.join(out, "gpu", f)) for f in names]
+        med = [float(np.median(im[im > 0])) if (im > 0).sum() > 500 else 0.0
+               for im in imgs]
+        say(f"prerender foreground median mm: min {min(med):.1f} max "
+            f"{max(med):.1f}; foreground pixels per frame min "
+            f"{min(int((im > 0).sum()) for im in imgs)}")
+        need(all(400 < m < 800 for m in med), f"a pre-rendered hand lies "
+             f"outside 400-800 mm or covers under 500 pixels: {med}")
+        pre.prerender_dataset(mano_path, params[:2], os.path.join(out, "cpu"),
+                              batch_size=2, device="cpu")
+        for i, f in enumerate(names[:2]):
+            a = imgs[i].astype(np.int64)
+            b = pre.read_png16(os.path.join(out, "cpu", f)).astype(np.int64)
+            differ, far = float((a != b).mean()), float((np.abs(a - b) > 1).mean())
+            say(f"prerender frame {i + 1} GPU vs CPU: {int((a != b).sum())} "
+                f"pixels differ, {int((np.abs(a - b) > 1).sum())} by more "
+                f"than 1 mm, of {a.size}")
+            need(differ <= 1e-3 and far <= 1e-4, f"pre-rendered frame {i + 1} "
+                 f"differs from the CPU's: {differ}, {far}")
     return counts
 
 
@@ -1192,6 +1675,112 @@ def compare_finetune(mano_path):
          "times further from float64 than the CPU's, in the median")
 
 
+def compare_m2p(mano_path):
+    """The M2P term and its gradient with a gate that passes.  One Finetune
+    loss (one stage, no generator) at B=4 whose MANO head's weight is
+    zeroed in every copy of the net, so the head predicts its bias (a flat
+    hand, cam scale 1) whatever the image; the real half is that
+    prediction rendered (``demo.real_batch(..., para=...)``), so the real
+    crop and the render agree and the ICP distances vanish, and the gate
+    opens.  On the card (twice), on the CPU and on the CPU in float64: the
+    gate's samples and joints, the M2P term (held as the Finetune metrics
+    are) and its own gradient in the net (``torch.autograd.grad`` of the
+    term; the heads' ``finals`` at 1e-2 and the rest at 0.2 relative L2,
+    against float64 also twice the CPU's own distance, as
+    ``compare_finetune`` holds the whole loss's)."""
+    import copy
+    import torch
+    from dsf_tpu_torch import demo
+    from dsf_tpu_torch.data.synth_params import random_param_source
+    from dsf_tpu_torch.device import exact_float32
+    from dsf_tpu_torch.training import phases
+    from dsf_tpu_torch.training.trainer import Trainer
+
+    B = COMPARE_BATCH
+    cfg = dataclasses.replace(train_config(mano_path, 1, SEED + 13),
+                              batch_size=B, transferNet_pth="")
+    gpu = Trainer(cfg, mano_path, device="cuda")
+    cpu = Trainer(cfg, mano_path, device="cpu")
+    sg, sc = gpu.init_state(), cpu.init_state()
+    with torch.no_grad():
+        for net in (sg.net, sc.net):
+            net.mano_regress[2].weight.zero_()
+    net64 = copy.deepcopy(sc.net).double()
+    r64 = float64_renderer(cpu.renderer)
+    own = sc.net.mano_regress[2].bias.detach().expand(B, -1)
+    real = demo.real_batch(cpu.renderer, B, np.random.RandomState(SEED + 14),
+                           para=own)
+    para, cube = next(random_param_source(B, seed=SEED + 15))
+    para, cube = torch.from_numpy(para), torch.from_numpy(cube)
+    draws = gpu.draw(B, "Finetune")
+    keys = ("img", "center", "cube", "M", "xyz_gt")
+    with exact_float32():
+        sample_g = phases.finetune_stage_sample(
+            gpu.renderer, draws.to("cuda"), para.cuda(), cube.cuda())
+        on_cpu = [x.cpu() for x in sample_g]
+        runs = {"gpu": (sg.net, gpu.renderer, sample_g,
+                        [real[k].cuda() for k in keys], draws.scores.cuda()),
+                "cpu": (sc.net, cpu.renderer, on_cpu,
+                        [real[k] for k in keys], draws.scores),
+                "cpu64": (net64, r64, [x.double() for x in on_cpu],
+                          [real[k].double() for k in keys],
+                          draws.scores.double())}
+        runs["gpu_again"] = runs["gpu"]
+        m2p, gate, grads = {}, {}, {}
+        for key, (net, r, smp, rb, scores) in runs.items():
+            rec = {}
+            with recording(phases, "_m2p_mask", rec), \
+                    recording(phases, "_masked_select_sl1", rec):
+                phases.finetune_loss(net, r, smp, scores, *rb, cfg, None)
+            names = [n for n, _ in net.named_parameters()]
+            g = torch.autograd.grad(rec["_masked_select_sl1"],
+                                    list(net.parameters()), allow_unused=True)
+            m2p[key] = (float(rec["_masked_select_sl1"].detach())
+                        * cfg.coord_weight)
+            gate[key] = rec["_m2p_mask"].cpu()
+            grads[key] = {n: x.detach().cpu() for n, x in zip(names, g)
+                          if x is not None}
+    reached = sorted(grads["cpu"])
+    say(f"compare M2P B={B} {INPUT_SIZE}^2 (real half rendered from the "
+        f"net's own MANO prediction): gate samples x joints open GPU "
+        f"{int(gate['gpu'].sum())}, CPU {int(gate['cpu'].sum())}, float64 "
+        f"{int(gate['cpu64'].sum())} of {gate['cpu'].numel()}; M2P "
+        + json.dumps({k: float(f"{v:.7g}") for k, v in m2p.items()})
+        + f"; its gradient reaches {len(reached)} parameter tensors")
+    need(all(bool(gate[k].any()) for k in gate) and m2p["cpu"] > 0,
+         "the M2P gate stayed shut")
+    need(all(torch.equal(gate[k], gate["cpu"]) for k in gate),
+         "the M2P gate differs between the runs")
+    tol = (3 * max(abs(m2p["cpu"] - m2p["cpu64"]),
+                   abs(m2p["gpu"] - m2p["gpu_again"]))
+           + 1e-3 * abs(m2p["cpu64"]))
+    need(abs(m2p["gpu"] - m2p["cpu"]) <= tol, f"M2P: GPU {m2p['gpu']} CPU "
+         f"{m2p['cpu']} float64 {m2p['cpu64']} (tolerance {tol:.3g})")
+    need(all(sorted(grads[k]) == reached for k in grads),
+         "M2P's gradient reaches other parameters on the card")
+    gpu_cpu = rel_l2(grads["gpu"], grads["cpu"])
+    gpu_64 = rel_l2(grads["gpu"], grads["cpu64"])
+    cpu_64 = rel_l2(grads["cpu"], grads["cpu64"])
+    gpu_gpu = rel_l2(grads["gpu_again"], grads["gpu"])
+    say(f"compare M2P gradient relative L2 per parameter: GPU vs CPU "
+        f"{spread(gpu_cpu)}; GPU vs float64 {spread(gpu_64)}; CPU vs float64 "
+        f"{spread(cpu_64)}; GPU vs GPU again {spread(gpu_gpu)}; finals "
+        + json.dumps({k: (float(f"{gpu_cpu[k]:.3g}"), float(f"{cpu_64[k]:.3g}"))
+                      for k in gpu_cpu if k.startswith("finals")}))
+    need(any(k.startswith("finals") for k in reached)
+         and any(k.startswith("layer") for k in reached),
+         f"M2P's gradient misses the heads or the trunk: {reached}")
+
+    def gtol(name):
+        return 1e-2 if name.startswith("finals") else 0.2
+
+    bad = {k: v for k, v in gpu_cpu.items() if not v <= gtol(k)}
+    need(not bad, f"M2P's GPU gradient differs from the CPU's: {bad}")
+    bad = {k: v for k, v in gpu_64.items()
+           if not v <= max(gtol(k), 2 * cpu_64[k])}
+    need(not bad, f"M2P's GPU gradient differs from float64: {bad}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1239,22 +1828,34 @@ def main():
         check_moments(renderer, KERNEL_BATCH, 1, rng, record=False)
         record += check_codec_bwd(renderer, KERNEL_BATCH, rng)
         with torch.inference_mode():
-            record.append(check_point_mesh(renderer, 2 * TRAIN_BATCH, rng))
+            sc = icp_scene(renderer, 2 * TRAIN_BATCH, rng)
+            record.append(check_point_mesh(sc))
             record.append(check_tail_conv(renderer, TRAIN_BATCH, rng))
-        serve_counts = run_slice(path)
-        train_counts = run_training(path)
-        fs_counts = run_self_supervised(path, "FinetuneStage")
-        f_counts = run_self_supervised(path, "Finetune")
+            record.append(check_icp_v2(sc))
+            record.append(check_icp_culled(sc))
+            record.append(check_raster_dense(renderer, PRERENDER_BATCH, rng))
+            check_raster_binned(renderer, KERNEL_BATCH, 2, rng)
+            check_raster_binned(renderer, KERNEL_BATCH, 1, rng)
+        by_path = {}
+        by_path["serve"], by_path["serve_binned"], k10 = run_slice(path)
+        record.append(k10)
+        by_path["train"] = run_training(path)
+        by_path["finetune_stage"] = run_self_supervised(path, "FinetuneStage")
+        by_path["finetune_stage_v2"] = run_self_supervised(
+            path, "FinetuneStage", icp="v2")
+        by_path["finetune_stage_culled"] = run_self_supervised(
+            path, "FinetuneStage", icp="culled")
+        by_path["finetune"] = run_self_supervised(path, "Finetune")
+        by_path["prerender"] = run_prerender(path)
         compare_step(path)
         compare_finetune_stage(path)
         compare_finetune(path)
+        compare_m2p(path)
+    need(sorted(r["name"] for r in record) == sorted(KERNELS),
+         "the kernels' record does not list every kernel once")
     for rec in record:
-        by_path = {"serve": serve_counts[rec["name"]],
-                   "train": train_counts[rec["name"]],
-                   "finetune_stage": fs_counts[rec["name"]],
-                   "finetune": f_counts[rec["name"]]}
-        rec["launches"] = sum(by_path.values())
-        rec["launches_by_path"] = by_path
+        rec["launches_by_path"] = {k: v[rec["name"]] for k, v in by_path.items()}
+        rec["launches"] = sum(rec["launches_by_path"].values())
         need(rec["launches"] > 0, f"{rec['name']} never launched on a path")
     say(json.dumps({"kernels": record}))
     say(smi)

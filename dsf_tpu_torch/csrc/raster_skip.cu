@@ -27,7 +27,8 @@
 //  * nvcc would contract a*u + b*v + c into an FMA; the plain PyTorch
 //    version rounds each product and sum on its own.  The edge and depth
 //    expressions use __fmul_rn / __fadd_rn in the plain version's order,
-//    so zbuf is bitwise-equal to it;
+//    so zbuf is bitwise-equal to it (raster_rows.cuh, shared with K6 and
+//    K10);
 //  * the tile bbox is widened by one pixel before the overlap test, so a
 //    sample that rounding puts "inside" a face just outside that face's
 //    box is never lost to the skip.
@@ -36,19 +37,16 @@
 #include <cstdint>
 #include <math.h>
 
+#include "raster_rows.cuh"
+
 namespace {
 
 constexpr int kTile = 16;
 constexpr int kThreads = kTile * kTile;
-constexpr int kChunk = 64;
-constexpr int kRow = 16;
-constexpr float kInf = 1e10f;
+using dsf_raster::kChunk;
+using dsf_raster::kInf;
+using dsf_raster::kRow;
 constexpr float kMargin = 1.0f;
-
-__device__ __forceinline__ float lin(float u, float v, float a, float b,
-                                     float c) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(u, a), __fmul_rn(v, b)), c);
-}
 
 __global__ void __launch_bounds__(kThreads)
 raster_skip_kernel(const float* __restrict__ rows,   // (B, F, 16)
@@ -122,34 +120,16 @@ raster_skip_kernel(const float* __restrict__ rows,   // (B, F, 16)
     const int f0 = ci * kChunk;
     const int nf = min(kChunk, F - f0);
     __syncthreads();                // previous chunk fully consumed
-    {
-      // 64 rows x 16 floats = 256 float4: one per thread
-      const int f = tid >> 2;
-      float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (f < nf)
-        val = reinterpret_cast<const float4*>(rows_b + (size_t)f0 * kRow)[tid];
-      reinterpret_cast<float4*>(s_rows)[tid] = val;
-    }
+    dsf_raster::stage_rows(s_rows, rows_b, f0, nf, tid);
     __syncthreads();
     if (active) {
       for (int k = 0; k < nf; ++k) {
-        const float* r = s_rows + k * kRow;
-        if (r[12] == 0.f) continue;           // degenerate face
-        const float e0 = lin(u, v, r[0], r[1], r[2]);
-        const float e1 = lin(u, v, r[3], r[4], r[5]);
-        const float e2 = lin(u, v, r[6], r[7], r[8]);
-        const float z = lin(u, v, r[9], r[10], r[11]);
-        if (e0 >= 0.f && e1 >= 0.f && e2 >= 0.f && z > 0.f && z < best) {
-          best = z;
-          best_i = f0 + k;
-        }
+        dsf_raster::nearer(s_rows + k * kRow, u, v, f0 + k, best, best_i);
       }
     }
   }
   if (active) {
-    const bool bg = !(best < kInf);
-    zbuf[b * P + p] = bg ? 0.f : best;
-    idx[b * P + p] = bg ? -1 : best_i;
+    dsf_raster::store(best, best_i, zbuf, idx, b * P + p);
   }
 }
 

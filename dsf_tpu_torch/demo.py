@@ -44,15 +44,18 @@ def requests(renderer, n: int, rng: np.random.RandomState):
     return [t.cpu().numpy() for t in (img, center, M, cube)]
 
 
-def real_batch(renderer, B: int, rng: np.random.RandomState) -> dict:
+def real_batch(renderer, B: int, rng: np.random.RandomState,
+               para=None) -> dict:
     """A seeded NYU-shaped "real" batch for the FinetuneStage step, as
     tensors on the renderer's device: rendered MANO hands from
-    ``posed_params`` as normalized depth crops ("img" (B, 1, S, S)),
+    ``posed_params`` (or with the MANO parameters ``para`` (B, 62) in
+    their place) as normalized depth crops ("img" (B, 1, S, S)),
     "center", "cube", "M" (B, 3, 3), and "xyz_gt" (B, 14, 3), the rendered
     joints in NYU's joint order (``transfer_for_dataset("nyu")``) for its
     first 12 joints; NYU's last two have no MANO counterpart and repeat
     the wrist (the step reads the first 12)."""
-    para, center, cube = posed_params(renderer, B, rng)
+    posed, center, cube = posed_params(renderer, B, rng)
+    para = posed if para is None else para.to(posed)
     with torch.no_grad():
         img, _, joint_xyz, _ = rnd.render_params(renderer, para, center, cube)
         com = geo.xyz_to_uvd(center[:, None], PARAS)[:, 0]

@@ -6,9 +6,10 @@ Each ``.cu`` source has a plain C interface (no PyTorch headers), so one
 one ``nvcc`` process each.  Libraries land in ``dsf_tpu_torch/_build``
 (git-ignored) under a name that carries a hash of the source and flags,
 so an unchanged source is compiled once per checkout and a changed one
-is never loaded stale.  Every exported C function launches on the stream
-it is given and returns ``cudaGetLastError()`` as an int, which the
-Python wrapper turns into an exception.
+is never loaded stale; the hash covers the shared ``.cuh`` headers of
+``csrc`` too.  Every exported C function launches on the stream it is
+given and returns ``cudaGetLastError()`` as an int, which the Python
+wrapper turns into an exception.
 """
 
 from __future__ import annotations
@@ -25,7 +26,9 @@ from typing import Dict
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("raster_skip", "moments", "codec", "point_mesh", "tail_conv")
+SOURCES = ("raster_skip", "moments", "codec", "point_mesh", "tail_conv",
+           "point_mesh_v2", "point_mesh_culled", "raster_dense",
+           "raster_binned")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -46,8 +49,12 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        h = hashlib.sha256(f.read())
+    h = hashlib.sha256()
+    # the source, then every shared header it may include
+    for fn in [name + ".cu"] + sorted(f for f in os.listdir(CSRC)
+                                      if f.endswith(".cuh")):
+        with open(os.path.join(CSRC, fn), "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"{name}_{h.hexdigest()[:16]}.so")
 
@@ -87,6 +94,41 @@ def library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(_lib_path(name))
             _libs[name] = lib
         return lib
+
+
+_fns: Dict[str, object] = {}
+
+
+def function(lib: str, name: str, n_ptr: int, n_int: int):
+    """The exported C function ``name`` of ``csrc/<lib>.cu``, taking
+    ``n_ptr`` pointers, ``n_int`` ints and the stream and returning a CUDA
+    error code; loaded and typed once."""
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(library(lib), name)
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _fns[name] = fn
+    return fn
+
+
+def check_tensors(specs) -> None:
+    """Raise unless each (name, tensor, shape, dtype, alignment in bytes)
+    is a contiguous tensor of that shape and type on the first one's CUDA
+    device, its start aligned for the kernel's vector reads."""
+    dev = specs[0][1].device
+    for name, t, shape, dtype, align in specs:
+        if t.device.type != "cuda" or t.dtype != dtype:
+            raise ValueError(f"{name}: need a {dtype} CUDA tensor, got "
+                             f"{t.dtype} on {t.device}")
+        if tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+            raise ValueError(f"{name}: need contiguous {tuple(shape)}, got "
+                             f"{tuple(t.shape)}")
+        if t.data_ptr() % align:
+            raise ValueError(f"{name}: need a {align}-byte aligned start")
+        if t.device != dev:
+            raise ValueError(f"{name}: on {t.device}, the others on {dev}")
 
 
 def check(err: int, what: str) -> None:

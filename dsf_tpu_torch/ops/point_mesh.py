@@ -7,9 +7,19 @@ Two passes:
 1. argmin (no gradient): per point, the nearest face, optionally under a
    factorized admissibility mask — a (T, K) face-to-part table plus a
    per-point part id, so the part-aware loss reuses the same pass without
-   a (P x T) mask.  CPU tensors take the plain version
-   ``argmin_faces_plain``; CUDA tensors launch K3
-   (``point_mesh_kernel.argmin_faces_cuda``).
+   a (P x T) mask.  Three variants, picked by the JAX package's switches
+   (dsf_tpu/ops/point_mesh.py:218-285), each a kernel on CUDA tensors and
+   its plain version on CPU tensors:
+   - K3 (the default): every (point, face) pair, ``argmin_faces_plain`` /
+     ``point_mesh_kernel.argmin_faces_cuda``;
+   - K7 (``USE_V2_KERNEL``, ``DSF_ICP_KERNEL=v2``): over part-sorted faces
+     (``_static_part_perm``), skipping each (128-point tile, 128-face
+     chunk) block in which no point admits any face (``v2_words``);
+   - K8 (``USE_CULLED_KERNEL``): faces part-sorted inside, points sorted
+     by (part, nearest chunk), and a block skipped when the chunks'
+     bounding spheres prove that no point of the tile has its nearest
+     admissible face there (``culled_tables``); face ids come back in the
+     caller's order.
 2. differentiable: gather the winning triangle of each point and
    evaluate the exact distance on it, so gradients flow through the
    closest face only (pytorch3d's hard backward).
@@ -21,12 +31,21 @@ that is kept.
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from dsf_tpu_torch.ops import point_mesh_kernel
 
 INF = 1e10
 CHUNK = 128          # faces per step of the plain argmin
+TILE = 128           # points per block of K7 and K8 (their csrc kTile)
+MAX_CHUNKS = 31      # K7's skip word: one bit per face chunk
+CULL_MARGIN = 1e-4   # slack on K8's sphere bounds, in the caller's units
+
+# dsf_tpu/ops/point_mesh.py:218 and :244: K7 by the environment, K8 off
+USE_V2_KERNEL = os.environ.get("DSF_ICP_KERNEL", "v1") == "v2"
+USE_CULLED_KERNEL = False
 
 
 def point_tri_sqdist(p, tri):
@@ -125,16 +144,343 @@ def argmin_faces_plain(points, tris, part_mask=None, point_part=None):
     return dmin, imin
 
 
+def _part_of_face(part_mask):
+    """(T,) each face's first admissible part, K for a face of none."""
+    K = part_mask.shape[1]
+    first = part_mask.to(torch.uint8).argmax(1)
+    return torch.where(part_mask.any(1), first, torch.full_like(first, K))
+
+
+def face_part_perm(part_mask):
+    """(T,) int64: the stable order of faces by their first admissible part
+    (ref: pallas_point_mesh._face_part_perm), so that a 128-face chunk
+    holds one part or few."""
+    return torch.argsort(_part_of_face(part_mask.bool()), stable=True)
+
+
+def _static_part_perm(faces, part_mask):
+    """faces (T, 3) and part_mask (T, K) in part-sorted order (ref:
+    point_mesh._static_part_perm).  The port's table is a concrete tensor,
+    so it always sorts; inside the JAX package's jitted step the table is
+    a tracer and the faces stay unsorted (ROADMAP, Queue 3)."""
+    perm = face_part_perm(part_mask)
+    return faces[perm], part_mask[perm]
+
+
+def _tiles(x, P, fill):
+    """(B, P, ...) -> (B, NT, TILE, ...), padded along P with ``fill``."""
+    B = x.shape[0]
+    NT = -(-P // TILE)
+    pad = NT * TILE - P
+    if pad:
+        x = torch.cat([x, x.new_full((B, pad) + x.shape[2:], fill)], dim=1)
+    return x.reshape((B, NT, TILE) + x.shape[2:])
+
+
+def v2_words(part_mask, point_part, B, P, T, device):
+    """K7's skip words (B, NT) int32, one per (cloud, 128-point tile): bit
+    ci is set when some point of the tile admits some face of 128-face
+    chunk ci (ref: argmin_faces_pallas_v2, pallas_point_mesh.py:554-566).
+    A clear bit is a block of pairs that are all inadmissible.  Without a
+    mask every bit of the ceil(T / 128) chunks is set."""
+    nc = -(-T // CHUNK)
+    if nc > MAX_CHUNKS:
+        raise ValueError(f"K7 takes at most {MAX_CHUNKS} face chunks of "
+                         f"{CHUNK}, got {T} faces")
+    NT = -(-P // TILE)
+    if part_mask is None:
+        return torch.full((B, NT), (1 << nc) - 1, dtype=torch.int32,
+                          device=device)
+    ext, pp = _extend_part_tables(part_mask.bool(), point_part)
+    Kp = ext.shape[1]
+    chunk_u = torch.cat([ext, ext.new_zeros(nc * CHUNK - T, Kp)]
+                        ).reshape(nc, CHUNK, Kp).any(1)        # (nc, Kp)
+    # pad points take the extra part, which admits nothing
+    tile_u = torch.zeros((B, NT, Kp), dtype=torch.bool, device=device)
+    tile_u.scatter_(2, _tiles(pp, P, Kp - 1), True)
+    need = (tile_u[:, :, None, :] & chunk_u[None, None]).any(-1)  # (B,NT,nc)
+    bits = torch.ones(nc, dtype=torch.int64, device=device) << \
+        torch.arange(nc, device=device)
+    return (need.long() * bits).sum(-1).to(torch.int32)
+
+
+def _block_argmin(pts_t, pp_t, ext, T, run, sqdist):
+    """The plain block loop of K7 and K8.  pts_t (B, NT, TILE, 3) points
+    in 128-point tiles, pp_t (B, NT, TILE) their parts in [0, K] and ext
+    (T, K + 1) the extended table (``_extend_part_tables``), or both None
+    for no mask; run (B, NT, nc) says which (tile, 128-face chunk) blocks
+    to evaluate; ``sqdist(bi, ti, s)`` gives the distances (n, TILE, c) of
+    the blocks' points to the chunk's faces from face s on.  As
+    ``argmin_faces_plain`` within and across chunks; a point keeps (1e10,
+    0) where no block of its tile holds an admissible face.  Returns dmin,
+    imin (B, NT * TILE)."""
+    B, NT = pts_t.shape[0], pts_t.shape[1]
+    dmin = torch.full((B, NT, TILE), INF, dtype=pts_t.dtype,
+                      device=pts_t.device)
+    imin = torch.zeros((B, NT, TILE), dtype=torch.int32, device=pts_t.device)
+    for ci, s in enumerate(range(0, T, CHUNK)):
+        bi, ti = torch.nonzero(run[..., ci], as_tuple=True)
+        if bi.numel() == 0:
+            continue
+        d = sqdist(bi, ti, s)
+        if ext is not None:
+            d = torch.where(ext[s:s + CHUNK].T[pp_t[bi, ti]], d,
+                            torch.full_like(d, INF))
+        cmin = d.min(-1).values
+        carg = torch.argmin(d, -1).to(torch.int32) + s
+        cur_d, cur_i = dmin[bi, ti], imin[bi, ti]
+        better = cmin < cur_d
+        dmin[bi, ti] = torch.where(better, cmin, cur_d)
+        imin[bi, ti] = torch.where(better, carg, cur_i)
+    return dmin.reshape(B, -1), imin.reshape(B, -1)
+
+
+def argmin_faces_v2_plain(points, tris, part_mask, point_part, words):
+    """K7's plain version: ``argmin_faces_plain`` over the (tile, chunk)
+    blocks whose bit is set in ``words`` (``v2_words``), and nothing else.
+    A point keeps (1e10, 0) when no block of its tile holds an admissible
+    face."""
+    B, P, _ = points.shape
+    T = tris.shape[1]
+    points, tris = points.detach(), tris.detach()
+    ext = pp_t = None
+    if part_mask is not None:
+        ext, pp = _extend_part_tables(part_mask.bool(), point_part)
+        pp_t = _tiles(pp, P, ext.shape[1] - 1)
+    pts_t = _tiles(points, P, 0.0)                       # (B, NT, TILE, 3)
+    nc = -(-T // CHUNK)
+    run = (words[..., None] >> torch.arange(nc, device=words.device)) & 1
+    dmin, imin = _block_argmin(
+        pts_t, pp_t, ext, T, run,
+        lambda bi, ti, s: point_tri_sqdist(pts_t[bi, ti][:, :, None],
+                                           tris[bi, s:s + CHUNK][:, None]))
+    return dmin[:, :P], imin[:, :P]
+
+
+def argmin_faces_v2(points, tris, part_mask=None, point_part=None):
+    """K7's argmin over the faces as given (the caller sorts them by part,
+    ``_static_part_perm``): its plain version for CPU tensors, the kernel
+    for CUDA tensors.  Returns (dmin, imin) as ``argmin_faces_plain``."""
+    B, P = points.shape[0], points.shape[1]
+    words = v2_words(part_mask, point_part, B, P, tris.shape[1],
+                     points.device)
+    if points.device.type == "cpu":
+        return argmin_faces_v2_plain(points, tris, part_mask, point_part,
+                                     words)
+    if points.device.type == "cuda":
+        return point_mesh_kernel.argmin_faces_v2_cuda(points, tris, part_mask,
+                                                      point_part, words)
+    raise ValueError(f"no point-mesh path for device {points.device}")
+
+
+def face_constants16(tris):
+    """(B, T, 3, 3) -> (B, T, 16) rows a(3) ab(3) ac(3) ab.a ac.a ab.b
+    ac.b ab.c ac.c a.a: K8's constants (ref: _face_constants), for the
+    Ericson closest point with divides."""
+    tris = tris.float()
+    a, b, c = tris[..., 0, :], tris[..., 1, :], tris[..., 2, :]
+    ab, ac = b - a, c - a
+
+    def dot(x, y):
+        return (x * y).sum(-1, keepdim=True)
+
+    return torch.cat([a, ab, ac, dot(ab, a), dot(ac, a), dot(ab, b),
+                      dot(ac, b), dot(ab, c), dot(ac, c), dot(a, a)],
+                     dim=-1).contiguous()
+
+
+def culled_sqdist(fc, p):
+    """K8's squared distance from points p (..., 3) to faces of rows fc
+    (..., 16), broadcast against each other, in the order of
+    ``_kernel_culled``'s arithmetic (pallas_point_mesh.py:223-290): the
+    barycentric closest point by region, then |p|^2 - 2 p.q + |q|^2."""
+    px, py, pz = p[..., 0], p[..., 1], p[..., 2]
+    s1 = px * fc[..., 3] + py * fc[..., 4] + pz * fc[..., 5]
+    s2 = px * fc[..., 6] + py * fc[..., 7] + pz * fc[..., 8]
+    pa = px * fc[..., 0] + py * fc[..., 1] + pz * fc[..., 2]
+    pp = px * px + py * py + pz * pz
+    ab_a, ac_a, ab_b, ac_b, ab_c, ac_c, aa = (fc[..., k] for k in range(9, 16))
+    abab, acac, abac = ab_b - ab_a, ac_c - ac_a, ac_b - ac_a
+    d1, d2, d3 = s1 - ab_a, s2 - ac_a, s1 - ab_b
+    d4, d5, d6 = s2 - ac_b, s1 - ab_c, s2 - ac_c
+    vc = d1 * d4 - d3 * d2
+    vb = d5 * d2 - d1 * d6
+    va = d3 * d6 - d5 * d4
+    den = va + vb + vc
+    eps = 1e-12
+
+    def safe_div(n, d):
+        return n / torch.where(torch.abs(d) < eps, torch.full_like(d, eps), d)
+
+    zero, one = torch.zeros_like(den), torch.ones_like(den)
+    v = safe_div(vb, den)
+    w = safe_div(vc, den)
+    t_bc = torch.clamp(safe_div(d4 - d3, (d4 - d3) + (d5 - d6)), 0.0, 1.0)
+    on_bc = (va <= 0) & (d4 - d3 >= 0) & (d5 - d6 >= 0)
+    v = torch.where(on_bc, 1.0 - t_bc, v)
+    w = torch.where(on_bc, t_bc, w)
+    on_ac = (vb <= 0) & (d2 >= 0) & (d6 <= 0)
+    v = torch.where(on_ac, zero, v)
+    w = torch.where(on_ac, torch.clamp(safe_div(d2, d2 - d6), 0.0, 1.0), w)
+    on_ab = (vc <= 0) & (d1 >= 0) & (d3 <= 0)
+    v = torch.where(on_ab, torch.clamp(safe_div(d1, d1 - d3), 0.0, 1.0), v)
+    w = torch.where(on_ab, zero, w)
+    in_c = (d6 >= 0) & (d5 <= d6)
+    v = torch.where(in_c, zero, v)
+    w = torch.where(in_c, one, w)
+    in_b = (d3 >= 0) & (d4 <= d3)
+    v = torch.where(in_b, one, v)
+    w = torch.where(in_b, zero, w)
+    in_a = (d1 <= 0) & (d2 <= 0)
+    v = torch.where(in_a, zero, v)
+    w = torch.where(in_a, zero, w)
+    qq = (aa + v * (2.0 * ab_a + v * abab) + w * (2.0 * ac_a + w * acac)
+          + 2.0 * v * w * abac)
+    d = pp - 2.0 * (pa + v * s1 + w * s2) + qq
+    return torch.clamp_min(d, 0.0)
+
+
+def culled_needed(points, tris, part_mask=None, point_part=None):
+    """K8's rule per point (ref: argmin_faces_pallas_culled,
+    pallas_point_mesh.py:671-713), on faces already in part order.
+
+    Per 128-face chunk g, a bounding sphere (c_g, r_g) about the mean of
+    its faces' centroids.  Point p needs chunk g when g holds a face p
+    admits and lb_g(p) = (max(0, |p - c_g| - r_g - m))^2 is at most
+    ub(p) = min over admissible g' of (|p - c_g'| + r_g' + m)^2, with
+    m = ``CULL_MARGIN``: the chunk of p's nearest admissible face always
+    does.  Returns (needed (B, P, G) bool, the sort key (B, P) int64:
+    part * G + nearest admissible chunk, parts (B, P) int64 in [0, K],
+    with K "admits nothing")."""
+    B, P, _ = points.shape
+    T = tris.shape[1]
+    G = -(-T // CHUNK)
+    pad_f = G * CHUNK - T
+    dev = points.device
+    tris = tris.float()
+    cent = tris.mean(2)                                          # (B, T, 3)
+    face_r = torch.sqrt(((tris - cent[:, :, None]) ** 2).sum(-1).amax(-1)
+                        + 1e-20)                                 # (B, T)
+    real = torch.arange(G * CHUNK, device=dev) < T
+    cent_g = torch.cat([cent, cent.new_zeros(B, pad_f, 3)], 1
+                       ).reshape(B, G, CHUNK, 3)
+    face_r = torch.cat([face_r, face_r.new_zeros(B, pad_f)], 1
+                       ).reshape(B, G, CHUNK)
+    real = real.reshape(G, CHUNK)
+    n_real = real.sum(-1).clamp_min(1)[None, :, None]
+    c_g = (cent_g * real[None, :, :, None]).sum(2) / n_real      # (B, G, 3)
+    r_g = torch.where(real[None], torch.sqrt(
+        ((cent_g - c_g[:, :, None]) ** 2).sum(-1) + 1e-20) + face_r,
+        torch.zeros_like(face_r)).amax(-1)                       # (B, G)
+
+    masked = part_mask is not None
+    if masked:
+        ext, pp = _extend_part_tables(part_mask.bool(), point_part)
+        Kp = ext.shape[1]
+        chunk_part = torch.cat([ext, ext.new_zeros(pad_f, Kp)]
+                               ).reshape(G, CHUNK, Kp).any(1)    # (G, Kp)
+        adm = chunk_part.T[pp]                                   # (B, P, G)
+    else:
+        pp = torch.zeros((B, P), dtype=torch.int64, device=dev)
+        adm = torch.ones((B, P, G), dtype=torch.bool, device=dev)
+    pts = points.detach().float()
+    dpc = torch.sqrt(((pts[:, :, None] - c_g[:, None]) ** 2).sum(-1)
+                     + 1e-20)                                    # (B, P, G)
+    lb = torch.clamp_min(dpc - r_g[:, None] - CULL_MARGIN, 0.0) ** 2
+    ub_g = (dpc + r_g[:, None] + CULL_MARGIN) ** 2
+    ub = torch.where(adm, ub_g, torch.full_like(ub_g, INF)).amin(-1)
+    needed = adm & (lb <= ub[..., None])
+    near_g = torch.argmin(torch.where(adm, dpc, torch.full_like(dpc, INF)),
+                          -1)
+    return needed, (pp * G + near_g if masked else near_g), pp
+
+
+def culled_tables(points, tris, part_mask=None, point_part=None):
+    """K8's set-up in PyTorch (ref: pallas_point_mesh.py:713-734), on
+    faces already in part order: ``culled_needed``, the points sorted by
+    its key, so that each 128-point tile is coherent in part and place,
+    and the run table, which says which (tile, chunk) blocks any point of
+    the tile needs.  Returns (order (B, P) int64, pts_s (B, P, 3) sorted,
+    parts_s (B, P) int64 sorted, in [0, K] with K "admits nothing", run
+    (B, NT, G) int32)."""
+    needed, key, pp = culled_needed(points, tris, part_mask, point_part)
+    B, P, G = needed.shape
+    order = torch.argsort(key, dim=-1, stable=True)
+    pts_s = torch.gather(points.detach().float(), 1,
+                         order[..., None].expand(B, P, 3))
+    parts_s = torch.gather(pp, 1, order)
+    needed_s = torch.gather(needed, 1, order[..., None].expand(B, P, G))
+    run = _tiles(needed_s, P, False).any(2).to(torch.int32)     # (B, NT, G)
+    return order, pts_s, parts_s, run
+
+
+def argmin_faces_culled_plain(pts_s, fc, ext, parts_s, run):
+    """K8's plain version on the sorted points pts_s (B, P, 3) and the
+    part-sorted face rows fc (B, T, 16) (``face_constants16``): for each
+    (tile, chunk) block that ``run`` keeps, ``culled_sqdist`` over the
+    pairs that ``ext`` (T, K + 1) admits for the points' parts ``parts_s``
+    (B, P) in [0, K]; (1e10, 0) where nothing is run.  Returns (dmin,
+    imin) in the sorted point order and the sorted face order."""
+    P = pts_s.shape[1]
+    pts_t = _tiles(pts_s, P, 0.0)
+    dmin, imin = _block_argmin(
+        pts_t, _tiles(parts_s, P, ext.shape[1] - 1), ext, fc.shape[1], run,
+        lambda bi, ti, s: culled_sqdist(fc[bi, s:s + CHUNK][:, None],
+                                        pts_t[bi, ti][:, :, None]))
+    return dmin[:, :P], imin[:, :P]
+
+
+def argmin_faces_culled(points, tris, part_mask=None, point_part=None):
+    """K8: the nearest admissible face per point with (tile, chunk)
+    culling, its plain version for CPU tensors and the kernel for CUDA
+    tensors.  Faces are sorted by part here and points by
+    ``culled_tables``; results come back in the caller's point order with
+    the caller's face ids (ref: pallas_point_mesh.py:772-781), so a point
+    that admits no face gets (1e10, perm[0]) as the JAX kernel gives it.
+    dmin is the 16-constant form's distance."""
+    points, tris = points.detach(), tris.detach()
+    B, P = points.shape[0], points.shape[1]
+    T = tris.shape[1]
+    if part_mask is None:
+        perm = None
+        ext = torch.ones((T, 2), dtype=torch.bool, device=points.device)
+    else:
+        perm = face_part_perm(part_mask)
+        tris, part_mask = tris[:, perm], part_mask.bool()[perm]
+        ext, _ = _extend_part_tables(part_mask, point_part)
+    order, pts_s, parts_s, run = culled_tables(points, tris, part_mask,
+                                               point_part)
+    fc = face_constants16(tris)
+    if points.device.type == "cpu":
+        d_s, i_s = argmin_faces_culled_plain(pts_s, fc, ext, parts_s, run)
+    elif points.device.type == "cuda":
+        d_s, i_s = point_mesh_kernel.argmin_faces_culled_cuda(
+            pts_s, fc, ext, parts_s, run)
+    else:
+        raise ValueError(f"no point-mesh path for device {points.device}")
+    dmin = torch.empty_like(d_s).scatter_(1, order, d_s)
+    imin = torch.empty_like(i_s).scatter_(1, order, i_s)
+    if perm is not None:
+        imin = perm[imin.long()].to(torch.int32)
+    return dmin, imin
+
+
 def argmin_faces(points, tris, part_mask=None, point_part=None):
-    """The argmin pass: the plain version for CPU tensors, K3 for CUDA
-    tensors.  Returns (dmin, imin) as ``argmin_faces_plain`` does; K3's
-    dmin is its divide-free distance (see csrc/point_mesh.cu)."""
+    """The argmin pass, by the switches: K7 (``USE_V2_KERNEL``), K8
+    (``USE_CULLED_KERNEL``) or K3, each its plain version for CPU tensors
+    and its kernel for CUDA tensors.  Returns (dmin, imin) as
+    ``argmin_faces_plain`` does; a kernel's dmin is its own distance form
+    (see csrc/)."""
+    if points.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no point-mesh path for device {points.device}")
+    if USE_V2_KERNEL:
+        return argmin_faces_v2(points, tris, part_mask, point_part)
+    if USE_CULLED_KERNEL:
+        return argmin_faces_culled(points, tris, part_mask, point_part)
     if points.device.type == "cpu":
         return argmin_faces_plain(points, tris, part_mask, point_part)
-    if points.device.type == "cuda":
-        return point_mesh_kernel.argmin_faces_cuda(points, tris, part_mask,
-                                                   point_part)
-    raise ValueError(f"no point-mesh path for device {points.device}")
+    return point_mesh_kernel.argmin_faces_cuda(points, tris, part_mask,
+                                               point_part)
 
 
 def point_face_distance(points, verts, faces, part_mask=None,
@@ -145,7 +491,12 @@ def point_face_distance(points, verts, faces, part_mask=None,
     part_mask (T, K) bool + point_part (B, P) int.  Differentiable in
     points and verts through the winning face only: the argmin runs
     without gradient, the winner is gathered and its distance evaluated
-    again with ``point_tri_sqdist``."""
+    again with ``point_tri_sqdist``.  Under ``USE_V2_KERNEL`` the faces
+    are sorted by part first (``_static_part_perm``), so the winning index
+    and the gather refer to that order; the gradient reaches the same
+    vertices."""
+    if USE_V2_KERNEL and part_mask is not None:
+        faces, part_mask = _static_part_perm(faces, part_mask)
     tris = verts[:, faces]                                   # (B, T, 3, 3)
     with torch.no_grad():
         _, imin = argmin_faces(points.detach(), tris.detach(), part_mask,

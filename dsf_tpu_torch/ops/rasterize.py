@@ -1,27 +1,47 @@
-"""Depth rasterizer at crop pixels (counterpart of dsf_tpu/ops/rasterize.py).
+"""Depth rasterizer at sample positions (counterpart of
+dsf_tpu/ops/rasterize.py).
 
-Each crop pixel is mapped through M^-1 to its continuous full-frame
-position and the nearest covering face is found there (blur=0,
-faces_per_pixel=1, screen-space barycentric depth).  Per-face edge and
-depth functions are linear in (u, v): ``e = a*u + b*v + c`` and
-``z = az*u + bz*v + cz``, with the area sign folded into the edge
-coefficients (inside test ``e >= 0``) and 1/A into the depth line.
+Each sample position (a crop pixel mapped through M^-1 to its continuous
+full-frame position, or a full-frame pixel) is tested against every face
+covering it (blur=0, faces_per_pixel=1, screen-space barycentric depth).
+Per-face edge and depth functions are linear in (u, v):
+``e = a*u + b*v + c`` and ``z = az*u + bz*v + cz``, with the area sign
+folded into the edge coefficients (inside test ``e >= 0``) and 1/A into
+the depth line.
 
-``raster_scan`` is the plain PyTorch version, with the semantics of the
-JAX package's ``_scan_minz``: faces in chunks, chunk-major strict ``<``
-update, first argmin within a chunk — so the winner is the lowest face
+``raster_scan`` is the plain dense raster, with the semantics of the JAX
+package's ``_scan_minz``: faces in chunks, chunk-major strict ``<``
+update, first argmin within a chunk, so the winner is the lowest face
 index at the global minimum depth.  Every product and sum is rounded on
-its own (no fused multiply-add), in the order written; the CUDA kernel
-(``raster_kernel``, K1) repeats that order with round-to-nearest
-intrinsics so the two are bitwise-equal on the same coefficients.
+its own (no fused multiply-add), in the order written; the CUDA kernels
+repeat that order with round-to-nearest intrinsics, so each is
+bitwise-equal to its plain version on the same face rows.
 
-``raster_skip`` is the dispatch: the plain version for tensors on the
-CPU, the K1 kernel for tensors on a GPU, an error otherwise.  Either runs
-on gradient-stopped vertices; ``AttachRasterGrad`` then attaches the JAX
-package's hard blur=0 gradient (``_attach_raster_grad``): through the hit
-face's depth plane only, from the per-face moments of the cotangent (K2
-on a GPU, ``index_add_`` on the CPU).  The pixel -> face assignment gets
-no gradient.
+``rasterize_depth`` is the public entry, with the JAX package's dispatch
+(``_raster_forward``, dsf_tpu/ops/rasterize.py:420-440) over three routes:
+
+- skip (``USE_PALLAS_SKIP`` and a known 16-aligned pixel layout): K1,
+  ``raster_kernel.raster_skip_cuda`` (16x16 tiles x 64-face chunks,
+  skipped by bounding box);
+- binned (``tile_hw`` given): K10, ``raster_kernel.raster_binned_cuda``
+  (per 16x16 tile, the faces whose bbox meets the tile's, at most
+  ``BIN_CAP``; the dense answer for every tile when any tile overflows);
+- dense (otherwise, as for a full frame): K6,
+  ``raster_kernel.raster_dense_cuda``.
+
+The route depends on the switches and the shapes alone; the device only
+picks the kernel (CUDA tensors) or its plain version (CPU tensors), so
+the CPU runs the plain version of the kernel the card would run.  (JAX's
+``_skip_eligible`` also asks for a non-CPU backend; its dense route asks
+``USE_PALLAS_RASTER`` whether to take its Pallas kernel or an XLA scan.
+The port's only other dense raster is the plain version, so on a card the
+dense route is always K6.)
+
+Every route runs on gradient-stopped vertices; ``AttachRasterGrad`` then
+attaches the JAX package's hard blur=0 gradient (``_attach_raster_grad``):
+through the hit face's depth plane only, from the per-face moments of the
+cotangent (K2 on a GPU, ``index_add_`` on the CPU).  The pixel -> face
+assignment gets no gradient.
 """
 
 from __future__ import annotations
@@ -33,11 +53,30 @@ from dsf_tpu_torch.ops import moments_kernel, raster_kernel
 
 INF = 1e10
 FACE_CHUNK = 256
+SCAN_PAIRS = 1 << 23   # (pixel, face) pairs per step of the plain scan
+BOX_MARGIN = 1.0       # pixels by which a bbox test widens a box (K1's too)
+
+# the JAX package's switches (dsf_tpu/ops/rasterize.py:253-254, :398-400)
+USE_PALLAS_SKIP = True
+SKIP_BLOCK = (16, 16)  # K1's pixel tile
+SKIP_FC = 64           # K1's face chunk
+BIN_TILE = 16          # K10's pixel tile (BIN_TILE x BIN_TILE)
+BIN_CAP = 512          # K10's faces per tile
 
 
 def project_verts(verts, paras, flip=1.0):
     """World mm -> continuous pixel coords (u, v) + depth z."""
     return geo.xyz_to_uvd(verts, paras, flip)
+
+
+def full_frame_pixel_rays(img_size, device=None):
+    """Integer pixel grid (u, v) of a (W, H) full frame -> (H*W, 2),
+    row-major."""
+    W, H = img_size
+    v, u = torch.meshgrid(torch.arange(H, dtype=torch.float32, device=device),
+                          torch.arange(W, dtype=torch.float32, device=device),
+                          indexing="ij")
+    return torch.stack([u.reshape(-1), v.reshape(-1)], dim=-1)
 
 
 def crop_pixel_rays(M, crop_size, stride=1):
@@ -89,47 +128,103 @@ def face_coeffs(proj, faces):
     return a, b, c, az, bz, cz, valid
 
 
-def raster_scan(proj, pix_uv, faces, chunk=FACE_CHUNK):
-    """Plain raster: proj (B, V, 3), pix_uv (B, P, 2), faces (F, 3) ->
-    zbuf (B, P) float32 (0 = background), idx (B, P) int32 (-1)."""
+def face_rows(proj, faces):
+    """Per-face rows (B, F, 16) = [a0 b0 c0 a1 b1 c1 a2 b2 c2 az bz cz
+    valid 0 0 0] of ``face_coeffs``: the input of every raster kernel and
+    of the plain scans."""
     a, b, c, az, bz, cz, valid = face_coeffs(proj, faces)
-    B, P = pix_uv.shape[0], pix_uv.shape[1]
-    F = faces.shape[0]
-    u = pix_uv[..., 0:1]                       # (B, P, 1)
-    v = pix_uv[..., 1:2]
-    zmin = torch.full((B, P), INF, dtype=torch.float32, device=proj.device)
-    idx = torch.full((B, P), -1, dtype=torch.int64, device=proj.device)
-    for s in range(0, F, chunk):
-        sl = slice(s, min(s + chunk, F))
-        inside = valid[:, None, sl]
-        for k in range(3):
-            e = (u * a[:, None, sl, k] + v * b[:, None, sl, k]
-                 + c[:, None, sl, k])
-            inside = inside & (e >= 0)
-        z = u * az[:, None, sl] + v * bz[:, None, sl] + cz[:, None, sl]
-        z = torch.where(inside & (z > 0), z, torch.full_like(z, INF))
-        cmin, carg = torch.min(z, dim=-1)      # first index of the minimum
-        better = cmin < zmin
-        zmin = torch.where(better, cmin, zmin)
-        idx = torch.where(better, carg + s, idx)
+    z = torch.zeros_like(az)
+    return torch.stack([a[..., 0], b[..., 0], c[..., 0],
+                        a[..., 1], b[..., 1], c[..., 1],
+                        a[..., 2], b[..., 2], c[..., 2],
+                        az, bz, cz, valid.to(az.dtype), z, z, z],
+                       dim=-1).contiguous()
+
+
+def _depth_or_inf(u, v, r):
+    """u, v (N, p, 1) against rows r (N, 1, f, 16) -> (N, p, f): the depth
+    where the sample lies inside a valid face in front of the camera, INF
+    elsewhere.  Each product and sum rounded on its own, left to right."""
+    inside = r[..., 12] != 0
+    for k in range(3):
+        e = u * r[..., 3 * k] + v * r[..., 3 * k + 1] + r[..., 3 * k + 2]
+        inside = inside & (e >= 0)
+    z = u * r[..., 9] + v * r[..., 10] + r[..., 11]
+    return torch.where(inside & (z > 0), z, torch.full_like(z, INF))
+
+
+def scan_rows(rows, pix_uv, chunk=FACE_CHUNK):
+    """The plain dense scan over face rows (N, F, 16) at samples pix_uv
+    (N, P, 2) -> (zbuf (N, P) float32, 0 = background; idx (N, P) int32,
+    -1).  Faces in chunks of ``chunk`` (first minimum within a chunk, a
+    strict ``<`` between chunks), samples in chunks that keep each step
+    near ``SCAN_PAIRS`` pairs, which changes no sample's arithmetic."""
+    N, P = pix_uv.shape[0], pix_uv.shape[1]
+    F = rows.shape[1]
+    pc = max(1, SCAN_PAIRS // max(1, N * min(chunk, F)))
+    zs, ids = [], []
+    for p0 in range(0, P, pc):
+        u = pix_uv[:, p0:p0 + pc, 0:1]              # (N, p, 1)
+        v = pix_uv[:, p0:p0 + pc, 1:2]
+        zmin = torch.full(u.shape[:2], INF, dtype=torch.float32,
+                          device=rows.device)
+        idx = torch.full(u.shape[:2], -1, dtype=torch.int64,
+                         device=rows.device)
+        for s in range(0, F, chunk):
+            z = _depth_or_inf(u, v, rows[:, None, s:s + chunk])
+            cmin, carg = torch.min(z, dim=-1)       # first index of the min
+            better = cmin < zmin
+            zmin = torch.where(better, cmin, zmin)
+            idx = torch.where(better, carg + s, idx)
+        zs.append(zmin)
+        ids.append(idx)
+    zmin, idx = torch.cat(zs, 1), torch.cat(ids, 1)
     hit = zmin < INF
     zbuf = torch.where(hit, zmin, torch.zeros_like(zmin))
     idx = torch.where(hit, idx, torch.full_like(idx, -1))
     return zbuf, idx.to(torch.int32)
 
 
+def raster_scan(proj, pix_uv, faces, chunk=FACE_CHUNK):
+    """Plain dense raster, the plain version of K1 and K6: proj (B, V, 3),
+    pix_uv (B, P, 2), faces (F, 3) -> zbuf (B, P) float32 (0 =
+    background), idx (B, P) int32 (-1).
+
+    Samples that lie outside every image's bbox of its valid faces,
+    widened by ``BOX_MARGIN`` pixels (as K1 widens its tiles), are
+    background without a test: a rounding cannot put a sample a pixel away
+    from a face inside it.  The others go through ``scan_rows`` (on a full
+    frame, a hand covers a few percent of it)."""
+    rows = face_rows(proj, faces)
+    valid = rows[..., 12] != 0
+    tri_uv = proj[:, faces][..., :2]                      # (B, F, 3, 2)
+    inf = torch.full_like(tri_uv[..., 0, :], float("inf"))
+    lo = torch.where(valid[..., None], tri_uv.amin(2), inf).amin(1)
+    hi = torch.where(valid[..., None], tri_uv.amax(2), -inf).amax(1)
+    near = ((pix_uv >= (lo - BOX_MARGIN)[:, None])
+            & (pix_uv <= (hi + BOX_MARGIN)[:, None])).all(-1).any(0)  # (P,)
+    if bool(near.all()):
+        return scan_rows(rows, pix_uv, chunk)
+    B, P = pix_uv.shape[0], pix_uv.shape[1]
+    zbuf = torch.zeros((B, P), dtype=torch.float32, device=proj.device)
+    idx = torch.full((B, P), -1, dtype=torch.int32, device=proj.device)
+    sel = torch.nonzero(near).squeeze(1)
+    if sel.numel():
+        z, i = scan_rows(rows, pix_uv[:, sel], chunk)
+        zbuf = zbuf.to(z.dtype)
+        zbuf[:, sel] = z
+        idx[:, sel] = i
+    return zbuf, idx
+
+
 def skip_tables(proj, faces):
-    """The K1 kernel's inputs: per-face rows (B, F, 16) = [a0 b0 c0 a1 b1
-    c1 a2 b2 c2 az bz cz valid 0 0 0] and per-chunk bboxes (B, nc, 4) =
-    [umin umax vmin vmax] over ``raster_kernel.CHUNK`` faces (invalid
-    faces widen no bbox; a chunk with none is empty: +inf > -inf)."""
-    a, b, c, az, bz, cz, valid = face_coeffs(proj, faces)
+    """The K1 kernel's inputs: per-face rows (B, F, 16) (``face_rows``)
+    and per-chunk bboxes (B, nc, 4) = [umin umax vmin vmax] over
+    ``raster_kernel.CHUNK`` faces (invalid faces widen no bbox; a chunk
+    with none is empty: +inf > -inf)."""
+    rows = face_rows(proj, faces)
+    valid = rows[..., 12] != 0
     B, F = valid.shape
-    z = torch.zeros_like(az)
-    rows = torch.stack([a[..., 0], b[..., 0], c[..., 0],
-                        a[..., 1], b[..., 1], c[..., 1],
-                        a[..., 2], b[..., 2], c[..., 2],
-                        az, bz, cz, valid.to(az.dtype), z, z, z], dim=-1)
     tri_uv = proj[:, faces][..., :2]           # (B, F, 3, 2)
     inf = torch.tensor(float("inf"), dtype=proj.dtype, device=proj.device)
     fmin = torch.where(valid[..., None], tri_uv.amin(2), inf)
@@ -143,7 +238,90 @@ def skip_tables(proj, faces):
     cmax = fmax.reshape(B, -1, fc, 2).amax(2)
     cbox = torch.stack([cmin[..., 0], cmax[..., 0],
                         cmin[..., 1], cmax[..., 1]], dim=-1)
-    return rows.contiguous(), cbox.contiguous()
+    return rows, cbox.contiguous()
+
+
+def _tile_major(x, tile_hw):
+    """(B, H*W, ...) row-major -> (B, G, t*t, ...), 16x16 tiles in
+    row-major tile order (G = H/t * W/t)."""
+    H, W = tile_hw
+    t = BIN_TILE
+    B = x.shape[0]
+    rest = x.shape[2:]
+    x = x.reshape((B, H // t, t, W // t, t) + rest)
+    x = x.permute((0, 1, 3, 2, 4) + tuple(range(5, x.dim())))
+    return x.reshape((B, (H // t) * (W // t), t * t) + rest)
+
+
+def _untile(x, tile_hw):
+    """The inverse of ``_tile_major`` for (B, G, t*t) -> (B, H*W)."""
+    H, W = tile_hw
+    t = BIN_TILE
+    B = x.shape[0]
+    return (x.reshape(B, H // t, W // t, t, t).permute(0, 1, 3, 2, 4)
+            .reshape(B, H * W))
+
+
+def binned_tables(proj, pix_uv, faces, tile_hw, rows):
+    """K10's inputs (ref: _raster_binned, rasterize.py:257-343): for each
+    16x16 pixel tile, the valid faces whose screen bbox meets the bbox of
+    the tile's own sample positions (inclusive, no margin), in ascending
+    face order (``lax.top_k``'s order for equal scores), at most
+    ``BIN_CAP``.  Returns lists (B, G, BIN_CAP) int32 (-1 past the end),
+    counts (B, G) int32 (before the cap) and overflow, a one-element int32
+    tensor: 1 when any tile of the batch holds more than ``BIN_CAP`` faces,
+    and then every tile takes the dense answer (the JAX package's
+    whole-batch ``lax.cond``).  Nothing here waits for the device."""
+    cap = BIN_CAP
+    puv = _tile_major(pix_uv, tile_hw)                 # (B, G, t*t, 2)
+    tmin, tmax = puv.amin(2), puv.amax(2)              # (B, G, 2)
+    tri_uv = proj[:, faces][..., :2]                   # (B, F, 3, 2)
+    fmin, fmax = tri_uv.amin(2), tri_uv.amax(2)        # (B, F, 2)
+    inter = ((fmin[:, None, :, 0] <= tmax[:, :, None, 0])
+             & (fmax[:, None, :, 0] >= tmin[:, :, None, 0])
+             & (fmin[:, None, :, 1] <= tmax[:, :, None, 1])
+             & (fmax[:, None, :, 1] >= tmin[:, :, None, 1])
+             & (rows[:, None, :, 12] != 0))            # (B, G, F)
+    counts = inter.sum(-1)
+    overflow = (counts > cap).any().to(torch.int32).reshape(1)
+    # the k-th selected face of a tile goes to slot k; the rest to a slot
+    # past the end, dropped
+    pos = inter.cumsum(-1) - 1
+    slot = torch.where(inter & (pos < cap), pos, torch.full_like(pos, cap))
+    B, G, F = inter.shape
+    fid = torch.arange(F, dtype=torch.int32, device=proj.device)
+    lists = torch.full((B, G, cap + 1), -1, dtype=torch.int32,
+                       device=proj.device)
+    lists.scatter_(2, slot, fid.expand(B, G, F))
+    return (lists[..., :cap].contiguous(), counts.to(torch.int32),
+            overflow)
+
+
+def raster_binned_plain(rows, pix_uv, tile_hw, lists, counts, overflow):
+    """K10's plain version: for each tile, ``scan_rows`` over the face rows
+    its list names, the winner mapped back to its face id; the dense scan
+    over all faces when ``overflow`` is set.  rows (B, F, 16), pix_uv
+    (B, H*W, 2) row-major over tile_hw = (H, W), both multiples of 16."""
+    if bool(overflow.item()):
+        return scan_rows(rows, pix_uv)
+    B, G, cap = lists.shape
+    gat = torch.gather(rows[:, None].expand(B, G, -1, 16), 2,
+                       lists.clamp_min(0).long()[..., None].expand(B, G, cap,
+                                                                  16))
+    sel = torch.arange(cap, device=rows.device) < counts[..., None]
+    gat = torch.cat([gat[..., :12], torch.where(sel, gat[..., 12],
+                                                torch.zeros_like(gat[..., 12])
+                                                )[..., None],
+                     gat[..., 13:]], dim=-1)
+    puv = _tile_major(pix_uv, tile_hw)
+    t2 = puv.shape[2]
+    zbuf, lidx = scan_rows(gat.reshape(B * G, cap, 16),
+                           puv.reshape(B * G, t2, 2))
+    gidx = torch.gather(lists.reshape(B * G, cap), 1,
+                        lidx.clamp_min(0).long())
+    gidx = torch.where(lidx >= 0, gidx, torch.full_like(gidx, -1))
+    return (_untile(zbuf.reshape(B, G, t2), tile_hw),
+            _untile(gidx.reshape(B, G, t2), tile_hw))
 
 
 def face_moments(idx, upd, num_faces):
@@ -198,25 +376,118 @@ class AttachRasterGrad(torch.autograd.Function):
         return dproj, None, None, None, None
 
 
-def raster_skip(proj, pix_uv, faces, layout_hw):
-    """Nearest-face depth and face id at each sample position:
-    zbuf (B, P), differentiable in ``proj`` with the hard blur=0 gradient,
-    and idx (B, P) int32.
+def _route_forward(name, proj, pix_uv, plain, kernel):
+    """The plain version for CPU tensors, the kernel for CUDA tensors."""
+    if proj.device.type == "cpu":
+        return plain()
+    if proj.device.type == "cuda":
+        return kernel()
+    raise ValueError(f"no {name} raster path for device {proj.device}")
 
-    ``layout_hw`` (H, W): pix_uv is row-major over an H x W pixel grid,
-    which the kernel tiles 16 x 16.  CPU tensors take ``raster_scan``;
-    CUDA tensors launch the K1 kernel (``raster_kernel.raster_skip_cuda``).
-    Both run on the detached vertices."""
-    with torch.no_grad():
-        p = proj.detach()
-        if p.device.type == "cpu":
-            zbuf, idx = raster_scan(p, pix_uv, faces)
-        elif p.device.type == "cuda":
-            rows, cbox = skip_tables(p, faces)
-            zbuf, idx = raster_kernel.raster_skip_cuda(
-                rows, cbox, pix_uv.contiguous(), layout_hw)
-        else:
-            raise ValueError(f"no raster path for device {proj.device}")
+
+def skip_forward(proj, pix_uv, faces, layout_hw):
+    """The skip route on detached inputs: ``raster_scan`` / K1."""
+    def kernel():
+        rows, cbox = skip_tables(proj, faces)
+        return raster_kernel.raster_skip_cuda(rows, cbox,
+                                              pix_uv.contiguous(), layout_hw)
+    return _route_forward("skip", proj, pix_uv,
+                          lambda: raster_scan(proj, pix_uv, faces), kernel)
+
+
+def dense_forward(proj, pix_uv, faces):
+    """The dense route on detached inputs: ``raster_scan`` / K6."""
+    return _route_forward(
+        "dense", proj, pix_uv, lambda: raster_scan(proj, pix_uv, faces),
+        lambda: raster_kernel.raster_dense_cuda(face_rows(proj, faces),
+                                                pix_uv.contiguous()))
+
+
+def binned_forward(proj, pix_uv, faces, tile_hw):
+    """The binned route on detached inputs (ref: _raster_binned): the
+    dense route when the layout is not a multiple of ``BIN_TILE`` or the
+    mesh has at most ``BIN_CAP`` faces; else ``raster_binned_plain`` / K10
+    over ``binned_tables``."""
+    H, W = tile_hw
+    if H % BIN_TILE or W % BIN_TILE or faces.shape[0] <= BIN_CAP:
+        return dense_forward(proj, pix_uv, faces)
+    rows = face_rows(proj, faces)
+    tables = binned_tables(proj, pix_uv, faces, tile_hw, rows)
+    return _route_forward(
+        "binned", proj, pix_uv,
+        lambda: raster_binned_plain(rows, pix_uv, tile_hw, *tables),
+        lambda: raster_kernel.raster_binned_cuda(rows, pix_uv.contiguous(),
+                                                 *tables, tile_hw))
+
+
+def _skip_eligible(layout_hw, faces):
+    """The skip route's condition (ref: rasterize._skip_eligible), without
+    its "not CPU" term: the device picks K1 or its plain version."""
+    if layout_hw is None or not USE_PALLAS_SKIP:
+        return False
+    H, W = layout_hw
+    bh, bw = SKIP_BLOCK
+    return (-(-faces.shape[0] // SKIP_FC) <= 31 and H % bh == 0
+            and W % bw == 0)
+
+
+def _raster_forward(tile_hw, proj, pix_uv, faces, layout_hw=None):
+    """The route dispatch (ref: rasterize._raster_forward): skip when the
+    pixel layout (``layout_hw``, else ``tile_hw``) allows it, binned when
+    ``tile_hw`` is given, dense otherwise."""
+    if layout_hw is None:
+        layout_hw = tile_hw
+    if _skip_eligible(layout_hw, faces):
+        return skip_forward(proj, pix_uv, faces, layout_hw)
+    if tile_hw is not None:
+        return binned_forward(proj, pix_uv, faces, tile_hw)
+    return dense_forward(proj, pix_uv, faces)
+
+
+def _with_grad(proj, pix_uv, faces, zbuf, idx):
     if torch.is_grad_enabled() and proj.requires_grad:
         zbuf = AttachRasterGrad.apply(proj, zbuf, idx, pix_uv, faces)
-    return zbuf, idx
+    return zbuf
+
+
+def raster_skip(proj, pix_uv, faces, layout_hw):
+    """The skip route alone: nearest-face depth and face id at each sample
+    position, zbuf (B, P) differentiable in ``proj`` with the hard blur=0
+    gradient, and idx (B, P) int32.
+
+    ``layout_hw`` (H, W): pix_uv is row-major over an H x W pixel grid,
+    which K1 tiles 16 x 16 (a ragged edge is masked).  CPU tensors take
+    ``raster_scan``; CUDA tensors launch K1.  Both run on the detached
+    vertices."""
+    with torch.no_grad():
+        zbuf, idx = skip_forward(proj.detach(), pix_uv, faces, layout_hw)
+    return _with_grad(proj, pix_uv, faces, zbuf, idx), idx
+
+
+def rasterize_depth(verts, faces, pix_uv, paras, flip=1.0, return_idx=False,
+                    tile_hw=None, layout_hw=None):
+    """Rasterize (B, V, 3) world-mm verts into depth at sample positions
+    (ref: rasterize.rasterize_depth).
+
+    pix_uv (B, P, 2) or (P, 2): continuous full-frame pixel positions
+    (``crop_pixel_rays``, ``full_frame_pixel_rays``).  ``tile_hw`` (H, W):
+    the row-major pixel layout of pix_uv, which opts into the binned route
+    (and the skip route, when allowed); ``layout_hw``: the layout without
+    the binned route.  Returns zbuf (B, P), depth in mm of the nearest
+    face along each ray, 0 where none covers the pixel, differentiable in
+    ``verts`` with the hard (blur=0) gradient through the hit face; with
+    ``return_idx``, (zbuf, idx) without a gradient, where the skip route
+    reads ``layout_hw`` alone, as the JAX package's does."""
+    proj = project_verts(verts, paras, flip)
+    if pix_uv.dim() == 2:
+        pix_uv = pix_uv.expand((verts.shape[0],) + tuple(pix_uv.shape))
+    with torch.no_grad():
+        p = proj.detach()
+        if return_idx:
+            if _skip_eligible(layout_hw, faces):
+                return skip_forward(p, pix_uv, faces, layout_hw)
+            if tile_hw is not None:
+                return binned_forward(p, pix_uv, faces, tile_hw)
+            return dense_forward(p, pix_uv, faces)
+        zbuf, idx = _raster_forward(tile_hw, p, pix_uv, faces, layout_hw)
+    return _with_grad(proj, pix_uv, faces, zbuf, idx)

@@ -54,11 +54,14 @@ class Renderer:
 def _raster_crop(r: Renderer, verts, M, stride=1):
     """Rasterize world-mm verts into the (crop/stride)^2 frame through M
     -> (B, 1, crop_h/stride, crop_w/stride) depth mm (0 = background).
-    stride > 1 rasters the nearest-downsample pixel subset directly."""
+    stride > 1 rasters the nearest-downsample pixel subset directly.  The
+    pixel layout goes in as ``tile_hw``, as the JAX renderer passes it:
+    the skip raster (K1) by default, the binned raster (K10) with
+    ``rasterize.USE_PALLAS_SKIP`` off."""
     H, W = r.crop_size[1] // stride, r.crop_size[0] // stride
     rays = ras.crop_pixel_rays(M, r.crop_size, stride)
-    proj = ras.project_verts(verts, r.paras, r.flip)
-    z, _ = ras.raster_skip(proj, rays, r.mano.faces, (H, W))
+    z = ras.rasterize_depth(verts, r.mano.faces, rays, r.paras, r.flip,
+                            tile_hw=(H, W))
     return z.reshape(verts.shape[0], 1, H, W)
 
 

@@ -1,0 +1,104 @@
+"""Offline dataset pre-rendering: full-frame synth depth for whole
+datasets (counterpart of dsf_tpu/tools/prerender.py; ref: render_msra /
+render_nyu, render_loader.py:3205-3255).
+
+Per-frame MANO parameters are rendered in batches into full-frame depth
+images (mm) and written as 16-bit grayscale PNGs, the ``synthdepth_*`` /
+``render/`` inputs the loaders read.  The raster takes the dense route
+(no pixel layout): K6 on a card, once per batch.
+
+The PNGs are written with the standard library (``zlib``, ``struct``):
+16-bit big-endian grayscale, the pixels ``cv2.imwrite`` stores for a
+``uint16`` array, so the files read back the same with OpenCV or PIL.
+``read_png16`` reads such a file back without either.
+"""
+
+from __future__ import annotations
+
+import os
+import struct
+import zlib
+
+import numpy as np
+import torch
+
+from dsf_tpu_torch.config import CAMERA
+from dsf_tpu_torch.device import exact_float32, resolve_device
+from dsf_tpu_torch.mano import model as mano_model
+from dsf_tpu_torch.ops import rasterize as ras
+
+_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+
+
+def _chunk(kind: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+
+def write_png16(path: str, img: np.ndarray) -> None:
+    """Write a (H, W) uint16 array as a 16-bit grayscale PNG (every row
+    with filter 0)."""
+    if img.dtype != np.uint16 or img.ndim != 2:
+        raise ValueError(f"need a (H, W) uint16 array, got {img.dtype} "
+                         f"{img.shape}")
+    H, W = img.shape
+    rows = np.zeros((H, 1 + 2 * W), np.uint8)
+    rows[:, 1:] = img.astype(">u2").view(np.uint8).reshape(H, 2 * W)
+    ihdr = struct.pack(">IIBBBBB", W, H, 16, 0, 0, 0, 0)
+    with open(path, "wb") as f:
+        f.write(_SIGNATURE + _chunk(b"IHDR", ihdr)
+                + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+                + _chunk(b"IEND", b""))
+
+
+def read_png16(path: str) -> np.ndarray:
+    """Read back a 16-bit grayscale PNG whose rows all use filter 0, as
+    ``write_png16`` writes them -> (H, W) uint16."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if not data.startswith(_SIGNATURE):
+        raise ValueError(f"{path}: not a PNG")
+    pos, idat, hdr = len(_SIGNATURE), [], None
+    while pos < len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if kind == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+    if hdr is None or hdr[2:] != (16, 0, 0, 0, 0):
+        raise ValueError(f"{path}: not a 16-bit grayscale PNG: {hdr}")
+    W, H = hdr[0], hdr[1]
+    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8
+                         ).reshape(H, 1 + 2 * W)
+    if rows[:, 0].any():
+        raise ValueError(f"{path}: rows with a filter other than 0")
+    return rows[:, 1:].copy().view(">u2").astype(np.uint16).reshape(H, W)
+
+
+def prerender_dataset(mano_npz, params_62d, out_dir, dataset="nyu",
+                      batch_size=32, scale=1.0, prefix="render",
+                      device=None):
+    """params_62d: (N, 62) parameter bank -> N 16-bit PNGs of the rendered
+    full-frame depth (mm, times ``scale``), ``{prefix}_{i:07d}.png`` from
+    1, in ``out_dir``.  Runs on ``cuda`` unless ``device`` says otherwise.
+    Returns N."""
+    dev = resolve_device(device)
+    paras, (W, H) = CAMERA[dataset]
+    m = mano_model.load_model(mano_npz, device=dev)
+    rays = ras.full_frame_pixel_rays((W, H), device=dev)
+    os.makedirs(out_dir, exist_ok=True)
+    N = len(params_62d)
+    with torch.no_grad(), exact_float32():
+        for s in range(0, N, batch_size):
+            params = torch.from_numpy(
+                np.asarray(params_62d[s:s + batch_size], np.float32)).to(dev)
+            verts, _ = mano_model.get_mano_vertices(
+                m, *mano_model.split_params(params))
+            depth = ras.rasterize_depth(verts, m.faces, rays, paras)
+            depth = depth.reshape(-1, H, W).cpu().numpy()
+            for i, img in enumerate(depth):
+                write_png16(os.path.join(out_dir, f"{prefix}_{s + i + 1:07d}.png"),
+                            (img * scale).astype(np.uint16))
+    return N

@@ -222,7 +222,8 @@ def test_cuda_path_carries_the_training_gradient(renderer):
     assert {k: kernels.LAUNCHES[k] - before[k] for k in before} == {
         "raster_skip": 1, "raster_moments": 1, "codec_encode": 1,
         "codec_encode_bwd": 1, "codec_decode": 1, "codec_decode_bwd": 1,
-        "point_mesh_argmin": 0, "tail_conv": 0}
+        "point_mesh_argmin": 0, "tail_conv": 0, "icp_argmin_v2": 0,
+        "icp_argmin_culled": 0, "raster_dense": 0, "raster_binned": 0}
     assert torch.equal(out["cuda"][0], out["cpu"][0])
     assert (out["cpu"][0] >= 0).float().mean() > 0.05
     for got, ref in zip(out["cuda"][1:], out["cpu"][1:]):
@@ -384,3 +385,136 @@ def test_generator_on_the_card_matches_cpu(cuda):
     assert kernels.LAUNCHES["tail_conv"] == before + 1
     assert ref.abs().max() > 0.5
     torch.testing.assert_close(got, ref, rtol=0, atol=1e-4)
+
+
+def _icp_problem(renderer, seed):
+    """Posed hands (B=4) in normalized units, 2048 points near each, the
+    ICP's 16-column part table and parts -1 .. 16 per point."""
+    para, _, _ = _scene(renderer, 4, seed)
+    verts, _ = mano.get_mano_vertices(renderer.mano, *mano.split_params(para),
+                                      global_scale=1.0 / 125.0)
+    gen = torch.Generator(device=verts.device).manual_seed(seed)
+    B, P = 4, 2048
+    idx = torch.randint(0, 778, (B, P), device=verts.device, generator=gen)
+    pts = (torch.gather(verts, 1, idx[..., None].expand(B, P, 3))
+           + 0.03 * torch.randn(B, P, 3, device=verts.device, generator=gen))
+    T = renderer.mano.faces.shape[0]
+    table = torch.cat([renderer.mano.joint_face_mask,
+                       torch.ones(T, 1, dtype=torch.bool, device=verts.device)],
+                      dim=1)
+    part = torch.randint(-1, 17, (B, P), device=verts.device, generator=gen)
+    return verts, pts, table, part
+
+
+def _hold_winners(pts, tris, ik, dp):
+    """The kernel's winners by their exact distance against the plain
+    minimum, as K3's test holds them."""
+    B, P = ik.shape
+    none = dp >= 1e10
+    win = torch.gather(tris, 1, ik.long()[..., None, None].expand(B, P, 3, 3))
+    d_win = pm.point_tri_sqdist(pts, win)
+    torch.testing.assert_close(d_win[~none], dp[~none], rtol=1e-5, atol=1e-6)
+    return none
+
+
+def test_icp_v2_kernel_matches_plain(renderer):
+    """K7 on part-sorted faces against its plain version with the same
+    skip words: the winners' exact distances as K3's, (1e10, 0) where no
+    face is admissible, admissible winners, one launch."""
+    verts, pts, table, part = _icp_problem(renderer, 21)
+    faces, mask = pm._static_part_perm(renderer.mano.faces, table)
+    tris = verts[:, faces]
+    before = kernels.LAUNCHES["icp_argmin_v2"]
+    dk, ik = pm.argmin_faces_v2(pts, tris, mask, part)
+    assert kernels.LAUNCHES["icp_argmin_v2"] == before + 1
+    words = pm.v2_words(mask, part, 4, 2048, tris.shape[1], pts.device)
+    dp, ip = pm.argmin_faces_v2_plain(pts, tris, mask, part, words)
+    none = _hold_winners(pts, tris, ik, dp)
+    assert none.sum() > 100 and (ik[none] == 0).all() and (dk[none] >= 1e10).all()
+    assert (ik == ip).float().mean() > 0.9
+    assert mask[ik[~none].long(), part[~none]].all()
+
+
+def test_icp_culled_kernel_matches_plain(renderer):
+    """K8 against its plain version on the same sorted points, face rows
+    and run table (the same 16-constant arithmetic, so dmin within 1e-6),
+    and through the dispatch against the plain dense argmin by the
+    winners' exact distances, one launch each."""
+    verts, pts, table, part = _icp_problem(renderer, 22)
+    tris = verts[:, renderer.mano.faces]
+    perm = pm.face_part_perm(table)
+    order, pts_s, parts_s, run = pm.culled_tables(pts, tris[:, perm],
+                                                  table[perm], part)
+    ext, _ = pm._extend_part_tables(table[perm], part)
+    fc = pm.face_constants16(tris[:, perm])
+    before = kernels.LAUNCHES["icp_argmin_culled"]
+    dk, ik = pm.point_mesh_kernel.argmin_faces_culled_cuda(pts_s, fc, ext,
+                                                          parts_s, run)
+    dq, iq = pm.argmin_faces_culled_plain(pts_s, fc, ext, parts_s, run)
+    torch.testing.assert_close(dk, dq, rtol=0, atol=1e-6)
+    assert (ik == iq).float().mean() > 0.9
+    dk, ik = pm.argmin_faces_culled(pts, tris, table, part)
+    assert kernels.LAUNCHES["icp_argmin_culled"] == before + 2
+    dp, _ = pm.argmin_faces_plain(pts, tris, table, part)
+    none = _hold_winners(pts, tris, ik, dp)
+    assert (dk[none] >= 1e10).all() and (ik[none] == int(perm[0])).all()
+    assert table[ik[~none].long(), part[~none]].all()
+    assert 0 < float(run.float().mean()) < 1
+
+
+def test_raster_dense_kernel_bitwise_equals_plain(cuda):
+    """K6 against ``raster_scan`` on a random mesh over a 60 x 50 frame
+    (3000 samples, not a multiple of the 256-sample block), through the
+    dense route: zbuf bitwise, ids equal, one launch."""
+    rng = np.random.RandomState(4)
+    B, V, F = 2, 80, 300
+    verts = torch.from_numpy((rng.randn(B, V, 3) * 10 + [0, 0, 100])
+                             .astype(np.float32)).to(cuda)
+    faces = torch.from_numpy(np.stack([rng.choice(V, 3, replace=False)
+                                       for _ in range(F)])).to(cuda)
+    paras = (50.0, 50.0, 30.0, 25.0)
+    pix = ras.full_frame_pixel_rays((60, 50), cuda)
+    before = kernels.LAUNCHES["raster_dense"]
+    zk, ik = ras.rasterize_depth(verts, faces, pix, paras, return_idx=True)
+    assert kernels.LAUNCHES["raster_dense"] == before + 1
+    zp, ip = ras.raster_scan(ras.project_verts(verts, paras),
+                             pix.expand(B, -1, -1), faces)
+    assert (zp > 0).float().mean() > 0.1
+    assert torch.equal(zk, zp) and torch.equal(ik, ip)
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_raster_binned_kernel_bitwise_equals_plain(renderer, stride,
+                                                   monkeypatch):
+    """K10 on posed hands' crops through ``rasterize_depth(tile_hw=...)``
+    with the skip route off, against its plain version on the same tables
+    and against ``raster_scan``: zbuf bitwise, ids equal, one launch; and
+    with the overflow flag set, every tile's dense answer."""
+    from dsf_tpu_torch import geometry as geo
+    monkeypatch.setattr(ras, "USE_PALLAS_SKIP", False)
+    para, center, cube = _scene(renderer, 3, 30 + stride)
+    verts, _ = mano.get_mano_vertices(renderer.mano, *mano.split_params(para),
+                                      global_scale=1.0 / 125.0)
+    verts = verts * cube[:, None] / 2.0 + center[:, None]
+    com = geo.xyz_to_uvd(center[:, None], PARAS)[:, 0]
+    M = geo.crop_matrix(com, cube, PARAS, renderer.crop_size)
+    rays = ras.crop_pixel_rays(M, renderer.crop_size, stride).contiguous()
+    faces = renderer.mano.faces
+    H = 96 // stride
+    before = kernels.LAUNCHES["raster_binned"]
+    zk, ik = ras.rasterize_depth(verts, faces, rays, PARAS, return_idx=True,
+                                 tile_hw=(H, H))
+    assert kernels.LAUNCHES["raster_binned"] == before + 1
+    proj = ras.project_verts(verts, PARAS)
+    rows = ras.face_rows(proj, faces)
+    tables = ras.binned_tables(proj, rays, faces, (H, H), rows)
+    zb, ib = ras.raster_binned_plain(rows, rays, (H, H), *tables)
+    zp, ip = ras.raster_scan(proj, rays, faces)
+    assert (zp > 0).float().mean() > 0.02
+    assert torch.equal(zk, zb) and torch.equal(ik, ib)
+    assert torch.equal(zk, zp) and torch.equal(ik, ip)
+    lists, counts, _ = tables
+    forced = torch.ones(1, dtype=torch.int32, device=rows.device)
+    zf, i_f = ras.raster_kernel.raster_binned_cuda(rows, rays, lists, counts,
+                                                  forced, (H, H))
+    assert torch.equal(zf, zp) and torch.equal(i_f, ip)

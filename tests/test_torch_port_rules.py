@@ -19,6 +19,7 @@ from dsf_tpu_torch.ops import (codec_kernel, moments_kernel,
                                point_mesh_kernel, raster_kernel,
                                tapsum_kernel)
 from dsf_tpu_torch.serving import InferenceEngine
+from dsf_tpu_torch.tools.prerender import prerender_dataset
 from dsf_tpu_torch.training.trainer import Trainer
 
 torch.set_num_threads(2)
@@ -48,6 +49,7 @@ def _imported_modules(path):
 def test_no_jax_flax_or_dsf_tpu_imports():
     files = list(_py_files())
     assert len(files) > 10
+    assert any(os.path.relpath(p, PKG).startswith("tools") for p in files)
     bad = [(os.path.relpath(p, PKG), m) for p in files
            for m in _imported_modules(p)
            if m.split(".")[0] in FORBIDDEN]
@@ -77,6 +79,11 @@ def test_default_device_is_cuda_and_raises_without_it(tmp_path, monkeypatch):
         load_model(str(tmp_path / "none.npz"))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Trainer(Config(), str(tmp_path / "none.npz"))
+    # and the pre-render tool, before it writes anything
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        prerender_dataset(str(tmp_path / "none.npz"),
+                          np.zeros((1, 62), np.float32), str(tmp_path / "out"))
+    assert not (tmp_path / "out").exists()
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -113,9 +120,36 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         tapsum_kernel.tail_conv_cuda(torch.zeros(1, 8, 14, 14),
                                      torch.zeros(1, 8, 7, 7), torch.zeros(1))
+    with pytest.raises(ValueError, match="CUDA"):
+        point_mesh_kernel.argmin_faces_v2_cuda(
+            torch.zeros(1, 16, 3), torch.zeros(1, 4, 3, 3), None, None,
+            torch.zeros(1, 1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        point_mesh_kernel.argmin_faces_v2_launch(
+            torch.zeros(1, 16, 3), torch.zeros(1, 4, 28),
+            torch.zeros(4, dtype=torch.int32),
+            torch.zeros(1, 16, dtype=torch.int32),
+            torch.zeros(1, 1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        point_mesh_kernel.argmin_faces_culled_cuda(
+            torch.zeros(1, 16, 3), torch.zeros(1, 4, 16),
+            torch.ones(4, 2, dtype=torch.bool),
+            torch.zeros(1, 16, dtype=torch.int64),
+            torch.ones(1, 1, 1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        raster_kernel.raster_dense_cuda(torch.zeros(1, 64, 16),
+                                        torch.zeros(1, 256, 2))
+    with pytest.raises(ValueError, match="CUDA"):
+        raster_kernel.raster_binned_cuda(
+            torch.zeros(1, 64, 16), torch.zeros(1, 256, 2),
+            torch.zeros(1, 1, 512, dtype=torch.int32),
+            torch.zeros(1, 1, dtype=torch.int32),
+            torch.zeros(1, dtype=torch.int32), (16, 16))
     assert kernels.LAUNCHES == {name: 0 for name in (
         "raster_skip", "raster_moments", "codec_encode", "codec_encode_bwd",
-        "codec_decode", "codec_decode_bwd", "point_mesh_argmin", "tail_conv")}
+        "codec_decode", "codec_decode_bwd", "point_mesh_argmin", "tail_conv",
+        "icp_argmin_v2", "icp_argmin_culled", "raster_dense",
+        "raster_binned")}
 
 
 def test_kernel_sources_and_build_flags():
@@ -130,10 +164,62 @@ def test_kernel_sources_and_build_flags():
                                   "_encode_bwd", "_decode_bwd")),
                        ("point_mesh", ("argmin_faces_pallas",)),
                        ("tail_conv", ("pallas_tapsum.py:tail_conv_tanh",
-                                      "_fast_tail"))):
+                                      "_fast_tail")),
+                       ("point_mesh_v2", ("argmin_faces_pallas_v2",
+                                          "_kernel_v2")),
+                       ("point_mesh_culled", ("argmin_faces_pallas_culled",
+                                              "_kernel_culled")),
+                       ("raster_dense", ("pallas_raster.py:raster_pallas",
+                                         "_kernel_impl")),
+                       ("raster_binned", ("raster_pallas_tiles",
+                                          "_raster_binned"))):
         with open(os.path.join(build.CSRC, name + ".cu")) as f:
             src = f.read()
         assert all(t in src for t in tpus) and "Replaces:" in src
     assert np.array_equal(sorted(build.SOURCES),
-                          ["codec", "moments", "point_mesh", "raster_skip",
+                          ["codec", "moments", "point_mesh",
+                           "point_mesh_culled", "point_mesh_v2",
+                           "raster_binned", "raster_dense", "raster_skip",
                            "tail_conv"])
+
+
+@pytest.mark.parametrize("header, sources, copied", [
+    # the raster kernels' per-face test and row staging
+    ("raster_rows.cuh", ("raster_skip", "raster_dense", "raster_binned"),
+     ("__fmul_rn(", "__fadd_rn(", "r[12] ==")),
+    # the ICP kernels' divide-free distance
+    ("point_tri27.cuh", ("point_mesh", "point_mesh_v2"),
+     ("c[26]", "dpn * dpn", "vc <= 0.f")),
+])
+def test_kernels_share_their_arithmetic(header, sources, copied):
+    """Kernels that compute one function include its arithmetic from one
+    header and keep no copy of it, so their bitwise (rasters) and
+    winning-distance (ICP) agreement cannot drift apart."""
+    from dsf_tpu_torch.kernels import build
+    with open(os.path.join(build.CSRC, header)) as f:
+        shared = f.read()
+    assert all(c in shared for c in copied)
+    for name in sources:
+        with open(os.path.join(build.CSRC, name + ".cu")) as f:
+            src = f.read()
+        assert f'#include "{header}"' in src
+        assert not any(c in src for c in copied), name
+
+
+def test_library_name_follows_the_shared_headers(tmp_path, monkeypatch):
+    """A library's hashed name changes with its source and with any shared
+    header, so a kernel built before a header changed is never loaded."""
+    import shutil
+    from dsf_tpu_torch.kernels import build
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", str(csrc))
+    before = build._lib_path("raster_dense")
+    assert build._lib_path("raster_dense") == before
+    with open(csrc / "raster_rows.cuh", "a") as f:
+        f.write("\n")
+    after = build._lib_path("raster_dense")
+    assert after != before
+    with open(csrc / "raster_dense.cu", "a") as f:
+        f.write("\n")
+    assert build._lib_path("raster_dense") not in (before, after)
