@@ -10,7 +10,10 @@ Phases, each printed on its own line(s); any failure exits non-zero:
    with ptxas's register and shared-memory report;
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the serving and training paths give it (K1 skip-raster and
-   K2 raster moments at B=32 with 64x64 and 128x128 pixels; K5 encode,
+   K2 raster moments at B=32 with 64x64 and 128x128 pixels, K1's face
+   set-up kernel bitwise against rasterize.skip_tables, K1 and K6 also on
+   a crop without a hand, a hand shrunk until one tile meets more faces
+   than a 256-face chunk holds, and a ragged 60x58 layout; K5 encode,
    K4 decode and their VJPs at B=32, J=21, S=64; K3 point->mesh argmin at
    the FinetuneStage step's 128 clouds x 2048 points x 1554 faces under the
    ICP's 16-column part table; K9, the CycleGAN generator's tail conv, on
@@ -18,11 +21,13 @@ Phases, each printed on its own line(s); any failure exits non-zero:
    from the seeded stand-in generator on rendered hands; K7, the ICP argmin
    with its admissibility skip words, and K8, the culled ICP argmin, at
    K3's shape; K6, the dense raster, at the pre-render's B=32 NYU frames of
-   640x480; K10, the binned raster, on B=32 crops of 64x64, the serving
+   640x480, its set-up bitwise, and on the frames' samples in a random
+   order; K10, the binned raster, on B=32 crops of 64x64, the serving
    path's stage-2 render, and of 128x128, each also with its overflow flag
    set, so that every tile takes the dense branch): error, kernel and plain
    device time (CUDA events, warm L2, the host's enqueue hidden behind a
-   sleep kernel), the time of one PyTorch library call computing the same
+   sleep kernel; for K1 and K6 the set-up, the raster and the whole route
+   apart), the time of one PyTorch library call computing the same
    function where there is one, and the bound (the larger of bytes over
    3.35 TB/s and float operations over 67 TFLOP/s, the H100 SXM's
    published float32 non-tensor rate);
@@ -236,7 +241,59 @@ def raster_scene(renderer, B, stride, rng):
     return proj, rays, renderer.mano.faces, H, W
 
 
+def check_setup(proj, faces, lib):
+    """The raster set-up kernel (csrc/raster_setup.cuh, ``lib``'s copy)
+    against its plain version (``rasterize.skip_tables``): the face rows
+    bit for bit (``rasterize.face_rows``), the face and chunk boxes equal.
+    Returns the set-up's tables."""
+    import torch
+    from dsf_tpu_torch.ops import raster_kernel
+    from dsf_tpu_torch.ops import rasterize as ras
+
+    got = raster_kernel.face_setup_cuda(proj, faces.to(torch.int32), lib)
+    ref = ras.skip_tables(proj, faces)
+    torch.cuda.synchronize()
+    rows_bad = int((got[0].view(torch.int32) != ref[0].view(torch.int32)).sum())
+    box_bad = int((got[1] != ref[1]).sum())
+    cbox_bad = int((got[2] != ref[2]).sum())
+    need(rows_bad == 0 and box_bad == 0 and cbox_bad == 0,
+         f"the {lib} set-up disagrees with rasterize.skip_tables: {rows_bad} "
+         f"row words, {box_bad} face-box and {cbox_bad} chunk-box values")
+    return got
+
+
+def faces_per_block(boxes, rays, blocks):
+    """The faces each block of samples stages after its cull: boxes (B, F,
+    4) against the box of each block's samples, rays (B, P, 2) taken in
+    ``blocks`` (nb, S) index order, widened by ``rasterize.BOX_MARGIN``
+    -> (B, nb) counts."""
+    from dsf_tpu_torch.ops import rasterize as ras
+    uv = rays[:, blocks]                            # (B, nb, S, 2)
+    lo = uv.amin(2) - ras.BOX_MARGIN
+    hi = uv.amax(2) + ras.BOX_MARGIN
+    bx = boxes[:, None]                             # (B, 1, F, 4)
+    meet = ((bx[..., 0] <= hi[..., None, 0]) & (bx[..., 1] >= lo[..., None, 0])
+            & (bx[..., 2] <= hi[..., None, 1]) & (bx[..., 3] >= lo[..., None, 1]))
+    return meet.sum(-1)
+
+
+def tile_blocks(H, W, device):
+    """K1's blocks of a row-major H x W layout whose sides are multiples of
+    its tile (``raster_kernel.SKIP_TILE``): each tile's sample indices."""
+    import torch
+    from dsf_tpu_torch.ops import raster_kernel
+    th, tw = raster_kernel.SKIP_TILE
+    ids = torch.arange(H * W, device=device).reshape(H // th, th, W // tw, tw)
+    return ids.permute(0, 2, 1, 3).reshape(-1, th * tw)
+
+
 def check_raster(renderer, B, stride, rng, record):
+    """K1 at B crops of posed hands at ``stride`` (2: 64x64, the serving
+    path's and the steps' stage-2 render; 1: 128x128): the set-up against
+    its plain version, then the raster on its tables and the whole route
+    (``rasterize.skip_forward``) against ``raster_scan``, zbuf bitwise and
+    ids equal.  Times the set-up, the raster and the route apart, with the
+    same tables built in PyTorch (``skip_tables``) beside them."""
     import torch
     from dsf_tpu_torch.ops import raster_kernel
     from dsf_tpu_torch.ops import rasterize as ras
@@ -244,30 +301,39 @@ def check_raster(renderer, B, stride, rng, record):
     proj, rays, faces, H, W = raster_scene(renderer, B, stride, rng)
     P = H * W
     F = faces.shape[0]
+    f32 = faces.to(torch.int32)
 
-    rows, cbox = ras.skip_tables(proj, faces)
-    zk, ik = raster_kernel.raster_skip_cuda(rows, cbox, rays, (H, W))
+    tables = check_setup(proj, faces, "raster_skip")
+    zk, ik = raster_kernel.raster_skip_launch(*tables, rays, (H, W))
+    zr, ir = ras.skip_forward(proj, rays, faces, (H, W))
     zp, ip = ras.raster_scan(proj, rays, faces)
     torch.cuda.synchronize()
-    z_bad = int((zk != zp).sum())
-    i_bad = int((ik != ip).sum())
+    z_bad = int((zk != zp).sum()) + int((zr != zp).sum())
+    i_bad = int((ik != ip).sum()) + int((ir != ip).sum())
     covered = int((zp > 0).sum())
     err = float((zk - zp).abs().max())
+    per_block = faces_per_block(tables[1], rays, tile_blocks(H, W, rays.device))
 
-    ms = time_ms(lambda: raster_kernel.raster_skip_cuda(rows, cbox, rays,
-                                                       (H, W)), 50)
+    ms = time_ms(lambda: raster_kernel.raster_skip_launch(*tables, rays,
+                                                         (H, W)), 50)
+    setup_ms = time_ms(lambda: raster_kernel.face_setup_cuda(proj, f32), 50)
+    route_ms = time_ms(lambda: ras.skip_forward(proj, rays, faces, (H, W)), 50)
     tables_ms = time_ms(lambda: ras.skip_tables(proj, faces), 20)
     plain_ms = time_ms(lambda: ras.raster_scan(proj, rays, faces), 5, 1)
     # of each face's 16-float row, the 12 coefficients and the valid flag
     # carry information; the other 3 pad the row for float4 reads
-    nbytes = B * F * 13 * 4 + cbox.numel() * 4 + rays.numel() * 4 + B * P * 8
+    nbytes = B * F * 13 * 4 + rays.numel() * 4 + B * P * 8
     pairs = raster_pair_count(proj, faces, rays)
     bms, by = bound_ms(nbytes, 16 * pairs)
-    say(f"kernel K1 raster_skip B={B} {H}x{W} F={F}: zbuf mismatches "
-        f"{z_bad}, id mismatches {i_bad}, covered pixels {covered}/{B * P}, "
-        f"max_abs_err {err}, kernel {ms:.4f} ms (+ tables {tables_ms:.4f} ms),"
-        f" plain {plain_ms:.4f} ms, bound {bms:.6f} ms by {by} "
-        f"({pairs} pixel-face pairs in bbox, {nbytes} bytes)")
+    say(f"kernel K1 raster_skip B={B} {H}x{W} F={F}: set-up rows bitwise, "
+        f"boxes equal; zbuf mismatches {z_bad}, id mismatches {i_bad} (raster"
+        f" and route), covered pixels {covered}/{B * P}, faces staged per "
+        f"tile mean {float(per_block.float().mean()):.1f} max "
+        f"{int(per_block.max())}, max_abs_err {err}, kernel {ms:.4f} ms, "
+        f"set-up {setup_ms:.4f} ms, route {route_ms:.4f} ms (the tables in "
+        f"PyTorch {tables_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+        f"{bms:.6f} ms by {by} ({pairs} pixel-face pairs in bbox, {nbytes} "
+        f"bytes)")
     need(z_bad == 0 and i_bad == 0,
          f"K1 disagrees with its plain version at stride {stride}")
     need(covered > 0.02 * B * P, "K1 scene covers too little of the crop")
@@ -276,8 +342,56 @@ def check_raster(renderer, B, stride, rng, record):
                 "source": "dsf_tpu_torch/csrc/raster_skip.cu",
                 "replaces": "dsf_tpu/ops/pallas_raster.py:322",
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bms, "bound_by": by, "library_ms": None}
+                "bound_ms": bms, "bound_by": by, "library_ms": None,
+                "setup_ms": setup_ms, "route_ms": route_ms}
     return None
+
+
+def check_raster_cases(renderer, B, rng):
+    """K1 and K6 on the scenes a cull could get wrong, each against
+    ``raster_scan`` (zbuf bitwise, ids equal): a batch whose first crop
+    holds no hand (moved 5000 px off), a hand shrunk 5x about its centre
+    (every face within a few tiles: tiles that stage more faces than one
+    256-face chunk holds, faces under a pixel), and a 60x58 layout of
+    64x64 crops' rays (K1's tiles ragged in both directions)."""
+    import torch
+    from dsf_tpu_torch.ops import raster_kernel
+    from dsf_tpu_torch.ops import rasterize as ras
+
+    proj, rays, faces, H, W = raster_scene(renderer, B, 2, rng)
+    f32 = faces.to(torch.int32)
+    away = proj.clone()
+    away[0, :, 0] += 5000.0
+    small = proj.clone()
+    mid = small[..., :2].mean(1, keepdim=True)
+    small[..., :2] = mid + (small[..., :2] - mid) * 0.2
+    ragged = rays.reshape(B, H, W, 2)[:, :60, :58].reshape(B, 3480, 2)
+    cases = (("no hand in crop 0", away, rays, (H, W)),
+             ("hand shrunk 5x", small, rays, (H, W)),
+             ("ragged 60x58 tiles", proj, ragged.contiguous(), (60, 58)))
+    for name, pj, ry, hw in cases:
+        zp, ip = ras.raster_scan(pj, ry, faces)
+        zk, ik = raster_kernel.raster_skip_cuda(pj, f32, ry, hw)
+        zd, i_d = raster_kernel.raster_dense_cuda(pj, f32, ry)
+        torch.cuda.synchronize()
+        bad = [int((zk != zp).sum()), int((ik != ip).sum()),
+               int((zd != zp).sum()), int((i_d != ip).sum())]
+        note = ""
+        if hw[0] % 16 == 0 and hw[1] % 16 == 0:
+            boxes = ras.skip_tables(pj, faces)[1]
+            most = int(faces_per_block(boxes, ry, tile_blocks(*hw, ry.device))
+                       .max())
+            note = f", faces staged per tile max {most}"
+        say(f"kernel K1/K6 case {name} B={B} {hw[0]}x{hw[1]}: K1 zbuf/id "
+            f"mismatches {bad[0]}/{bad[1]}, K6 {bad[2]}/{bad[3]}, covered "
+            f"{int((zp > 0).sum())}/{zp.numel()}{note}")
+        need(sum(bad) == 0, f"K1 or K6 disagrees with raster_scan: {name}")
+        if name.startswith("no hand"):
+            need(int((ip[0] >= 0).sum()) == 0 and int((ip[1:] >= 0).sum()) > 0,
+                 "the crop without a hand is not background")
+        if name.startswith("hand shrunk"):
+            need(most > raster_kernel.CHUNK, "no tile stages more faces "
+                 "than one chunk holds")
 
 
 def check_codec(renderer, B, rng):
@@ -336,12 +450,11 @@ def check_moments(renderer, B, stride, rng, record):
     builds from them (random cotangent)."""
     import torch
     from dsf_tpu_torch.ops import moments_kernel, raster_kernel
-    from dsf_tpu_torch.ops import rasterize as ras
 
     proj, rays, faces, H, W = raster_scene(renderer, B, stride, rng)
     T = faces.shape[0]
-    rows, cbox = ras.skip_tables(proj, faces)
-    _, idx = raster_kernel.raster_skip_cuda(rows, cbox, rays, (H, W))
+    _, idx = raster_kernel.raster_skip_cuda(proj, faces.to(torch.int32), rays,
+                                            (H, W))
     g = torch.from_numpy(rng.randn(B, H * W).astype(np.float32)).cuda()
     gm = g * (idx >= 0).float()
     upd = torch.stack([gm, gm * rays[..., 0], gm * rays[..., 1]], -1).contiguous()
@@ -707,8 +820,12 @@ def frame_pair_count(proj, faces, W, H):
 
 def check_raster_dense(renderer, B, rng):
     """K6 at the pre-render's shape: B NYU frames of 640x480 of seeded
-    hands (``prerender_params``), every face against every pixel, against
-    its plain version (``raster_scan``): zbuf bitwise, ids equal."""
+    hands (``prerender_params``): the set-up against its plain version,
+    then the raster on its tables and the whole route
+    (``rasterize.dense_forward``) against ``raster_scan``, zbuf bitwise and
+    ids equal, and the raster on the frames' samples in a random order
+    (the same answers, permuted).  Times the set-up, the raster and the
+    route apart, with the face rows built in PyTorch beside them."""
     import torch
     from dsf_tpu_torch import demo
     from dsf_tpu_torch.mano import model as mano
@@ -722,32 +839,47 @@ def check_raster_dense(renderer, B, rng):
     rays = ras.full_frame_pixel_rays((W, H), "cuda").expand(B, -1, -1)
     rays = rays.contiguous()
     faces = renderer.mano.faces
+    f32 = faces.to(torch.int32)
     F, P = faces.shape[0], W * H
-    rows = ras.face_rows(proj, faces)
-    zk, ik = raster_kernel.raster_dense_cuda(rows, rays)
+    tables = check_setup(proj, faces, "raster_dense")
+    zk, ik = raster_kernel.raster_dense_launch(*tables, rays)
+    zr, ir = ras.dense_forward(proj, rays, faces)
     zp, ip = ras.raster_scan(proj, rays, faces)
+    perm = torch.from_numpy(rng.permutation(P)).cuda()
+    zq, iq = raster_kernel.raster_dense_launch(*tables,
+                                               rays[:, perm].contiguous())
     torch.cuda.synchronize()
-    z_bad, i_bad = int((zk != zp).sum()), int((ik != ip).sum())
+    z_bad = int((zk != zp).sum()) + int((zr != zp).sum())
+    i_bad = int((ik != ip).sum()) + int((ir != ip).sum())
+    q_bad = int((zq != zp[:, perm]).sum()) + int((iq != ip[:, perm]).sum())
     covered = int((zp > 0).sum())
     err = float((zk - zp).abs().max())
-    ms = time_ms(lambda: raster_kernel.raster_dense_cuda(rows, rays), 5, 1)
+    ms = time_ms(lambda: raster_kernel.raster_dense_launch(*tables, rays), 20)
+    setup_ms = time_ms(lambda: raster_kernel.face_setup_cuda(
+        proj, f32, "raster_dense"), 50)
+    route_ms = time_ms(lambda: ras.dense_forward(proj, rays, faces), 20)
     rows_ms = time_ms(lambda: ras.face_rows(proj, faces), 20)
     plain_ms = time_ms(lambda: ras.raster_scan(proj, rays, faces), 3, 1)
     nbytes = B * F * 13 * 4 + rays.numel() * 4 + B * P * 8
     pairs = frame_pair_count(proj, faces, W, H)
     bms, by = bound_ms(nbytes, 16 * pairs)
-    say(f"kernel K6 raster_dense B={B} {W}x{H} F={F}: zbuf mismatches "
-        f"{z_bad}, id mismatches {i_bad}, covered pixels {covered}/{B * P}, "
-        f"max_abs_err {err}, kernel {ms:.4f} ms (+ face rows {rows_ms:.4f} "
-        f"ms), plain {plain_ms:.4f} ms, bound {bms:.6f} ms by {by} ({pairs} "
-        f"pixel-face pairs in bbox of {B * P * F}, {nbytes} bytes)")
+    say(f"kernel K6 raster_dense B={B} {W}x{H} F={F}: set-up rows bitwise, "
+        f"boxes equal; zbuf and id mismatches {z_bad} and {i_bad} (raster and"
+        f" route), {q_bad} on the samples permuted; covered pixels "
+        f"{covered}/{B * P}, max_abs_err {err}, kernel {ms:.4f} ms, set-up "
+        f"{setup_ms:.4f} ms, route {route_ms:.4f} ms (face_rows in PyTorch "
+        f"{rows_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {bms:.6f} ms by "
+        f"{by} ({pairs} pixel-face pairs in bbox of {B * P * F}, {nbytes} "
+        f"bytes)")
     need(z_bad == 0 and i_bad == 0, "K6 disagrees with its plain version")
+    need(q_bad == 0, "K6 on permuted samples disagrees with its plain version")
     need(covered > 0.01 * B * P, "K6 scene covers too little of the frame")
     return {"name": "raster_dense", "route": "cuda",
             "source": "dsf_tpu_torch/csrc/raster_dense.cu",
             "replaces": "dsf_tpu/ops/pallas_raster.py:484",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": None}
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "setup_ms": setup_ms, "route_ms": route_ms}
 
 
 def check_raster_binned(renderer, B, stride, rng):
@@ -1822,6 +1954,7 @@ def main():
             record.append(check_raster(renderer, KERNEL_BATCH, 2, rng,
                                        record=True))
             check_raster(renderer, KERNEL_BATCH, 1, rng, record=False)
+            check_raster_cases(renderer, KERNEL_BATCH, rng)
             record += check_codec(renderer, KERNEL_BATCH, rng)
         record.append(check_moments(renderer, KERNEL_BATCH, 2, rng,
                                     record=True))

@@ -1,7 +1,8 @@
 // The per-face depth test of the raster kernels K1 (raster_skip.cu), K6
 // (raster_dense.cu) and K10 (raster_binned.cu), in one place so that the
 // three stay bitwise-equal to their common plain version
-// (ops/rasterize.py:_depth_or_inf and scan_rows).
+// (ops/rasterize.py:_depth_or_inf and scan_rows); and the culled scan that
+// K1 and K6 share (scan_culled).
 //
 // A face row is 16 floats (rasterize.face_rows): the three edge lines
 // a*u + b*v + c (0-8), the depth line (9-11), the valid flag (12) and
@@ -13,12 +14,17 @@
 
 #include <cuda_runtime.h>
 #include <cstdint>
+#include <math.h>
 
 namespace dsf_raster {
 
 constexpr int kRow = 16;             // floats per face row
-constexpr int kChunk = 64;           // face rows per shared-memory stage
+constexpr int kChunk = 64;           // K10's face rows per shared stage
 constexpr float kInf = 1e10f;
+constexpr int kCull = 256;           // faces a chunk box covers and the
+                                     // set-up's block (raster_setup.cuh)
+constexpr int kList = 2048;          // faces a block culls into one list
+constexpr float kMargin = 1.0f;      // pixels; rasterize.BOX_MARGIN
 
 __device__ __forceinline__ float lin(float u, float v, float a, float b,
                                      float c) {
@@ -42,23 +48,156 @@ __device__ __forceinline__ void nearer(const float* r, float u, float v,
   }
 }
 
-// Stage rows f0 .. f0 + nf - 1 (nf <= kChunk) of one image's (F, 16) rows
-// into s_rows: 64 rows x 16 floats = 256 float4, one per thread of a
-// 256-thread block; rows past nf are zero (invalid).
-__device__ __forceinline__ void stage_rows(float* s_rows, const float* rows,
-                                           int f0, int nf, int tid) {
-  float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-  if ((tid >> 2) < nf)
-    val = reinterpret_cast<const float4*>(rows + (size_t)f0 * kRow)[tid];
-  reinterpret_cast<float4*>(s_rows)[tid] = val;
-}
-
 // The sample's result: (best, best_i), or (0, -1) where no face covers it.
 __device__ __forceinline__ void store(float best, int best_i, float* zbuf,
                                       int32_t* idx, long long at) {
   const bool bg = !(best < kInf);
   zbuf[at] = bg ? 0.f : best;
   idx[at] = bg ? -1 : best_i;
+}
+
+// The shared memory of scan_culled for a block of kThreads threads.
+template <int kThreads>
+struct CullShared {
+  int32_t list[kList];                  // the faces that passed, ascending
+  float4 rows[kThreads * 4];            // a batch of their rows
+  int32_t warp_n[kList / kThreads][kThreads / 32];
+  float part[4][kThreads / 32];
+};
+
+__device__ __forceinline__ bool meets(float4 box, float umin, float umax,
+                                      float vmin, float vmax) {
+  return box.x <= umax && box.y >= umin && box.z <= vmax && box.w >= vmin;
+}
+
+// One block of kThreads threads, each with up to S samples (u[j], v[j];
+// active[j] where the sample exists), against one image's F faces: rows
+// (F, 16), boxes (F) and the chunk boxes (ceil(F / kCull)) of
+// raster_setup.cuh.  Leaves in (best[j], best_i[j]) the least depth and
+// the lowest face id at it, as raster_scan does.
+//
+//  1. The block reduces the box of its own samples and widens it by
+//     kMargin (a rounding cannot put a sample a pixel outside a face's box
+//     inside the face: the premise of raster_scan's own near test).
+//  2. It culls up to kList faces at a time into one list, kThreads faces a
+//     step, one face a thread.  A chunk box that misses the block's box
+//     skips its steps for the whole block (one uniform test, the chunk
+//     boxes read at once); otherwise each thread tests its face's box,
+//     the next step's box already in flight.  __ballot_sync, __popc and a
+//     prefix over the warps' counts give each passing face a slot in
+//     ascending face order.
+//  3. The listed rows are gathered into shared memory kThreads at a time,
+//     and each thread walks them for its S samples with nearer's strict
+//     '<': faces come in ascending id order, so the lowest id at the least
+//     depth wins.
+// A block whose box meets no chunk reads no face box and no row.
+template <int kThreads, int S>
+__device__ __forceinline__ void scan_culled(
+    const float* __restrict__ rows, const float4* __restrict__ boxes,
+    const float4* __restrict__ cbox, int F, const float (&u)[S],
+    const float (&v)[S], const bool (&active)[S], int tid,
+    CullShared<kThreads>& s, float (&best)[S], int (&best_i)[S]) {
+  static_assert(kCull % kThreads == 0 && kThreads % 32 == 0, "block size");
+  constexpr int kWarps = kThreads / 32;
+  constexpr int kSteps = kList / kThreads;
+  constexpr int kPerChunk = kCull / kThreads;    // steps a chunk box covers
+  const int lane = tid & 31, warp = tid >> 5;
+  const float4 none = make_float4(INFINITY, -INFINITY, INFINITY, -INFINITY);
+
+  float r0 = INFINITY, r1 = -INFINITY, r2 = INFINITY, r3 = -INFINITY;
+  bool any = false;
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    if (active[j]) {
+      r0 = fminf(r0, u[j]);
+      r1 = fmaxf(r1, u[j]);
+      r2 = fminf(r2, v[j]);
+      r3 = fmaxf(r3, v[j]);
+      any = true;
+    }
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    r0 = fminf(r0, __shfl_xor_sync(0xffffffffu, r0, off));
+    r1 = fmaxf(r1, __shfl_xor_sync(0xffffffffu, r1, off));
+    r2 = fminf(r2, __shfl_xor_sync(0xffffffffu, r2, off));
+    r3 = fmaxf(r3, __shfl_xor_sync(0xffffffffu, r3, off));
+  }
+  if (lane == 0) {
+    s.part[0][warp] = r0;
+    s.part[1][warp] = r1;
+    s.part[2][warp] = r2;
+    s.part[3][warp] = r3;
+  }
+  __syncthreads();
+  for (int k = 0; k < kWarps; ++k) {
+    r0 = fminf(r0, s.part[0][k]);
+    r1 = fmaxf(r1, s.part[1][k]);
+    r2 = fminf(r2, s.part[2][k]);
+    r3 = fmaxf(r3, s.part[3][k]);
+  }
+  const float umin = r0 - kMargin, umax = r1 + kMargin;
+  const float vmin = r2 - kMargin, vmax = r3 + kMargin;
+
+  for (int g0 = 0; g0 < F; g0 += kList) {
+    // the chunk boxes of this pass that meet the block's box, a bit each
+    const int c0 = g0 / kCull;
+    const int ncb = min(kList / kCull, (F - g0 + kCull - 1) / kCull);
+    unsigned cmask = 0;
+#pragma unroll
+    for (int k = 0; k < kList / kCull; ++k) {
+      if (k < ncb && meets(cbox[c0 + k], umin, umax, vmin, vmax))
+        cmask |= 1u << k;
+    }
+    if (cmask == 0) continue;                   // the same for every thread
+
+    int n = 0;                                  // faces listed, uniform
+    float4 next = none;
+    if ((cmask & 1u) && g0 + tid < F) next = boxes[g0 + tid];
+    for (int k = 0; k < kSteps; ++k) {
+      const float4 box = next;
+      const int f = g0 + k * kThreads + tid;
+      next = none;
+      if (k + 1 < kSteps && ((cmask >> ((k + 1) / kPerChunk)) & 1u) &&
+          f + kThreads < F)
+        next = boxes[f + kThreads];
+      if (!((cmask >> (k / kPerChunk)) & 1u)) continue;
+      const bool pass = f < F && meets(box, umin, umax, vmin, vmax);
+      const unsigned m = __ballot_sync(0xffffffffu, pass);
+      if (lane == 0) s.warp_n[k][warp] = __popc(m);
+      __syncthreads();
+      int slot = n;
+      for (int w = 0; w < kWarps; ++w) {
+        const int nw = s.warp_n[k][w];
+        slot += w < warp ? nw : 0;
+        n += nw;
+      }
+      if (pass) s.list[slot + __popc(m & ((1u << lane) - 1u))] = f;
+    }
+    __syncthreads();                            // the list is complete
+
+    for (int b0 = 0; b0 < n; b0 += kThreads) {
+      const int nb = min(kThreads, n - b0);
+      if (tid < nb) {
+        const float4* src =
+            reinterpret_cast<const float4*>(rows) + (size_t)s.list[b0 + tid] * 4;
+        const float4 q0 = src[0], q1 = src[1], q2 = src[2], q3 = src[3];
+        s.rows[tid * 4 + 0] = q0;
+        s.rows[tid * 4 + 1] = q1;
+        s.rows[tid * 4 + 2] = q2;
+        s.rows[tid * 4 + 3] = q3;
+      }
+      __syncthreads();                          // the batch is staged
+      if (any) {
+        for (int k = 0; k < nb; ++k) {
+          const float* r = reinterpret_cast<const float*>(s.rows + k * 4);
+          const int id = s.list[b0 + k];
+#pragma unroll
+          for (int j = 0; j < S; ++j) nearer(r, u[j], v[j], id, best[j], best_i[j]);
+        }
+      }
+      __syncthreads();                          // the batch is walked
+    }
+  }
 }
 
 }  // namespace dsf_raster

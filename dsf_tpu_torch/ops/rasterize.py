@@ -21,13 +21,14 @@ bitwise-equal to its plain version on the same face rows.
 (``_raster_forward``, dsf_tpu/ops/rasterize.py:420-440) over three routes:
 
 - skip (``USE_PALLAS_SKIP`` and a known 16-aligned pixel layout): K1,
-  ``raster_kernel.raster_skip_cuda`` (16x16 tiles x 64-face chunks,
-  skipped by bounding box);
+  ``raster_kernel.raster_skip_cuda`` (the face set-up on the card, then
+  4x16 pixel tiles, each culling per face by bounding box);
 - binned (``tile_hw`` given): K10, ``raster_kernel.raster_binned_cuda``
   (per 16x16 tile, the faces whose bbox meets the tile's, at most
   ``BIN_CAP``; the dense answer for every tile when any tile overflows);
 - dense (otherwise, as for a full frame): K6,
-  ``raster_kernel.raster_dense_cuda``.
+  ``raster_kernel.raster_dense_cuda`` (K1's design over blocks of 128
+  consecutive samples).
 
 The route depends on the switches and the shapes alone; the device only
 picks the kernel (CUDA tensors) or its plain version (CPU tensors), so
@@ -59,7 +60,7 @@ BOX_MARGIN = 1.0       # pixels by which a bbox test widens a box (K1's too)
 # the JAX package's switches (dsf_tpu/ops/rasterize.py:253-254, :398-400)
 USE_PALLAS_SKIP = True
 SKIP_BLOCK = (16, 16)  # K1's pixel tile
-SKIP_FC = 64           # K1's face chunk
+SKIP_FC = 64           # the TPU skip kernel's face chunk (_skip_eligible)
 BIN_TILE = 16          # K10's pixel tile (BIN_TILE x BIN_TILE)
 BIN_CAP = 512          # K10's faces per tile
 
@@ -196,11 +197,8 @@ def raster_scan(proj, pix_uv, faces, chunk=FACE_CHUNK):
     from a face inside it.  The others go through ``scan_rows`` (on a full
     frame, a hand covers a few percent of it)."""
     rows = face_rows(proj, faces)
-    valid = rows[..., 12] != 0
-    tri_uv = proj[:, faces][..., :2]                      # (B, F, 3, 2)
-    inf = torch.full_like(tri_uv[..., 0, :], float("inf"))
-    lo = torch.where(valid[..., None], tri_uv.amin(2), inf).amin(1)
-    hi = torch.where(valid[..., None], tri_uv.amax(2), -inf).amax(1)
+    lo, hi = _face_bounds(proj, faces, rows)
+    lo, hi = lo.amin(1), hi.amax(1)
     near = ((pix_uv >= (lo - BOX_MARGIN)[:, None])
             & (pix_uv <= (hi + BOX_MARGIN)[:, None])).all(-1).any(0)  # (P,)
     if bool(near.all()):
@@ -217,28 +215,37 @@ def raster_scan(proj, pix_uv, faces, chunk=FACE_CHUNK):
     return zbuf, idx
 
 
+def _face_bounds(proj, faces, rows):
+    """Each face's screen box corners lo, hi (B, F, 2) = (umin, vmin),
+    (umax, vmax); +inf, -inf for an invalid face (``rows[..., 12]``)."""
+    valid = (rows[..., 12] != 0)[..., None]
+    tri_uv = proj[:, faces][..., :2]                      # (B, F, 3, 2)
+    inf = torch.full_like(tri_uv[..., 0, :], float("inf"))
+    return (torch.where(valid, tri_uv.amin(2), inf),
+            torch.where(valid, tri_uv.amax(2), -inf))
+
+
 def skip_tables(proj, faces):
-    """The K1 kernel's inputs: per-face rows (B, F, 16) (``face_rows``)
-    and per-chunk bboxes (B, nc, 4) = [umin umax vmin vmax] over
-    ``raster_kernel.CHUNK`` faces (invalid faces widen no bbox; a chunk
-    with none is empty: +inf > -inf)."""
+    """The plain version of the raster set-up (csrc/raster_setup.cuh), the
+    K1 and K6 kernels' inputs: face rows (B, F, 16) (``face_rows``), face
+    boxes (B, F, 4) = [umin umax vmin vmax] (+inf, -inf for an invalid
+    face, which no box test passes) and chunk boxes (B, ceil(F / 256), 4),
+    the union of the boxes of each ``raster_kernel.CHUNK`` faces."""
     rows = face_rows(proj, faces)
-    valid = rows[..., 12] != 0
-    B, F = valid.shape
-    tri_uv = proj[:, faces][..., :2]           # (B, F, 3, 2)
-    inf = torch.tensor(float("inf"), dtype=proj.dtype, device=proj.device)
-    fmin = torch.where(valid[..., None], tri_uv.amin(2), inf)
-    fmax = torch.where(valid[..., None], tri_uv.amax(2), -inf)
+    lo, hi = _face_bounds(proj, faces, rows)
+    boxes = torch.stack([lo[..., 0], hi[..., 0], lo[..., 1], hi[..., 1]],
+                        dim=-1)
+    B, F = boxes.shape[0], boxes.shape[1]
     fc = raster_kernel.CHUNK
     pad = (-F) % fc
-    if pad:
-        fmin = torch.cat([fmin, inf.expand(B, pad, 2)], dim=1)
-        fmax = torch.cat([fmax, (-inf).expand(B, pad, 2)], dim=1)
-    cmin = fmin.reshape(B, -1, fc, 2).amin(2)  # (B, nc, 2)
-    cmax = fmax.reshape(B, -1, fc, 2).amax(2)
-    cbox = torch.stack([cmin[..., 0], cmax[..., 0],
-                        cmin[..., 1], cmax[..., 1]], dim=-1)
-    return rows, cbox.contiguous()
+    empty = torch.tensor([float("inf"), float("-inf")] * 2,
+                         dtype=boxes.dtype, device=boxes.device)
+    chunks = torch.cat([boxes, empty.expand(B, pad, 4)], 1).reshape(
+        B, -1, fc, 4)
+    cbox = torch.stack([chunks[..., 0].amin(2), chunks[..., 1].amax(2),
+                        chunks[..., 2].amin(2), chunks[..., 3].amax(2)],
+                       dim=-1)
+    return rows, boxes.contiguous(), cbox.contiguous()
 
 
 def _tile_major(x, tile_hw):
@@ -385,22 +392,28 @@ def _route_forward(name, proj, pix_uv, plain, kernel):
     raise ValueError(f"no {name} raster path for device {proj.device}")
 
 
+def _kernel_args(proj, pix_uv, faces):
+    """proj, faces and pix_uv as the K1 and K6 wrappers take them."""
+    return (proj.float().contiguous(), faces.to(torch.int32).contiguous(),
+            pix_uv.contiguous())
+
+
 def skip_forward(proj, pix_uv, faces, layout_hw):
-    """The skip route on detached inputs: ``raster_scan`` / K1."""
-    def kernel():
-        rows, cbox = skip_tables(proj, faces)
-        return raster_kernel.raster_skip_cuda(rows, cbox,
-                                              pix_uv.contiguous(), layout_hw)
-    return _route_forward("skip", proj, pix_uv,
-                          lambda: raster_scan(proj, pix_uv, faces), kernel)
+    """The skip route on detached inputs: ``raster_scan`` / K1 (its set-up
+    and raster)."""
+    return _route_forward(
+        "skip", proj, pix_uv, lambda: raster_scan(proj, pix_uv, faces),
+        lambda: raster_kernel.raster_skip_cuda(
+            *_kernel_args(proj, pix_uv, faces), layout_hw))
 
 
 def dense_forward(proj, pix_uv, faces):
-    """The dense route on detached inputs: ``raster_scan`` / K6."""
+    """The dense route on detached inputs: ``raster_scan`` / K6 (its set-up
+    and raster)."""
     return _route_forward(
         "dense", proj, pix_uv, lambda: raster_scan(proj, pix_uv, faces),
-        lambda: raster_kernel.raster_dense_cuda(face_rows(proj, faces),
-                                                pix_uv.contiguous()))
+        lambda: raster_kernel.raster_dense_cuda(
+            *_kernel_args(proj, pix_uv, faces)))
 
 
 def binned_forward(proj, pix_uv, faces, tile_hw):
@@ -456,7 +469,7 @@ def raster_skip(proj, pix_uv, faces, layout_hw):
     gradient, and idx (B, P) int32.
 
     ``layout_hw`` (H, W): pix_uv is row-major over an H x W pixel grid,
-    which K1 tiles 16 x 16 (a ragged edge is masked).  CPU tensors take
+    which K1 tiles (a ragged edge is masked).  CPU tensors take
     ``raster_scan``; CUDA tensors launch K1.  Both run on the detached
     vertices."""
     with torch.no_grad():

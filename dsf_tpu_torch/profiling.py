@@ -53,7 +53,7 @@ GEN_FAMILY = "CycleGAN generator"
 MISSING_GENERATOR = "__random_init__"   # a missing path: the stand-in
 
 FAMILIES = (
-    ("K1 raster_skip", ("raster_skip_kernel",)),
+    ("K1 raster_skip", ("raster_skip_kernel", "face_setup_kernel")),
     ("K2 raster moments", ("moments_kernel",)),
     ("K5 codec encode", ("encode_fwd_kernel",)),
     ("K5 codec encode VJP", ("encode_bwd",)),

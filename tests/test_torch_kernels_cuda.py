@@ -113,15 +113,25 @@ def test_codec_kernels_match_plain(renderer):
 
 
 def test_wrapper_rejects_wrong_layouts(cuda):
+    boxes = torch.zeros(1, 64, 4, device=cuda)
+    cbox = torch.zeros(1, 1, 4, device=cuda)
     with pytest.raises(ValueError):
-        raster_kernel.raster_skip_cuda(
-            torch.zeros(1, 64, 16, device=cuda), torch.zeros(1, 1, 4, device=cuda),
+        raster_kernel.raster_skip_launch(
+            torch.zeros(1, 64, 16, device=cuda), boxes, cbox,
             torch.zeros(1, 255, 2, device=cuda), (16, 16))
     with pytest.raises(ValueError, match="aligned"):
-        raster_kernel.raster_skip_cuda(
-            torch.zeros(64 * 16 + 1, device=cuda)[1:].view(1, 64, 16),
-            torch.zeros(1, 1, 4, device=cuda),
-            torch.zeros(1, 256, 2, device=cuda), (16, 16))
+        raster_kernel.raster_skip_launch(
+            torch.zeros(64 * 16 + 1, device=cuda)[1:].view(1, 64, 16), boxes,
+            cbox, torch.zeros(1, 256, 2, device=cuda), (16, 16))
+    with pytest.raises(ValueError):
+        raster_kernel.raster_dense_launch(
+            torch.zeros(1, 64, 16, device=cuda), boxes,
+            torch.zeros(1, 2, 4, device=cuda),
+            torch.zeros(1, 256, 2, device=cuda))
+    with pytest.raises(ValueError, match="int32"):
+        raster_kernel.face_setup_cuda(torch.zeros(1, 8, 3, device=cuda),
+                                      torch.zeros(4, 3, dtype=torch.int64,
+                                                  device=cuda))
     with pytest.raises(ValueError):
         codec_kernel.encode_cuda(torch.zeros(1, 21, 3, device=cuda),
                                  torch.zeros(1, 1, 8, 8, device=cuda,
@@ -481,6 +491,75 @@ def test_raster_dense_kernel_bitwise_equals_plain(cuda):
                              pix.expand(B, -1, -1), faces)
     assert (zp > 0).float().mean() > 0.1
     assert torch.equal(zk, zp) and torch.equal(ik, ip)
+
+
+def _crop_scene(renderer, B, seed, stride):
+    """Posed hands' projected vertices and crop rays at ``stride``."""
+    from dsf_tpu_torch import geometry as geo
+    para, center, cube = _scene(renderer, B, seed)
+    verts, _ = mano.get_mano_vertices(renderer.mano, *mano.split_params(para),
+                                      global_scale=1.0 / 125.0)
+    verts = verts * cube[:, None] / 2.0 + center[:, None]
+    com = geo.xyz_to_uvd(center[:, None], PARAS)[:, 0]
+    M = geo.crop_matrix(com, cube, PARAS, renderer.crop_size)
+    rays = ras.crop_pixel_rays(M, renderer.crop_size, stride).contiguous()
+    return ras.project_verts(verts, PARAS), rays
+
+
+@pytest.mark.parametrize("lib", ["raster_skip", "raster_dense"])
+def test_face_setup_matches_skip_tables(renderer, lib):
+    """The set-up kernel (csrc/raster_setup.cuh, each library's copy)
+    against ``rasterize.skip_tables`` on posed hands plus two degenerate
+    faces: rows bit for bit, face and chunk boxes equal, the degenerate
+    faces' boxes empty."""
+    proj, _ = _crop_scene(renderer, 3, 40, 2)
+    faces = torch.cat([renderer.mano.faces,
+                       torch.tensor([[0, 0, 1], [5, 5, 5]],
+                                    device=proj.device)])
+    rows, boxes, cbox = raster_kernel.face_setup_cuda(
+        proj, faces.to(torch.int32), lib)
+    r_rows, r_boxes, r_cbox = ras.skip_tables(proj, faces)
+    assert torch.equal(rows.view(torch.int32), r_rows.view(torch.int32))
+    assert torch.equal(boxes, r_boxes) and torch.equal(cbox, r_cbox)
+    assert (rows[:, -2:, 12] == 0).all() and (rows[:, :-2, 12] == 1).any()
+    assert torch.isinf(boxes[:, -2:]).all()
+
+
+@pytest.mark.parametrize("case", ["no_hand", "shrunk", "ragged", "permuted"])
+def test_raster_culled_cases(renderer, case):
+    """K1 and K6 against ``raster_scan`` (zbuf bitwise, ids equal) on the
+    scenes their per-face cull could get wrong: an image without a hand
+    (moved 5000 px off), hands shrunk 5x (tiles that stage more faces than
+    one 256-face chunk; faces under a pixel), a 90 x 94 layout (K1's tiles
+    ragged in both directions), and K6 on the samples in a random
+    order."""
+    proj, rays = _crop_scene(renderer, 3, 41, 1)
+    hw = (96, 96)
+    faces = renderer.mano.faces
+    f32 = faces.to(torch.int32)
+    if case == "no_hand":
+        proj[0, :, 0] += 5000.0
+    elif case == "shrunk":
+        mid = proj[..., :2].mean(1, keepdim=True)
+        proj[..., :2] = mid + (proj[..., :2] - mid) * 0.2
+    elif case == "ragged":
+        hw = (90, 94)
+        rays = rays.reshape(3, 96, 96, 2)[:, :90, :94].reshape(3, -1, 2)
+        rays = rays.contiguous()
+    elif case == "permuted":
+        perm = torch.randperm(rays.shape[1], device=rays.device,
+                              generator=torch.Generator(rays.device)
+                              .manual_seed(0))
+        rays = rays[:, perm].contiguous()
+    zp, ip = ras.raster_scan(proj, rays, faces)
+    assert (ip >= 0).any()
+    if case == "no_hand":
+        assert not (ip[0] >= 0).any()
+    zd, i_d = raster_kernel.raster_dense_cuda(proj, f32, rays)
+    assert torch.equal(zd, zp) and torch.equal(i_d, ip)
+    if case != "permuted":
+        zk, ik = raster_kernel.raster_skip_cuda(proj, f32, rays, hw)
+        assert torch.equal(zk, zp) and torch.equal(ik, ip)
 
 
 @pytest.mark.parametrize("stride", [1, 2])

@@ -56,8 +56,10 @@ def test_no_jax_flax_or_dsf_tpu_imports():
     assert not bad, bad
 
 
-def test_chip_smoke_imports_no_jax():
-    path = os.path.join(os.path.dirname(PKG), "chip_smoke.py")
+@pytest.mark.parametrize("script", ["chip_smoke.py",
+                                    "scripts/raster_shapes_gpu.py"])
+def test_chip_smoke_imports_no_jax(script):
+    path = os.path.join(os.path.dirname(PKG), script)
     bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad
 
@@ -89,9 +91,17 @@ def test_default_device_is_cuda_and_raises_without_it(tmp_path, monkeypatch):
 def test_kernel_wrappers_refuse_cpu_tensors():
     """A wrapper launches on a CUDA tensor or raises; it never computes."""
     with pytest.raises(ValueError, match="CUDA"):
-        raster_kernel.raster_skip_cuda(torch.zeros(1, 64, 16),
-                                       torch.zeros(1, 1, 4),
+        raster_kernel.raster_skip_cuda(torch.zeros(1, 8, 3),
+                                       torch.zeros(4, 3, dtype=torch.int32),
                                        torch.zeros(1, 256, 2), (16, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        raster_kernel.face_setup_cuda(torch.zeros(1, 8, 3),
+                                      torch.zeros(4, 3, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        raster_kernel.raster_skip_launch(torch.zeros(1, 4, 16),
+                                         torch.zeros(1, 4, 4),
+                                         torch.zeros(1, 1, 4),
+                                         torch.zeros(1, 256, 2), (16, 16))
     with pytest.raises(ValueError, match="CUDA"):
         codec_kernel.encode_cuda(torch.zeros(1, 21, 3),
                                  torch.zeros(1, 1, 8, 8), 0.8)
@@ -137,8 +147,14 @@ def test_kernel_wrappers_refuse_cpu_tensors():
             torch.zeros(1, 16, dtype=torch.int64),
             torch.ones(1, 1, 1, dtype=torch.int32))
     with pytest.raises(ValueError, match="CUDA"):
-        raster_kernel.raster_dense_cuda(torch.zeros(1, 64, 16),
+        raster_kernel.raster_dense_cuda(torch.zeros(1, 8, 3),
+                                        torch.zeros(4, 3, dtype=torch.int32),
                                         torch.zeros(1, 256, 2))
+    with pytest.raises(ValueError, match="CUDA"):
+        raster_kernel.raster_dense_launch(torch.zeros(1, 4, 16),
+                                          torch.zeros(1, 4, 4),
+                                          torch.zeros(1, 1, 4),
+                                          torch.zeros(1, 256, 2))
     with pytest.raises(ValueError, match="CUDA"):
         raster_kernel.raster_binned_cuda(
             torch.zeros(1, 64, 16), torch.zeros(1, 256, 2),
@@ -181,12 +197,21 @@ def test_kernel_sources_and_build_flags():
                            "point_mesh_culled", "point_mesh_v2",
                            "raster_binned", "raster_dense", "raster_skip",
                            "tail_conv"])
+    # the shared headers, which every library's hashed name covers
+    assert sorted(f for f in os.listdir(build.CSRC) if f.endswith(".cuh")) \
+        == ["point_tri27.cuh", "raster_rows.cuh", "raster_setup.cuh"]
 
 
 @pytest.mark.parametrize("header, sources, copied", [
     # the raster kernels' per-face test and row staging
     ("raster_rows.cuh", ("raster_skip", "raster_dense", "raster_binned"),
      ("__fmul_rn(", "__fadd_rn(", "r[12] ==")),
+    # the face set-up of K1 and K6 (rasterize.face_rows on the card) and
+    # their per-face cull
+    ("raster_setup.cuh", ("raster_skip", "raster_dense"),
+     ("__frcp_rn(", "__fsub_rn(", "fabsf(A) > 1e-9f")),
+    ("raster_rows.cuh", ("raster_skip", "raster_dense"),
+     ("__ballot_sync(", "kMargin", "s.list[")),
     # the ICP kernels' divide-free distance
     ("point_tri27.cuh", ("point_mesh", "point_mesh_v2"),
      ("c[26]", "dpn * dpn", "vc <= 0.f")),

@@ -152,28 +152,166 @@ def test_chunking_does_not_change_the_plain_result(mano):
 
 
 def test_skip_tables_layout(mano):
-    """The kernel's inputs: 16-float face rows and conservative chunk
-    bboxes (every valid face's box inside its chunk's box)."""
+    """The plain set-up (the K1 and K6 kernels' inputs): 16-float face
+    rows, each valid face's exact screen box, an empty box (+inf, -inf) for
+    each invalid face, and each 256-face chunk's box the union of its faces'
+    boxes."""
     _, _, _, proj = _posed_scene(mano, 64, 2, seed=4)
-    faces = torch.from_numpy(np.asarray(mano.faces, np.int64))
-    p = torch.from_numpy(proj)
-    rows, cbox = TR.skip_tables(p, faces)
+    # two degenerate faces (a repeated vertex: zero area) at the end
+    faces = torch.from_numpy(np.concatenate(
+        [np.asarray(mano.faces, np.int64), [[0, 0, 1], [5, 5, 5]]]))
+    p = torch.from_numpy(np.array(proj))
+    rows, boxes, cbox = TR.skip_tables(p, faces)
     F = faces.shape[0]
     nc = -(-F // raster_kernel.CHUNK)
-    assert rows.shape == (2, F, 16) and cbox.shape == (2, nc, 4)
+    assert rows.shape == (2, F, 16) and boxes.shape == (2, F, 4)
+    assert cbox.shape == (2, nc, 4)
     a, b, c, az, bz, cz, valid = TR.face_coeffs(p, faces)
     np.testing.assert_array_equal(rows[..., 0:9:3].numpy(), a.numpy())
     np.testing.assert_array_equal(rows[..., 2:9:3].numpy(), c.numpy())
     np.testing.assert_array_equal(rows[..., 11].numpy(), cz.numpy())
     np.testing.assert_array_equal(rows[..., 12].numpy() == 1.0, valid.numpy())
-    tri = proj[:, np.asarray(mano.faces)][..., :2]
-    ci = np.arange(F) // raster_kernel.CHUNK
     v = valid.numpy()
-    box = cbox.numpy()[:, ci]                                  # (B, F, 4)
-    assert (tri[..., 0].min(-1)[v] >= box[..., 0][v]).all()
-    assert (tri[..., 0].max(-1)[v] <= box[..., 1][v]).all()
-    assert (tri[..., 1].min(-1)[v] >= box[..., 2][v]).all()
-    assert (tri[..., 1].max(-1)[v] <= box[..., 3][v]).all()
+    assert v[:, :-2].all() and not v[:, -2:].any()
+    tri = proj[:, faces.numpy()][..., :2]
+    box = boxes.numpy()
+    for k, red in enumerate((np.min, np.max)):
+        np.testing.assert_array_equal(box[..., k][v], red(tri[..., 0], -1)[v])
+        np.testing.assert_array_equal(box[..., 2 + k][v],
+                                      red(tri[..., 1], -1)[v])
+    np.testing.assert_array_equal(
+        box[~v], np.tile([np.inf, -np.inf, np.inf, -np.inf], (4, 1)))
+    cb = cbox.numpy()
+    for ci in range(nc):
+        part = box[:, ci * raster_kernel.CHUNK:(ci + 1) * raster_kernel.CHUNK]
+        np.testing.assert_array_equal(cb[:, ci, 0::2], part[..., 0::2].min(1))
+        np.testing.assert_array_equal(cb[:, ci, 1::2], part[..., 1::2].max(1))
+
+
+def _culled_scan(proj, pix, faces, blocks):
+    """A plain model of the K1 and K6 kernels' cull (csrc/raster_rows.cuh:
+    scan_culled): per image and block of samples (``blocks`` (nb, S) int64
+    sample indices, -1 for none), the box of the block's samples widened by
+    ``BOX_MARGIN``, the faces whose box (``skip_tables``) meets it in
+    ascending order, and ``scan_rows`` over their rows; a block that meets
+    no face is background."""
+    rows, boxes, _ = TR.skip_tables(proj, faces)
+    B, P = pix.shape[0], pix.shape[1]
+    zbuf = torch.zeros((B, P), dtype=torch.float32)
+    idx = torch.full((B, P), -1, dtype=torch.int32)
+    for b in range(B):
+        bx = boxes[b]
+        for blk in blocks:
+            s = blk[blk >= 0]
+            uv = pix[b, s]
+            lo = uv.amin(0) - TR.BOX_MARGIN
+            hi = uv.amax(0) + TR.BOX_MARGIN
+            fid = torch.nonzero((bx[:, 0] <= hi[0]) & (bx[:, 1] >= lo[0])
+                                & (bx[:, 2] <= hi[1])
+                                & (bx[:, 3] >= lo[1])).squeeze(1)
+            if fid.numel() == 0:
+                continue
+            z, i = TR.scan_rows(rows[b:b + 1, fid], uv[None])
+            zbuf[b, s] = z[0]
+            idx[b, s] = torch.where(i[0] >= 0, fid[i[0].clamp_min(0)].int(),
+                                    torch.full_like(i[0], -1))
+    return zbuf, idx
+
+
+def _tile_blocks(H, W, tile=raster_kernel.SKIP_TILE):
+    """K1's blocks: th x tw pixel tiles of a row-major H x W layout, the
+    ragged edge masked."""
+    th, tw = tile
+    out = []
+    for y0 in range(0, H, th):
+        for x0 in range(0, W, tw):
+            blk = np.full(th * tw, -1, np.int64)
+            ys, xs = np.meshgrid(np.arange(y0, min(y0 + th, H)),
+                                 np.arange(x0, min(x0 + tw, W)),
+                                 indexing="ij")
+            ids = (ys * W + xs).reshape(-1)
+            blk[:ids.size] = ids
+            out.append(blk)
+    return torch.from_numpy(np.stack(out))
+
+
+def _run_blocks(P, n=raster_kernel.DENSE_BLOCK):
+    """K6's blocks: n consecutive samples."""
+    blk = np.full(-(-P // n) * n, -1, np.int64)
+    blk[:P] = np.arange(P)
+    return torch.from_numpy(blk.reshape(-1, n))
+
+
+def _small_faces_scene(seed, B=2, size=64):
+    """Random faces over a size x size frame, a third each ordinary (2-10
+    px), under a pixel (0.1-0.8 px) and slivers (5-20 px long, 0.02-0.3 px
+    wide), at depths 50-150 that cross: (proj (B, 3F, 3), faces (F, 3))."""
+    rng = np.random.RandomState(seed)
+    n = 200
+    c = rng.uniform(4, size - 4, (B, 3 * n, 1, 2))
+    big = rng.uniform(-5, 5, (B, n, 3, 2))
+    tiny = rng.uniform(-0.4, 0.4, (B, n, 3, 2))
+    ang = rng.uniform(0, np.pi, (B, n, 1))
+    ax = np.stack([np.cos(ang), np.sin(ang)], -1)            # (B, n, 1, 2)
+    nrm = np.stack([-np.sin(ang), np.cos(ang)], -1)
+    t = np.stack([rng.uniform(-10, -2.5, (B, n)), rng.uniform(2.5, 10, (B, n)),
+                  rng.uniform(-2, 2, (B, n))], -1)[..., None]
+    off = np.stack([np.zeros((B, n)), np.zeros((B, n)),
+                    rng.uniform(0.02, 0.3, (B, n))], -1)[..., None]
+    sliver = t * ax + off * nrm
+    uv = c + np.concatenate([big, tiny, sliver], 1)          # (B, 3n, 3, 2)
+    z = rng.uniform(50, 150, uv.shape[:-1] + (1,))
+    proj = np.concatenate([uv, z], -1).reshape(B, 9 * n, 3).astype(np.float32)
+    faces = np.arange(9 * n, dtype=np.int64).reshape(3 * n, 3)
+    v, u = np.meshgrid(np.arange(size, dtype=np.float32),
+                       np.arange(size, dtype=np.float32), indexing="ij")
+    pix = np.broadcast_to(np.stack([u.reshape(-1), v.reshape(-1)], -1),
+                          (B, size * size, 2))
+    return proj, np.ascontiguousarray(pix), faces
+
+
+@pytest.mark.parametrize("case", ["tiles_64", "tiles_128", "tiles_ragged",
+                                  "frame_strip", "slivers_tiles",
+                                  "slivers_runs", "permuted_runs"])
+def test_culled_scan_matches_raster_scan(mano, case):
+    """The per-face, per-block cull of the K1 and K6 kernels, in plain
+    torch, against ``raster_scan`` bitwise (zbuf and ids): posed hands'
+    crops at 64^2 and 128^2 and a 58^2 layout in K1's tiles (ragged in
+    both directions); a
+    full-frame strip through the hands in K6's runs of samples; random
+    faces with slivers and faces under a pixel in both; and the hands' crop
+    samples in a random order in K6's runs (the result may not depend on
+    the order)."""
+    faces = np.asarray(mano.faces, np.int64)
+    if case.startswith("slivers"):
+        proj, pix, faces = _small_faces_scene(seed=7)
+        H = W = 64
+    elif case == "frame_strip":
+        _, _, _, proj = _posed_scene(mano, 64, 1, seed=21)
+        v, u = np.meshgrid(np.arange(200, 264, dtype=np.float32),
+                           np.arange(640, dtype=np.float32), indexing="ij")
+        pix = np.broadcast_to(np.stack([u.reshape(-1), v.reshape(-1)], -1),
+                              (2, u.size, 2))
+    else:
+        crop, stride = {"tiles_64": (128, 2), "tiles_128": (128, 1),
+                        "tiles_ragged": (116, 2),
+                        "permuted_runs": (128, 2)}[case]
+        _, _, pix, proj = _posed_scene(mano, crop, stride, seed=20 + stride)
+        H = W = crop // stride
+    proj_t = torch.from_numpy(np.array(proj))
+    pix_t = torch.from_numpy(np.array(pix))
+    faces_t = torch.from_numpy(faces)
+    z_ref, i_ref = TR.raster_scan(proj_t, pix_t, faces_t)
+    assert (z_ref > 0).float().mean() > 0.02
+    P = pix_t.shape[1]
+    if case == "permuted_runs":
+        perm = torch.from_numpy(np.random.RandomState(3).permutation(P))
+        pix_t, z_ref, i_ref = pix_t[:, perm], z_ref[:, perm], i_ref[:, perm]
+    blocks = (_tile_blocks(H, W) if case.startswith("tiles")
+              or case == "slivers_tiles" else _run_blocks(P))
+    z, i = _culled_scan(proj_t, pix_t, faces_t, blocks)
+    np.testing.assert_array_equal(z.numpy(), z_ref.numpy())
+    np.testing.assert_array_equal(i.numpy(), i_ref.numpy())
 
 
 def test_cpu_tensors_take_the_plain_version(mano):
