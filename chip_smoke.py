@@ -16,18 +16,23 @@ Phases, each printed on its own line(s); any failure exits non-zero:
    than a 256-face chunk holds, and a ragged 60x58 layout; K5 encode,
    K4 decode and their VJPs at B=32, J=21, S=64; K3 point->mesh argmin at
    the FinetuneStage step's 128 clouds x 2048 points x 1554 faces under the
-   ICP's 16-column part table; K9, the CycleGAN generator's tail conv, on
+   ICP's 16-column part table, its set-up kernel (face rows word for word,
+   part lists, point order and tiles bitwise against
+   point_mesh.argmin_tables_plain); K9, the CycleGAN generator's tail conv, on
    the generator's own head input at the training steps' B=32, 64 x 134^2,
    from the seeded stand-in generator on rendered hands; K7, the ICP argmin
    with its admissibility skip words, and K8, the culled ICP argmin, at
-   K3's shape; K6, the dense raster, at the pre-render's B=32 NYU frames of
+   K3's shape, its set-up (keys and need words held to the cull's rule in
+   float64, no winner culled); K6, the dense raster, at the pre-render's
+   B=32 NYU frames of
    640x480, its set-up bitwise, and on the frames' samples in a random
    order; K10, the binned raster, on B=32 crops of 64x64, the serving
    path's stage-2 render, and of 128x128, each also with its overflow flag
    set, so that every tile takes the dense branch): error, kernel and plain
    device time (CUDA events, warm L2, the host's enqueue hidden behind a
-   sleep kernel; for K1 and K6 the set-up, the raster and the whole route
-   apart), the time of one PyTorch library call computing the same
+   sleep kernel; for K1, K6, K3 and K8 the set-up, the kernel and the
+   whole route apart; for K3 and K8 the pair slots their body evaluates),
+   the time of one PyTorch library call computing the same
    function where there is one, and the bound (the larger of bytes over
    3.35 TB/s and float operations over 67 TFLOP/s, the H100 SXM's
    published float32 non-tensor rate);
@@ -626,42 +631,95 @@ def hold_winners(name, sc, tris, ik, dp):
     return err, none
 
 
+def argmin_slots(tables, R):
+    """The pair slots K3's or K8's body evaluates on ``tables``: each tile's
+    points rounded up to whole warps of 32 x R points (a warp of padding
+    only skips), times its part's list length (K8: the stretches in chunks
+    its run word keeps); and the pairs of its real points.  Returns (slots,
+    real)."""
+    import torch
+    tiles = tables.tiles.long()
+    valid = (torch.arange(tiles.shape[1], device=tiles.device)[None]
+             < tables.tcount[:, :1].long())
+    t = tiles[valid]
+    part, count, run = t[:, 0], t[:, 2], t[:, 3]
+    if tables.fperm is None:
+        length = tables.lens.long()[part]
+    else:
+        seg = (tables.choff[:, 1:] - tables.choff[:, :-1]).long()  # (Kp, G)
+        bits = (run[:, None] >> torch.arange(seg.shape[1],
+                                             device=run.device)) & 1
+        length = (seg[part] * bits).sum(-1)
+    warp = 32 * R
+    slots = int((((count + warp - 1) // warp) * warp * length).sum())
+    return slots, int((count * length).sum())
+
+
+def tables_against_plain(got, ref, names):
+    """Entries of the set-up kernel's integer tables that differ from the
+    plain version's, per name, and the rows' differing int32 words."""
+    import torch
+    bad = {n: int((getattr(got, n) != getattr(ref, n)).sum()) for n in names}
+    bad["rows"] = int((got.rows.view(torch.int32)
+                       != ref.rows.view(torch.int32)).sum())
+    return bad
+
+
 def check_point_mesh(sc):
-    """K3 at the FinetuneStage step's shape (``icp_scene``).  Held by the
-    exact distance of the kernel's winning face against the plain minimum;
-    index disagreements are counted."""
+    """K3 at the FinetuneStage step's shape (``icp_scene``): its set-up
+    kernel against ``point_mesh.argmin_tables_plain`` (the rows word for
+    word, the lists, keys, point order and tiles bitwise), the argmin on
+    its tables and the route (set-up + argmin), held by the exact distance
+    of the kernel's winning face against the plain minimum; index
+    disagreements are counted.  Times the set-up, the argmin and the route
+    apart, prints the pair slots evaluated."""
     import torch
     from dsf_tpu_torch.ops import point_mesh as pm
     from dsf_tpu_torch.ops import point_mesh_kernel as pk
 
     pts, tris, table, part = sc["pts"], sc["tris"], sc["table"], sc["part"]
     N, P, T = sc["N"], sc["P"], sc["T"]
-    dk, ik = pk.argmin_faces_cuda(pts, tris, table, part)
+    tables = pk.argmin_setup_cuda(pts, tris, table, part)
+    ref = pm.argmin_tables_plain(pts, tris, table, part)
+    dk, ik = pk.argmin_faces_launch(pts, tables)
+    dr, ir = pk.argmin_faces_cuda(pts, tris, table, part)
     dp, ip = pm.argmin_faces_plain(pts, tris, table, part)
     torch.cuda.synchronize()
+    bad = tables_against_plain(tables, ref, ("lists", "lens", "choff", "key",
+                                             "perm", "tiles", "tcount"))
+    route_same = torch.equal(dk, dr) and torch.equal(ik, ir)
     err, none = hold_winners("K3", sc, tris, ik, dp)
     idx_diff = int((ik != ip).sum())
     none_ok = bool((ik[none] == 0).all()) and bool((dk[none] >= 1e10).all())
     admissible = bool(table[ik[~none].long(), part[~none]].all())
+    slots, real = argmin_slots(tables, pk.POINTS_PER_THREAD)
 
-    fc = pk.face_constants(tris)
-    words = pk.part_words(table)
-    parts = torch.where((part >= 0) & (part < 16), part,
-                        torch.full_like(part, 16)).to(torch.int32).contiguous()
-    ms = time_ms(lambda: pk.argmin_faces_launch(pts, fc, words, parts), 20)
-    prep_ms = time_ms(lambda: (pk.face_constants(tris), pk.part_words(table)),
-                      20)
+    ms = time_ms(lambda: pk.argmin_faces_launch(pts, tables), 20)
+    setup_ms = time_ms(lambda: pk.argmin_setup_cuda(pts, tris, table, part),
+                       20)
+    route_ms = time_ms(lambda: pk.argmin_faces_cuda(pts, tris, table, part),
+                       20)
+    tables_ms = time_ms(lambda: pm.argmin_tables_plain(pts, tris, table,
+                                                       part), 3, 1)
     plain_ms = time_ms(lambda: pm.argmin_faces_plain(pts, tris, table, part),
                        3, 1)
     bms, by = bound_ms(sc["nbytes"], ICP_PER_PAIR_FLOPS * sc["pairs"])
     say(f"kernel K3 point_mesh_argmin {N} clouds x {P} points x {T} faces, "
-        f"K=16: winning-face distance max_abs_err {err:.3g} against the plain "
-        f"minimum, index disagreements {idx_diff} of {N * P}, points that "
-        f"admit no face {int(none.sum())} (imin 0 there: {none_ok}), winners "
-        f"admissible: {admissible}; kernel {ms:.4f} ms (+ face rows and part "
-        f"words {prep_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {bms:.6f} ms "
-        f"by {by} ({sc['pairs']} admissible pairs of {N * P * T}, "
-        f"{sc['nbytes']} bytes)")
+        f"K=16: set-up against its plain version {bad} (entries differing); "
+        f"route = set-up + argmin bitwise: {route_same}; winning-face "
+        f"distance max_abs_err {err:.3g} against the plain minimum, index "
+        f"disagreements {idx_diff} of {N * P}, points that admit no face "
+        f"{int(none.sum())} (imin 0 there: {none_ok}), winners admissible: "
+        f"{admissible}; pair slots evaluated {slots} ({sc['pairs']} "
+        f"admissible pairs of {N * P * T}; padding {1 - real / slots:.4f}), "
+        f"{int(tables.tcount[:, 0].sum())} tiles of {pk.TILE_POINTS} points; "
+        f"argmin {ms:.4f} ms, set-up {setup_ms:.4f} ms, route "
+        f"{route_ms:.4f} ms (the set-up in PyTorch {tables_ms:.4f} ms), "
+        f"plain {plain_ms:.4f} ms, bound {bms:.6f} ms by {by} "
+        f"({sc['nbytes']} bytes)")
+    need(not any(bad.values()), f"K3's set-up disagrees with its plain "
+         f"version: {bad}")
+    need(route_same, "K3's route disagrees with its set-up + argmin")
     # the index may differ where faces tie: a point nearest to a vertex is
     # as near to every face around it, and the two distance forms round
     # those equal distances differently
@@ -671,7 +729,9 @@ def check_point_mesh(sc):
             "source": "dsf_tpu_torch/csrc/point_mesh.cu",
             "replaces": "dsf_tpu/ops/pallas_point_mesh.py:316",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": None}
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "setup_ms": setup_ms, "route_ms": route_ms, "pair_slots": slots,
+            "padding": 1 - real / slots, "admissible_pairs": sc["pairs"]}
 
 
 def check_icp_v2(sc):
@@ -729,67 +789,106 @@ def check_icp_v2(sc):
             "blocks_run": share}
 
 
+def tile_of_points(tables):
+    """(N, P) each point's tile in ``tables``, -1 for a point of no tile."""
+    import torch
+    tiles = tables.tiles.long()
+    N, P = tables.perm.shape
+    pos = torch.arange(P, device=tiles.device)
+    inside = ((pos[None, None] >= tiles[..., 1:2])
+              & (pos[None, None] < tiles[..., 1:2] + tiles[..., 2:3]))
+    t_pos = torch.where(inside.any(1), inside.long().argmax(1),
+                        torch.full_like(pos[None].expand(N, P), -1))
+    return torch.empty_like(t_pos).scatter_(1, tables.perm.long(), t_pos)
+
+
 def check_icp_culled(sc):
-    """K8 on K3's scene: on the sorted points, part-sorted face rows and run
-    table of ``point_mesh.culled_tables``, against its plain version on the
-    same (the same 16-constant arithmetic: dmin within 1e-5 relative +
-    1e-6), and through ``argmin_faces_culled`` (un-sorted, the caller's
-    face ids) against the plain dense argmin by the winning face's exact
-    distance, as K3; the share of blocks its run table keeps is printed."""
+    """K8 on K3's scene: its set-up kernel against
+    ``point_mesh.argmin_tables_plain(..., culled=True)`` (the rows word for
+    word; the face order and part lists bitwise; the keys and need words,
+    which come from float sphere math, held to the rule in float64 within
+    rounding and their differences from the float32 plain ones counted;
+    every point's winner in a chunk its tile runs), the argmin on its
+    tables against its plain version on the same tables (dmin within 1e-5
+    relative + 1e-6) and through ``argmin_faces_culled`` (the route, the
+    caller's face ids) against the plain dense argmin by the winning face's
+    exact distance, as K3.  Times the set-up, the argmin and the route
+    apart, prints the pair slots evaluated."""
     import torch
     from dsf_tpu_torch.ops import point_mesh as pm
     from dsf_tpu_torch.ops import point_mesh_kernel as pk
 
     pts, tris, table, part = sc["pts"], sc["tris"], sc["table"], sc["part"]
     N, P, T = sc["N"], sc["P"], sc["T"]
-
-    def tables():
-        perm = pm.face_part_perm(table)
-        tris_s, mask_s = tris[:, perm], table[perm]
-        order, pts_s, parts_s, run = pm.culled_tables(pts, tris_s, mask_s,
-                                                      part)
-        ext, _ = pm._extend_part_tables(mask_s, part)
-        return perm, pts_s, pm.face_constants16(tris_s), ext, parts_s, run
-
-    perm, pts_s, fc, ext, parts_s, run = tables()
-    dks, iks = pk.argmin_faces_culled_cuda(pts_s, fc, ext, parts_s, run)
-    dps, ips = pm.argmin_faces_culled_plain(pts_s, fc, ext, parts_s, run)
+    tables = pk.argmin_setup_cuda(pts, tris, table, part, culled=True)
+    ref = pm.argmin_tables_plain(pts, tris, table, part, culled=True)
+    dks, iks = pk.argmin_faces_culled_launch(pts, tables)
+    dps, ips = pm.argmin_faces_culled_plain(pts, tables)
     dk, ik = pm.argmin_faces_culled(pts, tris, table, part)
-    dp, _ = pm.argmin_faces_plain(pts, tris, table, part)
+    dp, ip = pm.argmin_faces_plain(pts, tris, table, part)
     torch.cuda.synchronize()
-    live = dps < 1e10
-    sorted_err = float((dks - dps)[live].abs().max())
-    need(bool((dks >= 1e10)[~live].all()) and bool(
-        ((dks - dps).abs() <= 1e-5 * dps.abs() + 1e-6)[live].all()),
-         f"K8 disagrees with its plain version on the sorted points: "
-         f"{sorted_err}")
+    bad = tables_against_plain(tables, ref, ("fperm", "lists", "lens",
+                                             "choff"))
+    fperm = tables.fperm.long()
+    out_need, out_key = pm.cull_within_rounding(
+        pts, tris[:, fperm], table[fperm], part, tables.key, tables.need)
+    key_diff = int((tables.key != ref.key).sum())
+    need_diff = int((tables.need != ref.need).sum())
+    run_diff = (int((tables.tiles[..., 3] != ref.tiles[..., 3]).sum())
+                if torch.equal(tables.perm, ref.perm) else "n/a (orders differ)")
+    # the plain dense winner's chunk, in the part order, is run by its tile
+    inv = torch.empty_like(fperm).scatter_(0, fperm, torch.arange(
+        T, device=fperm.device))
+    tile_of = tile_of_points(tables)
+    live = (tile_of >= 0) & (dp < 1e10)
+    run = torch.gather(tables.tiles[..., 3].long(), 1, tile_of.clamp(min=0))
+    lost = int((live & (((run >> (inv[ip.long()] // 128)) & 1) == 0)).sum())
+    live_s = dps < 1e10
+    sorted_err = float((dks - dps)[live_s].abs().max())
+    need(bool((dks >= 1e10)[~live_s].all()) and bool(
+        ((dks - dps).abs() <= 1e-5 * dps.abs() + 1e-6)[live_s].all()),
+         f"K8 disagrees with its plain version on its tables: {sorted_err}")
     err, none = hold_winners("K8", sc, tris, ik, dp)
-    need(bool((ik[none] == int(perm[0])).all())
+    need(bool((ik[none] == int(fperm[0])).all())
          and bool(table[ik[~none].long(), part[~none]].all()),
          "K8 returned an inadmissible face, or another id than the first "
          "part-sorted face's where no face is admissible")
-    share = float(run.float().mean())
-    share_joint = float(run[N // 2:].float().mean())
-    ms = time_ms(lambda: pk.argmin_faces_culled_cuda(pts_s, fc, ext, parts_s,
-                                                     run), 20)
-    prep_ms = time_ms(tables, 10)
-    plain_ms = time_ms(lambda: pm.argmin_faces_culled_plain(
-        pts_s, fc, ext, parts_s, run), 3, 1)
+    slots, real = argmin_slots(tables, pk.POINTS_PER_THREAD)
+    ms = time_ms(lambda: pk.argmin_faces_culled_launch(pts, tables), 20)
+    setup_ms = time_ms(lambda: pk.argmin_setup_cuda(pts, tris, table, part,
+                                                    culled=True), 20)
+    route_ms = time_ms(lambda: pk.argmin_faces_culled_cuda(pts, tris, table,
+                                                           part), 20)
+    tables_ms = time_ms(lambda: pm.argmin_tables_plain(
+        pts, tris, table, part, culled=True), 3, 1)
+    plain_ms = time_ms(lambda: pm.argmin_faces_culled_plain(pts, tables), 3,
+                       1)
     bms, by = bound_ms(sc["nbytes"], ICP_PER_PAIR_FLOPS * sc["pairs"])
     say(f"kernel K8 icp_argmin_culled {N} clouds x {P} points x {T} faces, "
-        f"K=16: against its plain version on the sorted points max_abs_err "
-        f"{sorted_err:.3g} (index disagreements {int((iks != ips).sum())}); "
+        f"K=16: set-up against its plain version {bad} (entries differing), "
+        f"keys differing {key_diff}, need words differing {need_diff}, run "
+        f"words differing {run_diff}, need bits / keys outside float64 "
+        f"rounding {out_need} / {out_key}, winners in a culled chunk {lost}; "
+        f"against its plain version on its tables max_abs_err "
+        f"{sorted_err:.3g} (index disagreements {int((iks != tables.fperm[ips.long()]).sum())}); "
         f"winning-face distance max_abs_err {err:.3g} against the plain "
-        f"dense minimum; blocks run {share:.4f} of {run.numel()} (joint "
-        f"clouds {share_joint:.4f}); kernel {ms:.4f} ms (+ sort, spheres, "
-        f"bounds, run table, face rows {prep_ms:.4f} ms), plain "
-        f"{plain_ms:.4f} ms, bound {bms:.6f} ms by {by}")
+        f"dense minimum; pair slots evaluated {slots} (padding "
+        f"{1 - real / slots:.4f}; {sc['pairs']} admissible pairs, the "
+        f"bound's count); argmin {ms:.4f} ms, set-up {setup_ms:.4f} ms, "
+        f"route {route_ms:.4f} ms (the set-up in PyTorch {tables_ms:.4f} ms), "
+        f"plain {plain_ms:.4f} ms, bound {bms:.6f} ms by {by}")
+    need(not any(bad.values()), f"K8's set-up disagrees with its plain "
+         f"version: {bad}")
+    need(out_need == 0 and out_key == 0, "K8's set-up keys or need words "
+         "differ from the rule beyond float rounding")
+    need(lost == 0, f"K8's cull drops the winning face of {lost} points")
     return {"name": "icp_argmin_culled", "route": "cuda",
             "source": "dsf_tpu_torch/csrc/point_mesh_culled.cu",
             "replaces": "dsf_tpu/ops/pallas_point_mesh.py:633",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by, "library_ms": None,
-            "blocks_run": share}
+            "setup_ms": setup_ms, "route_ms": route_ms, "pair_slots": slots,
+            "padding": 1 - real / slots, "admissible_pairs": sc["pairs"]}
 
 
 def prerender_params(n, rng):

@@ -10,16 +10,19 @@ Two passes:
    a (P x T) mask.  Three variants, picked by the JAX package's switches
    (dsf_tpu/ops/point_mesh.py:218-285), each a kernel on CUDA tensors and
    its plain version on CPU tensors:
-   - K3 (the default): every (point, face) pair, ``argmin_faces_plain`` /
-     ``point_mesh_kernel.argmin_faces_cuda``;
+   - K3 (the default): every admissible (point, face) pair,
+     ``argmin_faces_plain`` / ``point_mesh_kernel.argmin_faces_cuda``,
+     which groups each cloud's points by part into tiles and walks each
+     tile's part list (``argmin_tables_plain``,
+     ``argmin_faces_tiles_plain``);
    - K7 (``USE_V2_KERNEL``, ``DSF_ICP_KERNEL=v2``): over part-sorted faces
      (``_static_part_perm``), skipping each (128-point tile, 128-face
      chunk) block in which no point admits any face (``v2_words``);
-   - K8 (``USE_CULLED_KERNEL``): faces part-sorted inside, points sorted
-     by (part, nearest chunk), and a block skipped when the chunks'
-     bounding spheres prove that no point of the tile has its nearest
-     admissible face there (``culled_tables``); face ids come back in the
-     caller's order.
+   - K8 (``USE_CULLED_KERNEL``): K3's design over faces part-sorted
+     inside, points grouped by (part, nearest chunk), and a chunk skipped
+     for a tile when the chunks' bounding spheres prove that no point of
+     the tile has its nearest admissible face there (``culled_tables``);
+     face ids come back in the caller's order.
 2. differentiable: gather the winning triangle of each point and
    evaluate the exact distance on it, so gradients flow through the
    closest face only (pytorch3d's hard backward).
@@ -39,7 +42,7 @@ from dsf_tpu_torch.ops import point_mesh_kernel
 
 INF = 1e10
 CHUNK = 128          # faces per step of the plain argmin
-TILE = 128           # points per block of K7 and K8 (their csrc kTile)
+TILE = 128           # points per block of K7 (its csrc kTile)
 MAX_CHUNKS = 31      # K7's skip word: one bit per face chunk
 CULL_MARGIN = 1e-4   # slack on K8's sphere bounds, in the caller's units
 
@@ -205,7 +208,7 @@ def v2_words(part_mask, point_part, B, P, T, device):
 
 
 def _block_argmin(pts_t, pp_t, ext, T, run, sqdist):
-    """The plain block loop of K7 and K8.  pts_t (B, NT, TILE, 3) points
+    """The plain block loop of K7.  pts_t (B, NT, TILE, 3) points
     in 128-point tiles, pp_t (B, NT, TILE) their parts in [0, K] and ext
     (T, K + 1) the extended table (``_extend_part_tables``), or both None
     for no mask; run (B, NT, nc) says which (tile, 128-face chunk) blocks
@@ -276,17 +279,11 @@ def argmin_faces_v2(points, tris, part_mask=None, point_part=None):
 def face_constants16(tris):
     """(B, T, 3, 3) -> (B, T, 16) rows a(3) ab(3) ac(3) ab.a ac.a ab.b
     ac.b ab.c ac.c a.a: K8's constants (ref: _face_constants), for the
-    Ericson closest point with divides."""
-    tris = tris.float()
-    a, b, c = tris[..., 0, :], tris[..., 1, :], tris[..., 2, :]
-    ab, ac = b - a, c - a
-
-    def dot(x, y):
-        return (x * y).sum(-1, keepdim=True)
-
-    return torch.cat([a, ab, ac, dot(ab, a), dot(ac, a), dot(ab, b),
-                      dot(ac, b), dot(ab, c), dot(ac, c), dot(a, a)],
-                     dim=-1).contiguous()
+    Ericson closest point with divides; ``point_mesh_kernel.face_terms``'
+    rounding, as the set-up kernel writes them."""
+    v, dots = point_mesh_kernel.face_terms(tris)
+    return torch.cat([v[..., 0, :], v[..., 3, :], v[..., 4, :],
+                      dots[..., :7]], dim=-1).contiguous()
 
 
 def culled_sqdist(fc, p):
@@ -340,24 +337,16 @@ def culled_sqdist(fc, p):
     return torch.clamp_min(d, 0.0)
 
 
-def culled_needed(points, tris, part_mask=None, point_part=None):
-    """K8's rule per point (ref: argmin_faces_pallas_culled,
-    pallas_point_mesh.py:671-713), on faces already in part order.
-
-    Per 128-face chunk g, a bounding sphere (c_g, r_g) about the mean of
-    its faces' centroids.  Point p needs chunk g when g holds a face p
-    admits and lb_g(p) = (max(0, |p - c_g| - r_g - m))^2 is at most
-    ub(p) = min over admissible g' of (|p - c_g'| + r_g' + m)^2, with
-    m = ``CULL_MARGIN``: the chunk of p's nearest admissible face always
-    does.  Returns (needed (B, P, G) bool, the sort key (B, P) int64:
-    part * G + nearest admissible chunk, parts (B, P) int64 in [0, K],
-    with K "admits nothing")."""
+def _culled_bounds(points, tris, part_mask, point_part):
+    """``culled_needed``'s chunk bounds in the points' float dtype: (lb,
+    ub, adm, dpc, pp, masked, G) with lb, adm, dpc (B, P, G), ub (B, P)."""
     B, P, _ = points.shape
     T = tris.shape[1]
     G = -(-T // CHUNK)
     pad_f = G * CHUNK - T
     dev = points.device
-    tris = tris.float()
+    pts = points.detach()
+    tris = tris.detach().to(pts.dtype)
     cent = tris.mean(2)                                          # (B, T, 3)
     face_r = torch.sqrt(((tris - cent[:, :, None]) ** 2).sum(-1).amax(-1)
                         + 1e-20)                                 # (B, T)
@@ -383,86 +372,291 @@ def culled_needed(points, tris, part_mask=None, point_part=None):
     else:
         pp = torch.zeros((B, P), dtype=torch.int64, device=dev)
         adm = torch.ones((B, P, G), dtype=torch.bool, device=dev)
-    pts = points.detach().float()
     dpc = torch.sqrt(((pts[:, :, None] - c_g[:, None]) ** 2).sum(-1)
                      + 1e-20)                                    # (B, P, G)
     lb = torch.clamp_min(dpc - r_g[:, None] - CULL_MARGIN, 0.0) ** 2
     ub_g = (dpc + r_g[:, None] + CULL_MARGIN) ** 2
     ub = torch.where(adm, ub_g, torch.full_like(ub_g, INF)).amin(-1)
+    return lb, ub, adm, dpc, pp, masked, G
+
+
+def culled_needed(points, tris, part_mask=None, point_part=None):
+    """K8's rule per point (ref: argmin_faces_pallas_culled,
+    pallas_point_mesh.py:671-713), on faces already in part order, in
+    float32.
+
+    Per 128-face chunk g, a bounding sphere (c_g, r_g) about the mean of
+    its faces' centroids.  Point p needs chunk g when g holds a face p
+    admits and lb_g(p) = (max(0, |p - c_g| - r_g - m))^2 is at most
+    ub(p) = min over admissible g' of (|p - c_g'| + r_g' + m)^2, with
+    m = ``CULL_MARGIN``: the chunk of p's nearest admissible face always
+    does.  Returns (needed (B, P, G) bool, the sort key (B, P) int64:
+    part * G + nearest admissible chunk, parts (B, P) int64 in [0, K],
+    with K "admits nothing")."""
+    lb, ub, adm, dpc, pp, masked, G = _culled_bounds(
+        points.float(), tris, part_mask, point_part)
     needed = adm & (lb <= ub[..., None])
     near_g = torch.argmin(torch.where(adm, dpc, torch.full_like(dpc, INF)),
                           -1)
     return needed, (pp * G + near_g if masked else near_g), pp
 
 
-def culled_tables(points, tris, part_mask=None, point_part=None):
-    """K8's set-up in PyTorch (ref: pallas_point_mesh.py:713-734), on
-    faces already in part order: ``culled_needed``, the points sorted by
-    its key, so that each 128-point tile is coherent in part and place,
-    and the run table, which says which (tile, chunk) blocks any point of
-    the tile needs.  Returns (order (B, P) int64, pts_s (B, P, 3) sorted,
-    parts_s (B, P) int64 sorted, in [0, K] with K "admits nothing", run
-    (B, NT, G) int32)."""
-    needed, key, pp = culled_needed(points, tris, part_mask, point_part)
-    B, P, G = needed.shape
-    order = torch.argsort(key, dim=-1, stable=True)
-    pts_s = torch.gather(points.detach().float(), 1,
-                         order[..., None].expand(B, P, 3))
-    parts_s = torch.gather(pp, 1, order)
-    needed_s = torch.gather(needed, 1, order[..., None].expand(B, P, G))
-    run = _tiles(needed_s, P, False).any(2).to(torch.int32)     # (B, NT, G)
-    return order, pts_s, parts_s, run
+def cull_within_rounding(points, tris, part_mask, point_part, key, need,
+                         eps=1e-5):
+    """Hold K8's per-point tables, key and need (B, P) int32 built in
+    float32 on faces in part order, to ``culled_needed``'s rule in float64:
+    each need bit must lie between the rule with the bound test lb <= ub
+    moved by -eps and +eps of (1 + ub), and each key must name the point's
+    part and an admissible chunk whose centre lies within eps of the
+    nearest admissible one's (chunk 0 where none is admissible).  Returns
+    (need bits outside, keys outside): both 0 when every difference from
+    the float32 rule lies within rounding."""
+    lb, ub, adm, dpc, pp, masked, G = _culled_bounds(
+        points.double(), tris, part_mask, point_part)
+    slack = eps * (1.0 + ub[..., None])
+    lo = adm & (lb <= ub[..., None] - slack)
+    hi = adm & (lb <= ub[..., None] + slack)
+    bits = ((need.long()[..., None] >> torch.arange(G, device=need.device))
+            & 1).bool()
+    bad_need = int(((lo & ~bits) | (bits & ~hi)).sum())
+    g = key.long() % G
+    nearest = torch.where(adm, dpc, torch.full_like(dpc, INF)).amin(-1)
+    ok = ((key.long() // G == (pp if masked else torch.zeros_like(pp)))
+          & (torch.gather(dpc, 2, g[..., None])[..., 0] <= nearest + eps)
+          & torch.where(adm.any(-1), torch.gather(adm, 2, g[..., None])[..., 0],
+                        g == 0))
+    return bad_need, int((~ok).sum())
 
 
-def argmin_faces_culled_plain(pts_s, fc, ext, parts_s, run):
-    """K8's plain version on the sorted points pts_s (B, P, 3) and the
-    part-sorted face rows fc (B, T, 16) (``face_constants16``): for each
-    (tile, chunk) block that ``run`` keeps, ``culled_sqdist`` over the
-    pairs that ``ext`` (T, K + 1) admits for the points' parts ``parts_s``
-    (B, P) in [0, K]; (1e10, 0) where nothing is run.  Returns (dmin,
-    imin) in the sorted point order and the sorted face order."""
-    P = pts_s.shape[1]
-    pts_t = _tiles(pts_s, P, 0.0)
-    dmin, imin = _block_argmin(
-        pts_t, _tiles(parts_s, P, ext.shape[1] - 1), ext, fc.shape[1], run,
-        lambda bi, ti, s: culled_sqdist(fc[bi, s:s + CHUNK][:, None],
-                                        pts_t[bi, ti][:, :, None]))
-    return dmin[:, :P], imin[:, :P]
+def _ext_and_parts(part_mask, point_part, B, P, T, device):
+    """The extended part table (T, K + 1) and the points' parts (B, P) int64
+    in [0, K] (``_extend_part_tables``); without a mask one part, 0, that
+    admits every face."""
+    if part_mask is None:
+        ext = torch.zeros((T, 2), dtype=torch.bool, device=device)
+        ext[:, 0] = True
+        return ext, torch.zeros((B, P), dtype=torch.int64, device=device)
+    return _extend_part_tables(part_mask.bool(), point_part)
+
+
+def part_face_lists(ext):
+    """The set-up's part lists in PyTorch: ext (T, Kp) bool -> lists (Kp,
+    T) int32, the ascending face indices each column admits, -1 after
+    them; lens (Kp,) int32; choff (Kp, G + 1) int32, the list position at
+    which 128-face chunk g begins (G = ceil(T / 128), choff[:, G] = lens)."""
+    T, Kp = ext.shape
+    e = ext.T
+    lens = e.sum(1)
+    first = torch.argsort((~e).to(torch.uint8), dim=1, stable=True)
+    pos = torch.arange(T, device=ext.device)
+    lists = torch.where(pos[None] < lens[:, None], first,
+                        torch.full_like(first, -1))
+    G = -(-T // CHUNK)
+    csum = torch.cat([e.new_zeros((Kp, 1), dtype=torch.int64),
+                      e.long().cumsum(1)], 1)
+    bounds = torch.clamp(torch.arange(G + 1, device=ext.device) * CHUNK,
+                         max=T)
+    return (lists.to(torch.int32), lens.to(torch.int32),
+            csum[:, bounds].to(torch.int32))
+
+
+def group_points_by_part(key, G, K, tile, need=None):
+    """The set-up's grouping in PyTorch: key (B, P) int in [0, (K + 1) G),
+    whose part is key // G (part K admits nothing) -> perm (B, P) int32,
+    the points stably sorted by key; tiles (B, maxT, 4) int32 (part,
+    first, count, run): each part's run of perm cut into tiles of at most
+    ``tile`` points, none for part K, run the OR of the tile's ``need``
+    words (B, P) (-1 without), zeros after the last tile; tcount (B, 2)
+    int32: the number of tiles and the first position of part K."""
+    B, P = key.shape
+    dev = key.device
+    key = key.long()
+    maxT = point_mesh_kernel.max_tiles(P, K, tile)
+    perm = torch.argsort(key, dim=1, stable=True)
+    part = key // G
+    cnt = torch.zeros((B, K + 1), dtype=torch.int64, device=dev)
+    cnt.scatter_add_(1, part, torch.ones_like(part))
+    pstart = torch.cumsum(cnt, 1) - cnt                          # (B, K + 1)
+    nt = (cnt[:, :K] + tile - 1) // tile
+    tcum = torch.cumsum(nt, 1)
+    ntiles = tcum[:, -1]
+    j = torch.arange(maxT, device=dev)
+    tpart = torch.clamp((j[None, :, None] >= tcum[:, None, :]).sum(-1),
+                        max=K - 1)                               # (B, maxT)
+    within = j[None] - torch.gather(tcum - nt, 1, tpart)
+    first = torch.gather(pstart, 1, tpart) + within * tile
+    count = torch.clamp(torch.gather(cnt, 1, tpart) - within * tile,
+                        max=tile)
+    if need is None:
+        run = torch.full_like(first, -1)
+    else:
+        # each sorted point's tile; points of part K go to a spare row
+        part_s = torch.gather(part, 1, perm)
+        pc = torch.clamp(part_s, max=K - 1)
+        tid = torch.where(
+            part_s < K, torch.gather(tcum - nt, 1, pc)
+            + (torch.arange(P, device=dev)[None]
+               - torch.gather(pstart, 1, pc)) // tile,
+            torch.full_like(part_s, maxT))
+        bits = (torch.gather(need.long(), 1, perm)[..., None]
+                >> torch.arange(32, device=dev)) & 1            # (B, P, 32)
+        hit = torch.zeros((B, maxT + 1, 32), dtype=torch.int64, device=dev)
+        hit.scatter_add_(1, tid[..., None].expand(B, P, 32), bits)
+        run = ((hit[:, :maxT] > 0).long()
+               << torch.arange(32, device=dev)).sum(-1)
+        run = torch.where(run >= 2 ** 31, run - 2 ** 32, run)
+    valid = j[None] < ntiles[:, None]
+    tiles = torch.stack([tpart, first, count, run], -1)
+    tiles = torch.where(valid[..., None], tiles, torch.zeros_like(tiles))
+    tcount = torch.stack([ntiles, pstart[:, K]], -1)
+    return (perm.to(torch.int32), tiles.to(torch.int32),
+            tcount.to(torch.int32))
+
+
+def need_words(needed):
+    """(B, P, G <= 32) bool -> (B, P) int32 whose bit g is needed[..., g]."""
+    G = needed.shape[-1]
+    bits = torch.ones(G, dtype=torch.int64, device=needed.device) << \
+        torch.arange(G, device=needed.device)
+    w = (needed.long() * bits).sum(-1)
+    return torch.where(w >= 2 ** 31, w - 2 ** 32, w).to(torch.int32)
+
+
+def culled_tables(points, tris, part_mask=None, point_part=None,
+                  tile=point_mesh_kernel.TILE_POINTS):
+    """K8's point tables in PyTorch, on faces already in part order:
+    ``culled_needed``, its need words, and the points grouped by its key
+    (part x G + nearest admissible chunk) into tiles of one part that are
+    coherent in place, each with its run word: the chunks any point of the
+    tile needs (``group_points_by_part``).  Returns (perm, key, need, tiles,
+    tcount), int32."""
+    needed, key, _ = culled_needed(points, tris, part_mask, point_part)
+    need = need_words(needed)
+    K = 1 if part_mask is None else part_mask.shape[1]
+    perm, tiles, tcount = group_points_by_part(key, needed.shape[-1], K,
+                                               tile, need)
+    return perm, key.to(torch.int32), need, tiles, tcount
+
+
+def argmin_tables_plain(points, tris, part_mask=None, point_part=None,
+                        culled=False, tile=point_mesh_kernel.TILE_POINTS):
+    """The plain version of the set-up kernel
+    (``point_mesh_kernel.argmin_setup_cuda``): the same
+    ``point_mesh_kernel.ArgminTables`` from PyTorch, K3's or, with
+    ``culled``, K8's (faces sorted by ``face_part_perm``, rows
+    ``face_constants16`` in that order, ``culled_tables``)."""
+    points, tris = points.detach().float(), tris.detach().float()
+    B, P = points.shape[0], points.shape[1]
+    T = tris.shape[1]
+    ext, pp = _ext_and_parts(part_mask, point_part, B, P, T, points.device)
+    K = ext.shape[1] - 1
+    if not culled:
+        perm, tiles, tcount = group_points_by_part(pp, 1, K, tile)
+        return point_mesh_kernel.ArgminTables(
+            point_mesh_kernel.face_constants(tris), *part_face_lists(ext),
+            pp.to(torch.int32), perm, tiles, tcount, None, None, tile)
+    fperm = face_part_perm(ext[:, :K])
+    tris_s, ext_s = tris[:, fperm], ext[fperm]
+    perm, key, need, tiles, tcount = culled_tables(
+        points, tris_s, None if part_mask is None else ext_s[:, :K],
+        point_part, tile)
+    return point_mesh_kernel.ArgminTables(
+        face_constants16(tris_s), *part_face_lists(ext_s), key, perm, tiles,
+        tcount, fperm.to(torch.int32), need, tile)
+
+
+def _walk_tiles(points, tables, sqdist, culled):
+    """The plain walk over ``tables``' tiles and part lists: for each tile,
+    its points against the faces of its part's list (K8: those in chunks
+    its run word keeps), in ascending list order with a strict '<', so the
+    lowest index of the least distance wins; ``sqdist(bi, pts, f)`` gives
+    the distances (n, TILE, c) of the points pts (n, TILE, 3) of clouds bi
+    (n,) to faces f (c,).  Returns (dmin, imin) in the points' order and
+    the lists' face ids; (1e10, 0) where a point's tile holds nothing."""
+    B, P = points.shape[0], points.shape[1]
+    dev = points.device
+    tiles, perm = tables.tiles.long(), tables.perm.long()
+    TP = tables.tile_points
+    dmin = torch.full((B, P), INF, dtype=points.dtype, device=dev)
+    imin = torch.zeros((B, P), dtype=torch.int32, device=dev)
+    valid = (torch.arange(tiles.shape[1], device=dev)[None]
+             < tables.tcount[:, :1].long())
+    i = torch.arange(TP, device=dev)
+    for k in range(tables.lists.shape[0]):
+        bi, ti = torch.nonzero(valid & (tiles[..., 0] == k), as_tuple=True)
+        if bi.numel() == 0:
+            continue
+        t = tiles[bi, ti]                                        # (n, 4)
+        live = i[None] < t[:, 2:3]
+        pid = perm[bi[:, None], torch.clamp(t[:, 1:2] + i[None], max=P - 1)]
+        pts = points[bi[:, None], pid]                           # (n, TP, 3)
+        best = torch.full(pid.shape, INF, dtype=points.dtype, device=dev)
+        arg = torch.zeros(pid.shape, dtype=torch.int64, device=dev)
+        flist = tables.lists[k, :int(tables.lens[k])].long()
+        for s in range(0, flist.numel(), CHUNK):
+            f = flist[s:s + CHUNK]
+            d = sqdist(bi, pts, f)
+            if culled:
+                keep = ((t[:, 3:4] >> (f // CHUNK)[None]) & 1).bool()
+                d = torch.where(keep[:, None, :], d, torch.full_like(d, INF))
+            cmin = d.min(-1).values
+            better = cmin < best
+            best = torch.where(better, cmin, best)
+            arg = torch.where(better, f[torch.argmin(d, -1)], arg)
+        bl = bi[:, None].expand_as(pid)
+        dmin[bl[live], pid[live]] = best[live]
+        imin[bl[live], pid[live]] = arg[live].to(torch.int32)
+    return dmin, imin
+
+
+def argmin_faces_tiles_plain(points, tris, tables):
+    """K3's argmin as its kernel walks it, in PyTorch: the exact distance
+    (``point_tri_sqdist``) of each tile's points to its part's faces, on
+    K3's ``tables`` (``argmin_tables_plain`` or the set-up kernel's).
+    Equal, dmin and imin bit for bit, to ``argmin_faces_plain`` on the same
+    inputs."""
+    points, tris = points.detach(), tris.detach()
+    return _walk_tiles(
+        points, tables,
+        lambda bi, pts, f: point_tri_sqdist(
+            pts[:, :, None], tris[bi[:, None], f[None]][:, None]),
+        False)
+
+
+def argmin_faces_culled_plain(points, tables):
+    """K8's plain version on its ``tables`` (``argmin_tables_plain(...,
+    culled=True)`` or the set-up kernel's): ``culled_sqdist`` on the rows
+    of the faces each tile's part admits in the chunks its run word keeps.
+    Returns (dmin, imin) in the points' order with face ids in the part
+    order (``tables.fperm`` maps them back); (1e10, 0) where nothing is
+    run."""
+    fc = tables.rows
+    return _walk_tiles(
+        points.detach().float(), tables,
+        lambda bi, pts, f: culled_sqdist(fc[bi[:, None], f[None]][:, None],
+                                         pts[:, :, None]),
+        True)
 
 
 def argmin_faces_culled(points, tris, part_mask=None, point_part=None):
     """K8: the nearest admissible face per point with (tile, chunk)
-    culling, its plain version for CPU tensors and the kernel for CUDA
-    tensors.  Faces are sorted by part here and points by
-    ``culled_tables``; results come back in the caller's point order with
-    the caller's face ids (ref: pallas_point_mesh.py:772-781), so a point
-    that admits no face gets (1e10, perm[0]) as the JAX kernel gives it.
-    dmin is the 16-constant form's distance."""
+    culling, the kernel for CUDA tensors and its plain version for CPU
+    tensors, on the same tables: faces sorted by part, points by
+    ``culled_tables``' key.  Results come back in the caller's point order
+    with the caller's face ids (ref: pallas_point_mesh.py:772-781), so a
+    point that admits no face gets (1e10, perm[0]) as the JAX kernel gives
+    it.  dmin is the 16-constant form's distance."""
     points, tris = points.detach(), tris.detach()
-    B, P = points.shape[0], points.shape[1]
-    T = tris.shape[1]
-    if part_mask is None:
-        perm = None
-        ext = torch.ones((T, 2), dtype=torch.bool, device=points.device)
-    else:
-        perm = face_part_perm(part_mask)
-        tris, part_mask = tris[:, perm], part_mask.bool()[perm]
-        ext, _ = _extend_part_tables(part_mask, point_part)
-    order, pts_s, parts_s, run = culled_tables(points, tris, part_mask,
-                                               point_part)
-    fc = face_constants16(tris)
-    if points.device.type == "cpu":
-        d_s, i_s = argmin_faces_culled_plain(pts_s, fc, ext, parts_s, run)
-    elif points.device.type == "cuda":
-        d_s, i_s = point_mesh_kernel.argmin_faces_culled_cuda(
-            pts_s, fc, ext, parts_s, run)
-    else:
+    if points.device.type == "cuda":
+        return point_mesh_kernel.argmin_faces_culled_cuda(points, tris,
+                                                          part_mask,
+                                                          point_part)
+    if points.device.type != "cpu":
         raise ValueError(f"no point-mesh path for device {points.device}")
-    dmin = torch.empty_like(d_s).scatter_(1, order, d_s)
-    imin = torch.empty_like(i_s).scatter_(1, order, i_s)
-    if perm is not None:
-        imin = perm[imin.long()].to(torch.int32)
-    return dmin, imin
+    tables = argmin_tables_plain(points, tris, part_mask, point_part,
+                                 culled=True)
+    dmin, imin = argmin_faces_culled_plain(points, tables)
+    return dmin, tables.fperm[imin.long()]
 
 
 def argmin_faces(points, tris, part_mask=None, point_part=None):

@@ -206,9 +206,8 @@ def _culled_reference(pts, tris, mask, part, eps):
     pallas_point_mesh.py:671-734) on faces already in part order: the
     stable point order by (part, nearest admissible chunk), and, with the
     bound test lb <= ub moved by -eps and +eps of (1 + ub), the chunks
-    each point needs and the run tables at 128-point tiles (a table built
-    in float32 must hold everything of the -eps one and nothing outside
-    the +eps one)."""
+    each point needs (a table built in float32 must hold everything of the
+    -eps one and nothing outside the +eps one)."""
     B, P, _ = pts.shape
     T = tris.shape[1]
     G = -(-T // 128)
@@ -232,28 +231,45 @@ def _culled_reference(pts, tris, mask, part, eps):
     ub = np.where(adm, (dpc + r_g[:, None] + m) ** 2, 1e10).min(-1)
     order = np.argsort(pp * G + np.argmin(np.where(adm, dpc, 1e10), -1),
                        axis=1, kind="stable")
-    needs, runs = [], []
-    for e in (-eps, eps):
-        need = adm & (lb <= ub[..., None] + e * (1 + ub[..., None]))
-        needs.append(need)
-        need = np.take_along_axis(need, order[..., None], 1)
-        NT = -(-P // 128)
-        runs.append(np.stack([need[:, t * 128:(t + 1) * 128].any(1)
-                              for t in range(NT)], 1))
-    return order, needs, runs
+    needs = [adm & (lb <= ub[..., None] + e * (1 + ub[..., None]))
+             for e in (-eps, eps)]
+    return order, needs
+
+
+def _tile_of(perm, tiles, tcount):
+    """Each point's tile (B, P), -1 for a point of no tile."""
+    B, P = perm.shape
+    out = np.full((B, P), -1)
+    for b in range(B):
+        for t in range(tcount[b, 0]):
+            _, first, count, _ = tiles[b, t]
+            out[b, perm[b, first:first + count]] = t
+    return out
+
+
+def _tile_runs(need, tile_of, maxT):
+    """(B, maxT, G): the OR of each tile's points' needed chunks."""
+    B, P, G = need.shape
+    runs = np.zeros((B, maxT, G), bool)
+    for b in range(B):
+        for p in range(P):
+            if tile_of[b, p] >= 0:
+                runs[b, tile_of[b, p]] |= need[b, p]
+    return runs
 
 
 def test_culled_run_table_keeps_every_winner():
     """K8's set-up on a mesh of four tight 128-face chunks set 4 units
     apart, with points among and beside them: the chunks each point needs,
-    the point order and the run table against the rule in numpy float64
-    (all it keeps with the bound test 1e-5 of (1 + ub) tighter, nothing it
-    drops with it as much looser), the bounds cull blocks that
-    admissibility keeps, the chunk of every point's float64 nearest
-    admissible face is run for its tile, and clearing a run entry that
-    holds a point's winner changes the plain version's answer."""
+    the point order and the tiles' run words against the rule in numpy
+    float64 (all it keeps with the bound test 1e-5 of (1 + ub) tighter,
+    nothing it drops with it as much looser), no tile mixing parts, the
+    bounds cull chunks that admissibility keeps, the chunk of every
+    point's float64 nearest admissible face is in its tile's run word, and
+    clearing a run bit that holds a point's winner changes the plain
+    version's answer."""
     rng = np.random.RandomState(8)
-    B, P, F = 2, 768, 512
+    B, P, F, tile = 2, 768, 512, 32
     cen = (np.stack([(np.arange(F) // 128) * 4.0, np.zeros(F), np.zeros(F)],
                     -1) + rng.uniform(-0.3, 0.3, (F, 3)))
     tris = (cen[None, :, None] + 0.1 * rng.randn(B, F, 3, 3)).astype(np.float32)
@@ -268,30 +284,42 @@ def test_culled_run_table_keeps_every_winner():
     pts = pts.astype(np.float32)
     assert np.array_equal(PM.face_part_perm(_t(mask)).numpy(), np.arange(F))
     needed = PM.culled_needed(_t(pts), _t(tris), _t(mask), _t(part))[0]
-    order, pts_s, parts_s, run = PM.culled_tables(_t(pts), _t(tris), _t(mask),
-                                                  _t(part))
-    ref_order, (need_lo, need_hi), (run_lo, run_hi) = _culled_reference(
-        pts, tris, mask, part, 1e-5)
+    perm, key, need, tiles, tcount = PM.culled_tables(
+        _t(pts), _t(tris), _t(mask), _t(part), tile)
+    ref_order, (need_lo, need_hi) = _culled_reference(pts, tris, mask, part,
+                                                      1e-5)
     needed = needed.numpy()
     assert (needed | ~need_lo).all() and (need_hi | ~needed).all()
-    assert np.array_equal(order.numpy(), ref_order)
-    run_np = run.numpy().astype(bool)
+    assert np.array_equal(need.numpy(), PM.need_words(_t(needed)).numpy())
+    assert np.array_equal(perm.numpy(), ref_order)
+    perm, tiles, tcount = perm.numpy(), tiles.numpy(), tcount.numpy()
+    tile_of = _tile_of(perm, tiles, tcount)
+    pp = np.where((part >= 0) & (part < 16), part, 16)
+    assert ((tile_of >= 0) == (pp < 16)).all()
+    for b in range(B):
+        t = tile_of[b][pp[b] < 16]
+        assert (tiles[b, t, 0] == pp[b][pp[b] < 16]).all()
+    G = needed.shape[-1]
+    run_np = ((tiles[..., 3:4] >> np.arange(G)) & 1).astype(bool)
+    run_lo, run_hi = (_tile_runs(n, tile_of, tiles.shape[1])
+                      for n in (need_lo, need_hi))
     assert (run_np | ~run_lo).all() and (run_hi | ~run_np).all()
-    wide = _culled_reference(pts, tris, mask, part, 1e10)[2][1]
+    wide = _tile_runs(_culled_reference(pts, tris, mask, part, 1e10)[1][1],
+                      tile_of, tiles.shape[1])
     assert run_np.sum() < wide.sum()
-    d64, i64 = PM.argmin_faces_plain(pts_s.double(), _t(tris).double(),
-                                     _t(mask), parts_s)
+    d64, i64 = PM.argmin_faces_plain(_t(pts).double(), _t(tris).double(),
+                                     _t(mask), _t(part))
     ok = (d64 < 1e10).numpy()
-    tile = np.arange(P)[None].repeat(B, 0) // 128
     bi = np.arange(B)[:, None].repeat(P, 1)
-    assert run_np[bi[ok], tile[ok], i64.numpy()[ok] // 128].all()
-    ext, _ = PM._extend_part_tables(_t(mask), _t(part))
-    fc = PM.face_constants16(_t(tris))
-    d, i = PM.argmin_faces_culled_plain(pts_s, fc, ext, parts_s, run)
+    assert run_np[bi[ok], tile_of[ok], i64.numpy()[ok] // 128].all()
+    tables = PM.argmin_tables_plain(_t(pts), _t(tris), _t(mask), _t(part),
+                                    culled=True, tile=tile)
+    assert np.array_equal(tables.tiles.numpy(), tiles)
+    d, i = PM.argmin_faces_culled_plain(_t(pts), tables)
     j = int(np.argwhere(ok[0])[0][0])
-    cut = run.clone()
-    cut[0, j // 128, int(i64[0, j]) // 128] = 0
-    d2, _ = PM.argmin_faces_culled_plain(pts_s, fc, ext, parts_s, cut)
+    cut = tables.tiles.clone()
+    cut[0, tile_of[0, j], 3] &= ~(1 << (int(i64[0, j]) // 128))
+    d2, _ = PM.argmin_faces_culled_plain(_t(pts), tables._replace(tiles=cut))
     assert d2[0, j] > d[0, j]
 
 

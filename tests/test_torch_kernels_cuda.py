@@ -446,30 +446,113 @@ def test_icp_v2_kernel_matches_plain(renderer):
 
 
 def test_icp_culled_kernel_matches_plain(renderer):
-    """K8 against its plain version on the same sorted points, face rows
-    and run table (the same 16-constant arithmetic, so dmin within 1e-6),
-    and through the dispatch against the plain dense argmin by the
-    winners' exact distances, one launch each."""
+    """K8 against its plain version on the set-up kernel's own tables (the
+    same 16-constant arithmetic, one reciprocal for five divides: dmin
+    within 1e-6), and through the dispatch against the plain dense
+    argmin by the winners' exact distances, one launch each; a point that
+    admits no face gets (1e10, perm[0])."""
     verts, pts, table, part = _icp_problem(renderer, 22)
-    tris = verts[:, renderer.mano.faces]
-    perm = pm.face_part_perm(table)
-    order, pts_s, parts_s, run = pm.culled_tables(pts, tris[:, perm],
-                                                  table[perm], part)
-    ext, _ = pm._extend_part_tables(table[perm], part)
-    fc = pm.face_constants16(tris[:, perm])
+    tris = verts[:, renderer.mano.faces].contiguous()
+    tables = pm.point_mesh_kernel.argmin_setup_cuda(pts, tris, table, part,
+                                                    culled=True)
     before = kernels.LAUNCHES["icp_argmin_culled"]
-    dk, ik = pm.point_mesh_kernel.argmin_faces_culled_cuda(pts_s, fc, ext,
-                                                          parts_s, run)
-    dq, iq = pm.argmin_faces_culled_plain(pts_s, fc, ext, parts_s, run)
+    dk, ik = pm.point_mesh_kernel.argmin_faces_culled_launch(pts, tables)
+    dq, iq = pm.argmin_faces_culled_plain(pts, tables)
+    iq = tables.fperm[iq.long()]
     torch.testing.assert_close(dk, dq, rtol=0, atol=1e-6)
     assert (ik == iq).float().mean() > 0.9
     dk, ik = pm.argmin_faces_culled(pts, tris, table, part)
     assert kernels.LAUNCHES["icp_argmin_culled"] == before + 2
     dp, _ = pm.argmin_faces_plain(pts, tris, table, part)
     none = _hold_winners(pts, tris, ik, dp)
-    assert (dk[none] >= 1e10).all() and (ik[none] == int(perm[0])).all()
+    perm0 = int(pm.face_part_perm(table)[0])
+    assert none.sum() > 100
+    assert (dk[none] >= 1e10).all() and (ik[none] == perm0).all()
     assert table[ik[~none].long(), part[~none]].all()
-    assert 0 < float(run.float().mean()) < 1
+    # the share of (tile, chunk) blocks the run words keep
+    run = tables.tiles[..., 3][tables.tiles[..., 2] > 0].long()
+    bits = (run[:, None] >> torch.arange(13, device=run.device)) & 1
+    assert 0 < float(bits.float().mean()) < 1
+
+
+def _tables_equal(got, ref, names):
+    for name in names:
+        g, r = getattr(got, name), getattr(ref, name)
+        assert torch.equal(g, r.to(g.device)), name
+
+
+@pytest.mark.parametrize("culled", [False, True])
+def test_argmin_setup_matches_plain(renderer, culled):
+    """The set-up kernel of K3 and of K8 (csrc/argmin_setup.cuh) against
+    ``point_mesh.argmin_tables_plain`` on posed hands under the ICP's
+    16-column table, parts -1 .. 16: the face rows as int32 words; the part
+    lists, their chunk offsets, K8's face order, and K3's keys, point order
+    and tiles bitwise (integer work).  K8's keys and need words come from
+    float sphere math: they may differ from the plain float32 ones only
+    where a bound lies within rounding (held against the rule in float64,
+    ``cull_within_rounding``; the differences are counted and printed),
+    and every point's winning face lies in a chunk its tile runs."""
+    verts, pts, table, part = _icp_problem(renderer, 30)
+    tris = verts[:, renderer.mano.faces].contiguous()
+    got = pm.point_mesh_kernel.argmin_setup_cuda(pts, tris, table, part,
+                                                 culled=culled)
+    ref = pm.argmin_tables_plain(pts, tris, table, part, culled=culled)
+    assert torch.equal(got.rows.view(torch.int32), ref.rows.view(torch.int32))
+    _tables_equal(got, ref, ("lists", "lens", "choff"))
+    if not culled:
+        _tables_equal(got, ref, ("key", "perm", "tiles", "tcount"))
+        return
+    _tables_equal(got, ref, ("fperm",))
+    fperm = got.fperm.long()
+    bad = pm.cull_within_rounding(pts, tris[:, fperm], table[fperm], part,
+                                  got.key, got.need)
+    key_diff = int((got.key != ref.key).sum())
+    need_diff = int((got.need != ref.need).sum())
+    print(f"K8 set-up: keys differing from the plain float32 ones "
+          f"{key_diff}, need words {need_diff}, outside rounding {bad}")
+    assert bad == (0, 0)
+    if key_diff == 0:
+        _tables_equal(got, ref, ("perm", "tcount"))
+    # the winner's chunk (in the part order) is run by its point's tile
+    _, win = pm.argmin_faces_plain(pts, tris[:, fperm], table[fperm], part)
+    B, P = pts.shape[0], pts.shape[1]
+    tile_of = torch.full((B, P), -1, dtype=torch.long, device=pts.device)
+    tiles = got.tiles.long()
+    for b in range(B):
+        for t in range(int(got.tcount[b, 0])):
+            _, first, count, _ = tiles[b, t].tolist()
+            tile_of[b, got.perm[b, first:first + count].long()] = t
+    live = tile_of >= 0
+    run = torch.gather(tiles[..., 3], 1, tile_of.clamp(min=0))
+    kept = ((run >> (win.long() // 128)) & 1).bool()
+    assert kept[live].all()
+
+
+@pytest.mark.parametrize("culled", [False, True])
+def test_argmin_kernels_on_a_cloud_that_admits_nothing(renderer, culled):
+    """K3 and K8 with one cloud whose parts are all -1 (no face admissible)
+    beside clouds of parts -1 .. 16: the empty cloud gets (1e10, 0) from
+    K3 and (1e10, perm[0]) from K8 everywhere and no tile; the others as
+    the plain dense argmin, by the winners' exact distances."""
+    verts, pts, table, part = _icp_problem(renderer, 31)
+    tris = verts[:, renderer.mano.faces].contiguous()
+    part[1] = -1
+    if culled:
+        tables = pm.point_mesh_kernel.argmin_setup_cuda(pts, tris, table,
+                                                        part, culled=True)
+        dk, ik = pm.point_mesh_kernel.argmin_faces_culled_launch(pts, tables)
+        id0 = int(pm.face_part_perm(table)[0])
+    else:
+        tables = pm.point_mesh_kernel.argmin_setup_cuda(pts, tris, table,
+                                                        part)
+        dk, ik = pm.point_mesh_kernel.argmin_faces_launch(pts, tables)
+        id0 = 0
+    assert int(tables.tcount[1, 0]) == 0 and int(tables.tcount[1, 1]) == 0
+    dp, _ = pm.argmin_faces_plain(pts, tris, table, part)
+    none = _hold_winners(pts, tris, ik, dp)
+    assert none[1].all() and (dk[none] >= 1e10).all()
+    assert (ik[none] == id0).all()
+    assert table[ik[~none].long(), part[~none]].all()
 
 
 def test_raster_dense_kernel_bitwise_equals_plain(cuda):

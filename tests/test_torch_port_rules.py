@@ -15,7 +15,7 @@ from dsf_tpu_torch import kernels
 from dsf_tpu_torch.config import Config
 from dsf_tpu_torch.device import resolve_device
 from dsf_tpu_torch.mano.model import load_model
-from dsf_tpu_torch.ops import (codec_kernel, moments_kernel,
+from dsf_tpu_torch.ops import (codec_kernel, moments_kernel, point_mesh,
                                point_mesh_kernel, raster_kernel,
                                tapsum_kernel)
 from dsf_tpu_torch.serving import InferenceEngine
@@ -124,9 +124,18 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                             torch.zeros(1, 4, 3, 3))
     with pytest.raises(ValueError, match="CUDA"):
         point_mesh_kernel.argmin_faces_launch(
-            torch.zeros(1, 16, 3), torch.zeros(1, 4, 28),
-            torch.zeros(4, dtype=torch.int32),
-            torch.zeros(1, 16, dtype=torch.int32))
+            torch.zeros(1, 16, 3),
+            point_mesh.argmin_tables_plain(torch.zeros(1, 16, 3),
+                                           torch.rand(1, 4, 3, 3)))
+    with pytest.raises(ValueError, match="CUDA"):
+        point_mesh_kernel.argmin_setup_cuda(torch.zeros(1, 16, 3),
+                                            torch.zeros(1, 4, 3, 3))
+    with pytest.raises(ValueError, match="CUDA"):
+        point_mesh_kernel.argmin_faces_culled_launch(
+            torch.zeros(1, 16, 3),
+            point_mesh.argmin_tables_plain(torch.zeros(1, 16, 3),
+                                           torch.rand(1, 4, 3, 3),
+                                           culled=True))
     with pytest.raises(ValueError, match="CUDA"):
         tapsum_kernel.tail_conv_cuda(torch.zeros(1, 8, 14, 14),
                                      torch.zeros(1, 8, 7, 7), torch.zeros(1))
@@ -142,10 +151,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
             torch.zeros(1, 1, dtype=torch.int32))
     with pytest.raises(ValueError, match="CUDA"):
         point_mesh_kernel.argmin_faces_culled_cuda(
-            torch.zeros(1, 16, 3), torch.zeros(1, 4, 16),
+            torch.zeros(1, 16, 3), torch.zeros(1, 4, 3, 3),
             torch.ones(4, 2, dtype=torch.bool),
-            torch.zeros(1, 16, dtype=torch.int64),
-            torch.ones(1, 1, 1, dtype=torch.int32))
+            torch.zeros(1, 16, dtype=torch.int64))
     with pytest.raises(ValueError, match="CUDA"):
         raster_kernel.raster_dense_cuda(torch.zeros(1, 8, 3),
                                         torch.zeros(4, 3, dtype=torch.int32),
@@ -199,7 +207,8 @@ def test_kernel_sources_and_build_flags():
                            "tail_conv"])
     # the shared headers, which every library's hashed name covers
     assert sorted(f for f in os.listdir(build.CSRC) if f.endswith(".cuh")) \
-        == ["point_tri27.cuh", "raster_rows.cuh", "raster_setup.cuh"]
+        == ["argmin_body.cuh", "argmin_setup.cuh", "point_tri27.cuh",
+            "raster_rows.cuh", "raster_setup.cuh"]
 
 
 @pytest.mark.parametrize("header, sources, copied", [
@@ -212,9 +221,15 @@ def test_kernel_sources_and_build_flags():
      ("__frcp_rn(", "__fsub_rn(", "fabsf(A) > 1e-9f")),
     ("raster_rows.cuh", ("raster_skip", "raster_dense"),
      ("__ballot_sync(", "kMargin", "s.list[")),
-    # the ICP kernels' divide-free distance
-    ("point_tri27.cuh", ("point_mesh", "point_mesh_v2"),
-     ("c[26]", "dpn * dpn", "vc <= 0.f")),
+    # the ICP kernels' divide-free distance (K3 through its body)
+    ("point_tri27.cuh", ("argmin_body.cuh", "point_mesh_v2"),
+     ("c[26]", "dpn * dpn", "c[23]")),
+    # the set-up of K3 and K8 (their rows, lists, sorts and cull) and
+    # their one argmin body
+    ("argmin_setup.cuh", ("point_mesh", "point_mesh_culled"),
+     ("__frcp_rn(", "__match_any_sync(", "kCullMargin")),
+    ("argmin_body.cuh", ("point_mesh", "point_mesh_culled"),
+     ("cp.async", "__frcp_rn(", "s_list[")),
 ])
 def test_kernels_share_their_arithmetic(header, sources, copied):
     """Kernels that compute one function include its arithmetic from one
@@ -225,7 +240,8 @@ def test_kernels_share_their_arithmetic(header, sources, copied):
         shared = f.read()
     assert all(c in shared for c in copied)
     for name in sources:
-        with open(os.path.join(build.CSRC, name + ".cu")) as f:
+        fn = name if name.endswith(".cuh") else name + ".cu"
+        with open(os.path.join(build.CSRC, fn)) as f:
             src = f.read()
         assert f'#include "{header}"' in src
         assert not any(c in src for c in copied), name
