@@ -20,18 +20,21 @@ Phases, each printed on its own line(s); any failure exits non-zero:
    part lists, point order and tiles bitwise against
    point_mesh.argmin_tables_plain); K9, the CycleGAN generator's tail conv, on
    the generator's own head input at the training steps' B=32, 64 x 134^2,
-   from the seeded stand-in generator on rendered hands; K7, the ICP argmin
-   with its admissibility skip words, and K8, the culled ICP argmin, at
-   K3's shape, its set-up (keys and need words held to the cull's rule in
-   float64, no winner culled); K6, the dense raster, at the pre-render's
-   B=32 NYU frames of
-   640x480, its set-up bitwise, and on the frames' samples in a random
+   from the seeded stand-in generator on rendered hands, and on the same
+   input scaled so that no output saturates (also against float64); K7,
+   the ICP argmin with its admissibility skip words, at K3's shape, its
+   set-up bitwise against point_mesh.v2_tables_plain, and without a part
+   table; K8, the culled ICP argmin, at K3's shape, its set-up (keys and
+   need words held to the cull's rule in float64, no winner culled); K6,
+   the dense raster, at the pre-render's B=32 NYU frames of 640x480, its
+   set-up bitwise, and on the frames' samples in a random
    order; K10, the binned raster, on B=32 crops of 64x64, the serving
    path's stage-2 render, and of 128x128, each also with its overflow flag
    set, so that every tile takes the dense branch): error, kernel and plain
    device time (CUDA events, warm L2, the host's enqueue hidden behind a
-   sleep kernel; for K1, K6, K3 and K8 the set-up, the kernel and the
-   whole route apart; for K3 and K8 the pair slots their body evaluates),
+   sleep kernel; for K1, K6, K3, K7 and K8 the set-up, the kernel and the
+   whole route apart; for K3, K7 and K8 the pair slots their body
+   evaluates),
    the time of one PyTorch library call computing the same
    function where there is one, and the bound (the larger of bytes over
    3.35 TB/s and float operations over 67 TFLOP/s, the H100 SXM's
@@ -734,59 +737,126 @@ def check_point_mesh(sc):
             "padding": 1 - real / slots, "admissible_pairs": sc["pairs"]}
 
 
+def v2_slots(tables, R):
+    """The pair slots K7's body evaluates on ``tables``: in each (128-point
+    tile, run chunk) block, every warp of 32 x R points (the caller's
+    order) evaluates each face of the chunk that some point of the warp
+    admits (a warp skips the others: the warp-uniform skip), 32 x R slots a
+    face.  Returns (slots, the run blocks' real pairs: tile points x chunk
+    faces)."""
+    import torch
+    N, P = tables.parts.shape
+    T = tables.words.shape[0]
+    G, NT = -(-T // 128), tables.skip.shape[1]
+    dev = tables.parts.device
+    wp = 32 * R
+    onehot = torch.zeros((N, NT * 128, 32), dtype=torch.bool, device=dev)
+    onehot[:, :P].scatter_(2, tables.parts.long()[..., None], True)
+    wor = onehot.reshape(N, NT * 128 // wp, wp, 32).any(2)       # (N, NW, 32)
+    fbits = ((tables.words.long()[:, None] >> torch.arange(32, device=dev))
+             & 1).bool()                                          # (T, 32)
+    admits = (wor.float() @ fbits.float().T) > 0                  # (N, NW, T)
+    run = ((tables.skip.long()[..., None] >> torch.arange(G, device=dev))
+           & 1).bool()                                            # (N, NT, G)
+    run_w = run.repeat_interleave(128 // wp, 1)[..., torch.arange(
+        T, device=dev) // 128]                                    # (N, NW, T)
+    slots = int((admits & run_w).sum()) * wp
+    faces = torch.bincount(torch.arange(T, device=dev) // 128, minlength=G)
+    pts = torch.clamp(P - torch.arange(NT, device=dev) * 128, max=128)
+    real = int((run.long() * pts[None, :, None] * faces[None, None]).sum())
+    return slots, real
+
+
 def check_icp_v2(sc):
-    """K7 on K3's scene, over the faces in part order as
-    ``point_face_distance`` sorts them under ``USE_V2_KERNEL``, against
-    its plain version with the same skip words: held as K3 by the winning
-    face's exact distance; the share of (128-point tile, 128-face chunk)
-    blocks its words run is printed."""
+    """K7 on K3's scene (faces in the caller's order): its set-up kernel
+    against ``point_mesh.v2_tables_plain`` (the face order, words, chunk
+    ORs, point parts and skip words bitwise, the rows word for word), the
+    argmin on its tables and the route (set-up + argmin), held as K3 by the
+    winning face's exact distance against its plain version's minimum (on
+    the same part-sorted faces and skip words), every winner admissible,
+    (1e10, the first face in the part order) where none is.  Then the same
+    on the scene without a table, whose caller-order tiles admit every
+    face, so that the warp skip has nothing to skip.  Times the set-up, the
+    argmin and the route apart, prints the pair slots evaluated."""
     import torch
     from dsf_tpu_torch.ops import point_mesh as pm
     from dsf_tpu_torch.ops import point_mesh_kernel as pk
 
-    pts, part = sc["pts"], sc["part"]
+    pts, tris, table, part = sc["pts"], sc["tris"], sc["table"], sc["part"]
     N, P, T = sc["N"], sc["P"], sc["T"]
-    faces, mask = pm._static_part_perm(sc["faces"], sc["table"])
-    tris = sc["mesh"][:, faces].contiguous()
-    skip = pm.v2_words(mask, part, N, P, T, pts.device)
-    dk, ik = pk.argmin_faces_v2_cuda(pts, tris, mask, part, skip)
-    dp, ip = pm.argmin_faces_v2_plain(pts, tris, mask, part, skip)
+    tables = pk.v2_setup_cuda(pts, tris, table, part)
+    ref = pm.v2_tables_plain(pts, tris, table, part)
+    dk, ik = pk.argmin_faces_v2_launch(pts, tables)
+    dr, ir = pk.argmin_faces_v2_cuda(pts, tris, table, part)
+    fperm = ref.fperm.long()
+    dp, ip = pm.argmin_faces_v2_plain(pts, tris[:, fperm], table[fperm], part,
+                                      ref.skip)
     torch.cuda.synchronize()
+    names = ("fperm", "words", "chunk_or", "parts", "skip")
+    bad = tables_against_plain(tables, ref, names)
+    route_same = torch.equal(dk, dr) and torch.equal(ik, ir)
     err, none = hold_winners("K7", sc, tris, ik, dp)
-    need(bool((ik[none] == 0).all()) and bool((dk[none] >= 1e10).all())
-         and bool(mask[ik[~none].long(), part[~none]].all()),
-         "K7 returned an inadmissible face or a nonzero index where no face "
-         "is admissible")
-    nc = -(-T // pm.CHUNK)
-    bits = (skip[..., None] >> torch.arange(nc, device=pts.device)) & 1
+    none_ok = bool((ik[none] == fperm[0]).all()) and bool(
+        (dk[none] >= 1e10).all())
+    admissible = bool(table[ik[~none].long(), part[~none]].all())
+    G = -(-T // pm.CHUNK)
+    bits = (tables.skip[..., None] >> torch.arange(G, device=pts.device)) & 1
     share = float(bits.float().mean())
     share_joint = float(bits[N // 2:].float().mean())
-    words, parts = pk._words_and_parts(mask, part, N, P, T, pts.device)
-    fc = pk.face_constants(tris)
-    ms = time_ms(lambda: pk.argmin_faces_v2_launch(pts, fc, words, parts,
-                                                   skip), 20)
-    prep_ms = time_ms(lambda: (pm._static_part_perm(sc["faces"], sc["table"]),
-                               pk.face_constants(tris),
-                               pk._words_and_parts(mask, part, N, P, T,
-                                                   pts.device),
-                               pm.v2_words(mask, part, N, P, T, pts.device)),
-                      20)
-    plain_ms = time_ms(lambda: pm.argmin_faces_v2_plain(pts, tris, mask,
-                                                        part, skip), 3, 1)
+    slots, real = v2_slots(tables, pk.V2_POINTS_PER_THREAD)
+
+    # caller-order tiles that admit every face: no table
+    tables_all = pk.v2_setup_cuda(pts, tris)
+    bad_all = tables_against_plain(tables_all, pm.v2_tables_plain(pts, tris),
+                                   names)
+    da, ia = pk.argmin_faces_v2_launch(pts, tables_all)
+    dpa, _ = pm.argmin_faces_plain(pts, tris)
+    torch.cuda.synchronize()
+    err_all, none_all = hold_winners("K7 without a table", sc, tris, ia, dpa)
+    slots_all, _ = v2_slots(tables_all, pk.V2_POINTS_PER_THREAD)
+
+    ms = time_ms(lambda: pk.argmin_faces_v2_launch(pts, tables), 20)
+    setup_ms = time_ms(lambda: pk.v2_setup_cuda(pts, tris, table, part), 20)
+    route_ms = time_ms(lambda: pk.argmin_faces_v2_cuda(pts, tris, table,
+                                                       part), 20)
+    ms_all = time_ms(lambda: pk.argmin_faces_v2_launch(pts, tables_all), 20)
+    tables_ms = time_ms(lambda: pm.v2_tables_plain(pts, tris, table, part),
+                        3, 1)
+    plain_ms = time_ms(lambda: pm.argmin_faces_v2_plain(
+        pts, tris[:, fperm], table[fperm], part, ref.skip), 3, 1)
     bms, by = bound_ms(sc["nbytes"], ICP_PER_PAIR_FLOPS * sc["pairs"])
-    say(f"kernel K7 icp_argmin_v2 {N} clouds x {P} points x {T} part-sorted "
-        f"faces, K=16: winning-face distance max_abs_err {err:.3g} against "
-        f"its plain version's minimum, index disagreements "
-        f"{int((ik != ip).sum())} of {N * P}; blocks run {share:.4f} of "
-        f"{N * skip.shape[1] * nc} (joint clouds {share_joint:.4f}); kernel "
-        f"{ms:.4f} ms (+ sort, face rows, words {prep_ms:.4f} ms), plain "
-        f"{plain_ms:.4f} ms, bound {bms:.6f} ms by {by}")
+    bms_all, _ = bound_ms(sc["nbytes"], ICP_PER_PAIR_FLOPS * N * P * T)
+    say(f"kernel K7 icp_argmin_v2 {N} clouds x {P} points x {T} faces, "
+        f"K=16: set-up against its plain version {bad} (entries differing); "
+        f"route = set-up + argmin bitwise: {route_same}; winning-face "
+        f"distance max_abs_err {err:.3g} against its plain version's "
+        f"minimum, index disagreements {int((ik != fperm[ip.long()]).sum())} "
+        f"of {N * P}, points that admit no face {int(none.sum())} (the first "
+        f"part-order face there: {none_ok}), winners admissible: "
+        f"{admissible}; blocks run {share:.4f} of "
+        f"{N * tables.skip.shape[1] * G} "
+        f"(joint clouds {share_joint:.4f}); pair slots evaluated {slots} "
+        f"(the run blocks' pairs {real}, {sc['pairs']} admissible); argmin "
+        f"{ms:.4f} ms, set-up {setup_ms:.4f} ms, route {route_ms:.4f} ms (the "
+        f"set-up in PyTorch {tables_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+        f"bound {bms:.6f} ms by {by}; without a table: set-up against its "
+        f"plain version {bad_all}, winning-face max_abs_err {err_all:.3g}, "
+        f"pair slots {slots_all} ({N * P * T} pairs), argmin {ms_all:.4f} ms, "
+        f"bound {bms_all:.6f} ms")
+    need(not any(bad.values()) and not any(bad_all.values()),
+         f"K7's set-up disagrees with its plain version: {bad}, {bad_all}")
+    need(route_same, "K7's route disagrees with its set-up + argmin")
+    need(none_ok and admissible and not bool(none_all.any()),
+         "K7 returned an inadmissible face or another id than the first "
+         "part-order face's where no face is admissible")
     return {"name": "icp_argmin_v2", "route": "cuda",
             "source": "dsf_tpu_torch/csrc/point_mesh_v2.cu",
             "replaces": "dsf_tpu/ops/pallas_point_mesh.py:479",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by, "library_ms": None,
-            "blocks_run": share}
+            "setup_ms": setup_ms, "route_ms": route_ms, "pair_slots": slots,
+            "blocks_run": share, "admissible_pairs": sc["pairs"],
+            "no_table_ms": ms_all, "no_table_pair_slots": slots_all}
 
 
 def tile_of_points(tables):
@@ -1045,7 +1115,12 @@ def check_tail_conv(renderer, B, rng):
     the stand-in generator run up to its head on B rendered hands, (B, 64,
     S+6, S+6).  Held within 1e-5 absolute on the tanh output against the
     plain version; the library call is one cuDNN convolution with its bias
-    and a tanh, TF32 off, as the plain version computes it."""
+    and a tanh, TF32 off, as the plain version computes it.  Most of that
+    output saturates, where a wrong sum would not show, so K9 is also held
+    on the same input scaled until |pre-tanh| < 0.9: within 1e-5 of the
+    plain version, and no further from the float64 convolution than 3x the
+    plain version's distance + 1e-7 (K9 sums in another order than cuDNN,
+    so it is not bitwise)."""
     import torch
     from dsf_tpu_torch import demo
     from dsf_tpu_torch.ops import tapsum, tapsum_kernel
@@ -1060,6 +1135,25 @@ def check_tail_conv(renderer, B, rng):
     ref = tapsum.tail_conv_tanh_plain(x, w, b)
     torch.cuda.synchronize()
     err = float((got - ref).abs().max())
+
+    def f64(xs):
+        return torch.tanh(torch.nn.functional.conv2d(xs.double(), w.double())
+                          + b.double())
+
+    # the unsaturated input: pre-tanh = s * conv + b within (-0.9, 0.9)
+    conv = torch.nn.functional.conv2d(x.double(), w.double())
+    scale = (0.9 - float(b.abs())) / float(conv.abs().max())
+    need(scale > 0, f"K9's bias {float(b)} leaves no unsaturated input")
+    x2 = (x * scale).contiguous()
+    got2 = tapsum_kernel.tail_conv_cuda(x2, w, b)
+    ref2 = tapsum.tail_conv_tanh_plain(x2, w, b)
+    exact2 = f64(x2)
+    torch.cuda.synchronize()
+    err2 = float((got2 - ref2).abs().max())
+    d_kernel = float((got2.double() - exact2).abs().max())
+    d_plain = float((ref2.double() - exact2).abs().max())
+    pre2 = float((conv * scale + b.double()).abs().max())
+
     ms = time_ms(lambda: tapsum_kernel.tail_conv_cuda(x, w, b), 50)
     plain_ms = time_ms(lambda: tapsum.tail_conv_tanh_plain(x, w, b), 50)
     lib_ms = time_ms(lambda: torch.tanh(torch.nn.functional.conv2d(x, w, b)),
@@ -1073,16 +1167,25 @@ def check_tail_conv(renderer, B, rng):
     bms, by = bound_ms(nbytes, B * H * W * (2 * C * 49 + 1))
     sat = float((ref.abs() > 0.99).float().mean())
     say(f"kernel K9 tail_conv x {tuple(x.shape)} -> {tuple(got.shape)}: "
-        f"max_abs_err {err:.3g} (tanh output; {sat:.3f} of it beyond 0.99), "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, cuDNN conv2d + tanh "
-        f"{lib_ms:.4f} ms, bound {bms:.6f} ms by {by}; the whole stand-in "
-        f"generator on {tuple(img.shape)} {gen_ms:.3f} ms")
+        f"max_abs_err {err:.3g} (tanh output; {sat:.3f} of it beyond 0.99); "
+        f"on the input scaled by {scale:.4g} (|pre-tanh| <= {pre2:.4f}): "
+        f"max_abs_err {err2:.3g}, from float64 {d_kernel:.3g} (the plain "
+        f"version's {d_plain:.3g}); kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, cuDNN conv2d + tanh {lib_ms:.4f} ms, bound "
+        f"{bms:.6f} ms by {by}; the whole stand-in generator on "
+        f"{tuple(img.shape)} {gen_ms:.3f} ms")
     need(err <= 1e-5, f"K9 disagrees with its plain version: {err}")
+    need(err2 <= 1e-5, f"K9 disagrees with its plain version on the "
+         f"unsaturated input: {err2}")
+    need(d_kernel <= 3 * d_plain + 1e-7, f"K9 lies {d_kernel} from float64 "
+         f"on the unsaturated input, the plain version {d_plain}")
     return {"name": "tail_conv", "route": "cuda",
             "source": "dsf_tpu_torch/csrc/tail_conv.cu",
             "replaces": "dsf_tpu/ops/pallas_tapsum.py:122",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
+            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+            "unsaturated_max_abs_err": err2, "unsaturated_from_f64": d_kernel,
+            "unsaturated_plain_from_f64": d_plain}
 
 
 # ----------------------------------------------------------------- phase 3

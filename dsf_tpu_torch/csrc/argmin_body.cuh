@@ -1,6 +1,6 @@
-// The argmin body of K3 (point_mesh.cu) and K8 (point_mesh_culled.cu): one
-// design, templated on the distance form, over the tables of
-// argmin_setup.cuh.
+// The argmin bodies of K3 (point_mesh.cu) and K8 (point_mesh_culled.cu),
+// one design templated on the distance form, and of K7 (point_mesh_v2.cu)
+// beside it, over the tables of argmin_setup.cuh.
 //
 // Function: for each point of a cloud, the nearest face among those its
 // part admits (K8: among those the cull keeps, which always hold the
@@ -64,6 +64,12 @@ constexpr int kStageFaces = 128;     // faces a block stages at a time
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
                "l"(gmem));
 }
 
@@ -155,6 +161,40 @@ struct Form16 {                      // K8
   }
 };
 
+// The GROUPS segments' minima of a tile of THREADS x R points, merged in
+// segment order with the strict '<' (the lowest position of the least
+// distance wins, as one walk would give) into group 0's registers.
+// Returns false in the threads of the other groups, which are done.
+template <int THREADS, int R, int GROUPS>
+__device__ __forceinline__ bool merge_groups(float (&best)[R], int (&arg)[R],
+                                             int grp, int gt) {
+  if constexpr (GROUPS > 1) {
+    __shared__ float s_best[GROUPS - 1][THREADS * R];
+    __shared__ int s_arg[GROUPS - 1][THREADS * R];
+    if (grp > 0) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        s_best[grp - 1][gt * R + r] = best[r];
+        s_arg[grp - 1][gt * R + r] = arg[r];
+      }
+    }
+    __syncthreads();
+    if (grp > 0) return false;
+#pragma unroll
+    for (int g = 0; g < GROUPS - 1; ++g) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float d = s_best[g][gt * R + r];
+        if (d < best[r]) {
+          best[r] = d;
+          arg[r] = s_arg[g][gt * R + r];
+        }
+      }
+    }
+  }
+  return true;
+}
+
 template <class Form, int THREADS, int R, int GROUPS>
 __global__ void __launch_bounds__(THREADS * GROUPS)
 argmin_kernel(const float* __restrict__ points,    // (N, P, 3)
@@ -172,14 +212,11 @@ argmin_kernel(const float* __restrict__ points,    // (N, P, 3)
   constexpr int ROW4 = Form::kRow4;
   constexpr int BLOCK = THREADS * GROUPS;
   constexpr int STAGE = kStageFaces / GROUPS;   // faces a group stages
-  constexpr int TP = THREADS * R;               // points a tile holds
   __shared__ __align__(16) float4 s_rows[GROUPS][2][STAGE * ROW4];
   __shared__ int s_fid[GROUPS][2][STAGE];
   __shared__ int s_list[Form::kCulled ? kMaxChunks * kChunk : 1];
   __shared__ int s_seg[3][kMaxChunks];
   __shared__ int s_len;
-  __shared__ float s_best[GROUPS > 1 ? GROUPS - 1 : 1][TP];
-  __shared__ int s_arg[GROUPS > 1 ? GROUPS - 1 : 1][TP];
   const int n = blockIdx.y;
   const int tid = threadIdx.x;
   const int grp = tid / THREADS;                // the list segment it walks
@@ -308,30 +345,7 @@ argmin_kernel(const float* __restrict__ points,    // (N, P, 3)
     __syncthreads();
   }
 
-  // the segments' minima in segment order, with the strict '<': the lowest
-  // list position of the least distance wins, as one walk would give
-  if constexpr (GROUPS > 1) {
-    if (grp > 0) {
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        s_best[grp - 1][gt * R + r] = best[r];
-        s_arg[grp - 1][gt * R + r] = arg[r];
-      }
-    }
-    __syncthreads();
-    if (grp > 0) return;
-#pragma unroll
-    for (int g = 0; g < GROUPS - 1; ++g) {
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float d = s_best[g][gt * R + r];
-        if (d < best[r]) {
-          best[r] = d;
-          arg[r] = s_arg[g][gt * R + r];
-        }
-      }
-    }
-  }
+  if (!merge_groups<THREADS, R, GROUPS>(best, arg, grp, gt)) return;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     if (pid[r] >= 0) {
@@ -357,6 +371,186 @@ int launch_argmin(const float* points, const float* rows,
           points, reinterpret_cast<const float4*>(rows), lists, lens, choff,
           fperm, perm, reinterpret_cast<const int4*>(tiles), tcount, dmin,
           imin, P, T, maxT);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------------------------ K7
+
+// K7's body.  Function: K3's, with K7's skip rule: a block takes one
+// 128-point tile of a cloud in the caller's order (kV2Tile, the skip
+// word's tile) and runs only the 128-face chunks (in fperm's part order)
+// whose bit its skip word sets; each pair's admissibility is the point's
+// part bit in the face's word; the lowest part-order index of the least
+// distance wins, written as the caller's face id fperm[arg]; a point that
+// admits nothing in the chunks its tile runs gets (1e10, fperm[0]), part
+// order index 0 as in the plain version.
+//
+// Design, argmin_kernel's geometry on K7's tiles:
+//  * GROUPS groups of THREADS threads, R points a thread (THREADS x R =
+//    128): each group holds the whole tile and walks its own ascending
+//    segment of the run chunks' faces, staged kStageFaces / GROUPS faces
+//    at a time with cp.async (rows and words), double buffered; the
+//    segments' minima merge in order (merge_groups);
+//  * a face that no lane of a warp admits (its word AND the OR of the
+//    warp's points' part bits is 0) costs the warp one test and no
+//    distance; the skip is exact, as the face is inadmissible for every
+//    lane.  The tiles are in the caller's order, so their warps mix parts
+//    and most faces are admitted by some lane;
+//  * SELECT: the distance of every pair the warp does not skip, with kInf
+//    selected where the pair is inadmissible (no divergent branch); else a
+//    branch per pair around the distance (scripts/argmin_shapes_gpu.py
+//    times both).
+template <int THREADS, int R, int GROUPS, bool SELECT>
+__global__ void __launch_bounds__(THREADS * GROUPS)
+argmin_v2_kernel(const float* __restrict__ points,    // (N, P, 3)
+                 const float4* __restrict__ rows,     // (N, T, 7) fperm order
+                 const int32_t* __restrict__ words,   // (T,) fperm order
+                 const int32_t* __restrict__ parts,   // (N, P) in [0, 31]
+                 const int32_t* __restrict__ skip,    // (N, NT)
+                 const int32_t* __restrict__ fperm,   // (T,)
+                 float* __restrict__ dmin,            // (N, P)
+                 int32_t* __restrict__ imin,          // (N, P)
+                 int P, int T) {
+  constexpr int ROW4 = dsf_icp::kRow4;
+  constexpr int STAGE = kStageFaces / GROUPS;   // faces a group stages
+  static_assert(THREADS * R == kV2Tile, "a block holds one skip tile");
+  static_assert(THREADS % 32 == 0, "groups of whole warps");
+  __shared__ __align__(16) float4 s_rows[GROUPS][2][STAGE * ROW4];
+  __shared__ uint32_t s_w[GROUPS][2][STAGE];
+  __shared__ int s_fid[GROUPS][2][STAGE];
+  __shared__ int s_ci[32];
+  const int n = blockIdx.y;
+  const int NT = gridDim.x;
+  const int tid = threadIdx.x;
+  const int grp = tid / THREADS;                // the segment it walks
+  const int gt = tid - grp * THREADS;           // its points in the tile
+  const uint32_t word =
+      static_cast<uint32_t>(skip[(size_t)n * NT + blockIdx.x]);
+  const int G = (T + kChunk - 1) / kChunk;
+  if (tid < 32) {                               // the run chunks, in order
+    const bool run = tid < G && ((word >> tid) & 1u);
+    const unsigned bal = __ballot_sync(0xffffffffu, run);
+    if (run) s_ci[__popc(bal & ((1u << tid) - 1u))] = tid;
+  }
+  // faces run: whole chunks, the last (ragged) one short
+  const int len = __popc(word) * kChunk
+                  - (((word >> (G - 1)) & 1u) ? G * kChunk - T : 0);
+
+  float px[R], py[R], pz[R], pp[R], best[R];
+  int arg[R], pid[R];
+  uint32_t bit[R], mine = 0u;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int p = blockIdx.x * kV2Tile + gt * R + r;
+    pid[r] = p < P ? p : -1;
+    px[r] = py[r] = pz[r] = 0.f;
+    bit[r] = 0u;                       // a padding point admits nothing
+    if (p < P) {
+      const float* q = points + ((size_t)n * P + p) * 3;
+      px[r] = q[0];
+      py[r] = q[1];
+      pz[r] = q[2];
+      bit[r] = 1u << (parts[(size_t)n * P + p] & 31);
+    }
+    pp[r] = px[r] * px[r] + py[r] * py[r] + pz[r] * pz[r];
+    best[r] = kInf;
+    arg[r] = 0;
+    mine |= bit[r];
+  }
+  const uint32_t wor = __reduce_or_sync(0xffffffffu, mine);
+  __syncthreads();                              // s_ci
+
+  // group grp walks run positions [lo, hi), ascending; position q is face
+  // s_ci[q / 128] * 128 + q % 128
+  const int seg = (len + GROUPS - 1) / GROUPS;
+  const int lo = min(len, grp * seg), hi = min(len, lo + seg);
+  const float4* rows_n = rows + (size_t)n * T * ROW4;
+  auto face_of = [&](int q) { return s_ci[q / kChunk] * kChunk + q % kChunk; };
+  auto stage = [&](int buf, int base) {
+    const int nf = max(0, min(STAGE, hi - base));
+    for (int q = gt; q < nf * ROW4; q += THREADS) {
+      const int f = q / ROW4;
+      cp_async16(&s_rows[grp][buf][q],
+                 rows_n + (size_t)face_of(base + f) * ROW4 + (q - f * ROW4));
+    }
+    for (int f = gt; f < nf; f += THREADS) {
+      const int t = face_of(base + f);
+      cp_async4(&s_w[grp][buf][f], words + t);
+      s_fid[grp][buf][f] = t;
+    }
+    cp_async_commit();
+  };
+
+  const int nstage = (seg + STAGE - 1) / STAGE;  // the same in every group
+  if (nstage > 0) stage(0, lo);
+  for (int st = 0; st < nstage; ++st) {
+    const int buf = st & 1;
+    const int base = lo + st * STAGE;
+    if (st + 1 < nstage) {
+      stage(buf ^ 1, base + STAGE);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int nf = max(0, min(STAGE, hi - base));
+    for (int f = 0; f < nf; ++f) {
+      const uint32_t fw = s_w[grp][buf][f];
+      if (!(fw & wor)) continue;                // uniform over the warp
+      float c[ROW4 * 4];
+#pragma unroll
+      for (int q = 0; q < ROW4; ++q) {
+        const float4 v = s_rows[grp][buf][f * ROW4 + q];
+        c[4 * q] = v.x;
+        c[4 * q + 1] = v.y;
+        c[4 * q + 2] = v.z;
+        c[4 * q + 3] = v.w;
+      }
+      const int fid = s_fid[grp][buf][f];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if constexpr (SELECT) {
+          float d = dsf_icp::region_sqdist27(c, px[r], py[r], pz[r], pp[r]);
+          d = (fw & bit[r]) ? d : kInf;
+          if (d < best[r]) {
+            best[r] = d;
+            arg[r] = fid;
+          }
+        } else if (fw & bit[r]) {
+          const float d =
+              dsf_icp::region_sqdist27(c, px[r], py[r], pz[r], pp[r]);
+          if (d < best[r]) {
+            best[r] = d;
+            arg[r] = fid;
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  if (!merge_groups<THREADS, R, GROUPS>(best, arg, grp, gt)) return;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    if (pid[r] >= 0) {
+      dmin[(size_t)n * P + pid[r]] = best[r];
+      imin[(size_t)n * P + pid[r]] = fperm[arg[r]];
+    }
+  }
+}
+
+// Launch K7's body over N clouds of P points and T faces: one block per
+// (cloud, 128-point tile), GROUPS groups of THREADS threads.
+template <int THREADS, int R, int GROUPS, bool SELECT>
+int launch_argmin_v2(const float* points, const float* rows,
+                     const int32_t* words, const int32_t* parts,
+                     const int32_t* skip, const int32_t* fperm, float* dmin,
+                     int32_t* imin, int N, int P, int T, void* stream) {
+  const dim3 grid((P + kV2Tile - 1) / kV2Tile, N);
+  argmin_v2_kernel<THREADS, R, GROUPS, SELECT>
+      <<<grid, THREADS * GROUPS, 0, static_cast<cudaStream_t>(stream)>>>(
+          points, reinterpret_cast<const float4*>(rows), words, parts, skip,
+          fperm, dmin, imin, P, T);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,19 +1,22 @@
-// The set-up of the point -> mesh argmin kernels K3 (point_mesh.cu) and K8
-// (point_mesh_culled.cu), on the card.  It replaces a PyTorch set-up
-// (ops/point_mesh_kernel.py:face_constants and part_words for K3;
-// ops/point_mesh.py:culled_needed, culled_tables and face_constants16 for
-// K8: a dozen to a few dozen small launches, 0.30 and 0.78 ms at the
-// FinetuneStage step's shape).  The plain versions of every table stay in
-// ops/point_mesh.py and ops/point_mesh_kernel.py.
+// The set-up of the point -> mesh argmin kernels K3 (point_mesh.cu), K8
+// (point_mesh_culled.cu) and K7 (point_mesh_v2.cu), on the card.  It
+// replaces a PyTorch set-up (ops/point_mesh_kernel.py:face_constants and
+// part_words for K3; ops/point_mesh.py:culled_needed, culled_tables and
+// face_constants16 for K8; ops/point_mesh.py:face_part_perm,
+// face_constants, point_mesh._words_and_parts and
+// point_mesh.v2_words for K7: a dozen to a few dozen small launches, 0.30,
+// 0.78 and 1.28 ms at the FinetuneStage step's shape).  The plain versions
+// of every table stay in ops/point_mesh.py and ops/point_mesh_kernel.py.
 //
 // Tables, all int32 unless said:
-//  * rows: each (cloud, face)'s constants, face_constants' 28 floats (K3)
-//    or face_constants16's 16 (K8, faces in part order).  Every product,
-//    sum and reciprocal is rounded on its own, in the plain version's
-//    order (__fmul_rn / __fadd_rn / __fsub_rn, __frcp_rn for PyTorch's
-//    IEEE reciprocal), so the rows equal the plain ones word for word;
-//  * fperm (K8): the faces in the stable order of their first admissible
-//    part (point_mesh.face_part_perm);
+//  * rows: each (cloud, face)'s constants, face_constants' 28 floats (K3;
+//    K7 in fperm's order) or face_constants16's 16 (K8, faces in part
+//    order).  Every product, sum and reciprocal is rounded on its own, in
+//    the plain version's order (__fmul_rn / __fadd_rn / __fsub_rn,
+//    __frcp_rn for PyTorch's IEEE reciprocal), so the rows equal the plain
+//    ones word for word;
+//  * fperm (K7, K8): the faces in the stable order of their first
+//    admissible part (point_mesh.face_part_perm);
 //  * lists (Kp, T), lens (Kp,), choff (Kp, G + 1): for each column k of the
 //    extended part table (column K admits nothing), the ascending face
 //    indices it admits (in fperm's order for K8), -1 after lens[k]; choff
@@ -31,11 +34,19 @@
 //    mixing parts and none for part K; run is the OR of the tile's need
 //    words (K8) or -1 (K3); zeros after the last tile.  tcount (N, 2): the
 //    number of tiles and the first position of part K
-//    (point_mesh.group_points_by_part).
+//    (point_mesh.group_points_by_part);
+//  * K7 (point_mesh.v2_tables_plain): words (T) each face's admissible
+//    parts as bits in fperm's order (-1 without a table); cor (G) each
+//    128-face chunk's OR of them; parts (N, P) each point's part in [0, K]
+//    (0 without a table); skip (N, NT) one word per (cloud, 128-point tile
+//    in the caller's order), bit g set when the OR of the tile's points'
+//    part bits meets cor[g] (point_mesh.v2_words).  One warp a tile:
+//    __reduce_or_sync, then a ballot over the chunks.
 //
 // Launches: K3 one (blocks take the rows, the lists or one cloud's
 // grouping by their index); K8 two (the lists and the face order first,
-// since the rows, the spheres and the keys read them).
+// since the rows, the spheres and the keys read them); K7 two (the face
+// order, its words and the chunk ORs; then the rows and the tiles).
 
 #pragma once
 
@@ -53,6 +64,7 @@ constexpr int kListStage = 2048;     // face words a list block stages
 constexpr int kMaxTiles = 256;       // tiles per cloud
 constexpr float kInf = 1e10f;
 constexpr float kCullMargin = 1e-4f;  // point_mesh.CULL_MARGIN
+constexpr int kV2Tile = 128;         // K7's points a skip word (its tile)
 
 __device__ __forceinline__ float dot_rn(float x0, float x1, float x2,
                                        float y0, float y1, float y2) {
@@ -200,14 +212,37 @@ __device__ void stable_sort(const int32_t* key, int n, int nkeys,
 
 // ------------------------------------------------------ part lists
 
-// One block: the extended table's lists (see the top).  fword (T) is
-// scratch: face t's admitted parts as bits (mask (T, K) uint8, or null for
-// one part that admits every face); Culled also sorts the faces by their
-// first admitted part into fperm (fkey (T) scratch).  The columns' walks
-// read the words kListStage faces at a time from shared memory.
+// Face t's admitted parts as bits into fword (T) (mask (T, K) uint8, or
+// null for one part that admits every face); Sorted also sorts the faces
+// by their first admitted part into fperm (fkey (T) scratch).  The block
+// calls it together; it ends with a __syncthreads.
 constexpr int kSortWarpsAll = kSetupThreads / 32;
 constexpr int kSortWarpsCulled = 8;      // K8's sort: 8 x 1024 counters fit
 
+template <bool Sorted>
+__device__ void face_order(const uint8_t* mask, int K, int T, int32_t* fword,
+                           int32_t* fkey, int32_t* fperm,
+                           SortShared<kMaxKeys, kSortWarpsAll>& s) {
+  for (int t = threadIdx.x; t < T; t += blockDim.x) {
+    uint32_t w = 1u;
+    if (mask != nullptr) {
+      w = 0u;
+      for (int k = 0; k < K; ++k) w |= (mask[(size_t)t * K + k] ? 1u : 0u) << k;
+    }
+    fword[t] = static_cast<int32_t>(w);
+    if constexpr (Sorted) fkey[t] = w ? __ffs(w) - 1 : K;
+  }
+  if constexpr (Sorted) {
+    stable_sort(fkey, T, K + 1, fperm, s);
+  } else {
+    __syncthreads();
+  }
+}
+
+// One block: the extended table's lists (see the top), after face_order
+// (Culled: the lists in fperm's order).  fword (T) is scratch.  The
+// columns' walks read the words kListStage faces at a time from shared
+// memory.
 struct ListShared {
   SortShared<kMaxKeys, kSortWarpsAll> sort;
   uint32_t w[kListStage];
@@ -222,18 +257,8 @@ __device__ void build_lists(const uint8_t* mask, int K, int T,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
   const int G = (T + kChunk - 1) / kChunk;
-  for (int t = tid; t < T; t += blockDim.x) {
-    uint32_t w = 1u;
-    if (mask != nullptr) {
-      w = 0u;
-      for (int k = 0; k < K; ++k) w |= (mask[(size_t)t * K + k] ? 1u : 0u) << k;
-    }
-    fword[t] = static_cast<int32_t>(w);
-    if constexpr (Culled) fkey[t] = w ? __ffs(w) - 1 : K;
-  }
   if (tid < kMaxKeys) s.run[tid] = 0;
-  __syncthreads();
-  if constexpr (Culled) stable_sort(fkey, T, K + 1, fperm, s.sort);
+  face_order<Culled>(mask, K, T, fword, fkey, fperm, s.sort);
   const unsigned lt = (1u << lane) - 1u;
   for (int j0 = 0; j0 < T; j0 += kListStage) {
     const int nj = min(kListStage, T - j0);
@@ -268,18 +293,19 @@ __device__ void build_lists(const uint8_t* mask, int K, int T,
 // ------------------------------------------------------ face rows
 
 // The rows of faces [j0, j0 + blockDim) of cloud n (face j is fperm[j]
-// with Culled, else j).
-template <bool Culled>
+// where fperm is given, else j): face_constants16's (Row16) or
+// face_constants' (else).
+template <bool Row16>
 __device__ void build_rows(int n, int j0, const float* tris,
                            const int32_t* fperm, float4* rows, int T) {
   const int j = j0 + threadIdx.x;
   if (j >= T) return;
-  const int t = Culled ? fperm[j] : j;
+  const int t = fperm != nullptr ? fperm[j] : j;
   float v[9];
   const float* src = tris + ((size_t)n * T + t) * 9;
 #pragma unroll
   for (int i = 0; i < 9; ++i) v[i] = src[i];
-  if (Culled) {
+  if (Row16) {
     row16(v, rows + ((size_t)n * T + j) * 4);
   } else {
     row27(v, rows + ((size_t)n * T + j) * 7);
@@ -548,6 +574,79 @@ setup16_kernel(const float* __restrict__ points, const float* __restrict__ tris,
   }
 }
 
+// K7, first launch, one block: the face order (face_order), each face's
+// word in that order (-1 without a table) and each 128-face chunk's OR
+// of them, one warp a chunk.
+__global__ void __launch_bounds__(kSetupThreads)
+v2_faces_kernel(const uint8_t* __restrict__ mask, int32_t* fword,
+                int32_t* fkey, int32_t* fperm, int32_t* __restrict__ words,
+                int32_t* __restrict__ cor, int K, int T) {
+  __shared__ SortShared<kMaxKeys, kSortWarpsAll> s;
+  face_order<true>(mask, K, T, fword, fkey, fperm, s);
+  const int lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
+  const int G = (T + kChunk - 1) / kChunk;
+  for (int g = threadIdx.x >> 5; g < G; g += nwarps) {
+    uint32_t o = 0u;
+#pragma unroll
+    for (int q = 0; q < kChunk / 32; ++q) {
+      const int j = g * kChunk + q * 32 + lane;
+      if (j < T) {
+        const uint32_t w =
+            mask != nullptr ? static_cast<uint32_t>(fword[fperm[j]]) : ~0u;
+        words[j] = static_cast<int32_t>(w);
+        o |= w;
+      }
+    }
+    o = __reduce_or_sync(0xffffffffu, o);
+    if (lane == 0) cor[g] = static_cast<int32_t>(o);
+  }
+}
+
+// K7, second launch: the blocks [0, nrow) the rows in fperm's order, the
+// blocks after them the (cloud, 128-point tile)s, one warp each: the
+// points' parts in [0, K] (parts (N, P) int64, or null: part 0) and the
+// tile's skip word.  A padding point admits nothing.
+__global__ void __launch_bounds__(kSetupThreads)
+v2_setup_kernel(const float* __restrict__ tris,
+                const int64_t* __restrict__ parts,
+                const int32_t* __restrict__ fperm,
+                const int32_t* __restrict__ cor, float4* __restrict__ rows,
+                int32_t* __restrict__ parts32, int32_t* __restrict__ skip,
+                int N, int P, int T, int K) {
+  const int per_cloud = (T + kSetupThreads - 1) / kSetupThreads;
+  const int nrow = N * per_cloud;
+  const int b = blockIdx.x;
+  if (b < nrow) {
+    build_rows<false>(b / per_cloud, (b % per_cloud) * kSetupThreads, tris,
+                      fperm, rows, T);
+    return;
+  }
+  const int NT = (P + kV2Tile - 1) / kV2Tile;
+  const int lane = threadIdx.x & 31;
+  const int tile = (b - nrow) * (kSetupThreads / 32) + (threadIdx.x >> 5);
+  if (tile >= N * NT) return;             // uniform over the warp
+  const int n = tile / NT, ti = tile - n * NT;
+  uint32_t o = 0u;
+#pragma unroll
+  for (int q = 0; q < kV2Tile / 32; ++q) {
+    const int p = ti * kV2Tile + q * 32 + lane;
+    if (p < P) {
+      int pp = 0;
+      if (parts != nullptr) {
+        const int64_t v = parts[(size_t)n * P + p];
+        pp = (v >= 0 && v < K) ? static_cast<int>(v) : K;
+      }
+      parts32[(size_t)n * P + p] = pp;
+      o |= 1u << pp;
+    }
+  }
+  o = __reduce_or_sync(0xffffffffu, o);
+  const int G = (T + kChunk - 1) / kChunk;
+  const bool hit = lane < G && (o & static_cast<uint32_t>(cor[lane])) != 0u;
+  const uint32_t word = __ballot_sync(0xffffffffu, hit);
+  if (lane == 0) skip[tile] = static_cast<int32_t>(word);
+}
+
 inline int launch_setup27(const float* points, const float* tris,
                           const uint8_t* mask, const int64_t* parts,
                           float* rows, int32_t* fword, int32_t* lists,
@@ -582,6 +681,26 @@ inline int launch_setup16(const float* points, const float* tris,
       points, tris, parts, fperm, choff, reinterpret_cast<float4*>(rows),
       key, need, perm, reinterpret_cast<int4*>(tiles), tcount, N, P, T, K,
       TP, maxT);
+  return static_cast<int>(cudaGetLastError());
+}
+
+inline int launch_setup_v2(const float* tris, const uint8_t* mask,
+                           const int64_t* parts, float* rows, int32_t* fword,
+                           int32_t* fkey, int32_t* fperm, int32_t* words,
+                           int32_t* cor, int32_t* parts32, int32_t* skip,
+                           int N, int P, int T, int K, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  v2_faces_kernel<<<1, kSetupThreads, 0, st>>>(mask, fword, fkey, fperm,
+                                               words, cor, K, T);
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  const int nrow = N * ((T + kSetupThreads - 1) / kSetupThreads);
+  const int ntile = N * ((P + kV2Tile - 1) / kV2Tile);
+  const int warps = kSetupThreads / 32;
+  v2_setup_kernel<<<nrow + (ntile + warps - 1) / warps, kSetupThreads, 0,
+                    st>>>(tris, parts, fperm, cor,
+                          reinterpret_cast<float4*>(rows), parts32, skip, N,
+                          P, T, K);
   return static_cast<int>(cudaGetLastError());
 }
 

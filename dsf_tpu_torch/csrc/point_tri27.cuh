@@ -1,6 +1,6 @@
 // The divide-free point-triangle squared distance of the ICP argmin
-// kernels K3 (point_mesh.cu, through argmin_body.cuh) and K7
-// (point_mesh_v2.cu), in one place so
+// kernels K3 (point_mesh.cu) and K7 (point_mesh_v2.cu), both through
+// argmin_body.cuh, in one place so
 // that both keep the same arithmetic (ref: the Pallas bodies' region math,
 // dsf_tpu/ops/pallas_point_mesh.py:_region_sqdist, on the constants of
 // _face_constants27).
@@ -8,9 +8,9 @@
 // With three per-pair dot products s1 = ab.p, s2 = ac.p, pa = a.p and the
 // plane dot pn = n.p, the Ericson region tests are sign tests on
 // d_k = s_i - const, and each region's squared distance has a closed form
-// over per-face constants (precomputed once a face: for K3 by its set-up
-// kernel, argmin_setup.cuh:row27; for K7 in PyTorch,
-// ops/point_mesh_kernel.py:face_constants, the same rows):
+// over per-face constants (precomputed once a face by the set-up kernel,
+// argmin_setup.cuh:row27, word for word the plain rows of
+// ops/point_mesh_kernel.py:face_constants):
 //   vertex v:     p.p - 2 p.v + v.v
 //   edge (u, e):  |p - u|^2 - (e.(p - u))^2 / |e|^2
 //   interior:     (n.(p - a))^2 / |n|^2

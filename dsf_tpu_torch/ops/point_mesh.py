@@ -15,9 +15,11 @@ Two passes:
      which groups each cloud's points by part into tiles and walks each
      tile's part list (``argmin_tables_plain``,
      ``argmin_faces_tiles_plain``);
-   - K7 (``USE_V2_KERNEL``, ``DSF_ICP_KERNEL=v2``): over part-sorted faces
-     (``_static_part_perm``), skipping each (128-point tile, 128-face
-     chunk) block in which no point admits any face (``v2_words``);
+   - K7 (``USE_V2_KERNEL``, ``DSF_ICP_KERNEL=v2``): over faces sorted by
+     part inside (``face_part_perm``), skipping each (128-point tile in the
+     caller's order, 128-face chunk) block in which no point admits any
+     face (``v2_words``; its tables ``v2_tables_plain``); face ids come
+     back in the caller's order;
    - K8 (``USE_CULLED_KERNEL``): K3's design over faces part-sorted
      inside, points grouped by (part, nearest chunk), and a chunk skipped
      for a tile when the chunks' bounding spheres prove that no point of
@@ -42,8 +44,8 @@ from dsf_tpu_torch.ops import point_mesh_kernel
 
 INF = 1e10
 CHUNK = 128          # faces per step of the plain argmin
-TILE = 128           # points per block of K7 (its csrc kTile)
-MAX_CHUNKS = 31      # K7's skip word: one bit per face chunk
+TILE = point_mesh_kernel.V2_TILE  # points a skip word of K7 covers
+MAX_CHUNKS = point_mesh_kernel.V2_MAX_CHUNKS  # K7: one bit per face chunk
 CULL_MARGIN = 1e-4   # slack on K8's sphere bounds, in the caller's units
 
 # dsf_tpu/ops/point_mesh.py:218 and :244: K7 by the environment, K8 off
@@ -161,15 +163,6 @@ def face_part_perm(part_mask):
     return torch.argsort(_part_of_face(part_mask.bool()), stable=True)
 
 
-def _static_part_perm(faces, part_mask):
-    """faces (T, 3) and part_mask (T, K) in part-sorted order (ref:
-    point_mesh._static_part_perm).  The port's table is a concrete tensor,
-    so it always sorts; inside the JAX package's jitted step the table is
-    a tracer and the faces stay unsorted (ROADMAP, Queue 3)."""
-    perm = face_part_perm(part_mask)
-    return faces[perm], part_mask[perm]
-
-
 def _tiles(x, P, fill):
     """(B, P, ...) -> (B, NT, TILE, ...), padded along P with ``fill``."""
     B = x.shape[0]
@@ -260,20 +253,82 @@ def argmin_faces_v2_plain(points, tris, part_mask, point_part, words):
     return dmin[:, :P], imin[:, :P]
 
 
-def argmin_faces_v2(points, tris, part_mask=None, point_part=None):
-    """K7's argmin over the faces as given (the caller sorts them by part,
-    ``_static_part_perm``): its plain version for CPU tensors, the kernel
-    for CUDA tensors.  Returns (dmin, imin) as ``argmin_faces_plain``."""
+def _v2_order(part_mask, T, device):
+    """K7's face order: ``face_part_perm`` of the table, or the identity
+    (int64) without one."""
+    if part_mask is None:
+        return torch.arange(T, device=device)
+    return face_part_perm(part_mask)
+
+
+def _words_and_parts(part_mask, point_part, B, P, T, device):
+    """The plain version of K7's face words and point parts: (T,) int32
+    words of the part table in its own face order (``part_words``; -1
+    without a table) and (B, P) int32 parts, where parts outside [0, K) get
+    K, a bit no word sets (0 without a table)."""
+    if part_mask is None:
+        return (torch.full((T,), -1, dtype=torch.int32, device=device),
+                torch.zeros((B, P), dtype=torch.int32, device=device))
+    K = part_mask.shape[1]
+    parts = torch.where((point_part >= 0) & (point_part < K), point_part,
+                        torch.full_like(point_part, K)).to(torch.int32)
+    words = point_mesh_kernel.part_words(part_mask.bool())
+    return words.contiguous(), parts.contiguous()
+
+
+def _chunk_ors(words):
+    """(T,) int32 face words -> (ceil(T / 128),) int32, each 128-face
+    chunk's OR of them."""
+    T = words.shape[0]
+    G = -(-T // CHUNK)
+    w = torch.cat([words.long() & 0xFFFFFFFF,
+                   words.new_zeros(G * CHUNK - T, dtype=torch.long)])
+    bits = ((w.reshape(G, CHUNK, 1) >> torch.arange(32, device=w.device))
+            & 1).amax(1)                                          # (G, 32)
+    o = (bits << torch.arange(32, device=w.device)).sum(-1)
+    return torch.where(o >= 2 ** 31, o - 2 ** 32, o).to(torch.int32)
+
+
+def v2_tables_plain(points, tris, part_mask=None, point_part=None):
+    """The plain version of K7's set-up kernel
+    (``point_mesh_kernel.v2_setup_cuda``): the same
+    ``point_mesh_kernel.V2Tables`` from PyTorch, on faces in the caller's
+    order: the order ``face_part_perm`` (the identity without a table),
+    ``face_constants`` rows, ``_words_and_parts`` words and parts and
+    ``v2_words`` skip words in that order, and the chunks' ORs."""
+    points, tris = points.detach().float(), tris.detach().float()
     B, P = points.shape[0], points.shape[1]
-    words = v2_words(part_mask, point_part, B, P, tris.shape[1],
-                     points.device)
-    if points.device.type == "cpu":
-        return argmin_faces_v2_plain(points, tris, part_mask, point_part,
-                                     words)
+    T = tris.shape[1]
+    fperm = _v2_order(part_mask, T, points.device)
+    mask = None if part_mask is None else part_mask.bool()[fperm]
+    words, parts = _words_and_parts(mask, point_part, B, P, T, points.device)
+    rows = point_mesh_kernel.face_constants(tris[:, fperm])
+    return point_mesh_kernel.V2Tables(
+        fperm.to(torch.int32), rows, words, _chunk_ors(words), parts,
+        v2_words(mask, point_part, B, P, T, points.device))
+
+
+def argmin_faces_v2(points, tris, part_mask=None, point_part=None):
+    """K7 over faces in the caller's order, sorted by part inside
+    (``face_part_perm``): its plain version for CPU tensors, the kernel
+    (set-up and argmin) for CUDA tensors.  Returns (dmin, imin) as
+    ``argmin_faces_plain`` does, with the caller's face ids, so a point
+    that admits no face gets (1e10, fperm[0]), the first face in the part
+    order."""
+    points, tris = points.detach(), tris.detach()
     if points.device.type == "cuda":
         return point_mesh_kernel.argmin_faces_v2_cuda(points, tris, part_mask,
-                                                      point_part, words)
-    raise ValueError(f"no point-mesh path for device {points.device}")
+                                                      point_part)
+    if points.device.type != "cpu":
+        raise ValueError(f"no point-mesh path for device {points.device}")
+    B, P = points.shape[0], points.shape[1]
+    T = tris.shape[1]
+    fperm = _v2_order(part_mask, T, points.device)
+    mask = None if part_mask is None else part_mask.bool()[fperm]
+    words = v2_words(mask, point_part, B, P, T, points.device)
+    dmin, imin = argmin_faces_v2_plain(points, tris[:, fperm], mask,
+                                       point_part, words)
+    return dmin, fperm[imin.long()].to(torch.int32)
 
 
 def face_constants16(tris):
@@ -685,12 +740,9 @@ def point_face_distance(points, verts, faces, part_mask=None,
     part_mask (T, K) bool + point_part (B, P) int.  Differentiable in
     points and verts through the winning face only: the argmin runs
     without gradient, the winner is gathered and its distance evaluated
-    again with ``point_tri_sqdist``.  Under ``USE_V2_KERNEL`` the faces
-    are sorted by part first (``_static_part_perm``), so the winning index
-    and the gather refer to that order; the gradient reaches the same
-    vertices."""
-    if USE_V2_KERNEL and part_mask is not None:
-        faces, part_mask = _static_part_perm(faces, part_mask)
+    again with ``point_tri_sqdist``.  Every argmin returns the caller's
+    face ids (K7 and K8 sort the faces by part inside), so the gather is
+    in the caller's order."""
     tris = verts[:, faces]                                   # (B, T, 3, 3)
     with torch.no_grad():
         _, imin = argmin_faces(points.detach(), tris.detach(), part_mask,

@@ -3,25 +3,30 @@ replacing the Pallas ``dsf_tpu/ops/pallas_point_mesh.py:argmin_faces_pallas``;
 K7 (csrc/point_mesh_v2.cu), replacing ``argmin_faces_pallas_v2``; K8
 (csrc/point_mesh_culled.cu), replacing ``argmin_faces_pallas_culled``.
 
-K3 and K8 are one design (csrc/argmin_setup.cuh, csrc/argmin_body.cuh):
-``argmin_setup_cuda`` builds their tables on the card (``ArgminTables``:
-the face rows, each part's face list, each cloud's points grouped by part
-into tiles, and for K8 the face order and the cull), and
+All three build their tables on the card (csrc/argmin_setup.cuh) and run
+an argmin body of csrc/argmin_body.cuh on them.  K3 and K8 are one design:
+``argmin_setup_cuda`` builds their tables (``ArgminTables``: the face
+rows, each part's face list, each cloud's points grouped by part into
+tiles, and for K8 the face order and the cull), and
 ``argmin_faces_launch`` (K3) or ``argmin_faces_culled_launch`` (K8) runs
 the argmin on them; ``argmin_faces_cuda`` and ``argmin_faces_culled_cuda``
-are the two launches together.  Only the argmin launches count.  The plain
-versions of the tables are ``point_mesh.argmin_tables_plain`` (rows by
-``face_constants`` and ``point_mesh.face_constants16``), of the argmin
+are the two launches together.  The plain versions of the tables are
+``point_mesh.argmin_tables_plain`` (rows by ``face_constants`` and
+``point_mesh.face_constants16``), of the argmin
 ``point_mesh.argmin_faces_plain`` and, on the tables,
 ``point_mesh.argmin_faces_tiles_plain`` and
 ``point_mesh.argmin_faces_culled_plain``.
 
-K7 takes 27 constants per face (``face_constants``), one 32-bit word of
-admissible parts per face (``part_words``), each point's part as a bit
-index and one skip word per (cloud, 128-point tile) (``point_mesh.v2_words``;
-plain version ``point_mesh.argmin_faces_v2_plain``); they are built in
-PyTorch.  Each wrapper launches its kernel or raises; there is no
-fallback.  No gradient passes the argmin, so there is no backward.
+K7 keeps the caller's point order: ``v2_setup_cuda`` builds its tables
+(``V2Tables``: the face order by part, the 28-float rows and the face
+words in that order, the chunk ORs, the points' parts and one skip word
+per (cloud, 128-point tile)), whose plain version is
+``point_mesh.v2_tables_plain``; ``argmin_faces_v2_launch`` runs its argmin
+on them and ``argmin_faces_v2_cuda`` is the two together.
+
+Only the argmin launches count.  Each wrapper launches its kernel or
+raises; there is no fallback.  No gradient passes the argmin, so there is
+no backward.
 """
 
 from __future__ import annotations
@@ -42,6 +47,10 @@ THREADS = 64        # threads of a group of K3's and K8's argmin, each group
                     # a segment of the face list (csrc kThreads, kGroups)
 POINTS_PER_THREAD = 3  # points a thread owns (csrc kR)
 TILE_POINTS = THREADS * POINTS_PER_THREAD
+V2_TILE = 128       # K7's points a skip word (csrc kV2Tile)
+V2_MAX_CHUNKS = 31  # K7's 128-face chunks: one bit each in a skip word
+V2_THREADS = 32     # threads of a group of K7's argmin (csrc point_mesh_v2.cu)
+V2_POINTS_PER_THREAD = 4  # points a thread of K7 owns (csrc kR)
 
 
 def face_terms(tris):
@@ -281,61 +290,96 @@ def argmin_faces_culled_cuda(points, tris, part_mask=None, point_part=None):
     return argmin_faces_culled_launch(points, tables)
 
 
-def argmin_faces_v2_launch(points, fc, words, parts, skip):
-    """The K7 kernel: points (B, P, 3) float32, fc (B, T, 28) float32 from
-    ``face_constants``, words (T,) int32 from ``part_words``, parts (B, P)
-    int32 in [0, 31] (face t is admissible for point p iff bit parts[p] of
-    words[t] is set) and skip (B, ceil(P / 128)) int32 from
-    ``point_mesh.v2_words``, whose bit ci lets the block of 128 points run
-    face chunk ci (faces 128 ci ...); all contiguous on one GPU.  Returns
-    (dmin, imin) over the blocks it runs; (1e10, 0) where nothing is
-    admissible."""
-    B, P = points.shape[0], points.shape[1]
-    T = fc.shape[1]
-    NT = -(-P // 128)
-    build.check_tensors((("points", points, (B, P, 3), torch.float32, 4),
-                         ("fc", fc, (B, T, ROW), torch.float32, 16),
-                         ("words", words, (T,), torch.int32, 4),
-                         ("parts", parts, (B, P), torch.int32, 4),
-                         ("skip", skip, (B, NT), torch.int32, 4)))
-    if B == 0 or P == 0 or T == 0 or T > 31 * 128:
-        raise ValueError(f"K7 takes 1..{31 * 128} faces and a nonempty "
-                         f"cloud: B={B}, P={P}, T={T}")
-    dmin = torch.empty((B, P), dtype=torch.float32, device=points.device)
-    imin = torch.empty((B, P), dtype=torch.int32, device=points.device)
-    fn = build.function("point_mesh_v2", "dsf_point_mesh_argmin_v2", 7, 3)
+class V2Tables(NamedTuple):
+    """K7's tables over N clouds of P points and T faces (caller's order),
+    G = ceil(T / 128) chunks and NT = ceil(P / 128) tiles; all int32 but
+    rows."""
+    fperm: torch.Tensor     # (T,) the faces in the stable order of first part
+    rows: torch.Tensor      # (N, T, 28) face_constants in fperm's order
+    words: torch.Tensor     # (T,) admissible parts as bits, fperm's order
+    chunk_or: torch.Tensor  # (G,) each 128-face chunk's OR of words
+    parts: torch.Tensor     # (N, P) each point's part in [0, K]
+    skip: torch.Tensor      # (N, NT) the chunks each tile runs
+
+
+def v2_setup_cuda(points, tris, part_mask=None, point_part=None):
+    """K7's set-up kernel (csrc/argmin_setup.cuh, two launches): points (N,
+    P, 3), tris (N, T, 3, 3) float32 in the caller's face order and the
+    optional factorized mask part_mask (T, K <= 31) bool + point_part (N,
+    P) int (parts outside [0, K) admit no face), on one GPU ->
+    ``V2Tables``.  Needs T <= 31 * 128.  Does not count as a launch of
+    K7."""
+    if points.device.type != "cuda":
+        raise ValueError(f"points: need a CUDA tensor, got {points.device}")
+    N, P = points.shape[0], points.shape[1]
+    T = tris.shape[1]
+    dev = points.device
+    build.check_tensors((("points", points, (N, P, 3), torch.float32, 4),
+                         ("tris", tris, (N, T, 3, 3), torch.float32, 4)))
+    mask, K, parts = _mask_and_parts(part_mask, point_part, N, P, T, dev)
+    G = -(-T // CHUNK)
+    if N == 0 or P == 0 or T == 0 or G > V2_MAX_CHUNKS:
+        raise ValueError(f"K7 takes 1..{V2_MAX_CHUNKS * CHUNK} faces and a "
+                         f"nonempty cloud: N={N}, P={P}, T={T}")
+    i32 = dict(dtype=torch.int32, device=dev)
+    rows = torch.empty((N, T, ROW), dtype=torch.float32, device=dev)
+    fword, fkey, fperm, words = (torch.empty((T,), **i32) for _ in range(4))
+    cor = torch.empty((G,), **i32)
+    parts32 = torch.empty((N, P), **i32)
+    skip = torch.empty((N, -(-P // V2_TILE)), **i32)
+    ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
+    fn = build.function("point_mesh_v2", "dsf_point_mesh_v2_setup", 11, 4)
+    with torch.cuda.device(dev):
+        err = fn(tris.data_ptr(), ptr(mask), ptr(parts), rows.data_ptr(),
+                 fword.data_ptr(), fkey.data_ptr(), fperm.data_ptr(),
+                 words.data_ptr(), cor.data_ptr(), parts32.data_ptr(),
+                 skip.data_ptr(), N, P, T, K,
+                 torch.cuda.current_stream().cuda_stream)
+    build.check(err, "icp_argmin_v2 set-up")
+    return V2Tables(fperm, rows, words, cor, parts32, skip)
+
+
+def argmin_faces_v2_launch(points, tables):
+    """The K7 argmin on ``v2_setup_cuda``'s tables and points (N, P, 3)
+    float32 on one GPU: over the (128-point tile, 128-face chunk) blocks
+    whose skip bit is set.  Returns (dmin (N, P) float32, imin (N, P)
+    int32) with the caller's face ids; a point that admits no face in
+    those blocks gets (1e10, fperm[0])."""
+    if points.device.type != "cuda":
+        raise ValueError(f"points: need a CUDA tensor, got {points.device}")
+    N, P = points.shape[0], points.shape[1]
+    T = tables.rows.shape[1]
+    G, NT = -(-T // CHUNK), -(-P // V2_TILE)
+    i32 = torch.int32
+    build.check_tensors((("points", points, (N, P, 3), torch.float32, 4),
+                         ("rows", tables.rows, (N, T, ROW), torch.float32,
+                          16),
+                         ("words", tables.words, (T,), i32, 4),
+                         ("parts", tables.parts, (N, P), i32, 4),
+                         ("skip", tables.skip, (N, NT), i32, 4),
+                         ("fperm", tables.fperm, (T,), i32, 4)))
+    if N == 0 or P == 0 or T == 0 or G > V2_MAX_CHUNKS:
+        raise ValueError(f"K7 takes 1..{V2_MAX_CHUNKS * CHUNK} faces and a "
+                         f"nonempty cloud: N={N}, P={P}, T={T}")
+    dmin = torch.empty((N, P), dtype=torch.float32, device=points.device)
+    imin = torch.empty((N, P), dtype=i32, device=points.device)
+    fn = build.function("point_mesh_v2", "dsf_point_mesh_argmin_v2", 8, 3)
     with torch.cuda.device(points.device):
-        err = fn(points.data_ptr(), fc.data_ptr(), words.data_ptr(),
-                 parts.data_ptr(), skip.data_ptr(), dmin.data_ptr(),
-                 imin.data_ptr(), B, P, T,
+        err = fn(points.data_ptr(), tables.rows.data_ptr(),
+                 tables.words.data_ptr(), tables.parts.data_ptr(),
+                 tables.skip.data_ptr(), tables.fperm.data_ptr(),
+                 dmin.data_ptr(), imin.data_ptr(), N, P, T,
                  torch.cuda.current_stream().cuda_stream)
     build.check(err, "icp_argmin_v2")
     LAUNCHES["icp_argmin_v2"] += 1
     return dmin, imin
 
 
-def _words_and_parts(part_mask, point_part, B, P, T, device):
-    """K7's form of the factorized mask: (T,) int32 words and (B, P) int32
-    bit indices, where parts outside [0, K) get K, a bit no word sets.
-    Without a mask every face admits part 0."""
-    if part_mask is None:
-        return (torch.full((T,), -1, dtype=torch.int32, device=device),
-                torch.zeros((B, P), dtype=torch.int32, device=device))
-    K = part_mask.shape[1]
-    parts = torch.where((point_part >= 0) & (point_part < K), point_part,
-                        torch.full_like(point_part, K)).to(torch.int32)
-    return part_words(part_mask.bool()).contiguous(), parts.contiguous()
-
-
-def argmin_faces_v2_cuda(points, tris, part_mask, point_part, skip):
-    """K7 on points (B, P, 3) and tris (B, T, 3, 3) in the caller's (part
-    sorted) face order, the optional factorized mask as K3's and the skip
-    words of ``point_mesh.v2_words``."""
-    if points.device.type != "cuda":
-        raise ValueError(f"points: need a CUDA tensor, got {points.device}")
-    B, P = points.shape[0], points.shape[1]
-    words, parts = _words_and_parts(part_mask, point_part, B, P,
-                                    tris.shape[1], points.device)
-    return argmin_faces_v2_launch(points.float().contiguous(),
-                                  face_constants(tris), words, parts,
-                                  skip.contiguous())
+def argmin_faces_v2_cuda(points, tris, part_mask=None, point_part=None):
+    """K7 on K3's inputs (see ``argmin_faces_cuda``), faces in the caller's
+    order: the set-up, then the argmin.  Returns (dmin, imin) with the
+    caller's face ids, dmin the divide-free form's distance."""
+    points = points.float().contiguous()
+    tables = v2_setup_cuda(points, tris.float().contiguous(), part_mask,
+                           point_part)
+    return argmin_faces_v2_launch(points, tables)

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the K3 and K8 argmin kernels of dsf_tpu_torch at other block shapes
-on one NVIDIA GPU.
+"""Time the K3, K8 and K7 argmin kernels of dsf_tpu_torch at other block
+shapes on one NVIDIA GPU.
 
     python3 scripts/argmin_shapes_gpu.py     # from the root of the repository
 
@@ -20,7 +20,17 @@ same arithmetic in the same face order).  It prints each shape's mean device
 time (``chip_smoke.time_ms``) and the pair slots it evaluates beside the
 card's name and power limit, and the opcodes of the library's K3 inner
 loop (``cuobjdump -sass``: the innermost loop that loads a face row).
-Exits non-zero without a GPU or on a mismatch.
+
+K7 has its own body (``argmin_body.cuh:argmin_v2_kernel<THREADS, R, GROUPS,
+SELECT>``) over its own tables (``v2_setup_cuda``: tiles of 128 points in
+the caller's order, so THREADS x R = 128); SELECT computes every pair a
+warp does not skip and selects its admissibility in, else a branch per
+pair.  Each K7 shape, with either, is held as K3's against the plain dense
+argmin (the caller's face ids; (1e10, the first face in the part order)
+where no face is admissible) and bitwise against the library's K7, and
+printed with its time, its pair slots (``chip_smoke.v2_slots``) and the
+opcodes of the library's K7 inner loop.  Exits non-zero without a GPU or
+on a mismatch.
 """
 
 from __future__ import annotations
@@ -40,6 +50,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPES = ((128, 2, 1), (128, 1, 1), (64, 2, 4), (64, 2, 2), (64, 2, 8),
           (128, 2, 2), (128, 2, 4), (64, 4, 4), (32, 4, 4), (32, 2, 8),
           (64, 1, 4), (64, 3, 4))
+# K7: (threads a group, points a thread, groups a block), 128 points a tile
+V2_SHAPES = ((128, 1, 1), (128, 1, 2), (128, 1, 4), (64, 2, 1), (64, 2, 2),
+             (64, 2, 4), (64, 2, 8), (32, 4, 2), (32, 4, 4), (32, 4, 8))
 BATCH = 64                  # chip_smoke.py's scene: 2 x BATCH clouds
 
 
@@ -65,6 +78,22 @@ def build_variants(tmp):
         procs[name] = (out, subprocess.Popen(
             [build.nvcc_path(), *build.NVCC_FLAGS, "-o", out, path],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    v2_args = ("const float* pt, const float* rw, const int32_t* wd, "
+               "const int32_t* pa, const int32_t* sk, const int32_t* fp, "
+               "float* dm, int32_t* im, int N, int P, int T, void* s")
+    body = "".join(
+        f'extern "C" int k7_{t}x{r}x{g}_{int(sel)}({v2_args}) {{ return '
+        f'dsf_argmin::launch_argmin_v2<{t}, {r}, {g}, '
+        f'{"true" if sel else "false"}>(pt, rw, wd, pa, sk, fp, dm, im, N, '
+        f'P, T, s); }}\n' for t, r, g in V2_SHAPES for sel in (True, False))
+    path = os.path.join(tmp, "k7.cu")
+    with open(path, "w") as f:
+        f.write(f'#include "{os.path.join(build.CSRC, "point_mesh_v2.cu")}"'
+                f'\n{body}')
+    out = os.path.join(tmp, "k7.so")
+    procs["k7"] = (out, subprocess.Popen(
+        [build.nvcc_path(), *build.NVCC_FLAGS, "-o", out, path],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     for name, (out, proc) in procs.items():
         msg = proc.communicate()[0]
         if proc.returncode != 0:
@@ -73,18 +102,18 @@ def build_variants(tmp):
     return libs
 
 
-def inner_loop_opcodes(so_path):
-    """The opcode counts of the K3 body's per-face loop in the library
-    ``so_path``: of the loops (backward branches) of the Form27 argmin
-    kernel whose body loads a whole 28-float row (7 LDS.128), the
-    shortest."""
+def inner_loop_opcodes(so_path, kernel):
+    """The opcode counts of an argmin body's per-face loop in the library
+    ``so_path``: of the loops (backward branches) of the kernel whose name
+    holds every string of ``kernel`` and whose body loads a whole 28-float
+    row (7 LDS.128), the shortest."""
     from dsf_tpu_torch.kernels import build
     cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", so_path], capture_output=True,
                           text=True, check=True).stdout
     funcs = sass.split("Function : ")
-    body = next(f for f in funcs if "argmin_kernel" in f.split("\n")[0]
-                and "Form27" in f.split("\n")[0])
+    body = next(f for f in funcs
+                if all(k in f.split("\n")[0] for k in kernel))
     ops = []
     for line in body.splitlines():
         m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
@@ -182,10 +211,53 @@ def main():
                       f"{held}{same}; pair slots {slots} (padding "
                       f"{1 - real / slots:.4f}, admissible pairs "
                       f"{sc['pairs']}), {ms:.4f} ms", flush=True)
+        ref7 = pk.argmin_faces_v2_cuda(pts, tris, table, part)
+        tb7 = pk.v2_setup_cuda(pts, tris, table, part)
+        fperm0 = int(tb7.fperm[0])
+        for (t, r, g), sel in ((shape, sel) for shape in V2_SHAPES
+                               for sel in (True, False)):
+            fn = getattr(libs["k7"], f"k7_{t}x{r}x{g}_{int(sel)}")
+            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [
+                ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            d = torch.empty_like(dp)
+            i = torch.empty((N, P), dtype=torch.int32, device=pts.device)
+
+            def run7():
+                return fn(pts.data_ptr(), tb7.rows.data_ptr(),
+                          tb7.words.data_ptr(), tb7.parts.data_ptr(),
+                          tb7.skip.data_ptr(), tb7.fperm.data_ptr(),
+                          d.data_ptr(), i.data_ptr(), N, P, T, stream())
+            if run7() != 0:
+                raise RuntimeError(f"k7 {t}x{r}x{g}: launch failed")
+            torch.cuda.synchronize()
+            win = torch.gather(tris, 1, i.long()[..., None, None]
+                               .expand(N, P, 3, 3))
+            dw = pm.point_tri_sqdist(pts, win)
+            held = bool(((dw - dp).abs() <= 1e-5 * dp.abs() + 1e-6)
+                        [~none].all())
+            held &= bool((d[none] >= 1e10).all()) and bool(
+                (i[none] == fperm0).all())
+            bad += not held
+            same = torch.equal(d, ref7[0]) and torch.equal(i, ref7[1])
+            slots, real = cs.v2_slots(tb7, r)
+            ms = cs.time_ms(run7, 20)
+            print(f"K7 {N} clouds x {P} points x {T} faces, {g} groups "
+                  f"of {t} threads x {r} points, "
+                  f"{'select' if sel else 'branch'}: held {held}, "
+                  f"bitwise the library's K7: {same}; pair slots {slots} "
+                  f"(the run blocks' pairs {real}, admissible pairs "
+                  f"{sc['pairs']}), {ms:.4f} ms", flush=True)
     from dsf_tpu_torch.kernels import build
-    ops = inner_loop_opcodes(build._lib_path("point_mesh"))
+    ops = inner_loop_opcodes(build._lib_path("point_mesh"),
+                             ("argmin_kernel", "Form27"))
     print(f"K3 inner loop (the library's {pk.THREADS} threads x "
           f"{pk.POINTS_PER_THREAD} points a face): {sum(ops.values())} "
+          f"instructions, {dict(ops.most_common())}", flush=True)
+    ops = inner_loop_opcodes(build._lib_path("point_mesh_v2"),
+                             ("argmin_v2_kernel",))
+    print(f"K7 inner loop (the library's {pk.V2_THREADS} threads x "
+          f"{pk.V2_POINTS_PER_THREAD} points a face): {sum(ops.values())} "
           f"instructions, {dict(ops.most_common())}", flush=True)
     print(f"device: {cs.nvidia_smi_line()}; {bad} shapes disagreed")
     return 1 if bad else 0

@@ -349,38 +349,30 @@ def hand(tmp_path_factory):
                 joint_pcl=joint_pcl, seg=seg, w=rng.rand(B, 15).astype(np.float32))
 
 
-@pytest.mark.parametrize("switch", ["v1", "v2", "culled"])
-def test_fused_icp_under_each_switch_matches_jax(hand, switch, monkeypatch):
-    """icp_and_joint_icp with the same switch on both sides (JAX on the CPU
-    takes its XLA argmin under every switch; under v2 it sorts the faces by
-    part first, as the port does), each side also held against the port in
-    float64: d2m and pd2m to 1e-5 relative, and the gradients in the mesh
-    and in both clouds to 1e-4 of each one's largest entry (measured: 1.1e-6
-    at most).  Under culled the port's argmin is K8's 16-constant form and
-    JAX's its Ericson scan: a near-tie that the two forms round apart sends
-    one point's gradient through another face (3 of 800 points here, 3.5e-3
-    of the largest entry, 5.3e-4 relative L2), so between the two the
-    gradients are held at 2e-3 relative L2 with at most 1% of the entries
-    beyond 1e-4 of the largest."""
+def _fused_icp_against_jax(hand, switch, monkeypatch, order=None):
+    """icp_and_joint_icp with the same switch on both sides and the faces
+    (with their part table) taken in ``order``, held as
+    ``test_fused_icp_under_each_switch_matches_jax`` says."""
     monkeypatch.setattr(PM, "USE_V2_KERNEL", switch == "v2")
     monkeypatch.setattr(PM, "USE_CULLED_KERNEL", switch == "culled")
     monkeypatch.setattr(JPM, "USE_V2_KERNEL", switch == "v2")
     monkeypatch.setattr(JPM, "USE_CULLED_KERNEL", switch == "culled")
     tm, jm, w = hand["tm"], hand["jm"], hand["w"]
+    order = np.arange(tm.faces.shape[0]) if order is None else order
+    faces, mask = tm.faces.numpy()[order], tm.joint_face_mask.numpy()[order]
     ins = [hand["mesh"], hand["pcl"], hand["joint_pcl"]]
 
     def port(dtype):
         leaves = [_t(x).to(dtype).requires_grad_(True) for x in ins]
         d2m, pd2m = TI.icp_and_joint_icp(leaves[0], leaves[1], leaves[2],
-                                         tm.faces, tm.joint_face_mask,
-                                         _t(hand["seg"]))
+                                         _t(faces), _t(mask), _t(hand["seg"]))
         (d2m.sum() + (pd2m * _t(w).to(dtype)).sum()).backward()
         return ([d2m.detach().numpy(), pd2m.detach().numpy()],
                 [x.grad.numpy() for x in leaves])
 
     def f(mesh, pcl, joint_pcl):
-        a, b = JI.icp_and_joint_icp(mesh, pcl, joint_pcl, jm.faces,
-                                    jm.joint_face_mask,
+        a, b = JI.icp_and_joint_icp(mesh, pcl, joint_pcl, jnp.asarray(faces),
+                                    jnp.asarray(mask),
                                     jnp.asarray(hand["seg"]))
         return a.sum() + (b * w).sum(), (a, b)
 
@@ -407,3 +399,111 @@ def test_fused_icp_under_each_switch_matches_jax(hand, switch, monkeypatch):
         np.testing.assert_allclose(gp, g64, rtol=0, atol=tol)
         close(gp, gj, tol)
         close(gj, g64, tol)
+
+
+@pytest.mark.parametrize("switch", ["v1", "v2", "culled"])
+def test_fused_icp_under_each_switch_matches_jax(hand, switch, monkeypatch):
+    """icp_and_joint_icp with the same switch on both sides (JAX on the CPU
+    takes its XLA argmin under every switch; under v2 it sorts the faces by
+    part first, the port's K7 inside its argmin), each side also held
+    against the port in float64: d2m and pd2m to 1e-5 relative, and the
+    gradients in the mesh and in both clouds to 1e-4 of each one's largest
+    entry (measured: 1.1e-6 at most).  Under culled the port's argmin is
+    K8's 16-constant form and JAX's its Ericson scan: a near-tie that the
+    two forms round apart sends one point's gradient through another face
+    (3 of 800 points here, 3.5e-3 of the largest entry, 5.3e-4 relative
+    L2), so between the two the gradients are held at 2e-3 relative L2
+    with at most 1% of the entries beyond 1e-4 of the largest."""
+    _fused_icp_against_jax(hand, switch, monkeypatch)
+
+
+def test_v2_fused_icp_on_an_unsorted_face_table(hand, monkeypatch):
+    """Under ``USE_V2_KERNEL`` the port's ``point_face_distance`` no longer
+    sorts the faces; K7's argmin sorts them inside and returns the
+    caller's face ids.  With the faces and their table in a shuffled order
+    (not sorted by part): the fused ICP still matches JAX's (which sorts
+    first) as the switch test holds it, and the winning face gathered for
+    the gradient is the same vertex triple as the former route's (sort,
+    argmin over the sorted faces, gather from them), every point, also
+    those that admit no face (the first face in the part order)."""
+    tm = hand["tm"]
+    T = tm.faces.shape[0]
+    order = np.random.RandomState(10).permutation(T)
+    _fused_icp_against_jax(hand, "v2", monkeypatch, order)
+    faces, mask = tm.faces[order], tm.joint_face_mask[order]
+    table = torch.cat([mask, torch.ones(T, 1, dtype=torch.bool)], 1)
+    assert not torch.equal(PM.face_part_perm(table), torch.arange(T))
+    seg = _t(hand["seg"])
+    pts = torch.cat([_t(hand["pcl"]), _t(hand["joint_pcl"])])
+    part = torch.cat([torch.full_like(seg, 15),
+                      torch.where(seg >= 1, seg - 1,
+                                  torch.full_like(seg, -1))])
+    tris = torch.cat([_t(hand["mesh"])] * 2)[:, faces]
+    _, ids = PM.argmin_faces(pts, tris, table, part)
+    perm = PM.face_part_perm(table)
+    faces_s, table_s = faces[perm], table[perm]
+    words = PM.v2_words(table_s, part, *pts.shape[:2], T, "cpu")
+    _, i_s = PM.argmin_faces_v2_plain(pts, torch.cat([_t(hand["mesh"])] * 2)
+                                      [:, faces_s], table_s, part, words)
+    assert (part < 0).any()
+    assert torch.equal(faces[ids.long()], faces_s[i_s.long()])
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_v2_tables_plain_match_pallas_v2(interpret_pallas, monkeypatch,
+                                         masked):
+    """K7's plain set-up tables (``v2_tables_plain``, the plain version of
+    its set-up kernel) against what ``argmin_faces_pallas_v2`` (interpret
+    mode, 128-point tiles as K7's) computes on the faces JAX's
+    ``point_face_distance`` sorts: the face order equals JAX's
+    ``_face_part_perm``; the rows (in that order) its
+    ``_face_constants27`` within float32 rounding (1e-5 relative + 1e-7);
+    the skip words its flags exactly; the face words and the points' parts
+    its one-hot tables; the chunk ORs the OR of each chunk's words."""
+    tris, pts, mask, part = _problem(12, masked)
+    B, P = pts.shape[:2]
+    T = tris.shape[1]
+    seen = {}
+    interp = JPPM.pl.pallas_call
+
+    def capture(*a, **k):
+        call = interp(*a, **k)
+
+        def run(*args):
+            seen["args"] = args
+            return call(*args)
+        return run
+
+    monkeypatch.setattr(JPPM.pl, "pallas_call", capture)
+    tb = PM.v2_tables_plain(_t(pts), _t(tris),
+                            None if mask is None else _t(mask),
+                            None if part is None else _t(part))
+    perm = (np.arange(T) if mask is None
+            else JPPM._face_part_perm(mask, T).astype(np.int64))
+    assert np.array_equal(tb.fperm.numpy(), perm)
+    if masked:
+        assert not np.array_equal(perm, np.arange(T))
+    JPPM.argmin_faces_pallas_v2(
+        jnp.asarray(pts), jnp.asarray(tris[:, perm]),
+        None if mask is None else jnp.asarray(mask[perm]),
+        None if part is None else jnp.asarray(part), tile_n=PM.TILE)
+    flags, _, fc, _, oh, pm_tab = (np.asarray(a) for a in seen["args"])
+    assert np.array_equal(tb.skip.numpy(), flags)
+    np.testing.assert_allclose(tb.rows.numpy()[..., :27],
+                               fc[:, :, :T].transpose(0, 2, 1), rtol=1e-5,
+                               atol=1e-7)
+    assert (tb.rows.numpy()[..., 27] == 0).all()
+    words = tb.words.numpy().astype(np.int64) & 0xFFFFFFFF
+    if masked:
+        K = mask.shape[1]
+        bits = (words[None] >> np.arange(32)[:, None]) & 1       # (32, T)
+        assert np.array_equal(bits[:K], pm_tab[:K, :T] > 0.5)
+        assert not bits[K:].any()
+        assert np.array_equal(tb.parts.numpy(), oh[:, :P].argmax(-1))
+    else:
+        assert (words == 0xFFFFFFFF).all() and not tb.parts.numpy().any()
+    G = -(-T // 128)
+    ors = [np.bitwise_or.reduce(words[g * 128:(g + 1) * 128])
+           for g in range(G)]
+    assert np.array_equal(tb.chunk_or.numpy().astype(np.int64) & 0xFFFFFFFF,
+                          ors)

@@ -343,15 +343,21 @@ def test_finetune_stage_step_icp_gradient_reaches_stage2_head(cuda, mano_path):
     assert (got - ref).norm() <= 5e-2 * ref.norm()
 
 
-@pytest.mark.parametrize("shape", [(2, 64, 134, 134), (3, 5, 45, 37)])
+@pytest.mark.parametrize("shape", [(2, 64, 134, 134), (3, 5, 45, 37),
+                                   (2, 6, 46, 72), (2, 9, 150, 140)])
 def test_tail_conv_kernel_matches_plain(cuda, shape):
     """K9 against its plain version (cuDNN's convolution without TF32, then
-    tanh) at the generator's head shape and at a ragged one (tiles and a
-    channel chunk cut short): each output within 1e-6 of the sum of its
-    products' magnitudes (about 16 units of float32 rounding), the same
-    float32 sum in another order (tanh has slope at most 1), as
-    test_torch_cyclegan.py holds the CPU's.  The gradient of the autograd.Function is the plain
-    version's (its backward recomputes through it)."""
+    tanh) at the generator's head shape (one bulk copy a channel band) and
+    at ragged ones, H and W not multiples of the block's 16 x 128 outputs
+    (45 x 37 padded: rows of 43 floats, cp.async; 46 x 72: bulk copies, a
+    short last band; 150 x 140: two column tiles, cp.async): each output
+    within 1e-6 of the sum of its products' magnitudes (about 16 units of
+    float32 rounding), the same float32 sum in another order (tanh has
+    slope at most 1), as test_torch_cyclegan.py holds the CPU's; and, on
+    the input scaled so that no output saturates, no further from the
+    float64 convolution than 3x the plain version + 1e-7.  The gradient of
+    the autograd.Function is the plain version's (its backward recomputes
+    through it)."""
     from dsf_tpu_torch.device import exact_float32
     gen = torch.Generator(device=cuda).manual_seed(shape[1])
     x = torch.randn(*shape, device=cuda, generator=gen)
@@ -366,6 +372,17 @@ def test_tail_conv_kernel_matches_plain(cuda, shape):
         assert got.shape == ref.shape == (shape[0], 1, shape[2] - 6,
                                           shape[3] - 6)
         assert ((got - ref).abs() <= 1e-6 * absum).all()
+        b2 = b.clamp(-0.5, 0.5)
+        conv = torch.nn.functional.conv2d(x.double(), w.double())
+        x2 = x * (0.9 - float(b2.abs())) / float(conv.abs().max())
+        exact = torch.tanh(torch.nn.functional.conv2d(x2.double(), w.double())
+                           + b2.double())
+        d_kernel = (tapsum_kernel.tail_conv_cuda(x2, w, b2).double()
+                    - exact).abs().max()
+        d_plain = (tapsum.tail_conv_tanh_plain(x2, w, b2).double()
+                   - exact).abs().max()
+        assert d_kernel <= 3 * d_plain + 1e-7, (float(d_kernel),
+                                                 float(d_plain))
         xs = [t.clone().requires_grad_(True) for t in (x, w, b)]
         cot = torch.randn(ref.shape, device=cuda, generator=gen)
         tapsum.tail_conv_tanh(*xs).backward(cot)
@@ -428,21 +445,49 @@ def _hold_winners(pts, tris, ik, dp):
 
 
 def test_icp_v2_kernel_matches_plain(renderer):
-    """K7 on part-sorted faces against its plain version with the same
-    skip words: the winners' exact distances as K3's, (1e10, 0) where no
-    face is admissible, admissible winners, one launch."""
+    """K7 on faces in the caller's order (it sorts them by part inside)
+    against its plain version on the part-sorted faces with the same skip
+    words: the winners' exact distances as K3's, (1e10, the first face in
+    the part order) where no face is admissible, admissible winners, the
+    caller's face ids, one launch."""
     verts, pts, table, part = _icp_problem(renderer, 21)
-    faces, mask = pm._static_part_perm(renderer.mano.faces, table)
-    tris = verts[:, faces]
+    tris = verts[:, renderer.mano.faces].contiguous()
     before = kernels.LAUNCHES["icp_argmin_v2"]
-    dk, ik = pm.argmin_faces_v2(pts, tris, mask, part)
+    dk, ik = pm.argmin_faces_v2(pts, tris, table, part)
     assert kernels.LAUNCHES["icp_argmin_v2"] == before + 1
-    words = pm.v2_words(mask, part, 4, 2048, tris.shape[1], pts.device)
-    dp, ip = pm.argmin_faces_v2_plain(pts, tris, mask, part, words)
+    fperm = pm.face_part_perm(table)
+    words = pm.v2_words(table[fperm], part, 4, 2048, tris.shape[1],
+                        pts.device)
+    dp, ip = pm.argmin_faces_v2_plain(pts, tris[:, fperm], table[fperm],
+                                      part, words)
     none = _hold_winners(pts, tris, ik, dp)
-    assert none.sum() > 100 and (ik[none] == 0).all() and (dk[none] >= 1e10).all()
-    assert (ik == ip).float().mean() > 0.9
-    assert mask[ik[~none].long(), part[~none]].all()
+    assert none.sum() > 100 and (dk[none] >= 1e10).all()
+    assert (ik[none] == fperm[0]).all()
+    assert (ik == fperm[ip.long()]).float().mean() > 0.9
+    assert table[ik[~none].long(), part[~none]].all()
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_icp_v2_setup_matches_plain(renderer, masked):
+    """K7's set-up kernel (csrc/argmin_setup.cuh, K7 mode) against
+    ``point_mesh.v2_tables_plain`` on posed hands, with the ICP's
+    16-column table and parts -1 .. 16 or without a table, and 2000 points
+    (a ragged last tile): the face order, words, chunk ORs, point parts and
+    skip words bitwise, the rows as int32 words; and the argmin on them
+    against the plain dense argmin by the winners' exact distances."""
+    verts, pts, table, part = _icp_problem(renderer, 32)
+    pts, part = pts[:, :2000].contiguous(), part[:, :2000].contiguous()
+    if not masked:
+        table = part = None
+    tris = verts[:, renderer.mano.faces].contiguous()
+    got = pm.point_mesh_kernel.v2_setup_cuda(pts, tris, table, part)
+    ref = pm.v2_tables_plain(pts, tris, table, part)
+    assert torch.equal(got.rows.view(torch.int32), ref.rows.view(torch.int32))
+    _tables_equal(got, ref, ("fperm", "words", "chunk_or", "parts", "skip"))
+    dk, ik = pm.point_mesh_kernel.argmin_faces_v2_launch(pts, got)
+    dp, _ = pm.argmin_faces_plain(pts, tris, table, part)
+    none = _hold_winners(pts, tris, ik, dp)
+    assert none.any() == masked
 
 
 def test_icp_culled_kernel_matches_plain(renderer):

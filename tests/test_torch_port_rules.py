@@ -140,15 +140,16 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         tapsum_kernel.tail_conv_cuda(torch.zeros(1, 8, 14, 14),
                                      torch.zeros(1, 8, 7, 7), torch.zeros(1))
     with pytest.raises(ValueError, match="CUDA"):
-        point_mesh_kernel.argmin_faces_v2_cuda(
-            torch.zeros(1, 16, 3), torch.zeros(1, 4, 3, 3), None, None,
-            torch.zeros(1, 1, dtype=torch.int32))
+        point_mesh_kernel.argmin_faces_v2_cuda(torch.zeros(1, 16, 3),
+                                               torch.zeros(1, 4, 3, 3))
+    with pytest.raises(ValueError, match="CUDA"):
+        point_mesh_kernel.v2_setup_cuda(torch.zeros(1, 16, 3),
+                                        torch.zeros(1, 4, 3, 3))
     with pytest.raises(ValueError, match="CUDA"):
         point_mesh_kernel.argmin_faces_v2_launch(
-            torch.zeros(1, 16, 3), torch.zeros(1, 4, 28),
-            torch.zeros(4, dtype=torch.int32),
-            torch.zeros(1, 16, dtype=torch.int32),
-            torch.zeros(1, 1, dtype=torch.int32))
+            torch.zeros(1, 16, 3),
+            point_mesh.v2_tables_plain(torch.zeros(1, 16, 3),
+                                       torch.rand(1, 4, 3, 3)))
     with pytest.raises(ValueError, match="CUDA"):
         point_mesh_kernel.argmin_faces_culled_cuda(
             torch.zeros(1, 16, 3), torch.zeros(1, 4, 3, 3),
@@ -224,12 +225,13 @@ def test_kernel_sources_and_build_flags():
     # the ICP kernels' divide-free distance (K3 through its body)
     ("point_tri27.cuh", ("argmin_body.cuh", "point_mesh_v2"),
      ("c[26]", "dpn * dpn", "c[23]")),
-    # the set-up of K3 and K8 (their rows, lists, sorts and cull) and
-    # their one argmin body
-    ("argmin_setup.cuh", ("point_mesh", "point_mesh_culled"),
-     ("__frcp_rn(", "__match_any_sync(", "kCullMargin")),
-    ("argmin_body.cuh", ("point_mesh", "point_mesh_culled"),
-     ("cp.async", "__frcp_rn(", "s_list[")),
+    # the set-up of K3, K8 and K7 (their rows, lists, sorts, cull and skip
+    # words) and their argmin bodies
+    ("argmin_setup.cuh", ("point_mesh", "point_mesh_culled",
+                          "point_mesh_v2"),
+     ("__frcp_rn(", "__match_any_sync(", "kCullMargin", "__reduce_or_sync(")),
+    ("argmin_body.cuh", ("point_mesh", "point_mesh_culled", "point_mesh_v2"),
+     ("cp.async", "__frcp_rn(", "s_list[", "__reduce_or_sync(")),
 ])
 def test_kernels_share_their_arithmetic(header, sources, copied):
     """Kernels that compute one function include its arithmetic from one
