@@ -90,6 +90,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import json
 import os
 import subprocess
@@ -110,6 +111,7 @@ LATENCY_CALLS = 25
 TRAIN_BATCH = 32                # the default config's batch
 TRAIN_STEPS = 5
 COMPARE_BATCH = 4               # GPU step vs CPU step
+DECODE_BATCHES = (1, 32, 64)    # K4 timed at serving's bucket 1, B, 2B
 KERNELS = ("raster_skip", "raster_moments", "codec_encode",
            "codec_encode_bwd", "codec_decode", "codec_decode_bwd",
            "point_mesh_argmin", "tail_conv", "icp_argmin_v2",
@@ -159,6 +161,7 @@ ICP_PER_PAIR_FLOPS = 63
 PRERENDER_N = 64                # parameter sets of the pre-render path
 PRERENDER_BATCH = 32            # the pre-render tool's default batch
 HOLD_CYCLES = 200_000_000       # ~0.1 s of the card's clock, see time_ms
+L2_BYTES = 50 * 2 ** 20         # the H100's L2 cache
 # the codec's foreground test on a normalized depth image; the background
 # normalizes to 1.0, or just under it in float32 when the crop centre's
 # depth is large
@@ -196,6 +199,22 @@ def time_ms(fn, iters, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def copies_past_l2(tensors):
+    """``tensors`` and enough clones of them that cycling through the
+    copies reads twice the L2 between two reads of one copy."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    n = max(2, -(-2 * L2_BYTES // nbytes) + 1)
+    return [tuple(tensors)] + [tuple(t.clone() for t in tensors)
+                               for _ in range(n - 1)]
+
+
+def time_cold_ms(fn, copies, iters):
+    """``time_ms`` of ``fn(*copy)``, each call on the next copy of
+    ``copies_past_l2``: its inputs come from device memory, not L2."""
+    nxt = itertools.cycle(copies)
+    return time_ms(lambda: fn(*next(nxt)), max(iters, len(copies)))
 
 
 def bound_ms(nbytes, flops):
@@ -402,6 +421,52 @@ def check_raster_cases(renderer, B, rng):
                  "than one chunk holds")
 
 
+def batch_of(t, B):
+    """``t``'s first B rows, repeated as often as B needs."""
+    import torch
+    reps = -(-B // t.shape[0])
+    return torch.cat([t] * reps)[:B].contiguous()
+
+
+def time_batches(fn, args, check):
+    """K4's wrapper ``fn(*args)`` at each of DECODE_BATCHES (``args``' rows
+    cut or repeated): its first call held by ``check(B, xs, out)``, then
+    mean ms with the inputs warm in L2 and cold."""
+    out = {}
+    for B in DECODE_BATCHES:
+        xs = [batch_of(a, B) for a in args]
+        check(B, xs, fn(*xs))
+        out[B] = {"warm": time_ms(lambda: fn(*xs), 50),
+                  "cold": time_cold_ms(fn, copies_past_l2(xs), 50)}
+    return out
+
+
+def say_batches(name, times):
+    say(f"  {name} by batch: " + "; ".join(
+        f"B={B} warm {t['warm']:.4f} ms, cold {t['cold']:.4f} ms"
+        for B, t in times.items()))
+
+
+def nan_case(offset, img):
+    """``offset`` with a NaN in joint 4's y unit row at a background pixel
+    of image 0 and a +inf in joint 7's heat at a foreground pixel of image
+    1: the plain version's rows (0, 4) and (1, 7) are not finite."""
+    J = offset.shape[1] // 4
+    bad = offset.clone()
+    bg = (img[0, 0] >= FG).nonzero()[0]
+    fg = (img[1, 0] < FG).nonzero()[0]
+    bad[0, 3 * 4 + 1, bg[0], bg[1]] = float("nan")
+    bad[1, 3 * J + 7, fg[0], fg[1]] = float("inf")
+    return bad
+
+
+def same_nonfinite(a, b):
+    import torch
+    return (torch.equal(a.isnan(), b.isnan())
+            and torch.equal(a.isinf(), b.isinf())
+            and torch.equal(a[a.isinf()], b[b.isinf()]))
+
+
 def check_codec(renderer, B, rng):
     import torch
     from dsf_tpu_torch import demo
@@ -422,10 +487,47 @@ def check_codec(renderer, B, rng):
     noise = torch.from_numpy(
         (rng.randn(B, 4 * J, S, S) * 0.05).astype(np.float32)).to(img.device)
     offset = (enc_p + noise).contiguous()
-    dec_k = codec_kernel.decode_cuda(offset, img, 0.8, 30.0)
-    dec_p = oc.offset2joint_plain(offset, img, 0.8, 30.0)
+    dec_k, st_k = codec_kernel.decode_cuda(offset, img, 0.8, 30.0)
+    dec_p, st_p = oc.decode_fwd_plain(offset, img, 0.8, 30.0)
     dec_err = float((dec_k - dec_p).abs().max())
     torch.cuda.synchronize()
+    # K4 forward: its statistics (the max exactly: the same products),
+    # float64, two runs, the NaN case
+    need(torch.equal(st_k[..., 0], st_p[..., 0]),
+         "K4 forward's softmax max differs from the plain version's")
+    z_rel = float(((st_k[..., 1] - st_p[..., 1]) / st_p[..., 1]).abs().max())
+    need(z_rel <= 1e-5, f"K4 forward's softmax mass is {z_rel} off")
+    y64, _ = oc.decode_fwd_plain(offset.double(), img.double(), 0.8, 30.0)
+    d_k = float((dec_k.double() - y64).abs().max())
+    d_p = float((dec_p.double() - y64).abs().max())
+    need(d_k <= 3 * d_p, f"K4 forward lies {d_k} from float64, the plain "
+         f"version {d_p}")
+    again, st_again = codec_kernel.decode_cuda(offset, img, 0.8, 30.0)
+    need(torch.equal(again, dec_k) and torch.equal(st_again, st_k),
+         "K4 forward differs between two runs")
+    bad = nan_case(offset, img)
+    nan_k, _ = codec_kernel.decode_cuda(bad, img, 0.8, 30.0)
+    nan_p, _ = oc.decode_fwd_plain(bad, img, 0.8, 30.0)
+    fin = nan_p.isfinite()
+    need(same_nonfinite(nan_k, nan_p) and bool((~fin).any())
+         and float((nan_k - nan_p)[fin].abs().max()) <= 1e-5,
+         "K4 forward's non-finite entries differ from the plain version's")
+    say(f"kernel codec_decode B={B}: softmax mass {z_rel:.3g} relative from "
+        f"plain; from float64 {d_k:.3g} (plain {d_p:.3g}); two runs bitwise "
+        f"equal; NaN case: {int((~fin).sum())} non-finite entries, as plain")
+
+    def fwd_holds(B, xs, got):
+        """y within 1e-5 of decode_fwd_plain's and the max exactly: at B=1
+        and 2 the rows are split over a cluster"""
+        y_p, st_p = oc.decode_fwd_plain(*xs, 0.8, 30.0)
+        err = float((got[0] - y_p).abs().max())
+        need(err <= 1e-5 and torch.equal(got[1][..., 0], st_p[..., 0]),
+             f"K4 forward at B={B} disagrees with decode_fwd_plain: {err}")
+
+    dec_times = time_batches(
+        lambda o, d: codec_kernel.decode_cuda(o, d, 0.8, 30.0), (offset, img),
+        fwd_holds)
+    say_batches("codec_decode", dec_times)
 
     out = []
     for name, err, kfn, pfn, nbytes, flops, replaces in (
@@ -436,8 +538,8 @@ def check_codec(renderer, B, rng):
              "dsf_tpu/ops/pallas_codec.py:253"),
             ("codec_decode", dec_err,
              lambda: codec_kernel.decode_cuda(offset, img, 0.8, 30.0),
-             lambda: oc.offset2joint_plain(offset, img, 0.8, 30.0),
-             (B * 4 * J * P + B * P + B * J * 3) * 4, 25 * B * J * P,
+             lambda: oc.decode_fwd_plain(offset, img, 0.8, 30.0),
+             (B * 4 * J * P + B * P + B * J * 5) * 4, 25 * B * J * P,
              "dsf_tpu/ops/pallas_codec.py:125")):
         ms = time_ms(kfn, 50)
         plain_ms = time_ms(pfn, 20)
@@ -450,6 +552,7 @@ def check_codec(renderer, B, rng):
                     "replaces": replaces, "max_abs_err": err, "ms": ms,
                     "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
                     "library_ms": None})
+    out[1]["ms_by_batch"] = dec_times
     return out
 
 
@@ -503,7 +606,8 @@ def check_moments(renderer, B, stride, rng, record):
 
 def check_codec_bwd(renderer, B, rng):
     """K5 bwd and K4 bwd against autograd of the plain versions on rendered
-    hands, with random cotangents."""
+    hands, with random cotangents; K4 bwd also against its closed-form
+    plain version and float64, twice, and on the NaN case."""
     import torch
     from dsf_tpu_torch import demo
     from dsf_tpu_torch.ops import codec_kernel
@@ -519,13 +623,16 @@ def check_codec_bwd(renderer, B, rng):
     g_enc = torch.from_numpy(rng.randn(B, 4 * J, S, S).astype(np.float32)).cuda()
     g_dec = torch.from_numpy(rng.randn(B, J, 3).astype(np.float32)).cuda()
     offset = (oc.joint2offset_plain(juvd, img, 0.8) + 0.05 * g_enc).contiguous()
+    with torch.no_grad():
+        y, st = codec_kernel.decode_cuda(offset, img, 0.8, 30.0)
     # the work this data needs: the encode VJP reads g only where a joint's
     # cone meets the foreground (elsewhere the field is 0 whatever the
     # joint); the decode VJP reads the field only at foreground pixels (the
     # mask zeroes the rest), but every pixel keeps its softmax mass, so its
     # weight, its share of the sums and its depth gradient (~10 operations
     # per joint) remain.  The images, the joints and every output are read
-    # or written whole.
+    # or written whole.  (The decode VJP's kernel reads the background's
+    # field too, which a NaN there needs: its floor is printed beside.)
     fg = img < FG
     coords = oc._coords(img, S)
     dist = ((juvd[..., None, None] - coords[:, None]) ** 2).sum(2).sqrt()
@@ -537,12 +644,79 @@ def check_codec_bwd(renderer, B, rng):
         with torch.enable_grad():
             return torch.autograd.grad(f(*xs), xs, g)
 
+    def rel_err(got, ref):
+        return max(float((a - b).abs().max() / b.abs().max())
+                   for a, b in zip(got, ref))
+
     enc_plain = lambda: vjp(lambda j, d: oc.joint2offset_plain(j, d, 0.8),
                             (juvd, img), g_enc)
-    dec_plain = lambda: vjp(lambda o, d: oc.offset2joint_plain(o, d, 0.8, 30.0),
-                            (offset, img), g_dec)
+    dec_auto = lambda: vjp(lambda o, d: oc.offset2joint_plain(o, d, 0.8, 30.0),
+                           (offset, img), g_dec)
+    dec_plain = lambda: oc.decode_bwd_plain(offset, img, g_dec, y, st, 0.8,
+                                            30.0)
     enc_k = lambda: codec_kernel.encode_bwd_cuda(juvd, img, g_enc, 0.8)
-    dec_k = lambda: codec_kernel.decode_bwd_cuda(offset, img, g_dec, 0.8, 30.0)
+    dec_k = lambda: codec_kernel.decode_bwd_cuda(offset, img, g_dec, y, st,
+                                                 0.8, 30.0)
+
+    # K4 bwd: its closed-form plain version, float64 (autograd), two runs,
+    # the NaN case, and its time at each batch
+    got = dec_k()
+    again = dec_k()
+    plain = dec_plain()
+    torch.cuda.synchronize()
+    need(all(torch.equal(a, b) for a, b in zip(got, again)),
+         "K4 VJP differs between two runs")
+    rel_plain = rel_err(got, plain)
+    need(rel_plain <= 1e-4, f"K4 VJP disagrees with decode_bwd_plain: "
+         f"{rel_plain}")
+    ref64 = vjp(lambda o, d: oc.offset2joint_plain(o, d, 0.8, 30.0),
+                (offset.double(), img.double()), g_dec.double())
+    d_k, d_p = rel_err(got, ref64), rel_err(plain, ref64)
+    need(d_k <= 3 * d_p, f"K4 VJP lies {d_k} from float64, the plain version "
+         f"{d_p}")
+    bad = nan_case(offset, img)
+    with torch.no_grad():
+        yb, stb = codec_kernel.decode_cuda(bad, img, 0.8, 30.0)
+    dxb, ddb = codec_kernel.decode_bwd_cuda(bad, img, g_dec, yb, stb, 0.8,
+                                            30.0)
+    ax, ad = vjp(lambda o, d: oc.offset2joint_plain(o, d, 0.8, 30.0),
+                 (bad, img), g_dec)
+
+    def bad_rows(dx, dd):
+        """(image, joint) rows of dx and images of dd with a non-finite
+        entry"""
+        nf = ~dx.reshape(B, 4 * J, P).isfinite().all(-1)
+        rows = nf[:, :3 * J].reshape(B, J, 3).any(-1) | nf[:, 3 * J:]
+        return rows, ~dd.reshape(B, P).isfinite().all(-1)
+
+    kr, ki = bad_rows(dxb, ddb)
+    ar, ai = bad_rows(ax, ad)
+    need(torch.equal(kr, ar) and torch.equal(ki, ai) and bool(ar.any()),
+         "K4 VJP's non-finite rows differ from autograd's")
+    say(f"kernel codec_decode_bwd B={B}: {rel_plain:.3g} of the largest entry "
+        f"from decode_bwd_plain; from float64 {d_k:.3g} (decode_bwd_plain "
+        f"{d_p:.3g}); two runs bitwise equal; NaN case: non-finite rows "
+        f"{kr.nonzero().tolist()} and images {ki.nonzero().flatten().tolist()}"
+        f", as autograd's (elementwise the same: "
+        f"{torch.equal(dxb.isfinite(), ax.isfinite())})")
+
+    def bwd_holds(B, xs, got):
+        rel = rel_err(got, oc.decode_bwd_plain(*xs, 0.8, 30.0))
+        need(rel <= 1e-4, f"K4 VJP at B={B} disagrees with decode_bwd_plain: "
+             f"{rel}")
+
+    bwd_times = time_batches(
+        lambda o, d, g, yy, ss: codec_kernel.decode_bwd_cuda(
+            o, d, g, yy, ss, 0.8, 30.0), (offset, img, g_dec, y, st),
+        bwd_holds)
+    say_batches("codec_decode_bwd", bwd_times)
+    auto_ms = time_ms(dec_auto, 20)
+    field = B * 4 * J * P * 4
+    floor_ms = (2 * field + 2 * B * P * 4) / PEAK_BYTES_PER_S * 1e3
+    say(f"  codec_decode_bwd: the whole field's floor {floor_ms:.6f} ms (read "
+        f"and written once, depth and d depth once); autograd of "
+        f"offset2joint_plain {auto_ms:.4f} ms")
+
     out = []
     for name, kfn, pfn, nbytes, flops, replaces in (
             ("codec_encode_bwd", enc_k, enc_plain,
@@ -552,19 +726,19 @@ def check_codec_bwd(renderer, B, rng):
              (4 * J * n_fg + B * 4 * J * P + 2 * B * P + B * J * 3) * 4,
              55 * J * n_fg + 10 * J * (B * P - n_fg),
              "dsf_tpu/ops/pallas_codec.py:154")):
-        got, ref = kfn(), pfn()
+        got = kfn()
+        ref = enc_plain() if name == "codec_encode_bwd" else dec_auto()
         torch.cuda.synchronize()
         err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
-        rel = max(float((a - b).abs().max() / b.abs().max())
-                  for a, b in zip(got, ref))
+        rel = rel_err(got, ref)
         ms = time_ms(kfn, 50)
         plain_ms = time_ms(pfn, 20)
         bms, by = bound_ms(nbytes, flops)
         say(f"kernel {name} B={B} J={J} S={S}: max_abs_err {err:.3g} "
-            f"({rel:.3g} of the gradient's largest entry), kernel {ms:.4f} ms, "
-            f"plain (autograd) {plain_ms:.4f} ms, bound {bms:.6f} ms by {by} "
-            f"({n_fg} foreground pixels of {B * P}, {cone} joint-pixel pairs "
-            "in a cone)")
+            f"({rel:.3g} of the gradient's largest entry, against autograd), "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.6f} ms "
+            f"by {by} ({n_fg} foreground pixels of {B * P}, {cone} "
+            "joint-pixel pairs in a cone)")
         # sums over pixels and joints in other orders; near a joint the
         # encode's 1/dist^2 amplifies rounding
         need(rel <= 1e-4, f"{name} disagrees with its plain version: {rel}")
@@ -573,6 +747,7 @@ def check_codec_bwd(renderer, B, rng):
                     "replaces": replaces, "max_abs_err": err, "ms": ms,
                     "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
                     "library_ms": None})
+    out[1]["ms_by_batch"] = bwd_times
     return out
 
 

@@ -22,21 +22,7 @@
 //    1e-8) is written with round-to-nearest intrinsics in the plain
 //    version's order, and divisions are IEEE divisions, so the field
 //    matches the plain PyTorch version to the last bit or two;
-//  * decode: one block per (joint, image).  A first pass takes the block
-//    max of 30 * heat * mask; a second pass sums exp(. - max) and exp
-//    times each vote component; the joint is the ratio.  Background
-//    pixels keep their exp(0 - max) softmax mass, as in the JAX path.
-//    Coordinates come from the pixel index, as in the Pallas kernel's
-//    _common.  The TPU version's 0/1 expansion matmuls were a layout
-//    device for the matrix unit; here each block owns one joint row;
-//  * decode VJP: the same (joint, image) blocks recompute the softmax
-//    (max pass, then the mass Z and A = sum V * e in one pass), then write
-//    d_unit = g * mask * dist * w and d_heat = mask * w * (scale (V - A)
-//    - k U) for their joint row, and keep (max, Z) per row.  The depth
-//    gradient dd(p) = sum_j w_j(p) g_jz sums over joints, across those
-//    blocks: a second kernel with one thread per pixel loops the J joints
-//    and recomputes w_j(p) from the kept (max, Z).  No float atomics, so
-//    the result does not change from run to run;
+//  * decode and its VJP: see the comment above namespace dsf_decode;
 //  * encode VJP: a grid over (pixel block, image), one thread per pixel
 //    looping the J joints.  It recomputes dist, 1/dist and the cone mask
 //    exactly as the forward does (round-to-nearest, same order), forms
@@ -46,13 +32,15 @@
 //    partial row of 3J per block, and a second kernel sums the partials
 //    of an image in block order.  Deterministic, no atomics.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <cstdint>
 
 namespace {
 
 constexpr int kEncThreads = 256;
-constexpr int kDecThreads = 256;
 
 // normalized pixel-centre coordinate (i + 0.5) / S * 2 - 1, rounded as
 // the plain version's separate tensor ops round it
@@ -95,190 +83,6 @@ encode_fwd_kernel(const float* __restrict__ joints,  // (B, J, 3)
     ob[(size_t)(3 * j + 2) * P] = __fmul_rn(__fdiv_rn(oz, dist), m);
     ob[(size_t)(3 * J + j) * P] = __fmul_rn(heat, m);
   }
-}
-
-template <int N>
-__device__ __forceinline__ void block_sum(float (&x)[N], float* s_red) {
-  // s_red: N * (kDecThreads / 32) floats
-  for (int off = 16; off > 0; off >>= 1)
-    for (int n = 0; n < N; ++n)
-      x[n] += __shfl_xor_sync(0xffffffffu, x[n], off);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  constexpr int kWarps = kDecThreads / 32;
-  if (lane == 0)
-    for (int n = 0; n < N; ++n) s_red[n * kWarps + warp] = x[n];
-  __syncthreads();
-  for (int n = 0; n < N; ++n) {
-    float t = 0.f;
-    for (int w = 0; w < kWarps; ++w) t += s_red[n * kWarps + w];
-    x[n] = t;
-  }
-  __syncthreads();
-}
-
-__global__ void __launch_bounds__(kDecThreads)
-decode_fwd_kernel(const float* __restrict__ x,      // (B, 4J, S*S)
-                  const float* __restrict__ depth,  // (B, S*S)
-                  float* __restrict__ out,          // (B, J, 3)
-                  int J, int S, float k, float scale) {
-  __shared__ float s_red[4 * (kDecThreads / 32)];
-  const int j = blockIdx.x, b = blockIdx.y;
-  const int P = S * S;
-  const float* xb = x + (size_t)b * 4 * J * P;
-  const float* ux = xb + (size_t)(3 * j) * P;
-  const float* uy = ux + P;
-  const float* uz = uy + P;
-  const float* heat = xb + (size_t)(3 * J + j) * P;
-  const float* d = depth + (size_t)b * P;
-
-  // pass 1: max over pixels of scale * heat * mask
-  float mx = -INFINITY;
-  for (int p = threadIdx.x; p < P; p += kDecThreads) {
-    const float mask = d[p] < 0.99f ? 1.f : 0.f;
-    mx = fmaxf(mx, __fmul_rn(__fmul_rn(heat[p], mask), scale));
-  }
-  for (int off = 16; off > 0; off >>= 1)
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-  if ((threadIdx.x & 31) == 0) s_red[threadIdx.x >> 5] = mx;
-  __syncthreads();
-  mx = s_red[0];
-  for (int w = 1; w < kDecThreads / 32; ++w) mx = fmaxf(mx, s_red[w]);
-  __syncthreads();
-
-  // pass 2: softmax mass and weighted votes
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int p = threadIdx.x; p < P; p += kDecThreads) {
-    const float dp = d[p];
-    const float mask = dp < 0.99f ? 1.f : 0.f;
-    const float hm = __fmul_rn(heat[p], mask);
-    const float e = expf(__fsub_rn(__fmul_rn(hm, scale), mx));
-    const float dist = __fsub_rn(k, __fmul_rn(hm, k));
-    const float vx = __fadd_rn(__fmul_rn(__fmul_rn(ux[p], mask), dist),
-                               pix_coord(p % S, S));
-    const float vy = __fadd_rn(__fmul_rn(__fmul_rn(uy[p], mask), dist),
-                               pix_coord(p / S, S));
-    const float vz = __fadd_rn(__fmul_rn(__fmul_rn(uz[p], mask), dist), dp);
-    acc[0] += e;
-    acc[1] += vx * e;
-    acc[2] += vy * e;
-    acc[3] += vz * e;
-  }
-  block_sum<4>(acc, s_red);
-  if (threadIdx.x == 0) {
-    float* o = out + ((size_t)b * J + j) * 3;
-    o[0] = acc[1] / acc[0];
-    o[1] = acc[2] / acc[0];
-    o[2] = acc[3] / acc[0];
-  }
-}
-
-__global__ void __launch_bounds__(kDecThreads)
-decode_bwd_kernel(const float* __restrict__ x,      // (B, 4J, S*S)
-                  const float* __restrict__ depth,  // (B, S*S)
-                  const float* __restrict__ g,      // (B, J, 3)
-                  float* __restrict__ dx,           // (B, 4J, S*S)
-                  float* __restrict__ stats,        // (B, J, 2): max, Z
-                  int J, int S, float k, float scale) {
-  __shared__ float s_red[4 * (kDecThreads / 32)];
-  const int j = blockIdx.x, b = blockIdx.y;
-  const int P = S * S;
-  const size_t row = (size_t)b * 4 * J * P;
-  const float* ux = x + row + (size_t)(3 * j) * P;
-  const float* uy = ux + P;
-  const float* uz = uy + P;
-  const float* heat = x + row + (size_t)(3 * J + j) * P;
-  float* dux = dx + row + (size_t)(3 * j) * P;
-  float* duy = dux + P;
-  float* duz = duy + P;
-  float* dheat = dx + row + (size_t)(3 * J + j) * P;
-  const float* d = depth + (size_t)b * P;
-  const float* gj = g + ((size_t)b * J + j) * 3;
-  const float gx = gj[0], gy = gj[1], gz = gj[2];
-
-  // pass 1: max over pixels of scale * heat * mask (as the forward)
-  float mx = -INFINITY;
-  for (int p = threadIdx.x; p < P; p += kDecThreads) {
-    const float mask = d[p] < 0.99f ? 1.f : 0.f;
-    mx = fmaxf(mx, __fmul_rn(__fmul_rn(heat[p], mask), scale));
-  }
-  for (int off = 16; off > 0; off >>= 1)
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-  if ((threadIdx.x & 31) == 0) s_red[threadIdx.x >> 5] = mx;
-  __syncthreads();
-  mx = s_red[0];
-  for (int w = 1; w < kDecThreads / 32; ++w) mx = fmaxf(mx, s_red[w]);
-  __syncthreads();
-
-  // pass 2: softmax mass Z and sum of V * e, where V is the cotangent's
-  // derivative with respect to the weight w (the vote dotted with g)
-  float acc[2] = {0.f, 0.f};
-  for (int p = threadIdx.x; p < P; p += kDecThreads) {
-    const float dp = d[p];
-    const float mask = dp < 0.99f ? 1.f : 0.f;
-    const float hm = __fmul_rn(heat[p], mask);
-    const float e = expf(__fsub_rn(__fmul_rn(hm, scale), mx));
-    const float dist = __fsub_rn(k, __fmul_rn(hm, k));
-    const float U = mask * (ux[p] * gx + uy[p] * gy + uz[p] * gz);
-    const float V = dist * U + (gx * pix_coord(p % S, S)
-                                + gy * pix_coord(p / S, S) + gz * dp);
-    acc[0] += e;
-    acc[1] += V * e;
-  }
-  block_sum<2>(acc, s_red);
-  const float Z = acc[0];
-  const float A = acc[1] / Z;
-
-  // pass 3: the gradient of the joint row's unit and heat channels
-  for (int p = threadIdx.x; p < P; p += kDecThreads) {
-    const float dp = d[p];
-    const float mask = dp < 0.99f ? 1.f : 0.f;
-    const float hm = __fmul_rn(heat[p], mask);
-    const float w = expf(__fsub_rn(__fmul_rn(hm, scale), mx)) / Z;
-    const float dist = __fsub_rn(k, __fmul_rn(hm, k));
-    const float U = mask * (ux[p] * gx + uy[p] * gy + uz[p] * gz);
-    const float V = dist * U + (gx * pix_coord(p % S, S)
-                                + gy * pix_coord(p / S, S) + gz * dp);
-    const float dw = dist * w;
-    dux[p] = gx * mask * dw;
-    duy[p] = gy * mask * dw;
-    duz[p] = gz * mask * dw;
-    dheat[p] = mask * w * (scale * (V - A) - k * U);
-  }
-  if (threadIdx.x == 0) {
-    float* st = stats + ((size_t)b * J + j) * 2;
-    st[0] = mx;
-    st[1] = Z;
-  }
-}
-
-__global__ void __launch_bounds__(kEncThreads)
-decode_bwd_depth_kernel(const float* __restrict__ x,      // (B, 4J, S*S)
-                        const float* __restrict__ depth,  // (B, S*S)
-                        const float* __restrict__ g,      // (B, J, 3)
-                        const float* __restrict__ stats,  // (B, J, 2)
-                        float* __restrict__ dd,           // (B, S*S)
-                        int J, int S, float scale) {
-  extern __shared__ float s_st[];                         // 3J: max, Z, gz
-  const int b = blockIdx.y;
-  for (int i = threadIdx.x; i < J; i += blockDim.x) {
-    s_st[3 * i] = stats[((size_t)b * J + i) * 2];
-    s_st[3 * i + 1] = stats[((size_t)b * J + i) * 2 + 1];
-    s_st[3 * i + 2] = g[((size_t)b * J + i) * 3 + 2];
-  }
-  __syncthreads();
-  const int P = S * S;
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= P) return;
-  const float mask = depth[(size_t)b * P + p] < 0.99f ? 1.f : 0.f;
-  const float* heat = x + (size_t)b * 4 * J * P + (size_t)(3 * J) * P + p;
-  float acc = 0.f;
-  for (int j = 0; j < J; ++j) {
-    const float hm = __fmul_rn(heat[(size_t)j * P], mask);
-    const float w = expf(__fsub_rn(__fmul_rn(hm, scale), s_st[3 * j]))
-                    / s_st[3 * j + 1];
-    acc += w * s_st[3 * j + 2];
-  }
-  dd[(size_t)b * P + p] = acc;
 }
 
 __global__ void __launch_bounds__(kEncThreads)
@@ -370,6 +174,495 @@ __global__ void encode_bwd_reduce_kernel(const float* __restrict__ part,
 
 }  // namespace
 
+// K4, the decode, forward and VJP.
+//
+// Function (dsf_tpu/ops/pallas_codec.py:_fwd_kernel, _bwd_kernel): per
+// image b and joint j, over the S^2 pixels p, hm = heat * mask with mask =
+// depth < 0.99 (not differentiated), w = softmax(scale * hm) (background
+// pixels keep their exp(0 - m) mass), dist = k - k hm, the vote v = unit
+// mask dist + (u, v, depth)_p, and y = sum_p w v.  The VJP for the
+// cotangent g needs A = sum_p w (g . v), which is g . y: so once the
+// forward keeps y and its softmax statistics (the max m and the mass Z)
+// every gradient element depends on its own pixel only.
+//
+// What bounds them: bytes.  At B=32, J=21, S=64 the forward reads the 44
+// MB field once; the VJP reads it and writes its gradient, 88 MB, 0.0266
+// ms at 3.35 TB/s.  Both read every element, the background's too: a NaN
+// or inf anywhere in a row reaches the row's result through the
+// exponential, as in the plain version.
+//
+// Design (the layouts scripts/codec_shapes_gpu.py chose, PERF.md §6):
+//  * forward: one pass with an online softmax.  A CTA takes one joint of
+//    one image over one of `split` contiguous shares of the pixels; each
+//    thread keeps a running max m and the sums Z, sum v e that it
+//    rescales by exp(m_old - m_new) when the max rises, so each element
+//    leaves device memory once.  A thread reads 4 pixels of each row with
+//    one 16-byte load where the rows share the depth's alignment (the
+//    first h pixels and the last few are single-pixel units, so any S and
+//    any base address run here), and issues the loads of U such units
+//    before it adds them.  States merge with the same rescaling across the
+//    warp (shuffles) and the block (shared memory, in warp order); where
+//    split > 1 the CTAs of a row form a thread-block cluster whose rank 0
+//    reads the others' states through distributed shared memory in rank
+//    order.  Fixed orders, so results repeat bitwise.  The wrapper splits
+//    rows only while the grid is small (B=1, 2): a cluster launch costs up
+//    to 2 us, and even at B=1 the split saves about a microsecond, since
+//    there the time is the latency of a launch and a load, not the card's
+//    width.  It writes y and the statistics (m, Z) per (image, joint).
+//  * VJP: one elementwise pass.  A thread takes one unit (4 pixels, or
+//    one) of an image for J / JL of its joints (JL joint lanes a unit),
+//    and recomputes w = exp(scale hm - m) / Z, U = mask (g . unit) and V =
+//    dist U + g . (u, v, depth) from the 6 floats (m, Z, g, A = g . y) of
+//    each joint, read with its loads; it writes d unit = g mask dist w and
+//    d heat = mask w (scale (V - A) - k U) and sums d depth = sum_j w_j
+//    g_jz over its joints, then over the lanes in lane order through
+//    shared memory.  No atomics, no reduction over pixels, one launch.
+//  * The NaN rules: a state's max is never NaN (a NaN s fails every
+//    comparison) and exp(-inf - m) is taken as 0 also when m is -inf, so
+//    the only NaNs are those of the plain version's exponentials and
+//    products.
+namespace dsf_decode {
+
+namespace cg = cooperative_groups;
+
+constexpr float kFg = 0.99f;              // the codec's foreground test
+
+// online softmax state of one (image, joint) row over some pixels: the
+// running max m of s = scale hm, Z = sum exp(s - m) and sum v exp(s - m)
+struct Soft {
+  float m, z, sx, sy, sz;
+};
+
+__device__ __forceinline__ Soft soft_empty() {
+  return {-INFINITY, 0.f, 0.f, 0.f, 0.f};
+}
+
+// exp(from - to), to >= from, with exp(-inf - anything) = 0: a state that
+// has seen no pixel, or only s = -inf, adds nothing
+__device__ __forceinline__ float shift(float from, float to) {
+  return from == -INFINITY ? 0.f : expf(from - to);
+}
+
+__device__ __forceinline__ void merge(Soft& a, const Soft& b) {
+  const float m = fmaxf(a.m, b.m);
+  const float fa = shift(a.m, m), fb = shift(b.m, m);
+  a.m = m;
+  a.z = a.z * fa + b.z * fb;
+  a.sx = a.sx * fa + b.sx * fb;
+  a.sy = a.sy * fa + b.sy * fb;
+  a.sz = a.sz * fa + b.sz * fb;
+}
+
+__device__ __forceinline__ void load(const float* p, float (&v)[4]) {
+  const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+}
+__device__ __forceinline__ void load(const float* p, float (&v)[1]) {
+  v[0] = __ldg(p);
+}
+__device__ __forceinline__ void store(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store(float* p, const float (&v)[1]) {
+  *p = v[0];
+}
+
+// the first pixel of a single-pixel unit: the h pixels before the first
+// 16-byte boundary, then those after the nq groups of 4
+__device__ __forceinline__ int single_pixel(int i, int h, int nq) {
+  return i < h ? i : h + 4 * nq + (i - h);
+}
+
+// N pixels from p of one image: depth, coordinates (from the table of S)
+// and mask
+template <int N>
+struct Base {
+  float d[N], u[N], v[N], mask[N];
+};
+
+template <int N>
+__device__ __forceinline__ void base_load(Base<N>& px,
+                                          const float* __restrict__ db,
+                                          const float* s_coord, int p,
+                                          int S) {
+  load(db + p, px.d);
+  int row = p / S, col = p - row * S;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    px.u[i] = s_coord[col];
+    px.v[i] = s_coord[row];
+    if (++col == S) { col = 0; ++row; }
+    px.mask[i] = px.d[i] < kFg ? 1.f : 0.f;
+  }
+}
+
+// joint j's 3 unit rows and heat row at those pixels
+template <int N>
+struct Field {
+  float a[N], b[N], c[N], h[N];
+};
+
+template <int N>
+__device__ __forceinline__ void field_load(Field<N>& f,
+                                           const float* __restrict__ xb,
+                                           int p, int j, int J, int P) {
+  const float* ux = xb + static_cast<size_t>(3 * j) * P + p;
+  load(ux, f.a);
+  load(ux + P, f.b);
+  load(ux + 2 * P, f.c);
+  load(xb + static_cast<size_t>(3 * J + j) * P + p, f.h);
+}
+
+// add N pixels of one row to a state: one rescale for the N
+template <int N>
+__device__ __forceinline__ void fwd_add(Soft& st, const Base<N>& px,
+                                        const Field<N>& f, float k,
+                                        float scale) {
+  float s[N], vx[N], vy[N], vz[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const float mask = px.mask[i];
+    const float hm = __fmul_rn(f.h[i], mask);
+    s[i] = __fmul_rn(hm, scale);
+    const float dist = __fsub_rn(k, __fmul_rn(hm, k));
+    vx[i] = __fadd_rn(__fmul_rn(__fmul_rn(f.a[i], mask), dist), px.u[i]);
+    vy[i] = __fadd_rn(__fmul_rn(__fmul_rn(f.b[i], mask), dist), px.v[i]);
+    vz[i] = __fadd_rn(__fmul_rn(__fmul_rn(f.c[i], mask), dist), px.d[i]);
+  }
+  float ml = s[0];
+#pragma unroll
+  for (int i = 1; i < N; ++i) ml = fmaxf(ml, s[i]);
+  if (ml > st.m) {
+    const float r = shift(st.m, ml);
+    st.z *= r; st.sx *= r; st.sy *= r; st.sz *= r;
+    st.m = ml;
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const float e = s[i] == -INFINITY ? 0.f : expf(s[i] - st.m);
+    st.z += e;
+    st.sx = fmaf(vx[i], e, st.sx);
+    st.sy = fmaf(vy[i], e, st.sy);
+    st.sz = fmaf(vz[i], e, st.sz);
+  }
+}
+
+__device__ __forceinline__ void finish(const Soft& a, float* y, float* stats,
+                                       int row) {
+  y[3 * row] = a.sx / a.z;
+  y[3 * row + 1] = a.sy / a.z;
+  y[3 * row + 2] = a.sz / a.z;
+  stats[2 * row] = a.m;
+  stats[2 * row + 1] = a.z;
+}
+
+// the state of this CTA's share (blockIdx.x of gridDim.x) of row (b, j),
+// merged over its warps in warp order: valid in thread 0.  Fills the
+// coordinate table s_coord (S floats) first.  A thread loads U units of 4
+// pixels before it adds them.
+template <int THREADS, int U>
+__device__ __forceinline__ Soft cta_state(const float* __restrict__ x,
+                                          const float* __restrict__ depth,
+                                          float* s_coord, Soft* s_warp,
+                                          int j, int b, int J, int S,
+                                          float k, float scale, int h,
+                                          int nq) {
+  const int split = gridDim.x, c = blockIdx.x;
+  const int P = S * S;
+  for (int i = threadIdx.x; i < S; i += THREADS) s_coord[i] = pix_coord(i, S);
+  __syncthreads();
+  const float* xb = x + static_cast<size_t>(b) * 4 * J * P;
+  const float* db = depth + static_cast<size_t>(b) * P;
+  const int units = P - 3 * nq;
+  const int per = (units + split - 1) / split;
+  const int u1 = min(units, (c + 1) * per);
+  Soft st = soft_empty();
+  // the units in the order un, un + THREADS, ... whatever U is
+  const int groups_end = min(u1, nq);
+  int un = c * per + threadIdx.x;
+  for (; un + (U - 1) * THREADS < groups_end; un += U * THREADS) {
+    Base<4> px[U];
+    Field<4> f[U];
+#pragma unroll
+    for (int q = 0; q < U; ++q) {
+      const int p = h + 4 * (un + q * THREADS);
+      base_load(px[q], db, s_coord, p, S);
+      field_load(f[q], xb, p, j, J, P);
+    }
+#pragma unroll
+    for (int q = 0; q < U; ++q) fwd_add(st, px[q], f[q], k, scale);
+  }
+  for (; un < u1; un += THREADS) {
+    if (un < nq) {
+      Base<4> px;
+      Field<4> f;
+      base_load(px, db, s_coord, h + 4 * un, S);
+      field_load(f, xb, h + 4 * un, j, J, P);
+      fwd_add(st, px, f, k, scale);
+    } else {
+      const int p = single_pixel(un - nq, h, nq);
+      Base<1> px;
+      Field<1> f;
+      base_load(px, db, s_coord, p, S);
+      field_load(f, xb, p, j, J, P);
+      fwd_add(st, px, f, k, scale);
+    }
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    Soft o;
+    o.m = __shfl_down_sync(0xffffffffu, st.m, off);
+    o.z = __shfl_down_sync(0xffffffffu, st.z, off);
+    o.sx = __shfl_down_sync(0xffffffffu, st.sx, off);
+    o.sy = __shfl_down_sync(0xffffffffu, st.sy, off);
+    o.sz = __shfl_down_sync(0xffffffffu, st.sz, off);
+    merge(st, o);
+  }
+  if ((threadIdx.x & 31) == 0) s_warp[threadIdx.x >> 5] = st;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    st = s_warp[0];
+    for (int w = 1; w < THREADS / 32; ++w) merge(st, s_warp[w]);
+  }
+  return st;
+}
+
+// grid (split, J, B); dynamic shared memory S floats.  Split 1: each CTA
+// finishes its row.  CLUSTER: the launch groups the split CTAs of a row
+// into one cluster, whose rank 0 merges their states in rank order.
+template <int THREADS, int U, bool CLUSTER>
+__global__ void __launch_bounds__(THREADS)
+decode_fwd_kernel(const float* __restrict__ x,      // (B, 4J, S*S)
+                  const float* __restrict__ depth,  // (B, S*S)
+                  float* __restrict__ y,            // (B, J, 3)
+                  float* __restrict__ stats,        // (B, J, 2): m, Z
+                  int J, int S, float k, float scale, int h, int nq) {
+  extern __shared__ float s_coord[];
+  __shared__ Soft s_warp[THREADS / 32];
+  __shared__ Soft s_cta;
+  const int j = blockIdx.y, b = blockIdx.z;
+  const Soft a = cta_state<THREADS, U>(x, depth, s_coord, s_warp, j, b, J,
+                                       S, k, scale, h, nq);
+  const bool owner = threadIdx.x == 0;
+  if constexpr (CLUSTER) {
+    if (owner) s_cta = a;
+    cg::cluster_group cl = cg::this_cluster();
+    cl.sync();
+    if (blockIdx.x == 0 && owner) {
+      const int split = gridDim.x;
+      Soft t = s_cta;
+      for (int r = 1; r < split; ++r)
+        merge(t, *cl.map_shared_rank(&s_cta, r));
+      finish(t, y, stats, b * J + j);
+    }
+    cl.sync();                  // rank 0 has read every CTA's state
+  } else if (owner) {
+    finish(a, y, stats, b * J + j);
+  }
+}
+
+// a joint's constants for the VJP: m, Z, g and A = g . y
+struct Row {
+  float m, z, gx, gy, gz, A;
+};
+
+// joint j's Row, read from the image's statistics, cotangent and joints
+__device__ __forceinline__ Row row_of(int j, const float* __restrict__ sb,
+                                      const float* __restrict__ gb,
+                                      const float* __restrict__ yb) {
+  Row r{__ldg(sb + 2 * j), __ldg(sb + 2 * j + 1), __ldg(gb + 3 * j),
+        __ldg(gb + 3 * j + 1), __ldg(gb + 3 * j + 2), 0.f};
+  r.A = r.gx * __ldg(yb + 3 * j) + r.gy * __ldg(yb + 3 * j + 1)
+        + r.gz * __ldg(yb + 3 * j + 2);
+  return r;
+}
+
+// joint j's d offset at the N pixels from p, stored into dxb; adds each
+// pixel's w g_z into acc
+template <int N>
+__device__ __forceinline__ void joint_grad(float (&acc)[4], const Base<N>& px,
+                                           const Field<N>& f, const Row& rw,
+                                           float* __restrict__ dxb, int p,
+                                           int j, int J, int P, float k,
+                                           float scale) {
+  const float gx = rw.gx, gy = rw.gy, gz = rw.gz;
+  float ox[N], oy[N], oz[N], oh[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const float mask = px.mask[i];
+    const float hm = __fmul_rn(f.h[i], mask);
+    const float w = expf(__fsub_rn(__fmul_rn(hm, scale), rw.m)) / rw.z;
+    const float dist = __fsub_rn(k, __fmul_rn(hm, k));
+    const float U = mask * (f.a[i] * gx + f.b[i] * gy + f.c[i] * gz);
+    const float V = dist * U + (gx * px.u[i] + gy * px.v[i] + gz * px.d[i]);
+    const float mdw = mask * dist * w;
+    ox[i] = gx * mdw;
+    oy[i] = gy * mdw;
+    oz[i] = gz * mdw;
+    oh[i] = mask * w * (scale * (V - rw.A) - k * U);
+    acc[i] += w * gz;
+  }
+  float* o = dxb + static_cast<size_t>(3 * j) * P + p;
+  store(o, ox);
+  store(o + P, oy);
+  store(o + 2 * P, oz);
+  store(dxb + static_cast<size_t>(3 * J + j) * P + p, oh);
+}
+
+// the d offset of N pixels from p for the joints jl, jl + JL, ...; adds
+// each joint's w g_z into acc
+template <int N, int JL>
+__device__ __forceinline__ void bwd_pixels(float (&acc)[4],
+                                           const float* __restrict__ xb,
+                                           float* __restrict__ dxb,
+                                           const float* __restrict__ db,
+                                           const float* s_coord,
+                                           const float* __restrict__ sb,
+                                           const float* __restrict__ gb,
+                                           const float* __restrict__ yb,
+                                           int p, int jl, int J, int S,
+                                           float k, float scale) {
+  const int P = S * S;
+  Base<N> px;
+  base_load(px, db, s_coord, p, S);
+  for (int j = jl; j < J; j += JL) {
+    Field<N> f;
+    field_load(f, xb, p, j, J, P);
+    joint_grad(acc, px, f, row_of(j, sb, gb, yb), dxb, p, j, J, P, k, scale);
+  }
+}
+
+// d depth of a unit: the JL lanes' sums added in lane order through
+// s_dd ((JL - 1) x PT x 4 floats); lane 0 holds the total
+template <int PT, int JL>
+__device__ __forceinline__ void lane_sum(float (&acc)[4], float* s_dd,
+                                         int pt, int jl) {
+  if constexpr (JL > 1) {
+    if (jl > 0)
+      for (int i = 0; i < 4; ++i) s_dd[((jl - 1) * PT + pt) * 4 + i] = acc[i];
+    __syncthreads();
+    if (jl == 0)
+      for (int l = 1; l < JL; ++l)
+        for (int i = 0; i < 4; ++i) acc[i] += s_dd[((l - 1) * PT + pt) * 4 + i];
+  }
+}
+
+// grid (ceil(units / PT), B), PT x JL threads: thread t takes unit
+// blockIdx.x * PT + t % PT and the joints t / PT, + JL, ...; dynamic
+// shared memory S + (JL - 1) PT 4 floats
+template <int PT, int JL>
+__global__ void __launch_bounds__(PT * JL)
+decode_bwd_kernel(const float* __restrict__ x,      // (B, 4J, S*S)
+                  const float* __restrict__ depth,  // (B, S*S)
+                  const float* __restrict__ g,      // (B, J, 3)
+                  const float* __restrict__ y,      // (B, J, 3)
+                  const float* __restrict__ stats,  // (B, J, 2): m, Z
+                  float* __restrict__ dx,           // (B, 4J, S*S)
+                  float* __restrict__ dd,           // (B, S*S)
+                  int J, int S, float k, float scale, int h, int nq) {
+  extern __shared__ float s_mem[];
+  float* s_coord = s_mem;                       // S
+  float* s_dd = s_mem + S;                      // (JL - 1) x PT x 4
+  const int b = blockIdx.y, P = S * S;
+  const float* sb = stats + static_cast<size_t>(b) * J * 2;
+  const float* gb = g + static_cast<size_t>(b) * J * 3;
+  const float* yb = y + static_cast<size_t>(b) * J * 3;
+  for (int i = threadIdx.x; i < S; i += PT * JL) s_coord[i] = pix_coord(i, S);
+  __syncthreads();
+  const int pt = threadIdx.x % PT, jl = threadIdx.x / PT;
+  const int un = blockIdx.x * PT + pt;
+  const size_t off = static_cast<size_t>(b) * 4 * J * P;
+  const float* db = depth + static_cast<size_t>(b) * P;
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  int p = 0, n = 0;
+  if (un < nq) {
+    p = h + 4 * un;
+    n = 4;
+    bwd_pixels<4, JL>(acc, x + off, dx + off, db, s_coord, sb, gb, yb, p, jl,
+                      J, S, k, scale);
+  } else if (un < P - 3 * nq) {
+    p = single_pixel(un - nq, h, nq);
+    n = 1;
+    bwd_pixels<1, JL>(acc, x + off, dx + off, db, s_coord, sb, gb, yb, p, jl,
+                      J, S, k, scale);
+  }
+  lane_sum<PT, JL>(acc, s_dd, pt, jl);
+  if (jl == 0)
+    for (int i = 0; i < n; ++i) dd[static_cast<size_t>(b) * P + p + i] = acc[i];
+}
+
+// the 16-byte units: where P is a multiple of 4 and every pointer has the
+// same offset from a 16-byte boundary, the h pixels before the first
+// boundary are single, then nq groups of 4 (the rest single); else every
+// pixel is single
+inline void plan_units(int P, const void* const* ptrs, int n, int* h,
+                       int* nq) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(ptrs[0]) % 16;
+  bool ok = P % 4 == 0;
+  for (int i = 1; i < n; ++i)
+    ok = ok && reinterpret_cast<uintptr_t>(ptrs[i]) % 16 == a;
+  const int head = static_cast<int>((16 - a) % 16 / 4);
+  *h = ok ? (head < P ? head : P) : 0;
+  *nq = ok ? (P - *h) / 4 : 0;
+}
+
+// grid (split, J, B): one CTA a row without a cluster (split 1), else a
+// cluster of the split CTAs of each row (at most 8, the portable size)
+template <int THREADS, int U>
+int fwd_launch(const float* x, const float* depth, float* y, float* stats,
+               int B, int J, int S, int split, float k, float scale, int h,
+               int nq, cudaStream_t st) {
+  if (split < 1 || split > 8) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(split, J, B);
+  const size_t smem = static_cast<size_t>(S) * sizeof(float);
+  if (split == 1) {
+    decode_fwd_kernel<THREADS, U, false><<<grid, THREADS, smem, st>>>(
+        x, depth, y, stats, J, S, k, scale, h, nq);
+    return static_cast<int>(cudaGetLastError());
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, decode_fwd_kernel<THREADS, U, true>, x, depth, y, stats, J, S, k,
+      scale, h, nq);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int PT, int JL>
+int bwd_launch(const float* x, const float* depth, const float* g,
+               const float* y, const float* stats, float* dx, float* dd,
+               int B, int J, int S, float k, float scale, int h, int nq,
+               cudaStream_t st) {
+  const int P = S * S;
+  const dim3 grid((P - 3 * nq + PT - 1) / PT, B);
+  const size_t smem = (static_cast<size_t>(S) + (JL - 1) * PT * 4)
+                      * sizeof(float);
+  decode_bwd_kernel<PT, JL><<<grid, PT * JL, smem, st>>>(
+      x, depth, g, y, stats, dx, dd, J, S, k, scale, h, nq);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace dsf_decode
+
+namespace {
+
+// the library's layouts, the fastest of scripts/codec_shapes_gpu.py's by
+// their summed times at B = 1, 32 and 64
+constexpr int kFwdThreads = 128, kFwdU = 2;
+constexpr int kBwdPT = 32, kBwdJL = 7;
+
+}  // namespace
+
 extern "C" int dsf_codec_encode(const float* joints, const float* img,
                                 float* out, int B, int J, int S, float k,
                                 void* stream) {
@@ -378,31 +671,6 @@ extern "C" int dsf_codec_encode(const float* joints, const float* img,
   encode_fwd_kernel<<<grid, kEncThreads, 3 * J * sizeof(float),
                       static_cast<cudaStream_t>(stream)>>>(joints, img, out,
                                                            J, S, k);
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int dsf_codec_decode(const float* x, const float* depth,
-                                float* out, int B, int J, int S, float k,
-                                float scale, void* stream) {
-  const dim3 grid(J, B);
-  decode_fwd_kernel<<<grid, kDecThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(x, depth, out, J,
-                                                           S, k, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-extern "C" int dsf_codec_decode_bwd(const float* x, const float* depth,
-                                    const float* g, float* dx, float* dd,
-                                    float* stats, int B, int J, int S,
-                                    float k, float scale, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  decode_bwd_kernel<<<dim3(J, B), kDecThreads, 0, st>>>(x, depth, g, dx,
-                                                         stats, J, S, k,
-                                                         scale);
-  const int P = S * S;
-  const dim3 grid((P + kEncThreads - 1) / kEncThreads, B);
-  decode_bwd_depth_kernel<<<grid, kEncThreads, 3 * J * sizeof(float), st>>>(
-      x, depth, g, stats, dd, J, S, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -419,4 +687,31 @@ extern "C" int dsf_codec_encode_bwd(const float* joints, const float* img,
       joints, img, g, dd, part, J, S, k);
   encode_bwd_reduce_kernel<<<B, 128, 0, st>>>(part, dj, nblk, 3 * J);
   return static_cast<int>(cudaGetLastError());
+}
+
+// y (B, J, 3) and stats (B, J, 2); split CTAs a row, 1 to 8, merged in a
+// cluster when more than one (a cluster launch costs up to 2 us more)
+extern "C" int dsf_codec_decode(const float* x, const float* depth,
+                                float* y, float* stats, int B, int J, int S,
+                                int split, float k, float scale,
+                                void* stream) {
+  const void* ptrs[2] = {x, depth};
+  int h, nq;
+  dsf_decode::plan_units(S * S, ptrs, 2, &h, &nq);
+  return dsf_decode::fwd_launch<kFwdThreads, kFwdU>(
+      x, depth, y, stats, B, J, S, split, k, scale, h, nq,
+      static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int dsf_codec_decode_bwd(const float* x, const float* depth,
+                                    const float* g, const float* y,
+                                    const float* stats, float* dx, float* dd,
+                                    int B, int J, int S, float k, float scale,
+                                    void* stream) {
+  const void* ptrs[4] = {x, depth, dx, dd};
+  int h, nq;
+  dsf_decode::plan_units(S * S, ptrs, 4, &h, &nq);
+  return dsf_decode::bwd_launch<kBwdPT, kBwdJL>(
+      x, depth, g, y, stats, dx, dd, B, J, S, k, scale, h, nq,
+      static_cast<cudaStream_t>(stream));
 }

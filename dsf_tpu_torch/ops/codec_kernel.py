@@ -4,10 +4,12 @@ and ``_decode_fwd_call`` / ``_decode_bwd`` (K4).
 
 ``*_cuda`` launch or raise.  ``EncodeFn`` and ``DecodeFn`` are the
 ``torch.autograd.Function``s the codec's CUDA path goes through: forward
-and backward are each one kernel launch, as ``encode_pallas`` /
-``decode_pallas`` are ``jax.custom_vjp``s over Pallas kernels.  The
-dispatch that takes the plain versions for CPU tensors is in
-``offset_codec``.
+and backward are each one wrapper call, as ``encode_pallas`` /
+``decode_pallas`` are ``jax.custom_vjp``s over Pallas kernels.  K4's
+forward also returns its softmax statistics, which its VJP takes with
+the joints instead of a second pass over the pixels (plain versions:
+``offset_codec.decode_fwd_plain`` / ``decode_bwd_plain``).  The dispatch
+that takes the plain versions for CPU tensors is in ``offset_codec``.
 """
 
 from __future__ import annotations
@@ -19,13 +21,19 @@ import torch
 from dsf_tpu_torch.kernels import LAUNCHES, build
 
 ENC_THREADS = 256       # csrc kEncThreads: pixels per encode-VJP block
+# K4 forward: a (image, joint) row's pixels are split over 1 to
+# MAX_SPLIT CTAs (one cluster) while the grid holds fewer than FILL_CTAS
+# (B=1, J=21: 4 a row, scripts/codec_shapes_gpu.py's fastest there; from
+# B=3 on, one CTA a row and no cluster)
+MAX_SPLIT = 8
+FILL_CTAS = 84
 
-# pointer arguments, then B, J, S, then float arguments, then the stream
+# the numbers of pointer, int and float arguments, then the stream
 _SIGNATURES = {
-    "dsf_codec_encode": (3, 1),
-    "dsf_codec_decode": (3, 2),
-    "dsf_codec_encode_bwd": (6, 1),
-    "dsf_codec_decode_bwd": (6, 2),
+    "dsf_codec_encode": (3, 3, 1),
+    "dsf_codec_decode": (4, 4, 2),
+    "dsf_codec_encode_bwd": (6, 3, 1),
+    "dsf_codec_decode_bwd": (7, 3, 2),
 }
 _fns = {}
 
@@ -34,8 +42,8 @@ def _launcher(name):
     fn = _fns.get(name)
     if fn is None:
         fn = getattr(build.library("codec"), name)
-        n_ptr, n_float = _SIGNATURES[name]
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 3
+        n_ptr, n_int, n_float = _SIGNATURES[name]
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
                        + [ctypes.c_float] * n_float + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _fns[name] = fn
@@ -56,10 +64,10 @@ def _same_device(*ts):
         raise ValueError("codec inputs must be on one device")
 
 
-def _launch(name, tensors, B, J, S, floats):
+def _launch(name, tensors, ints, floats):
     fn = _launcher(name)
     with torch.cuda.device(tensors[0].device):
-        err = fn(*[t.data_ptr() for t in tensors], B, J, S,
+        err = fn(*[t.data_ptr() for t in tensors], *ints,
                  *[float(f) for f in floats],
                  torch.cuda.current_stream().cuda_stream)
     build.check(err, name)
@@ -75,7 +83,8 @@ def encode_cuda(joint, img_s, kernel_size):
     _same_device(joint, img_s)
     out = torch.empty((B, 4 * J, S, S), dtype=torch.float32,
                       device=joint.device)
-    _launch("dsf_codec_encode", (joint, img_s, out), B, J, S, (kernel_size,))
+    _launch("dsf_codec_encode", (joint, img_s, out), (B, J, S),
+            (kernel_size,))
     LAUNCHES["codec_encode"] += 1
     return out
 
@@ -95,8 +104,8 @@ def encode_bwd_cuda(joint, img_s, g, kernel_size):
     dd = torch.empty((B, 1, S, S), dtype=torch.float32, device=joint.device)
     part = torch.empty((B, nblk, 3 * J), dtype=torch.float32,
                        device=joint.device)
-    _launch("dsf_codec_encode_bwd", (joint, img_s, g, dj, dd, part), B, J, S,
-            (kernel_size,))
+    _launch("dsf_codec_encode_bwd", (joint, img_s, g, dj, dd, part),
+            (B, J, S), (kernel_size,))
     LAUNCHES["codec_encode_bwd"] += 1
     return dj, dd
 
@@ -109,34 +118,56 @@ def _decode_shapes(offset):
     return B, C, J, S
 
 
+def decode_split(B, J):
+    """CTAs a (image, joint) row of the K4 forward: as many as B * J rows
+    fit into FILL_CTAS, 1 to MAX_SPLIT."""
+    return max(1, min(MAX_SPLIT, FILL_CTAS // (B * J)))
+
+
 def decode_cuda(offset, depth_s, kernel_size, scale):
     """offset (B, 4J, S, S) + depth_s (B, 1, S, S) at the feature size ->
-    joints (B, J, 3): softmax(scale * heat * mask)-weighted votes."""
+    (joints (B, J, 3): softmax(scale * heat * mask)-weighted votes, the
+    softmax's statistics (B, J, 2): its max m and mass Z).  Any S and any
+    start address (the kernel reads single pixels up to a 16-byte
+    boundary)."""
     B, C, J, S = _decode_shapes(offset)
     _check("offset", offset, (B, C, S, S))
     _check("depth_s", depth_s, (B, 1, S, S))
     _same_device(offset, depth_s)
-    out = torch.empty((B, J, 3), dtype=torch.float32, device=offset.device)
-    _launch("dsf_codec_decode", (offset, depth_s, out), B, J, S,
-            (kernel_size, scale))
+    y = torch.empty((B, J, 3), dtype=torch.float32, device=offset.device)
+    stats = torch.empty((B, J, 2), dtype=torch.float32, device=offset.device)
+    _launch("dsf_codec_decode", (offset, depth_s, y, stats),
+            (B, J, S, decode_split(B, J)), (kernel_size, scale))
     LAUNCHES["codec_decode"] += 1
-    return out
+    return y, stats
 
 
-def decode_bwd_cuda(offset, depth_s, g, kernel_size, scale):
-    """VJP of ``decode_cuda`` for the cotangent g (B, J, 3) ->
-    (d offset (B, 4J, S, S), d depth_s (B, 1, S, S)).  The mask comparison
-    is not differentiated, as in the JAX package."""
+def _empty_in_phase(t):
+    """An empty contiguous float32 tensor shaped as ``t`` whose start lies
+    as far past a 16-byte boundary as ``t``'s, so that the kernel's 16-byte
+    loads of ``t`` and stores into it go together."""
+    n = t.numel()
+    buf = torch.empty(n + 3, dtype=torch.float32, device=t.device)
+    skip = (t.data_ptr() - buf.data_ptr()) % 16 // 4
+    return buf[skip:skip + n].view(t.shape)
+
+
+def decode_bwd_cuda(offset, depth_s, g, y, stats, kernel_size, scale):
+    """VJP of ``decode_cuda`` for the cotangent g (B, J, 3), from its
+    joints y and statistics -> (d offset (B, 4J, S, S), d depth_s
+    (B, 1, S, S)), one elementwise pass.  The mask comparison is not
+    differentiated, as in the JAX package."""
     B, C, J, S = _decode_shapes(offset)
     _check("offset", offset, (B, C, S, S))
     _check("depth_s", depth_s, (B, 1, S, S))
     _check("g", g, (B, J, 3))
-    _same_device(offset, depth_s, g)
-    dx = torch.empty_like(offset)
-    dd = torch.empty_like(depth_s)
-    stats = torch.empty((B, J, 2), dtype=torch.float32, device=offset.device)
-    _launch("dsf_codec_decode_bwd", (offset, depth_s, g, dx, dd, stats), B, J,
-            S, (kernel_size, scale))
+    _check("y", y, (B, J, 3))
+    _check("stats", stats, (B, J, 2))
+    _same_device(offset, depth_s, g, y, stats)
+    dx = _empty_in_phase(offset)
+    dd = _empty_in_phase(depth_s)
+    _launch("dsf_codec_decode_bwd", (offset, depth_s, g, y, stats, dx, dd),
+            (B, J, S), (kernel_size, scale))
     LAUNCHES["codec_decode_bwd"] += 1
     return dx, dd
 
@@ -159,17 +190,19 @@ class EncodeFn(torch.autograd.Function):
 
 
 class DecodeFn(torch.autograd.Function):
-    """K4: forward ``decode_cuda``, backward ``decode_bwd_cuda``."""
+    """K4: forward ``decode_cuda``, backward ``decode_bwd_cuda`` from the
+    forward's joints and statistics."""
 
     @staticmethod
     def forward(ctx, offset, depth_s, kernel_size, scale):
-        ctx.save_for_backward(offset, depth_s)
+        y, stats = decode_cuda(offset, depth_s, kernel_size, scale)
+        ctx.save_for_backward(offset, depth_s, y, stats)
         ctx.kernel_size, ctx.scale = kernel_size, scale
-        return decode_cuda(offset, depth_s, kernel_size, scale)
+        return y
 
     @staticmethod
     def backward(ctx, g):
-        offset, depth_s = ctx.saved_tensors
-        dx, dd = decode_bwd_cuda(offset, depth_s, g.contiguous(),
+        offset, depth_s, y, stats = ctx.saved_tensors
+        dx, dd = decode_bwd_cuda(offset, depth_s, g.contiguous(), y, stats,
                                  ctx.kernel_size, ctx.scale)
         return dx, dd, None, None

@@ -53,9 +53,10 @@ def joint2offset_plain(joint, img_s, kernel_size):
     return torch.cat([offset_m, heatmap * mask], dim=1)
 
 
-def offset2joint_plain(offset, depth_s, kernel_size, scale=30.0):
-    """(B, 4J, S, S) feature + depth_s (B, 1, S, S) at the feature size ->
-    joints (B, J, 3)."""
+def _decode_terms(offset, depth_s, kernel_size):
+    """The decode's per-pixel terms, as (B, J, 3, P) / (B, J, P) / (B, 1,
+    P) tensors: the masked units, the masked heat, the distance k - k hm,
+    the coordinates (B, 1, 3, P) and the foreground mask."""
     B, C, S, _ = offset.shape
     J = C // 4
     unit = offset[:, : J * 3].reshape(B, J, 3, S * S)
@@ -64,10 +65,58 @@ def offset2joint_plain(offset, depth_s, kernel_size, scale=30.0):
     mask = (depth_s < 0.99).to(offset.dtype).reshape(B, 1, S * S)
     unit_m = unit * mask[:, :, None]
     heat_m = heatmap * mask
-    normal_heat = torch.softmax(heat_m * scale, dim=-1)
     dist = kernel_size - heat_m * kernel_size
+    return unit_m, heat_m, dist, coords, mask
+
+
+def offset2joint_plain(offset, depth_s, kernel_size, scale=30.0):
+    """(B, 4J, S, S) feature + depth_s (B, 1, S, S) at the feature size ->
+    joints (B, J, 3)."""
+    unit_m, heat_m, dist, coords, _ = _decode_terms(offset, depth_s,
+                                                    kernel_size)
+    normal_heat = torch.softmax(heat_m * scale, dim=-1)
     vote = unit_m * dist[:, :, None] + coords
     return torch.sum(vote * normal_heat[:, :, None], dim=-1)
+
+
+def decode_fwd_plain(offset, depth_s, kernel_size, scale=30.0):
+    """K4 forward's plain version: ``offset2joint_plain``'s joints y
+    (B, J, 3) and the softmax's statistics (B, J, 2): the max m of
+    scale * heat * mask over the pixels and the mass Z = sum exp(. - m),
+    which the VJP ``decode_bwd_plain`` takes instead of a second pass."""
+    unit_m, heat_m, dist, coords, _ = _decode_terms(offset, depth_s,
+                                                    kernel_size)
+    s = heat_m * scale
+    m = s.amax(-1, keepdim=True)
+    e = torch.exp(s - m)
+    z = e.sum(-1, keepdim=True)
+    vote = unit_m * dist[:, :, None] + coords
+    y = torch.sum(vote * (e / z)[:, :, None], dim=-1)
+    return y, torch.cat([m, z], -1)
+
+
+def decode_bwd_plain(offset, depth_s, g, y, stats, kernel_size, scale=30.0):
+    """K4 VJP's plain version, in closed form from the forward's y and
+    statistics: per pixel p of joint j, w = exp(scale hm - m) / Z,
+    U = mask (g . unit), V = dist U + g . coords, and A = sum_p w V = g . y,
+    so d unit = g mask dist w, d heat = mask w (scale (V - A) - k U) and
+    d depth = sum_j w g_z (the mask is not differentiated).  Returns
+    (d offset (B, 4J, S, S), d depth_s (B, 1, S, S))."""
+    B, C, S, _ = offset.shape
+    J = C // 4
+    unit_m, heat_m, dist, coords, mask = _decode_terms(offset, depth_s,
+                                                       kernel_size)
+    w = torch.exp(heat_m * scale - stats[..., :1]) / stats[..., 1:]
+    gc = g[..., None]                                           # (B,J,3,1)
+    U = (unit_m * gc).sum(2)
+    V = dist * U + (coords * gc).sum(2)
+    A = (g * y).sum(-1, keepdim=True)
+    d_unit = gc * (mask * dist * w)[:, :, None]
+    d_heat = mask * w * (scale * (V - A) - kernel_size * U)
+    dd = (w * g[..., 2:]).sum(1)
+    return (torch.cat([d_unit.reshape(B, 3 * J, S, S),
+                       d_heat.reshape(B, J, S, S)], 1),
+            dd.reshape(B, 1, S, S))
 
 
 def joint2offset(joint, img, kernel_size, feature_size):

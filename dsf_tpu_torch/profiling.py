@@ -58,7 +58,7 @@ FAMILIES = (
     ("K5 codec encode", ("encode_fwd_kernel",)),
     ("K5 codec encode VJP", ("encode_bwd",)),
     ("K4 codec decode", ("decode_fwd_kernel",)),
-    ("K4 codec decode VJP", ("decode_bwd",)),
+    ("K4 codec decode VJP", ("decode_bwd_kernel",)),
     ("K3 point-mesh argmin", ("Form27", "setup27_kernel")),
     ("K9 tail conv", ("tail_conv_kernel",)),
     ("batchnorm", ("batch_norm", "bn_fw", "bn_bw")),

@@ -136,6 +136,18 @@ def test_wrapper_rejects_wrong_layouts(cuda):
         codec_kernel.encode_cuda(torch.zeros(1, 21, 3, device=cuda),
                                  torch.zeros(1, 1, 8, 8, device=cuda,
                                              dtype=torch.float64), 0.8)
+    with pytest.raises(ValueError, match="float32 CUDA"):
+        codec_kernel.decode_cuda(torch.zeros(1, 84, 8, 8, device=cuda,
+                                             dtype=torch.float64),
+                                 torch.zeros(1, 1, 8, 8, device=cuda), 0.8,
+                                 30.0)
+    with pytest.raises(ValueError, match="stats"):
+        codec_kernel.decode_bwd_cuda(torch.zeros(1, 84, 8, 8, device=cuda),
+                                     torch.zeros(1, 1, 8, 8, device=cuda),
+                                     torch.zeros(1, 21, 3, device=cuda),
+                                     torch.zeros(1, 21, 3, device=cuda),
+                                     torch.zeros(1, 21, 3, device=cuda),
+                                     0.8, 30.0)
 
 
 def _grads(fn, args, cot):
@@ -178,7 +190,9 @@ def test_codec_vjp_kernels_match_plain(renderer):
     offset = (oc.joint2offset_plain(juvd, img, 0.8) + 0.05 * g).contiguous()
     gd = torch.randn(4, 21, 3, device=img.device,
                      generator=torch.Generator(img.device).manual_seed(1))
-    dx, ddd = codec_kernel.decode_bwd_cuda(offset, img, gd, 0.8, 30.0)
+    y, stats = codec_kernel.decode_cuda(offset, img, 0.8, 30.0)
+    dx, ddd = codec_kernel.decode_bwd_cuda(offset, img, gd, y, stats, 0.8,
+                                           30.0)
     rx, rdd = _grads(lambda o, d: oc.offset2joint_plain(o, d, 0.8, 30.0),
                      (offset, img), gd)
     assert kernels.LAUNCHES["codec_encode_bwd"] == before["codec_encode_bwd"] + 1
@@ -187,6 +201,89 @@ def test_codec_vjp_kernels_match_plain(renderer):
         assert ref.abs().max() > 0
         torch.testing.assert_close(got, ref, rtol=0,
                                    atol=1e-4 * float(ref.abs().max()))
+
+
+def _decode_case(case, cuda):
+    """Seeded fields (the CPU tests' recipe, J=21) for K4's layouts: B=1;
+    S=31 (S^2 not a multiple of 4: single pixels only); a field starting 4
+    bytes past a 16-byte boundary with the depth aligned (single pixels),
+    and both starting 8 bytes past one (2 single pixels, then 16-byte
+    units); the NaN case (a NaN in a unit row at a background pixel, a
+    +inf in a foreground heat entry)."""
+    B, S, shift, dshift = {"B1": (1, 64, 0, 0), "odd S": (2, 31, 0, 0),
+                           "field unaligned": (2, 64, 1, 0),
+                           "both unaligned": (2, 64, 2, 2),
+                           "nan": (2, 64, 0, 0)}[case]
+    rng = np.random.RandomState(7)
+    off = rng.randn(B, 84, S, S).astype(np.float32) * 0.3
+    off[:, 63:] = rng.uniform(-0.5, 1.0, (B, 21, S, S))
+    dep = rng.uniform(-1, 1.05, (B, 1, S, S)).astype(np.float32)
+    g = torch.from_numpy(rng.randn(B, 21, 3).astype(np.float32)).to(cuda)
+    if case == "nan":
+        bg = np.argwhere(dep[0, 0] >= 0.99)[0]
+        fg = np.argwhere(dep[1, 0] < 0.99)[0]
+        off[0, 13, bg[0], bg[1]] = np.nan
+        off[1, 70, fg[0], fg[1]] = np.inf
+
+    def placed(a, k):
+        buf = torch.empty(a.size + k, device=cuda)
+        t = buf[k:].view(a.shape)
+        t.copy_(torch.from_numpy(a))
+        return t
+
+    return placed(off, shift), placed(dep, dshift), g
+
+
+@pytest.mark.parametrize("case", ["B1", "odd S", "field unaligned",
+                                  "both unaligned", "nan"])
+def test_decode_kernels_layouts(cuda, case):
+    """K4 forward and VJP at the layouts the 16-byte path does not cover
+    whole, against their plain versions: y within 1e-5, the softmax max
+    exactly and its mass within 1e-5 relative; dx and dd within 1e-4 of
+    their largest entry, also against autograd of offset2joint_plain; in
+    the NaN case the forward's non-finite entries are the plain version's
+    and the VJP's those of autograd."""
+    offset, depth, g = _decode_case(case, cuda)
+    before = dict(kernels.LAUNCHES)
+    y, stats = codec_kernel.decode_cuda(offset, depth, 0.8, 30.0)
+    dx, dd = codec_kernel.decode_bwd_cuda(offset, depth, g, y, stats, 0.8,
+                                          30.0)
+    assert kernels.LAUNCHES["codec_decode"] == before["codec_decode"] + 1
+    assert kernels.LAUNCHES["codec_decode_bwd"] == before["codec_decode_bwd"] + 1
+    ry, rst = oc.decode_fwd_plain(offset, depth, 0.8, 30.0)
+    rx, rd = oc.decode_bwd_plain(offset, depth, g, ry, rst, 0.8, 30.0)
+    ax, ad = _grads(lambda o, d: oc.offset2joint_plain(o, d, 0.8, 30.0),
+                    (offset, depth), g)
+    fin = ry.isfinite()
+    assert torch.equal(y.isfinite(), fin) and torch.equal(y.isnan(), ry.isnan())
+    assert (case == "nan") == bool((~fin).any())
+    assert (y - ry)[fin].abs().max() <= 1e-5
+    ok = fin.all(-1)
+    assert torch.equal(stats[..., 0][ok], rst[..., 0][ok])
+    assert (((stats[..., 1] - rst[..., 1]) / rst[..., 1])[ok].abs()
+            <= 1e-5).all()
+    for got, ref, auto in ((dx, rx, ax), (dd, rd, ad)):
+        assert torch.equal(got.isfinite(), auto.isfinite())
+        m = auto.isfinite()
+        for r in (ref, auto):
+            scale = float(r[m].abs().max())
+            assert scale > 0
+            assert float((got - r)[m].abs().max()) <= 1e-4 * scale
+
+
+def test_decode_kernels_repeat_bitwise(cuda):
+    """Fixed merge orders: two runs of K4 give the same bits, at a batch
+    where the rows are split over clusters (B=1) and where they are not."""
+    for case in ("B1", "nan"):
+        offset, depth, g = _decode_case(case, cuda)
+        runs = []
+        for _ in range(2):
+            y, st = codec_kernel.decode_cuda(offset, depth, 0.8, 30.0)
+            runs.append((y, st) + codec_kernel.decode_bwd_cuda(
+                offset, depth, g, y, st, 0.8, 30.0))
+        for a, b in zip(*runs):
+            assert torch.equal(a.nan_to_num(), b.nan_to_num())
+            assert torch.equal(a.isnan(), b.isnan())
 
 
 def test_cuda_path_carries_the_training_gradient(renderer):

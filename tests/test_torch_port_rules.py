@@ -57,7 +57,10 @@ def test_no_jax_flax_or_dsf_tpu_imports():
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py",
-                                    "scripts/raster_shapes_gpu.py"])
+                                    "scripts/raster_shapes_gpu.py",
+                                    "scripts/argmin_shapes_gpu.py",
+                                    "scripts/tail_shapes_gpu.py",
+                                    "scripts/codec_shapes_gpu.py"])
 def test_chip_smoke_imports_no_jax(script):
     path = os.path.join(os.path.dirname(PKG), script)
     bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
@@ -115,7 +118,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         codec_kernel.decode_bwd_cuda(torch.zeros(1, 84, 8, 8),
                                      torch.zeros(1, 1, 8, 8),
-                                     torch.zeros(1, 21, 3), 0.8, 30.0)
+                                     torch.zeros(1, 21, 3),
+                                     torch.zeros(1, 21, 3),
+                                     torch.zeros(1, 21, 2), 0.8, 30.0)
     with pytest.raises(ValueError, match="CUDA"):
         moments_kernel.face_moments_cuda(torch.zeros(1, 16, dtype=torch.int32),
                                          torch.zeros(1, 16, 3), 8)

@@ -268,24 +268,28 @@ def test_encode_vjp_matches_jax(reference, interpret_codec):
 
 # ------------------------------------- the CUDA path's autograd.Functions
 
-def _plain_launchers(monkeypatch):
+def _plain_launchers(monkeypatch, closed_form=False):
     """Swap the kernel launchers for float64-capable plain versions, so the
-    autograd.Functions of the CUDA path run on CPU tensors."""
+    autograd.Functions of the CUDA path run on CPU tensors.  K4's VJP is
+    autograd of offset2joint_plain, or with ``closed_form`` its kernel's
+    plain version ``decode_bwd_plain`` (from the forward's y and
+    statistics)."""
     def vjp(f, args, g):
         with torch.enable_grad():
             xs = [a.detach().requires_grad_(True) for a in args]
             return torch.autograd.grad(f(*xs), xs, g)
 
     monkeypatch.setattr(codec_kernel, "encode_cuda", TO.joint2offset_plain)
-    monkeypatch.setattr(codec_kernel, "decode_cuda", TO.offset2joint_plain)
+    monkeypatch.setattr(codec_kernel, "decode_cuda", TO.decode_fwd_plain)
     monkeypatch.setattr(
         codec_kernel, "encode_bwd_cuda",
         lambda j, i, g, k: vjp(lambda a, b: TO.joint2offset_plain(a, b, k),
                                (j, i), g))
     monkeypatch.setattr(
         codec_kernel, "decode_bwd_cuda",
-        lambda o, d, g, k, s: vjp(
-            lambda a, b: TO.offset2joint_plain(a, b, k, s), (o, d), g))
+        TO.decode_bwd_plain if closed_form else
+        (lambda o, d, g, y, st, k, s: vjp(
+            lambda a, b: TO.offset2joint_plain(a, b, k, s), (o, d), g)))
 
 
 def test_codec_functions_carry_the_gradient(monkeypatch):
@@ -318,8 +322,9 @@ def test_codec_functions_gradcheck_float64(monkeypatch):
     """Finite-difference check (torch.autograd.gradcheck, float64) of
     EncodeFn and DecodeFn on their plain path.  The encode's cone mask and
     the decode's foreground mask are held away from their edges, where the
-    function is not differentiable."""
-    _plain_launchers(monkeypatch)
+    function is not differentiable.  DecodeFn's backward is K4's closed
+    form (decode_bwd_plain), so the check holds that form too."""
+    _plain_launchers(monkeypatch, closed_form=True)
     rng = np.random.RandomState(1)
     joint = torch.from_numpy(rng.uniform(-0.5, 0.5, (1, 2, 3))).requires_grad_(True)
     img = torch.from_numpy(rng.uniform(-0.9, 0.5, (1, 1, 4, 4))).requires_grad_(True)
