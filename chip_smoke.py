@@ -10,11 +10,14 @@ Phases, each printed on its own line(s); any failure exits non-zero:
    with ptxas's register and shared-memory report;
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the serving and training paths give it (K1 skip-raster and
-   K2 raster moments at B=32 with 64x64 and 128x128 pixels, K1's face
+   K2 raster moments at B=32 with 64x64 and 128x128 pixels, K2 also at the
+   FinetuneStage step's 2B crops, each run twice (bitwise), K1's face
    set-up kernel bitwise against rasterize.skip_tables, K1 and K6 also on
    a crop without a hand, a hand shrunk until one tile meets more faces
    than a 256-face chunk holds, and a ragged 60x58 layout; K5 encode,
-   K4 decode and their VJPs at B=32, J=21, S=64; K3 point->mesh argmin at
+   K4 decode and their VJPs at B=32, J=21, S=64, the VJPs also twice
+   (bitwise), against float64, on a cotangent or field with a NaN and an
+   inf, and at B = 1, 32 and 64; K3 point->mesh argmin at
    the FinetuneStage step's 128 clouds x 2048 points x 1554 faces under the
    ICP's 16-column part table, its set-up kernel (face rows word for word,
    part lists, point order and tiles bitwise against
@@ -556,9 +559,10 @@ def check_codec(renderer, B, rng):
     return out
 
 
-def check_moments(renderer, B, stride, rng, record):
+def check_moments(renderer, B, stride, rng):
     """K2 on the face ids of a real raster and the rows the raster backward
-    builds from them (random cotangent)."""
+    builds from them (random cotangent): against float64, two runs
+    bitwise; its time beside its plain version's and index_add_'s."""
     import torch
     from dsf_tpu_torch.ops import moments_kernel, raster_kernel
 
@@ -570,9 +574,11 @@ def check_moments(renderer, B, stride, rng, record):
     gm = g * (idx >= 0).float()
     upd = torch.stack([gm, gm * rays[..., 0], gm * rays[..., 1]], -1).contiguous()
     got = moments_kernel.face_moments_cuda(idx, upd, T)
+    again = moments_kernel.face_moments_cuda(idx, upd, T)
     ref = moments_kernel.face_moments_plain(idx, upd.double(), T)
     absum = moments_kernel.face_moments_plain(idx, upd.abs().double(), T)
     torch.cuda.synchronize()
+    need(torch.equal(got, again), "K2 differs between two runs")
     err = float((got.double() - ref).abs().max())
     # a float32 sum of n rows in any order rounds within n 2^-24 of the sum
     # of |rows|; a face covers at most ~300 pixels here: 2e-5
@@ -591,17 +597,31 @@ def check_moments(renderer, B, stride, rng, record):
     nbytes = idx.numel() * 4 + hits * 3 * 4 + B * T * 3 * 4
     bms, by = bound_ms(nbytes, 3 * hits)
     say(f"kernel K2 raster_moments B={B} {H}x{W} T={T}: max_abs_err {err:.3g} "
-        f"(vs float64; worst / sum|rows| {worst:.3g}), {hits} covered pixels, "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, index_add_ "
-        f"{lib_ms:.4f} ms, bound {bms:.6f} ms by {by}")
+        f"(vs float64; worst / sum|rows| {worst:.3g}), two runs bitwise "
+        f"equal, {hits} covered pixels, kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms, bound {bms:.6f} ms "
+        f"by {by}")
     need(worst <= 2e-5, f"K2 disagrees with its plain version: {worst}")
-    if record:
-        return {"name": "raster_moments", "route": "cuda",
-                "source": "dsf_tpu_torch/csrc/moments.cu",
-                "replaces": "dsf_tpu/ops/pallas_raster.py:169",
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
-    return None
+    return {"name": "raster_moments", "route": "cuda",
+            "source": "dsf_tpu_torch/csrc/moments.cu",
+            "replaces": "dsf_tpu/ops/pallas_raster.py:169",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms}
+
+
+def check_moments_shapes(renderer, rng):
+    """K2 at chip_smoke's B=32 crops of 64x64 and 128x128 (the first is
+    the record's) and at the FinetuneStage step's two launches, 2B crops
+    of 64x64 and 128x128; returns the record with ``ms_by_shape``."""
+    recs = {f"B={B} {INPUT_SIZE // stride}^2":
+            check_moments(renderer, B, stride, rng)
+            for B, stride in ((KERNEL_BATCH, 2), (KERNEL_BATCH, 1),
+                              (2 * TRAIN_BATCH, 2), (2 * TRAIN_BATCH, 1))}
+    first = next(iter(recs.values()))
+    first["ms_by_shape"] = {
+        shape: {k: r[k] for k in ("ms", "library_ms", "bound_ms", "max_abs_err")}
+        for shape, r in recs.items()}
+    return first
 
 
 def check_codec_bwd(renderer, B, rng):
@@ -710,6 +730,7 @@ def check_codec_bwd(renderer, B, rng):
             o, d, g, yy, ss, 0.8, 30.0), (offset, img, g_dec, y, st),
         bwd_holds)
     say_batches("codec_decode_bwd", bwd_times)
+    enc_times = check_encode_bwd(juvd, img, g_enc, enc_plain, vjp, rel_err)
     auto_ms = time_ms(dec_auto, 20)
     field = B * 4 * J * P * 4
     floor_ms = (2 * field + 2 * B * P * 4) / PEAK_BYTES_PER_S * 1e3
@@ -747,8 +768,86 @@ def check_codec_bwd(renderer, B, rng):
                     "replaces": replaces, "max_abs_err": err, "ms": ms,
                     "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
                     "library_ms": None})
+    out[0]["ms_by_batch"] = enc_times
     out[1]["ms_by_batch"] = bwd_times
     return out
+
+
+def encode_nan_case(juvd, img, g):
+    """``g`` with a NaN in image 0's joint-4 x unit row at a pixel outside
+    joint 4's cone and a +inf in image 1's joint-7 heat row at a foreground
+    pixel inside joint 7's cone: autograd's d joint rows (0, 4) and (1, 7)
+    and the d depth of those two pixels are not finite."""
+    import torch
+    from dsf_tpu_torch.ops import offset_codec as oc
+    J, S = juvd.shape[1], img.shape[-1]
+    coords = oc._coords(img, S)
+    dist = ((juvd[:, :, :, None, None] - coords[:, None]) ** 2).sum(2).sqrt()
+    out = (dist[0, 4] > 0.8).nonzero()[0]
+    inside = ((dist[1, 7] < 0.8) & (img[1, 0] < FG)).nonzero()[0]
+    bad = g.clone()
+    bad[0, 3 * 4, out[0], out[1]] = float("nan")
+    bad[1, 3 * J + 7, inside[0], inside[1]] = float("inf")
+    return bad
+
+
+def check_encode_bwd(juvd, img, g, enc_plain, vjp, rel_err):
+    """K5 bwd (one launch a call) on rendered hands: against float64 (no
+    further than 3x autograd's float32), two runs bitwise, the NaN case
+    against autograd, and its time at each of DECODE_BATCHES; prints the
+    whole-field floor beside."""
+    import torch
+    from dsf_tpu_torch import kernels
+    from dsf_tpu_torch.ops import codec_kernel
+    from dsf_tpu_torch.ops import offset_codec as oc
+
+    B, J, _ = juvd.shape
+    S = img.shape[-1]
+    enc = lambda j, d, gg: codec_kernel.encode_bwd_cuda(j, d, gg, 0.8)
+    before = kernels.LAUNCHES["codec_encode_bwd"]
+    got = enc(juvd, img, g)
+    again = enc(juvd, img, g)
+    torch.cuda.synchronize()
+    need(kernels.LAUNCHES["codec_encode_bwd"] == before + 2,
+         "K5 bwd did not count one launch a call")
+    need(all(torch.equal(a, b) for a, b in zip(got, again)),
+         "K5 bwd differs between two runs")
+    plain = enc_plain()
+    ref64 = vjp(lambda j, d: oc.joint2offset_plain(j, d, 0.8),
+                (juvd.double(), img.double()), g.double())
+    d_k, d_p = rel_err(got, ref64), rel_err(plain, ref64)
+    need(d_k <= 3 * d_p, f"K5 bwd lies {d_k} from float64, autograd's "
+         f"float32 {d_p}")
+    bad = encode_nan_case(juvd, img, g)
+    kj, kd = enc(juvd, img, bad)
+    aj, ad = vjp(lambda j, d: oc.joint2offset_plain(j, d, 0.8), (juvd, img),
+                 bad)
+    need(torch.equal(kj.isfinite(), aj.isfinite())
+         and torch.equal(kd.isfinite(), ad.isfinite())
+         and bool((~aj.isfinite()).any()),
+         "K5 bwd's non-finite entries differ from autograd's")
+    rows = (~kj.isfinite()).any(-1).nonzero().tolist()
+    pix = (~kd.reshape(B, -1).isfinite()).nonzero().tolist()
+    say(f"kernel codec_encode_bwd B={B}: from float64 {d_k:.3g} (autograd "
+        f"{d_p:.3g}); two runs bitwise equal, one launch a call; NaN case: "
+        f"non-finite (image, joint) rows {rows} and (image, pixel) {pix}, "
+        "elementwise as autograd's")
+
+    def holds(B, xs, out):
+        rel = rel_err(out, vjp(lambda j, d: oc.joint2offset_plain(j, d, 0.8),
+                               xs[:2], xs[2]))
+        need(rel <= 1e-4, f"K5 bwd at B={B} disagrees with autograd: {rel}")
+
+    times = time_batches(enc, (juvd, img, g), holds)
+    say_batches("codec_encode_bwd", times)
+    field = B * 4 * J * S * S * 4
+    floor_ms = (field + 2 * B * S * S * 4 + 2 * B * J * 3 * 4) \
+        / PEAK_BYTES_PER_S * 1e3
+    gsum = time_ms(lambda: g.sum(), 50)
+    say(f"  codec_encode_bwd: the whole field's floor {floor_ms:.6f} ms (g "
+        f"read once, depth read and d depth written, joints and d joints); "
+        f"g.sum() over the same field {gsum:.4f} ms")
+    return times
 
 
 def icp_scene(renderer, B, rng):
@@ -2333,9 +2432,7 @@ def main():
             check_raster(renderer, KERNEL_BATCH, 1, rng, record=False)
             check_raster_cases(renderer, KERNEL_BATCH, rng)
             record += check_codec(renderer, KERNEL_BATCH, rng)
-        record.append(check_moments(renderer, KERNEL_BATCH, 2, rng,
-                                    record=True))
-        check_moments(renderer, KERNEL_BATCH, 1, rng, record=False)
+        record.append(check_moments_shapes(renderer, rng))
         record += check_codec_bwd(renderer, KERNEL_BATCH, rng)
         with torch.inference_mode():
             sc = icp_scene(renderer, 2 * TRAIN_BATCH, rng)

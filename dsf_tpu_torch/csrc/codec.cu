@@ -23,14 +23,8 @@
 //    version's order, and divisions are IEEE divisions, so the field
 //    matches the plain PyTorch version to the last bit or two;
 //  * decode and its VJP: see the comment above namespace dsf_decode;
-//  * encode VJP: a grid over (pixel block, image), one thread per pixel
-//    looping the J joints.  It recomputes dist, 1/dist and the cone mask
-//    exactly as the forward does (round-to-nearest, same order), forms
-//    d_off, and sums -d_off_z over joints for the image gradient in the
-//    thread.  The joint gradient sums d_off over all pixels: each block
-//    reduces its pixels (warp shuffles, then across warps) into one
-//    partial row of 3J per block, and a second kernel sums the partials
-//    of an image in block order.  Deterministic, no atomics.
+//  * encode VJP: see the comment above namespace dsf_encode.  It shares
+//    the decode's 16-byte units (plan_units, base_load, field_load).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -82,93 +76,6 @@ encode_fwd_kernel(const float* __restrict__ joints,  // (B, J, 3)
     ob[(size_t)(3 * j + 1) * P] = __fmul_rn(__fdiv_rn(oy, dist), m);
     ob[(size_t)(3 * j + 2) * P] = __fmul_rn(__fdiv_rn(oz, dist), m);
     ob[(size_t)(3 * J + j) * P] = __fmul_rn(heat, m);
-  }
-}
-
-__global__ void __launch_bounds__(kEncThreads)
-encode_bwd_kernel(const float* __restrict__ joints,  // (B, J, 3)
-                  const float* __restrict__ img,     // (B, S*S)
-                  const float* __restrict__ g,       // (B, 4J, S*S)
-                  float* __restrict__ dd,            // (B, S*S)
-                  float* __restrict__ part,          // (B, nblk, 3J)
-                  int J, int S, float k) {
-  constexpr int kWarps = kEncThreads / 32;
-  extern __shared__ float s_mem[];
-  float* s_j = s_mem;                                 // 3J
-  float* s_red = s_mem + 3 * J;                       // kWarps x 3J
-  const int b = blockIdx.y;
-  for (int i = threadIdx.x; i < 3 * J; i += blockDim.x)
-    s_j[i] = joints[(size_t)b * 3 * J + i];
-  __syncthreads();
-  const int P = S * S;
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool active = p < P;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float u = 0.f, v = 0.f, d = 0.f, fg = 0.f;
-  if (active) {
-    u = pix_coord(p % S, S);
-    v = pix_coord(p / S, S);
-    d = img[(size_t)b * P + p];
-    fg = d < 0.99f ? 1.f : 0.f;
-  }
-  const float* gb = g + (size_t)b * 4 * J * P + p;
-  float dz_sum = 0.f;
-  for (int j = 0; j < J; ++j) {
-    float dox = 0.f, doy = 0.f, doz = 0.f;
-    if (active) {
-      // the forward's offsets, distance and cone mask, rounded as there
-      const float ox = __fsub_rn(s_j[3 * j], u);
-      const float oy = __fsub_rn(s_j[3 * j + 1], v);
-      const float oz = __fsub_rn(s_j[3 * j + 2], d);
-      const float ss = __fadd_rn(
-          __fadd_rn(__fadd_rn(__fmul_rn(ox, ox), __fmul_rn(oy, oy)),
-                    __fmul_rn(oz, oz)), 1e-8f);
-      const float dist = __fsqrt_rn(ss);
-      const float heat = __fdiv_rn(__fsub_rn(k, dist), k);
-      const float m = __fmul_rn(heat >= 0.f ? 1.f : 0.f, fg);
-      const float rd = __fdiv_rn(1.f, dist);
-      const float gux = gb[(size_t)(3 * j) * P];
-      const float guy = gb[(size_t)(3 * j + 1) * P];
-      const float guz = gb[(size_t)(3 * j + 2) * P];
-      const float gh = gb[(size_t)(3 * J + j) * P];
-      // d(unit)/d(dist) summed over the joint's 3 rows, and d(heat)/d(dist)
-      const float su = gux * ox + guy * oy + guz * oz;
-      const float ddist = -m * (rd * rd * su + gh / k);
-      const float mrd = m * rd, t = rd * ddist;
-      dox = gux * mrd + ox * t;
-      doy = guy * mrd + oy * t;
-      doz = guz * mrd + oz * t;
-    }
-    dz_sum += doz;
-    for (int off = 16; off > 0; off >>= 1) {
-      dox += __shfl_xor_sync(0xffffffffu, dox, off);
-      doy += __shfl_xor_sync(0xffffffffu, doy, off);
-      doz += __shfl_xor_sync(0xffffffffu, doz, off);
-    }
-    if (lane == 0) {
-      s_red[warp * 3 * J + 3 * j] = dox;
-      s_red[warp * 3 * J + 3 * j + 1] = doy;
-      s_red[warp * 3 * J + 3 * j + 2] = doz;
-    }
-  }
-  if (active) dd[(size_t)b * P + p] = -dz_sum;
-  __syncthreads();
-  float* pb = part + ((size_t)b * gridDim.x + blockIdx.x) * 3 * J;
-  for (int c = threadIdx.x; c < 3 * J; c += blockDim.x) {
-    float t = 0.f;
-    for (int w = 0; w < kWarps; ++w) t += s_red[w * 3 * J + c];
-    pb[c] = t;
-  }
-}
-
-__global__ void encode_bwd_reduce_kernel(const float* __restrict__ part,
-                                         float* __restrict__ dj,  // (B, 3J)
-                                         int nblk, int n) {
-  const int b = blockIdx.x;
-  for (int c = threadIdx.x; c < n; c += blockDim.x) {
-    float t = 0.f;
-    for (int i = 0; i < nblk; ++i) t += part[((size_t)b * nblk + i) * n + c];
-    dj[(size_t)b * n + c] = t;
   }
 }
 
@@ -654,12 +561,307 @@ int bwd_launch(const float* x, const float* depth, const float* g,
 
 }  // namespace dsf_decode
 
+// K5 bwd, the encode VJP.
+//
+// Function: autograd of the encode (dsf_tpu/ops/pallas_codec.py:
+// _enc_bwd_kernel) for the cotangent g of the field: per pixel p and
+// joint j the forward's offset o = joint - (u, v, depth), dist = |o|
+// (+1e-8 under the root), heat = (k - dist) / k and the mask m = (heat >=
+// 0) (depth < 0.99) give d o = g_unit m / dist + o d dist / dist with d
+// dist = -m (g_unit . o / dist^2 + g_heat / k); d joint_j = sum_p d o and
+// d depth_p = -sum_j d o_z.  m is not differentiated.
+//
+// What bounds it: bytes.  It reads all of g (44 MB at B=32, J=21, S=64),
+// inside the cones or not: a NaN or inf anywhere in g reaches its joint's
+// d joint and its pixel's d depth, as in autograd and JAX's jnp path.
+// Its ~50 float operations per (pixel, joint) come close to the time of
+// those bytes, so the arithmetic is kept lean: the mask is dist <= k
+// (the sign of heat, so the forward's division is not needed), 1/dist is
+// one correctly rounded reciprocal, and g_heat / k is g_heat (1/k).
+//
+// Design (the layout scripts/codec_shapes_gpu.py chose, PERF.md §6): one
+// launch.  The split CTAs of an image (one thread-block cluster; the
+// wrapper's encode_bwd_split keeps about two CTAs a streaming
+// multiprocessor) take contiguous shares of its units: 4 pixels read with
+// 16-byte loads where g, the depth and d depth share their offset from a
+// 16-byte boundary, else single pixels, as the decode's plan_units lays
+// them out.  A CTA is PT units x JL joint lanes; thread (pt, jl) takes the
+// units pt, pt + PT, ... of its share for the joints jl, jl + JL, ...  It
+// recomputes the forward's offsets and distance as the forward rounds
+// them, keeps its joints' 3 sums in registers over all its units, and sums
+// d depth over its joints in joint order, then over the lanes in lane
+// order (shared memory, double-buffered: one barrier a unit step).  The
+// joint sums meet once at the end: over a lane's warps by shuffles, then
+// in warp order, then over the cluster's CTAs in rank order through
+// distributed shared memory.  No atomics, no scratch in device memory;
+// two runs agree bitwise.
+namespace dsf_encode {
+
+namespace cg = cooperative_groups;
+using dsf_decode::Base;
+using dsf_decode::Field;
+
+// joint (jx, jy, jz)'s VJP at N pixels for its cotangent rows f: adds the
+// pixels' d offset to a in pixel order and each pixel's d o_z to dz
+template <int N>
+__device__ __forceinline__ void joint_vjp(float (&a)[3], float (&dz)[4],
+                                          const Base<N>& px,
+                                          const Field<N>& f, float jx,
+                                          float jy, float jz, float k,
+                                          float inv_k) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    // the forward's offsets and distance, rounded as there; its mask
+    // (k - dist) / k >= 0 is dist <= k, and 1 / dist is rounded as a
+    // division would round it
+    const float ox = __fsub_rn(jx, px.u[i]);
+    const float oy = __fsub_rn(jy, px.v[i]);
+    const float oz = __fsub_rn(jz, px.d[i]);
+    const float ss = __fadd_rn(
+        __fadd_rn(__fadd_rn(__fmul_rn(ox, ox), __fmul_rn(oy, oy)),
+                  __fmul_rn(oz, oz)), 1e-8f);
+    const float dist = __fsqrt_rn(ss);
+    const float m = dist <= k ? px.mask[i] : 0.f;
+    const float rd = __frcp_rn(dist);
+    // d(unit)/d(dist) summed over the joint's 3 rows, and d(heat)/d(dist)
+    const float su = f.a[i] * ox + f.b[i] * oy + f.c[i] * oz;
+    const float ddist = -m * (rd * rd * su + f.h[i] * inv_k);
+    const float mrd = m * rd, t = rd * ddist;
+    const float dox = f.a[i] * mrd + ox * t;
+    const float doy = f.b[i] * mrd + oy * t;
+    const float doz = f.c[i] * mrd + oz * t;
+    a[0] += dox;
+    a[1] += doy;
+    a[2] += doz;
+    dz[i] += doz;
+  }
+}
+
+// one unit (N pixels from p) for this thread's joints jl + JL i
+template <int N, int JL, int JPT>
+__device__ __forceinline__ void unit_vjp(float (&a)[JPT][3], float (&dz)[4],
+                                         const float* __restrict__ gb,
+                                         const float* __restrict__ db,
+                                         const float* s_coord,
+                                         const float (&jx)[JPT],
+                                         const float (&jy)[JPT],
+                                         const float (&jz)[JPT], int p,
+                                         int jl, int J, int S, float k,
+                                         float inv_k) {
+  const int P = S * S;
+  Base<N> px;
+  dsf_decode::base_load(px, db, s_coord, p, S);
+#pragma unroll
+  for (int i = 0; i < JPT; ++i) {
+    const int j = jl + JL * i;
+    if (j < J) {
+      Field<N> f;
+      dsf_decode::field_load(f, gb, p, j, J, P);
+      joint_vjp(a[i], dz, px, f, jx[i], jy[i], jz[i], k, inv_k);
+    }
+  }
+}
+// this thread's joints jl + JL i of image b, zeroed sums beside them
+template <int JL, int JPT>
+__device__ __forceinline__ void joints_of(const float* __restrict__ joints,
+                                          int b, int jl, int J,
+                                          float (&jx)[JPT], float (&jy)[JPT],
+                                          float (&jz)[JPT],
+                                          float (&a)[JPT][3]) {
+#pragma unroll
+  for (int i = 0; i < JPT; ++i) {
+    const float* q = joints + (static_cast<size_t>(b) * J
+                               + min(jl + JL * i, J - 1)) * 3;
+    jx[i] = __ldg(q);
+    jy[i] = __ldg(q + 1);
+    jz[i] = __ldg(q + 2);
+    a[i][0] = a[i][1] = a[i][2] = 0.f;
+  }
+}
+
+// the CTA's joint sums s_sum (3J, filled and behind a barrier) into dj:
+// over the cluster's CTAs in rank order (CLUSTER), else the CTA's own
+template <bool CLUSTER>
+__device__ __forceinline__ void write_sums(float* s_sum, float* djb, int J,
+                                           int threads) {
+  if constexpr (CLUSTER) {
+    cg::cluster_group cl = cg::this_cluster();
+    cl.sync();
+    if (blockIdx.x == 0)
+      for (int c = threadIdx.x; c < 3 * J; c += threads) {
+        float s = s_sum[c];
+        for (int r = 1; r < static_cast<int>(gridDim.x); ++r)
+          s += cl.map_shared_rank(s_sum, r)[c];
+        djb[c] = s;
+      }
+    cl.sync();                  // rank 0 has read every CTA's sums
+  } else {
+    for (int c = threadIdx.x; c < 3 * J; c += threads) djb[c] = s_sum[c];
+  }
+}
+
+// the units [u0, u1) of this CTA: its share of the image's units
+__device__ __forceinline__ void cta_units(int units, int* u0, int* u1) {
+  const int per = (units + gridDim.x - 1) / gridDim.x;
+  *u0 = blockIdx.x * per;
+  *u1 = min(units, *u0 + per);
+}
+
+// shared memory of encode_bwd_kernel, in floats
+template <int PT, int JL, int JPT>
+__host__ __device__ constexpr size_t smem_floats(int S, int J) {
+  return static_cast<size_t>(S) + 3 * J + 2 * (JL - 1) * PT * 4
+         + (PT * JL / 32) * 3 * JPT;
+}
+
+// grid (split, B): the split CTAs of an image take contiguous shares of
+// its units, merged in a cluster (CLUSTER; else split is 1); a CTA is PT
+// units x JL joint lanes (PT a multiple of 32), thread t the unit slot t
+// % PT and the joints t / PT + JL i, J <= JL JPT
+template <int PT, int JL, int JPT, bool CLUSTER>
+__global__ void __launch_bounds__(PT * JL)
+encode_bwd_kernel(const float* __restrict__ joints,  // (B, J, 3)
+                  const float* __restrict__ img,     // (B, S*S)
+                  const float* __restrict__ g,       // (B, 4J, S*S)
+                  float* __restrict__ dj,            // (B, J, 3)
+                  float* __restrict__ dd,            // (B, S*S)
+                  int J, int S, float k, int h, int nq) {
+  constexpr int kThreads = PT * JL;
+  extern __shared__ float s_mem[];
+  float* s_coord = s_mem;                          // S
+  float* s_sum = s_coord + S;                      // 3J: the CTA's sums
+  float* s_dd = s_sum + 3 * J;                     // 2 x (JL-1) x PT x 4
+  float* s_warp = s_dd + 2 * (JL - 1) * PT * 4;    // warps x 3 JPT
+  const int b = blockIdx.y, P = S * S;
+  const int pt = threadIdx.x % PT, jl = threadIdx.x / PT;
+  const float inv_k = __frcp_rn(k);
+  for (int i = threadIdx.x; i < S; i += kThreads)
+    s_coord[i] = pix_coord(i, S);
+  float jx[JPT], jy[JPT], jz[JPT], a[JPT][3];
+  joints_of<JL>(joints, b, jl, J, jx, jy, jz, a);
+  __syncthreads();
+  const float* gb = g + static_cast<size_t>(b) * 4 * J * P;
+  const float* db = img + static_cast<size_t>(b) * P;
+  float* ddb = dd + static_cast<size_t>(b) * P;
+  int u0, u1;
+  cta_units(P - 3 * nq, &u0, &u1);
+  const int steps = u1 > u0 ? (u1 - u0 + PT - 1) / PT : 0;
+  for (int it = 0; it < steps; ++it) {
+    const int un = u0 + it * PT + pt;
+    float dz[4] = {0.f, 0.f, 0.f, 0.f};
+    int p = 0, n = 0;
+    if (un < u1 && un < nq) {
+      p = h + 4 * un;
+      n = 4;
+      unit_vjp<4, JL>(a, dz, gb, db, s_coord, jx, jy, jz, p, jl, J, S, k,
+                      inv_k);
+    } else if (un < u1) {
+      p = dsf_decode::single_pixel(un - nq, h, nq);
+      n = 1;
+      unit_vjp<1, JL>(a, dz, gb, db, s_coord, jx, jy, jz, p, jl, J, S, k,
+                      inv_k);
+    }
+    if constexpr (JL > 1) {
+      // the lanes' d depth in lane order; a buffer is written again two
+      // steps later, after the next step's barrier
+      float* buf = s_dd + (it & 1) * (JL - 1) * PT * 4;
+      if (jl > 0)
+        for (int i = 0; i < 4; ++i) buf[((jl - 1) * PT + pt) * 4 + i] = dz[i];
+      __syncthreads();
+      if (jl == 0)
+        for (int l = 1; l < JL; ++l)
+          for (int i = 0; i < 4; ++i) dz[i] += buf[((l - 1) * PT + pt) * 4 + i];
+    }
+    if (jl == 0 && n == 4) {
+      const float o[4] = {-dz[0], -dz[1], -dz[2], -dz[3]};
+      dsf_decode::store(ddb + p, o);
+    } else if (jl == 0 && n == 1) {
+      ddb[p] = -dz[0];
+    }
+  }
+  // the joint sums: over each lane's warps (shuffles, then warp order)
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < JPT; ++i)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      float v = a[i][c];
+      for (int off = 16; off > 0; off >>= 1)
+        v += __shfl_xor_sync(0xffffffffu, v, off);
+      if (lane == 0) s_warp[warp * 3 * JPT + 3 * i + c] = v;
+    }
+  __syncthreads();
+  constexpr int kLaneWarps = PT / 32;
+  for (int e = threadIdx.x; e < JL * 3 * JPT; e += kThreads) {
+    const int l = e / (3 * JPT), ic = e % (3 * JPT);
+    const int j = l + JL * (ic / 3);
+    if (j >= J) continue;
+    const float* w = s_warp + l * kLaneWarps * 3 * JPT + ic;
+    float s = w[0];
+    for (int q = 1; q < kLaneWarps; ++q) s += w[q * 3 * JPT];
+    s_sum[3 * j + ic % 3] = s;
+  }
+  __syncthreads();
+  write_sums<CLUSTER>(s_sum, dj + static_cast<size_t>(b) * 3 * J, J,
+                      kThreads);
+}
+
+// plain on a grid where split is 1, else cluster launched as clusters of
+// split CTAs (above 8, a non-portable size the caller has allowed)
+template <typename K>
+int launch_split(K plain, K cluster, dim3 grid, int threads, size_t smem,
+                 cudaStream_t st, const float* joints, const float* img,
+                 const float* g, float* dj, float* dd, int J, int S, float k,
+                 int h, int nq) {
+  const int split = static_cast<int>(grid.x);
+  if (split == 1) {
+    plain<<<grid, threads, smem, st>>>(joints, img, g, dj, dd, J, S, k, h,
+                                       nq);
+    return static_cast<int>(cudaGetLastError());
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, cluster, joints, img, g,
+                                             dj, dd, J, S, k, h, nq);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// split CTAs an image, 1 to 16
+template <int PT, int JL, int JPT>
+int bwd_launch(const float* joints, const float* img, const float* g,
+               float* dj, float* dd, int B, int J, int S, int split, float k,
+               int h, int nq, cudaStream_t st) {
+  static_assert(PT % 32 == 0, "a joint lane is whole warps");
+  if (J > JL * JPT || split < 1 || split > 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_split(encode_bwd_kernel<PT, JL, JPT, false>,
+                      encode_bwd_kernel<PT, JL, JPT, true>,
+                      dim3(split, B), PT * JL,
+                      smem_floats<PT, JL, JPT>(S, J) * sizeof(float), st,
+                      joints, img, g, dj, dd, J, S, k, h, nq);
+}
+
+}  // namespace dsf_encode
+
 namespace {
 
 // the library's layouts, the fastest of scripts/codec_shapes_gpu.py's by
 // their summed times at B = 1, 32 and 64
 constexpr int kFwdThreads = 128, kFwdU = 2;
 constexpr int kBwdPT = 32, kBwdJL = 7;
+// the encode VJP: PT units x JL joint lanes of JPT joints a CTA
+constexpr int kEncPT = 32, kEncJL = 7, kEncJPT = 3;
 
 }  // namespace
 
@@ -674,20 +876,22 @@ extern "C" int dsf_codec_encode(const float* joints, const float* img,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ``part`` holds B * ceil(S*S / 256) * 3J floats of scratch.
+// d joint (B, J, 3) and d img (B, S*S), one launch of split CTAs an
+// image (a cluster when more than one, at most 8); J <= kEncJL * kEncJPT
 extern "C" int dsf_codec_encode_bwd(const float* joints, const float* img,
                                     const float* g, float* dj, float* dd,
-                                    float* part, int B, int J, int S,
-                                    float k, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int P = S * S;
-  const int nblk = (P + kEncThreads - 1) / kEncThreads;
-  const size_t smem = (size_t)3 * J * (1 + kEncThreads / 32) * sizeof(float);
-  encode_bwd_kernel<<<dim3(nblk, B), kEncThreads, smem, st>>>(
-      joints, img, g, dd, part, J, S, k);
-  encode_bwd_reduce_kernel<<<B, 128, 0, st>>>(part, dj, nblk, 3 * J);
-  return static_cast<int>(cudaGetLastError());
+                                    int B, int J, int S, int split, float k,
+                                    void* stream) {
+  if (split > 8) return static_cast<int>(cudaErrorInvalidValue);
+  const void* ptrs[3] = {img, g, dd};
+  int h, nq;
+  dsf_decode::plan_units(S * S, ptrs, 3, &h, &nq);
+  return dsf_encode::bwd_launch<kEncPT, kEncJL, kEncJPT>(
+      joints, img, g, dj, dd, B, J, S, split, k, h, nq,
+      static_cast<cudaStream_t>(stream));
 }
+
+extern "C" int dsf_codec_encode_bwd_max_joints() { return kEncJL * kEncJPT; }
 
 // y (B, J, 3) and stats (B, J, 2); split CTAs a row, 1 to 8, merged in a
 // cluster when more than one (a cluster launch costs up to 2 us more)

@@ -15,24 +15,28 @@ that takes the plain versions for CPU tensors is in ``offset_codec``.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from dsf_tpu_torch.kernels import LAUNCHES, build
 
-ENC_THREADS = 256       # csrc kEncThreads: pixels per encode-VJP block
 # K4 forward: a (image, joint) row's pixels are split over 1 to
 # MAX_SPLIT CTAs (one cluster) while the grid holds fewer than FILL_CTAS
 # (B=1, J=21: 4 a row, scripts/codec_shapes_gpu.py's fastest there; from
 # B=3 on, one CTA a row and no cluster)
 MAX_SPLIT = 8
 FILL_CTAS = 84
+# K5 bwd: an image's units are split over 1 to MAX_SPLIT CTAs (one
+# cluster) so that the grid holds about ENC_FILL_CTAS, two a streaming
+# multiprocessor (scripts/codec_shapes_gpu.py: 8 at B=32, 4 at B=64)
+ENC_FILL_CTAS = 256
 
 # the numbers of pointer, int and float arguments, then the stream
 _SIGNATURES = {
     "dsf_codec_encode": (3, 3, 1),
     "dsf_codec_decode": (4, 4, 2),
-    "dsf_codec_encode_bwd": (6, 3, 1),
+    "dsf_codec_encode_bwd": (5, 4, 1),
     "dsf_codec_decode_bwd": (7, 3, 2),
 }
 _fns = {}
@@ -89,23 +93,40 @@ def encode_cuda(joint, img_s, kernel_size):
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def encode_bwd_max_joints():
+    """The most joints the encode VJP's layout takes (csrc kEncJL x
+    kEncJPT)."""
+    fn = build.library("codec").dsf_codec_encode_bwd_max_joints
+    fn.restype = ctypes.c_int
+    return fn()
+
+
+def encode_bwd_split(B):
+    """CTAs an image of the K5 VJP: as many as fill ENC_FILL_CTAS, 1 to
+    MAX_SPLIT."""
+    return max(1, min(MAX_SPLIT, ENC_FILL_CTAS // B))
+
+
 def encode_bwd_cuda(joint, img_s, g, kernel_size):
     """VJP of ``encode_cuda`` for the cotangent g (B, 4J, S, S) ->
-    (d joint (B, J, 3), d img_s (B, 1, S, S)).  The cone and foreground
-    masks are not differentiated, as in the JAX package."""
+    (d joint (B, J, 3), d img_s (B, 1, S, S)), one launch.  The cone and
+    foreground masks are not differentiated, as in the JAX package; every
+    element of g is read, so a non-finite one reaches its joint's d joint
+    and its pixel's d img_s, as in autograd."""
     B, J, _ = joint.shape
     S = img_s.shape[-1]
     _check("joint", joint, (B, J, 3))
     _check("img_s", img_s, (B, 1, S, S))
     _check("g", g, (B, 4 * J, S, S))
     _same_device(joint, img_s, g)
-    nblk = -(-(S * S) // ENC_THREADS)
+    if J > encode_bwd_max_joints():
+        raise ValueError(f"encode VJP: at most {encode_bwd_max_joints()} "
+                         f"joints, got {J}")
     dj = torch.empty((B, J, 3), dtype=torch.float32, device=joint.device)
-    dd = torch.empty((B, 1, S, S), dtype=torch.float32, device=joint.device)
-    part = torch.empty((B, nblk, 3 * J), dtype=torch.float32,
-                       device=joint.device)
-    _launch("dsf_codec_encode_bwd", (joint, img_s, g, dj, dd, part),
-            (B, J, S), (kernel_size,))
+    dd = _empty_in_phase(img_s)
+    _launch("dsf_codec_encode_bwd", (joint, img_s, g, dj, dd),
+            (B, J, S, encode_bwd_split(B)), (kernel_size,))
     LAUNCHES["codec_encode_bwd"] += 1
     return dj, dd
 

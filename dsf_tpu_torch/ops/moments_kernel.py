@@ -5,12 +5,15 @@ the JAX raster backward's default chunked one-hot einsum computes,
 
 ``face_moments_plain`` is the plain version (``index_add_``), which the
 raster backward takes for CPU tensors; ``face_moments_cuda`` launches the
-kernel or raises.
+kernel or raises.  The kernel keeps a copy of every face's sums per warp
+in shared memory, so it takes at most ``max_faces()`` faces (the MANO
+mesh has 1,554).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -30,6 +33,15 @@ def _launcher():
     return _fn
 
 
+@functools.lru_cache(maxsize=None)
+def max_faces():
+    """The most faces K2 takes (csrc/moments.cu: each warp's copy of the
+    3T sums fits in one CTA's shared memory)."""
+    fn = build.library("moments").dsf_raster_moments_max_faces
+    fn.restype = ctypes.c_int
+    return fn()
+
+
 def face_moments_plain(idx, upd, num_faces):
     """idx (B, P) integer face ids (-1 = background), upd (B, P, 3) rows
     [g, g*u, g*v] -> (B, num_faces, 3): the sum of the rows of each face's
@@ -47,7 +59,8 @@ def face_moments_plain(idx, upd, num_faces):
 
 def face_moments_cuda(idx, upd, num_faces):
     """The K2 kernel: idx (B, P) int32 and upd (B, P, 3) float32, contiguous
-    on one GPU -> (B, num_faces, 3) float32."""
+    on one GPU -> (B, num_faces, 3) float32, summed in a fixed order (two
+    runs agree bitwise)."""
     B, P = idx.shape
     if idx.device.type != "cuda" or idx.dtype != torch.int32:
         raise ValueError(f"idx: need an int32 CUDA tensor, got {idx.dtype} "
@@ -61,6 +74,9 @@ def face_moments_cuda(idx, upd, num_faces):
                          f"{tuple(idx.shape)} and {tuple(upd.shape)}")
     if B == 0 or P == 0 or num_faces <= 0:
         raise ValueError(f"empty moments: B={B}, P={P}, T={num_faces}")
+    if num_faces > max_faces():
+        raise ValueError(f"moments: at most {max_faces()} faces, got "
+                         f"{num_faces}")
     out = torch.empty((B, num_faces, 3), dtype=torch.float32,
                       device=idx.device)
     fn = _launcher()

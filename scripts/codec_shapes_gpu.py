@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Time K4, the offset-codec decode of dsf_tpu_torch (forward and VJP), at
-other layouts on one NVIDIA GPU.
+"""Time K4, the offset-codec decode of dsf_tpu_torch (forward and VJP),
+and K5 bwd, the encode VJP, at other layouts on one NVIDIA GPU.
 
-    python3 scripts/codec_shapes_gpu.py [--parent DIR]   # from the repo root
+    python3 scripts/codec_shapes_gpu.py [--parent DIR] [--encode-only]
+    # from the repo root
 
-Both halves are templates in ``csrc/codec.cu`` (namespace dsf_decode) and
-the port's library builds one layout of each.  ``codec_shapes_gpu.cu``
+All three are templates in ``csrc/codec.cu`` (namespaces dsf_decode and
+dsf_encode) and the port's library builds one layout of each.  ``codec_shapes_gpu.cu``
 beside this script includes that source and adds the candidates the
 library does not run; this script instantiates every layout below in it,
 compiles it once (one ``nvcc -shared``, the library's flags) and runs
@@ -23,7 +24,16 @@ seeded random fields:
   pixels with 4-byte loads) a block, JL joint lanes a unit, JU joints'
   loads issued before their use; STAGE stages each joint's 6 constants in
   shared memory behind a barrier, else each thread reads them with its
-  loads (JU 1 without STAGE is the library's ``bwd_launch``).
+  loads (JU 1 without STAGE is the library's ``bwd_launch``);
+* encode VJP ``dsf_encode::bwd_candidate<..., KIND>``: the library's
+  block lanes (PT units x JL joint lanes of JPT joints a CTA, d depth
+  summed in shared memory), the same with each thread's next unit copied
+  into shared memory by cp.async, or warp lanes (JL joint lanes inside a
+  warp, WARPS a CTA, d depth summed by shuffles), the split 4, 8 or 16 CTAs of an image merged in a cluster
+  (16: a non-portable size), 16- or 4-byte loads; held against autograd of
+  ``joint2offset_plain`` (1e-4 of each gradient's largest entry) and run
+  twice (bitwise); yardstick ``g.sum()`` (``--encode-only`` times these
+  alone).
 
 Beside them, as yardsticks of what the card gives for the same bytes,
 one PyTorch call each: ``x.sum()`` reads the field, ``dx.copy_(x)`` reads
@@ -37,9 +47,9 @@ its instantiation here.  Times are ``chip_smoke.time_ms`` means with the
 inputs warm in L2 (the same inputs every call; 44 MB at B=32 nearly fits
 the 50 MB L2, 88 MB at B=64 does not) and cold (``time_cold_ms``: each
 call reads the next of enough copies to pass twice the L2).  With
-``--parent DIR`` (an unpacked earlier tree) it also builds that tree's
-``csrc/codec.cu`` and times its decode and decode VJP against the
-library's, in turns (parent, library, library, parent).  Prints the
+``--parent DIR`` (an unpacked tree from before the one-launch encode VJP)
+it also builds that tree's ``csrc/codec.cu`` and times its encode VJP
+against the library's, in turns (parent, library, library, parent).  Prints the
 card's name and power limit; exits non-zero without a GPU or on a
 mismatch.
 """
@@ -65,6 +75,15 @@ BWD_SHAPES = ((32, 7, 1, False), (32, 7, 1, True), (64, 7, 1, False),
               (128, 1, 3, False), (64, 3, 1, False), (64, 3, 2, False))
 LIB_FWD = (128, 2)
 LIB_BWD = (32, 7, 1, False)
+# the encode VJP (K5 bwd): (units a CTA, joint lanes, joints a lane, 1)
+# for the library's block-lane kernel, the same with 2 for its cp.async
+# variant, (joint lanes, joints a lane, warps a CTA, 0) for the warp-lane
+# kernel; the library's is csrc kEncPT, kEncJL, kEncJPT at
+# codec_kernel.encode_bwd_split(B) CTAs an image
+ENC_SHAPES = ((32, 7, 3, 1), (64, 7, 3, 1), (64, 3, 7, 1), (32, 7, 3, 2),
+              (64, 7, 3, 2), (32, 3, 7, 2), (4, 6, 4, 0), (8, 3, 8, 0))
+ENC_SPLITS = (2, 4, 8, 16)
+LIB_ENC = (32, 7, 3, 1)
 BATCHES = (1, 32, 64)
 J, S, K, SCALE = 21, 64, 0.8, 30.0
 
@@ -90,6 +109,14 @@ def build_variants(tmp, parent):
         f'{{ return dsf_decode::bwd_candidate<{", ".join(map(str, b[:3]))}, '
         f'{cpp[b[3]]}>(x, d, g, y, st, dx, dd, B, J, S, vec, k, sc, s); }}\n'
         for b in BWD_SHAPES)
+    ea = ("const float* j, const float* d, const float* g, float* dj, "
+          "float* dd, int B, int J, int S, int split, int vec, float k, "
+          "void* s")
+    body += "".join(
+        f'extern "C" int enc_{"_".join(map(str, e[:3]))}_{int(e[3])}({ea}) '
+        f'{{ return dsf_encode::bwd_candidate<{", ".join(map(str, e))}>('
+        f'j, d, g, dj, dd, B, J, S, split, vec, k, s); }}\n'
+        for e in ENC_SHAPES)
     path = os.path.join(tmp, "k4.cu")
     cand = os.path.join(ROOT, "scripts", "codec_shapes_gpu.cu")
     with open(path, "w") as f:
@@ -132,12 +159,109 @@ def inputs(B, rng, dev):
     return [torch.from_numpy(a).to(dev) for a in (off, dep, g)]
 
 
+def encode_layouts(B, field, depth, rng, enc, parent, rows):
+    """K5 bwd: every layout of ``enc`` at split 2, 4, 8, 16 with 16- and
+    4-byte loads, on joints drawn in the crop, the depth and a cotangent
+    the field's shape; held against autograd of ``joint2offset_plain``
+    (1e-4 of each gradient's largest entry), the library's layout bitwise
+    against its instantiation; beside ``g.sum()`` over the same bytes and,
+    with ``parent``, the parent tree's encode VJP in turns.  Returns the
+    number of layouts that disagreed."""
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    from dsf_tpu_torch.ops import codec_kernel
+    from dsf_tpu_torch.ops import offset_codec as oc
+
+    dev, stream = field.device, torch.cuda.current_stream().cuda_stream
+    S = depth.shape[-1]
+    joints = torch.from_numpy(rng.uniform(-1, 1, (B, J, 3))
+                              .astype(np.float32)).to(dev)
+    g = field
+    with torch.inference_mode(False), torch.enable_grad():
+        jr = joints.clone().requires_grad_(True)
+        dr = depth.clone().requires_grad_(True)
+        refs = torch.autograd.grad(oc.joint2offset_plain(jr, dr, K),
+                                   (jr, dr), g.clone())
+    lib_out = codec_kernel.encode_bwd_cuda(joints, depth, g, K)
+    copies = cs.copies_past_l2((joints, depth, g))
+    gsum = cs.time_ms(lambda: g.sum(), 50)
+    print(f"B={B} encode VJP yardstick (warm): g.sum() {gsum:.4f} ms",
+          flush=True)
+    bad = 0
+    for e, fn in enc.items():
+        for split in ENC_SPLITS:
+            for vec in (1, 0):
+                dj = torch.empty((B, J, 3), device=dev)
+                dd = torch.empty_like(depth)
+
+                def run(j, d, gg):
+                    err = fn(j.data_ptr(), d.data_ptr(), gg.data_ptr(),
+                             dj.data_ptr(), dd.data_ptr(), B, J, S, split,
+                             vec, K, stream)
+                    if err:
+                        raise RuntimeError(f"enc {e} {split}: error {err}")
+                run(joints, depth, g)
+                first = (dj.clone(), dd.clone())
+                run(joints, depth, g)
+                torch.cuda.synchronize()
+                rel = max(float((a - r).abs().max() / r.abs().max())
+                          for a, r in zip((dj, dd), refs))
+                repeat = torch.equal(first[0], dj) and torch.equal(first[1],
+                                                                   dd)
+                held = rel <= 1e-4 and repeat
+                same = ""
+                if (e == LIB_ENC and vec
+                        and split == codec_kernel.encode_bwd_split(B)):
+                    lib_same = (torch.equal(dj, lib_out[0])
+                                and torch.equal(dd, lib_out[1]))
+                    same = f", bitwise the library's: {lib_same}"
+                    bad += not lib_same
+                bad += not held
+                warm = cs.time_ms(lambda: run(joints, depth, g), 50)
+                cold = cs.time_cold_ms(run, copies, 50)
+                key = ("enc",) + e + (split, "16 B" if vec else "4 B")
+                rows.setdefault(key, {})[B] = (warm, cold)
+                shape = (f"warp lanes: {e[0]} joint lanes of {e[1]}, "
+                         f"{e[2]} warps a CTA" if e[3] == 0 else
+                         f"block lanes{' (cp.async)' if e[3] == 2 else ''}:"
+                         f" {e[0]} units a CTA, {e[1]} joint lanes of {e[2]}")
+                print(f"K5 bwd B={B} {shape}, split {split}, {key[-1]} "
+                      f"loads: held "
+                      f"{held}{same}, max rel err {rel:.3g}, two runs "
+                      f"bitwise {repeat}; warm {warm:.4f} ms, cold "
+                      f"{cold:.4f} ms", flush=True)
+    if parent is not None:
+        # the encode VJP before this design: two kernels and a scratch of
+        # B * ceil(S^2 / 256) * 3J floats
+        pb = typed(parent.dsf_codec_encode_bwd, 6, 3, 1)
+        pdj, pdd = torch.empty((B, J, 3), device=dev), torch.empty_like(depth)
+        part = torch.empty(B * -(-(S * S) // 256) * 3 * J, device=dev)
+
+        def parent_run(j, d, gg):
+            pb(j.data_ptr(), d.data_ptr(), gg.data_ptr(), pdj.data_ptr(),
+               pdd.data_ptr(), part.data_ptr(), B, J, S, K, stream)
+
+        def lib_run(j, d, gg):
+            codec_kernel.encode_bwd_cuda(j, d, gg, K)
+
+        times = [(cs.time_ms(lambda: fn(joints, depth, g), 50),
+                  cs.time_cold_ms(fn, copies, 50))
+                 for fn in (parent_run, lib_run, lib_run, parent_run)]
+        print(f"K5 bwd B={B} parent, library, library, parent: warm "
+              f"{', '.join(f'{w:.4f}' for w, _ in times)} ms; cold "
+              f"{', '.join(f'{c:.4f}' for _, c in times)} ms", flush=True)
+    return bad
+
+
 def main():
     import numpy as np
     import torch
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", help="an unpacked earlier tree to time "
                     "against")
+    ap.add_argument("--encode-only", action="store_true",
+                    help="time the encode VJP's layouts only")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("codec_shapes_gpu: no CUDA device", file=sys.stderr)
@@ -169,6 +293,11 @@ def main():
         bwd = {b: typed(getattr(lib, f"bwd_{'_'.join(map(str, b[:3]))}_"
                                      f"{int(b[3])}"), 7, 4, 2)
                for b in BWD_SHAPES}
+        enc = {e: typed(getattr(lib, f"enc_{'_'.join(map(str, e[:3]))}_"
+                                     f"{int(e[3])}"), 5, 5, 1)
+               for e in ENC_SHAPES}
+        if args.encode_only:
+            fwd, bwd = {}, {}
         rows = {}
         for B in BATCHES:
             x, d, g = inputs(B, rng, dev)
@@ -265,50 +394,13 @@ def main():
                           f"{held}{same}, max rel err {rel:.3g}; warm "
                           f"{warm:.4f} ms, cold {cold:.4f} ms", flush=True)
 
-            if args.parent:
-                par = libs["parent"]
-                pf = typed(par.dsf_codec_decode, 3, 3, 2)
-                pb = typed(par.dsf_codec_decode_bwd, 6, 3, 2)
-                out = torch.empty_like(y_ref)
-                pdx, pdd = torch.empty_like(dx_ref), torch.empty_like(dd_ref)
-                pst = torch.empty_like(st_ref)
-
-                def parent_fwd(x, d, *_):
-                    pf(x.data_ptr(), d.data_ptr(), out.data_ptr(), B, J, S,
-                       K, SCALE, stream)
-
-                def parent_bwd(x, d, g, *_):
-                    pb(x.data_ptr(), d.data_ptr(), g.data_ptr(),
-                       pdx.data_ptr(), pdd.data_ptr(), pst.data_ptr(), B, J,
-                       S, K, SCALE, stream)
-
-                def lib_fwd(x, d, *_):
-                    codec_kernel.decode_cuda(x, d, K, SCALE)
-
-                def lib_bwd(x, d, g, y, st):
-                    codec_kernel.decode_bwd_cuda(x, d, g, y, st, K, SCALE)
-
-                parent_fwd(x, d)
-                parent_bwd(x, d, g)
-                torch.cuda.synchronize()
-                print(f"parent B={B}: its y against plain "
-                      f"{float((out - y_ref).abs().max()):.3g}", flush=True)
-                for name, pfn, lfn in (("fwd", parent_fwd, lib_fwd),
-                                       ("bwd", parent_bwd, lib_bwd)):
-                    times = []
-                    for fn in (pfn, lfn, lfn, pfn):
-                        times.append((
-                            cs.time_ms(lambda: fn(x, d, g, lib_y, lib_st), 50),
-                            cs.time_cold_ms(fn, copies, 50)))
-                    print(f"K4 {name} B={B} parent, library, library, parent:"
-                          f" warm {', '.join(f'{w:.4f}' for w, _ in times)} "
-                          f"ms; cold {', '.join(f'{c:.4f}' for _, c in times)}"
-                          " ms", flush=True)
+            bad += encode_layouts(B, x, d, rng, enc, libs.get("parent"),
+                                  rows)
             del copies
 
     print("fastest layouts (cold L2, ms at B = " + ", ".join(map(str, BATCHES))
           + "):")
-    for kind in ("fwd", "bwd"):
+    for kind in ("fwd", "bwd", "enc"):
         for B in BATCHES:
             cands = [(v[B][1], k) for k, v in rows.items()
                      if k[0] == kind and B in v]

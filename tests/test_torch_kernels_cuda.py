@@ -157,9 +157,9 @@ def _grads(fn, args, cot):
 
 
 def test_moments_kernel_matches_plain(cuda):
-    """K2 against index_add_: the same sums in another order (shared-memory
-    atomics), so 2e-7 relative per moment plus 2e-7 of the face's sum of
-    |rows| for sums that cancel."""
+    """K2 against index_add_: the same sums in another fixed order, so 2e-7
+    relative per moment plus 2e-7 of the face's sum of |rows| for sums that
+    cancel."""
     rng = np.random.RandomState(0)
     B, P, T = 4, 4096, 1554
     idx = torch.from_numpy(rng.randint(-1, T + 3, (B, P)).astype(np.int32)).to(cuda)
@@ -170,6 +170,75 @@ def test_moments_kernel_matches_plain(cuda):
     ref = moments_kernel.face_moments_plain(idx, upd, T)
     absum = moments_kernel.face_moments_plain(idx, upd.abs(), T)
     assert ((got - ref).abs() <= 2e-7 * ref.abs() + 2e-7 * absum).all()
+
+
+def _moments_case(case, cuda):
+    """Face ids and rows for K2's layouts: B=1; P not a multiple of 4 and
+    ids starting 4 bytes past a 16-byte boundary (both single pixels);
+    ids far out of range (-2^31, -5..-1, T..T+999, 2^30); an image with no
+    covered pixel beside a covered one; one face covering every pixel of
+    a 128x128 image beside a random one."""
+    B, P = {"B1": (1, 4096), "odd P": (2, 4093), "ids unaligned": (2, 4096),
+            "out of range": (2, 4096), "no covered pixel": (2, 4096),
+            "whole image": (2, 128 * 128)}[case]
+    T = 1554
+    rng = np.random.RandomState(3)
+    idx = rng.randint(-1, T, (B, P)).astype(np.int32)
+    if case == "out of range":
+        idx[0, ::7] = rng.randint(T, T + 1000, idx[0, ::7].shape)
+        idx[1, ::5] = rng.randint(-5, 0, idx[1, ::5].shape)
+        idx[1, 1] = -2 ** 31
+        idx[0, 3] = 2 ** 30
+    elif case == "no covered pixel":
+        idx[1] = -1
+    elif case == "whole image":
+        idx[0] = 7
+    upd = torch.from_numpy(rng.randn(B, P, 3).astype(np.float32)).to(cuda)
+    shift = 1 if case == "ids unaligned" else 0
+    buf = torch.empty(B * P + shift, dtype=torch.int32, device=cuda)
+    t = buf[shift:].view(B, P)
+    t.copy_(torch.from_numpy(idx))
+    return t, upd, T
+
+
+@pytest.mark.parametrize("case", ["B1", "odd P", "ids unaligned",
+                                  "out of range", "no covered pixel",
+                                  "whole image"])
+def test_moments_kernel_layouts(cuda, case):
+    """K2 where the 16-byte path does not cover the ids whole, on ids out
+    of range, an image without a covered pixel and a face that covers a
+    whole image: one launch a call, two runs bitwise equal, a face without
+    a pixel exactly 0, and each sum within 1e-6 of the face's sum of |rows|
+    of float64's (a float32 sum in a fixed order of at most a few hundred
+    rows a chain)."""
+    idx, upd, T = _moments_case(case, cuda)
+    before = kernels.LAUNCHES["raster_moments"]
+    got = moments_kernel.face_moments_cuda(idx, upd, T)
+    again = moments_kernel.face_moments_cuda(idx, upd, T)
+    assert kernels.LAUNCHES["raster_moments"] == before + 2
+    assert torch.equal(got, again)
+    ref = moments_kernel.face_moments_plain(idx, upd.double(), T)
+    absum = moments_kernel.face_moments_plain(idx, upd.abs().double(), T)
+    assert torch.equal(got[absum == 0], torch.zeros_like(got[absum == 0]))
+    assert ((got.double() - ref).abs() <= 1e-6 * absum).all()
+    if case == "no covered pixel":
+        assert not got[1].any()
+    if case == "whole image":
+        assert got[0, 7].abs().sum() > 0 and (absum[0] > 0).sum() == 3
+
+
+def test_moments_kernel_rejects_too_many_faces(cuda):
+    """K2 keeps each warp's copy of the 3T sums in shared memory: above its
+    cap the wrapper raises before a launch."""
+    cap = moments_kernel.max_faces()
+    assert cap >= 1554
+    idx = torch.zeros(1, 64, dtype=torch.int32, device=cuda)
+    upd = torch.zeros(1, 64, 3, device=cuda)
+    before = kernels.LAUNCHES["raster_moments"]
+    with pytest.raises(ValueError, match="faces"):
+        moments_kernel.face_moments_cuda(idx, upd, cap + 1)
+    assert kernels.LAUNCHES["raster_moments"] == before
+    assert moments_kernel.face_moments_cuda(idx, upd, cap).shape == (1, cap, 3)
 
 
 def test_codec_vjp_kernels_match_plain(renderer):
@@ -284,6 +353,75 @@ def test_decode_kernels_repeat_bitwise(cuda):
         for a, b in zip(*runs):
             assert torch.equal(a.nan_to_num(), b.nan_to_num())
             assert torch.equal(a.isnan(), b.isnan())
+
+
+def _encode_case(case, cuda):
+    """Joints, depth and a cotangent for K5 bwd's layouts: B=1; S=31 (S^2
+    not a multiple of 4: single pixels only); g starting 4 bytes past a
+    16-byte boundary (single pixels); the NaN case: a NaN in image 0's
+    joint-5 x unit row at a pixel outside joint 5's cone, a +inf in image
+    1's joint-9 heat row at a foreground pixel inside joint 9's cone."""
+    B, S, shift = {"B1": (1, 64, 0), "odd S": (2, 31, 0),
+                   "g unaligned": (2, 64, 1), "nan": (2, 64, 0)}[case]
+    J, k = 21, 0.8
+    rng = np.random.RandomState(9)
+    joint = rng.uniform(-0.8, 0.8, (B, J, 3)).astype(np.float32)
+    dep = rng.uniform(-1, 1.05, (B, 1, S, S)).astype(np.float32)
+    g = rng.randn(B, 4 * J, S, S).astype(np.float32)
+    if case == "nan":
+        r = (np.arange(S) + 0.5) / S * 2 - 1
+        u, v = r[None, :], r[:, None]
+
+        def dist(b, j):
+            return np.sqrt((joint[b, j, 0] - u) ** 2 + (joint[b, j, 1] - v) ** 2
+                           + (joint[b, j, 2] - dep[b, 0]) ** 2)
+        out = np.argwhere(dist(0, 5) > k)[0]
+        inside = np.argwhere((dist(1, 9) < k) & (dep[1, 0] < 0.99))[0]
+        g[0, 3 * 5, out[0], out[1]] = np.nan
+        g[1, 3 * J + 9, inside[0], inside[1]] = np.inf
+    buf = torch.empty(g.size + shift, device=cuda)
+    gt = buf[shift:].view(g.shape)
+    gt.copy_(torch.from_numpy(g))
+    return (torch.from_numpy(joint).to(cuda), torch.from_numpy(dep).to(cuda),
+            gt)
+
+
+@pytest.mark.parametrize("case", ["B1", "odd S", "g unaligned", "nan"])
+def test_encode_vjp_kernel_layouts(cuda, case):
+    """K5 bwd against autograd of joint2offset_plain: one launch a call,
+    two runs bitwise equal, non-finite exactly where autograd is (every
+    element of g is read), and the finite entries within 1e-4 of the
+    largest (sums over pixels and joints in another order)."""
+    joint, dep, g = _encode_case(case, cuda)
+    before = kernels.LAUNCHES["codec_encode_bwd"]
+    dj, dd = codec_kernel.encode_bwd_cuda(joint, dep, g, 0.8)
+    dj2, dd2 = codec_kernel.encode_bwd_cuda(joint, dep, g, 0.8)
+    assert kernels.LAUNCHES["codec_encode_bwd"] == before + 2
+    for a, b in ((dj, dj2), (dd, dd2)):
+        assert torch.equal(a.nan_to_num(), b.nan_to_num())
+        assert torch.equal(a.isnan(), b.isnan())
+    rj, rd = _grads(lambda j, d: oc.joint2offset_plain(j, d, 0.8), (joint, dep),
+                    g)
+    assert (case == "nan") == bool((~rj.isfinite()).any())
+    for got, ref in ((dj, rj), (dd, rd)):
+        assert torch.equal(got.isfinite(), ref.isfinite())
+        m = ref.isfinite()
+        scale = float(ref[m].abs().max())
+        assert scale > 0
+        assert float((got - ref)[m].abs().max()) <= 1e-4 * scale
+
+
+def test_encode_vjp_rejects_too_many_joints(cuda):
+    """K5 bwd keeps a thread's joints' sums in registers: above its layout's
+    joint count the wrapper raises before a launch."""
+    J = codec_kernel.encode_bwd_max_joints() + 1
+    before = kernels.LAUNCHES["codec_encode_bwd"]
+    with pytest.raises(ValueError, match="joints"):
+        codec_kernel.encode_bwd_cuda(torch.zeros(1, J, 3, device=cuda),
+                                     torch.zeros(1, 1, 8, 8, device=cuda),
+                                     torch.zeros(1, 4 * J, 8, 8, device=cuda),
+                                     0.8)
+    assert kernels.LAUNCHES["codec_encode_bwd"] == before
 
 
 def test_cuda_path_carries_the_training_gradient(renderer):

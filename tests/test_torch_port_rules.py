@@ -60,7 +60,8 @@ def test_no_jax_flax_or_dsf_tpu_imports():
                                     "scripts/raster_shapes_gpu.py",
                                     "scripts/argmin_shapes_gpu.py",
                                     "scripts/tail_shapes_gpu.py",
-                                    "scripts/codec_shapes_gpu.py"])
+                                    "scripts/codec_shapes_gpu.py",
+                                    "scripts/moments_shapes_gpu.py"])
 def test_chip_smoke_imports_no_jax(script):
     path = os.path.join(os.path.dirname(PKG), script)
     bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
