@@ -32,12 +32,14 @@ Phases, each printed on its own line(s); any failure exits non-zero:
    the dense raster, at the pre-render's B=32 NYU frames of 640x480, its
    set-up bitwise, and on the frames' samples in a random
    order; K10, the binned raster, on B=32 crops of 64x64, the serving
-   path's stage-2 render, and of 128x128, each also with its overflow flag
-   set, so that every tile takes the dense branch): error, kernel and plain
-   device time (CUDA events, warm L2, the host's enqueue hidden behind a
-   sleep kernel; for K1, K6, K3, K7 and K8 the set-up, the kernel and the
-   whole route apart; for K3, K7 and K8 the pair slots their body
-   evaluates),
+   path's stage-2 render, and of 128x128, its set-up (rows bitwise, tile
+   boxes, counts and overflow flag) against its plain version, its raster
+   and route against raster_binned_plain, and with its overflow flag set,
+   so that every tile takes the dense branch, against raster_scan): error,
+   kernel and plain device time (CUDA events, warm L2, the host's enqueue
+   hidden behind a sleep kernel; for K1, K6, K10, K3, K7 and K8 the
+   set-up, the kernel and the whole route apart; for K3, K7 and K8 the
+   pair slots their body evaluates),
    the time of one PyTorch library call computing the same
    function where there is one, and the bound (the larger of bytes over
    3.35 TB/s and float operations over 67 TFLOP/s, the H100 SXM's
@@ -51,8 +53,8 @@ Phases, each printed on its own line(s); any failure exits non-zero:
    agree with the same engine on the CPU (the kernels' plain versions);
    then the same requests with the skip raster switched off
    (``rasterize.USE_PALLAS_SKIP``): K10 in K1's place, outputs as the skip
-   route's, and K10 held against its plain version on each call's own
-   inputs; then the median latency per bucket;
+   route's, and each K10 route call's output held against its plain
+   version on the call's own inputs; then the median latency per bucket;
 4. training: the two-stage Pretrain step, the two-stage FinetuneStage step
    and the one-stage Finetune step (Trainer.train_step_fn) at full width
    (ResNet-18 trunks, 128x128 crops, B=32, f32 without TF32) from seeded
@@ -295,12 +297,9 @@ def check_setup(proj, faces, lib):
 def faces_per_block(boxes, rays, blocks):
     """The faces each block of samples stages after its cull: boxes (B, F,
     4) against the box of each block's samples, rays (B, P, 2) taken in
-    ``blocks`` (nb, S) index order, widened by ``rasterize.BOX_MARGIN``
-    -> (B, nb) counts."""
-    from dsf_tpu_torch.ops import rasterize as ras
+    ``blocks`` (nb, S) index order -> (B, nb) counts."""
     uv = rays[:, blocks]                            # (B, nb, S, 2)
-    lo = uv.amin(2) - ras.BOX_MARGIN
-    hi = uv.amax(2) + ras.BOX_MARGIN
+    lo, hi = uv.amin(2), uv.amax(2)
     bx = boxes[:, None]                             # (B, 1, F, 4)
     meet = ((bx[..., 0] <= hi[..., None, 0]) & (bx[..., 1] >= lo[..., None, 0])
             & (bx[..., 2] <= hi[..., None, 1]) & (bx[..., 3] >= lo[..., None, 1]))
@@ -1325,62 +1324,114 @@ def check_raster_dense(renderer, B, rng):
             "setup_ms": setup_ms, "route_ms": route_ms}
 
 
+def check_binned_setup(proj, faces, rays, hw):
+    """K10's set-up kernels (``raster_kernel.binned_setup_cuda``) against
+    their plain version (``rasterize.binned_setup_plain``: ``skip_tables``
+    and ``binned_tables``): rows bit for bit, cover, chunk, screen and tile
+    boxes, counts and the overflow flag equal.  Returns the set-up's
+    tables."""
+    import torch
+    from dsf_tpu_torch.ops import raster_kernel
+    from dsf_tpu_torch.ops import rasterize as ras
+
+    got = raster_kernel.binned_setup_cuda(proj, faces, rays, hw)
+    ref = ras.binned_setup_plain(proj, faces, rays, hw)
+    torch.cuda.synchronize()
+    bad = {"row words": int((got.rows.view(torch.int32)
+                             != ref.rows.view(torch.int32)).sum())}
+    for name in ("boxes", "cbox", "vbox", "tbox", "counts", "overflow"):
+        bad[name] = int((getattr(got, name) != getattr(ref, name)).sum())
+    need(sum(bad.values()) == 0, f"K10's set-up disagrees with "
+         f"rasterize.binned_setup_plain: {bad}")
+    return got
+
+
+def binned_plain(proj, faces, rays, hw):
+    """K10's plain version on the route's inputs: ``raster_binned_plain``
+    over ``face_rows`` and ``binned_tables`` (the CPU path's), and the
+    tables' overflow flag."""
+    from dsf_tpu_torch.ops import rasterize as ras
+    rows = ras.face_rows(proj, faces)
+    tables = ras.binned_tables(proj, rays, faces, hw, rows)
+    return ras.raster_binned_plain(rows, rays, hw, *tables), tables
+
+
+def binned_times(proj, faces, rays, hw, tables, iters):
+    """K10's device times on one call's inputs: the raster on the set-up's
+    tables, the set-up, the route (set-up + raster) and, beside them, the
+    PyTorch tables that the route replaced (``face_rows`` and
+    ``binned_tables``) and the plain version."""
+    from dsf_tpu_torch.ops import raster_kernel
+    from dsf_tpu_torch.ops import rasterize as ras
+    t = tables
+    return {
+        "ms": time_ms(lambda: raster_kernel.raster_binned_launch(
+            t.rows, t.boxes, t.cbox, t.vbox, t.tbox, rays, t.overflow, hw),
+            iters),
+        "setup_ms": time_ms(lambda: raster_kernel.binned_setup_cuda(
+            proj, faces, rays, hw), iters),
+        "route_ms": time_ms(lambda: ras.binned_forward(proj, rays, faces, hw),
+                            iters),
+        "tables_ms": time_ms(lambda: ras.binned_tables(
+            proj, rays, faces, hw, ras.face_rows(proj, faces)), 20),
+        "plain_ms": time_ms(lambda: binned_plain(proj, faces, rays, hw), 3, 1)}
+
+
 def check_raster_binned(renderer, B, stride, rng):
     """K10 on B crops of posed hands at ``stride`` (2: 64x64, the serving
     path's stage-2 render, which takes K10 when the skip route is off; 1:
-    128x128): its tables (``rasterize.binned_tables``), then the kernel
-    against its plain version on them: zbuf bitwise, ids equal.  Then the
-    same scene with the overflow flag set, so that every tile takes the
-    dense branch (scans every face), held the same way.  K10's record is
-    taken on the serving path's own inputs (``binned_serving_record``)."""
+    128x128): its set-up against its plain version (``check_binned_setup``),
+    then its raster on the set-up's tables and its whole route
+    (``rasterize.binned_forward``) against ``raster_binned_plain`` over
+    ``binned_tables``, zbuf bitwise and ids equal; then the raster with the
+    overflow flag set, so that every tile takes the dense branch, against
+    ``raster_scan`` the same way.  K10's record is taken on the serving
+    path's own inputs (``binned_serving_record``)."""
     import torch
     from dsf_tpu_torch.ops import raster_kernel
     from dsf_tpu_torch.ops import rasterize as ras
 
     proj, rays, faces, H, W = raster_scene(renderer, B, stride, rng)
-    P, F = H * W, faces.shape[0]
-    rows = ras.face_rows(proj, faces)
-    lists, counts, overflow = ras.binned_tables(proj, rays, faces, (H, W),
-                                                rows)
-    forced = torch.ones_like(overflow)
-    res = {}
-    for name, flag in (("lists", overflow), ("dense", forced)):
-        zk, ik = raster_kernel.raster_binned_cuda(rows, rays, lists, counts,
-                                                  flag, (H, W))
-        zp, ip = ras.raster_binned_plain(rows, rays, (H, W), lists, counts,
-                                         flag)
-        torch.cuda.synchronize()
-        res[name] = (int((zk != zp).sum()), int((ik != ip).sum()),
-                     float((zk - zp).abs().max()), int((zp > 0).sum()))
-    z_bad, i_bad, err, covered = res["lists"]
-    ms = time_ms(lambda: raster_kernel.raster_binned_cuda(
-        rows, rays, lists, counts, overflow, (H, W)), 50)
-    dense_ms = time_ms(lambda: raster_kernel.raster_binned_cuda(
-        rows, rays, lists, counts, forced, (H, W)), 20)
-    tables_ms = time_ms(lambda: ras.binned_tables(proj, rays, faces, (H, W),
-                                                  ras.face_rows(proj, faces)),
-                        20)
-    plain_ms = time_ms(lambda: ras.raster_binned_plain(
-        rows, rays, (H, W), lists, counts, overflow), 3, 1)
+    P, F, hw = H * W, faces.shape[0], (H, W)
+    t = check_binned_setup(proj, faces, rays, hw)
+    (zp, ip), (_, counts, overflow) = binned_plain(proj, faces, rays, hw)
+    zs, i_s = ras.raster_scan(proj, rays, faces)
+    forced = torch.ones_like(t.overflow)
+    runs = {"raster": raster_kernel.raster_binned_launch(
+                t.rows, t.boxes, t.cbox, t.vbox, t.tbox, rays, t.overflow,
+                hw),
+            "route": ras.binned_forward(proj, rays, faces, hw)}
+    dense = raster_kernel.raster_binned_launch(t.rows, t.boxes, t.cbox,
+                                               t.vbox, t.tbox, rays, forced,
+                                               hw)
+    torch.cuda.synchronize()
+    bad = {k: (int((z != zp).sum()), int((i != ip).sum()))
+           for k, (z, i) in runs.items()}
+    bad["dense"] = (int((dense[0] != zs).sum()), int((dense[1] != i_s).sum()))
+    err = float((runs["raster"][0] - zp).abs().max())
+    covered = int((zp > 0).sum())
+    times = binned_times(proj, faces, rays, hw, t, 50)
+    dense_ms = time_ms(lambda: raster_kernel.raster_binned_launch(
+        t.rows, t.boxes, t.cbox, t.vbox, t.tbox, rays, forced, hw), 50)
     # the function's inputs (face rows, positions) read once, its outputs
     # written once; 16 operations per pixel in a face's bbox
     nbytes = B * F * 13 * 4 + rays.numel() * 4 + B * P * 8
     pairs = raster_pair_count(proj, faces, rays)
     bms, by = bound_ms(nbytes, 16 * pairs)
-    d_z, d_i, d_err, _ = res["dense"]
-    say(f"kernel K10 raster_binned B={B} {H}x{W} F={F}: zbuf mismatches "
-        f"{z_bad}, id mismatches {i_bad}, covered pixels {covered}/{B * P}, "
-        f"overflow {int(overflow)}, faces per tile mean "
+    say(f"kernel K10 raster_binned B={B} {H}x{W} F={F}: set-up rows bitwise,"
+        f" cover, screen and tile boxes, counts and flag equal; zbuf/id "
+        f"mismatches {json.dumps(bad)} (raster, route, dense branch), "
+        f"covered pixels "
+        f"{covered}/{B * P}, overflow {int(overflow)}, faces per tile mean "
         f"{float(counts.float().mean()):.1f} max {int(counts.max())} (cap "
-        f"{ras.BIN_CAP}), max_abs_err {err}, kernel {ms:.4f} ms (+ tables "
-        f"{tables_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {bms:.6f} ms "
-        f"by {by} ({pairs} pixel-face pairs in bbox, {nbytes} bytes); with "
-        f"the overflow flag set (every tile scans every face): zbuf "
-        f"mismatches {d_z}, id mismatches {d_i}, max_abs_err {d_err}, "
-        f"kernel {dense_ms:.4f} ms")
-    need(z_bad == 0 and i_bad == 0, "K10 disagrees with its plain version")
-    need(d_z == 0 and d_i == 0,
-         "K10's dense branch disagrees with its plain version")
+        f"{ras.BIN_CAP}), max_abs_err {err}, kernel {times['ms']:.4f} ms, "
+        f"set-up {times['setup_ms']:.4f} ms, route {times['route_ms']:.4f} "
+        f"ms (the tables in PyTorch {times['tables_ms']:.4f} ms), plain "
+        f"{times['plain_ms']:.4f} ms, bound {bms:.6f} ms by {by} ({pairs} "
+        f"pixel-face pairs in bbox, {nbytes} bytes); with the overflow flag "
+        f"set (every face, K1's body) {dense_ms:.4f} ms")
+    need(sum(sum(v) for v in bad.values()) == 0,
+         f"K10 disagrees with its plain version at stride {stride}: {bad}")
     need(covered > 0.02 * B * P, "K10 scene covers too little of the crop")
 
 
@@ -1480,56 +1531,57 @@ def atol_for(key):
 
 
 def binned_serving_record(kept):
-    """K10 against its plain version on each binned serving call's own
-    inputs, as the path gave them (zbuf bitwise, ids equal; after the
-    path's counts are read: these launches are checks, not the path's),
-    and its record timed and bounded on the largest call's."""
+    """K10 on each binned serving call's own inputs, as the path gave them
+    (``kept``: proj, positions, faces, layout and the route's zbuf and
+    ids): the route's output against ``raster_binned_plain`` over
+    ``binned_tables`` on the same inputs (zbuf bitwise, ids equal) and the
+    set-up against its plain version (after the path's counts are read:
+    these launches are checks, not the path's); its record timed and
+    bounded on the largest call's."""
     import torch
-    from dsf_tpu_torch.ops import raster_kernel
-    from dsf_tpu_torch.ops import rasterize as ras
 
-    err = 0.0
-    for proj, pix_uv, faces, hw, rows, (lists, cnt, flag) in kept:
+    err, flags = 0.0, 0
+    for proj, pix_uv, faces, hw, (zk, ik) in kept:
         with torch.inference_mode():
-            zk, ik = raster_kernel.raster_binned_cuda(
-                rows, pix_uv.contiguous(), lists, cnt, flag, hw)
-            zp, ip = ras.raster_binned_plain(rows, pix_uv, hw, lists, cnt,
-                                             flag)
+            check_binned_setup(proj, faces, pix_uv, hw)
+            (zp, ip), (_, cnt, flag) = binned_plain(proj, faces, pix_uv, hw)
         z_bad, i_bad = int((zk != zp).sum()), int((ik != ip).sum())
         err = max(err, float((zk - zp).abs().max()))
-        say(f"slice binned call B={rows.shape[0]} {hw[0]}x{hw[1]}: K10 "
-            f"against its plain version on the call's inputs: zbuf "
-            f"mismatches {z_bad}, id mismatches {i_bad}, overflow "
-            f"{int(flag)}, faces per tile max {int(cnt.max())}")
+        flags += int(flag)
+        say(f"slice binned call B={proj.shape[0]} {hw[0]}x{hw[1]}: the K10 "
+            f"route's output against its plain version on the call's "
+            f"inputs: zbuf mismatches {z_bad}, id mismatches {i_bad}, "
+            f"overflow {int(flag)}, faces per tile max {int(cnt.max())}; "
+            f"set-up equal")
         need(z_bad == 0 and i_bad == 0, "K10 disagrees with its plain "
              "version on a serving call's inputs")
-    proj, pix_uv, faces, hw, rows, tables = max(
-        kept, key=lambda k: k[4].shape[0])
-    pix_uv = pix_uv.contiguous()
-    B, F = rows.shape[0], rows.shape[1]
+    proj, pix_uv, faces, hw, _ = max(kept, key=lambda k: k[0].shape[0])
+    B, F = proj.shape[0], faces.shape[0]
     P = hw[0] * hw[1]
     with torch.inference_mode():
-        ms = time_ms(lambda: raster_kernel.raster_binned_cuda(
-            rows, pix_uv, *tables, hw), 50)
-        tables_ms = time_ms(lambda: ras.binned_tables(
-            proj, pix_uv, faces, hw, ras.face_rows(proj, faces)), 20)
-        plain_ms = time_ms(lambda: ras.raster_binned_plain(
-            rows, pix_uv, hw, *tables), 3, 1)
+        from dsf_tpu_torch.ops import raster_kernel
+        tables = raster_kernel.binned_setup_cuda(proj, faces, pix_uv, hw)
+        times = binned_times(proj, faces, pix_uv, hw, tables, 50)
         pairs = raster_pair_count(proj, faces, pix_uv)
     # the function's inputs (face rows, positions) read once, its outputs
     # written once; 16 operations per pixel in a face's bbox
-    nbytes = B * F * 13 * 4 + pix_uv.numel() * 4 + B * P * 8
+    nbytes = B * F * 13 * 4 + B * P * 2 * 4 + B * P * 8
     bms, by = bound_ms(nbytes, 16 * pairs)
     say(f"kernel K10 raster_binned on the serving path's B={B} {hw[0]}x"
-        f"{hw[1]} stage-2 render (overflow {int(tables[2])}): kernel "
-        f"{ms:.4f} ms (+ tables {tables_ms:.4f} ms), plain {plain_ms:.4f} "
-        f"ms, bound {bms:.6f} ms by {by} ({pairs} pixel-face pairs in "
-        f"bbox, {nbytes} bytes)")
+        f"{hw[1]} stage-2 render (overflow {int(tables.overflow)}; calls "
+        f"that overflowed {flags} of {len(kept)}): kernel {times['ms']:.4f} "
+        f"ms, set-up {times['setup_ms']:.4f} ms, route "
+        f"{times['route_ms']:.4f} ms (the tables in PyTorch "
+        f"{times['tables_ms']:.4f} ms), plain {times['plain_ms']:.4f} ms, "
+        f"bound {bms:.6f} ms by {by} ({pairs} pixel-face pairs in bbox, "
+        f"{nbytes} bytes)")
     return {"name": "raster_binned", "route": "cuda",
             "source": "dsf_tpu_torch/csrc/raster_binned.cu",
             "replaces": "dsf_tpu/ops/pallas_raster.py:85",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": None}
+            "max_abs_err": err, "ms": times["ms"],
+            "plain_ms": times["plain_ms"], "bound_ms": bms, "bound_by": by,
+            "library_ms": None, "setup_ms": times["setup_ms"],
+            "route_ms": times["route_ms"]}
 
 
 def run_slice(mano_path):
@@ -1599,18 +1651,17 @@ def run_slice(mano_path):
         + json.dumps({k: float(f"{v:.3g}") for k, v in worst.items()}))
 
     # the binned route: the same requests with the skip raster off; each
-    # call's K10 inputs are kept (proj, positions, faces, layout, rows and
-    # the tables, whose overflow flag says a tile held more than BIN_CAP
-    # faces: the dense answer)
-    skip, tables = ras.USE_PALLAS_SKIP, ras.binned_tables
+    # route call's inputs and output are kept (proj, positions, faces,
+    # layout, (zbuf, idx))
+    skip, route = ras.USE_PALLAS_SKIP, ras.binned_forward
     kept = []
 
-    def kept_tables(proj, pix_uv, faces, tile_hw, rows):
-        out = tables(proj, pix_uv, faces, tile_hw, rows)
-        kept.append((proj, pix_uv, faces, tile_hw, rows, out))
+    def kept_route(proj, pix_uv, faces, tile_hw):
+        out = route(proj, pix_uv, faces, tile_hw)
+        kept.append((proj, pix_uv, faces, tile_hw, out))
         return out
 
-    ras.USE_PALLAS_SKIP, ras.binned_tables = False, kept_tables
+    ras.USE_PALLAS_SKIP, ras.binned_forward = False, kept_route
     try:
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
@@ -1618,11 +1669,9 @@ def run_slice(mano_path):
         torch.cuda.synchronize()
         binned = dict(kernels.LAUNCHES)
     finally:
-        ras.USE_PALLAS_SKIP, ras.binned_tables = skip, tables
+        ras.USE_PALLAS_SKIP, ras.binned_forward = skip, route
     say(f"slice launches with rasterize.USE_PALLAS_SKIP off: "
-        f"{json.dumps(binned)}; calls whose stage-2 render overflowed a "
-        f"tile's {ras.BIN_CAP} faces (K10 scanned every face): "
-        f"{sum(int(k[5][2]) for k in kept)} of {len(kept)}")
+        f"{json.dumps(binned)}; binned route calls {len(kept)}")
     k10 = binned_serving_record(kept)
     need(binned == launches(raster_binned=bucket_calls,
                             codec_encode=bucket_calls,

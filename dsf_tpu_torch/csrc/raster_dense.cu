@@ -21,11 +21,12 @@
 // Design: K1's (raster_skip.cu) over blocks of 128 consecutive samples,
 // two a thread.  The set-up (raster_setup.cuh, one thread per (image,
 // face)) builds the face rows bitwise as rasterize.face_rows does, each
-// face's box and each 256-face chunk's box.  Each raster block reduces the
-// box of its samples and bins the faces inside the block
-// (raster_rows.cuh:scan_culled): chunks and faces whose boxes miss the
-// block's (widened by one pixel) are never staged, and the rest are walked
-// in ascending face order with a strict '<', so zbuf and ids are bitwise
+// face's cover box (raster_setup.cuh:cover_box) and each 256-face chunk's
+// box.  Each raster block reduces the box of its samples and bins the
+// faces inside the block (raster_rows.cuh:scan_culled): chunks and faces
+// whose cover boxes miss the block's cover none of its samples and are
+// never staged; the rest are walked in ascending face order with a strict
+// '<', so zbuf and ids are bitwise
 // raster_scan's.  The result does not depend on the sample order, only the
 // speed does: in the pre-render's raster order a block is a strip of a
 // frame row, and a strip away from the hand skips every chunk after its

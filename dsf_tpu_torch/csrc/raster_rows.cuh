@@ -2,13 +2,19 @@
 // (raster_dense.cu) and K10 (raster_binned.cu), in one place so that the
 // three stay bitwise-equal to their common plain version
 // (ops/rasterize.py:_depth_or_inf and scan_rows); and the culled scan that
-// K1 and K6 share (scan_culled).
+// the three share (scan_culled).
 //
 // A face row is 16 floats (rasterize.face_rows): the three edge lines
 // a*u + b*v + c (0-8), the depth line (9-11), the valid flag (12) and
 // padding.  nvcc would contract a*u + b*v + c into an FMA; the plain
 // version rounds each product and sum on its own, so the lines are
 // evaluated with __fmul_rn / __fadd_rn in its order.
+//
+// The culls test each face's cover box (raster_setup.cuh:cover_box,
+// rasterize.cover_boxes): a box that holds every sample at which the
+// face's rounded edge test passes, bounded from its own coefficients.  A
+// face whose cover box misses a block's samples covers none of them, so
+// a cull needs no margin and cannot change the answer.
 
 #pragma once
 
@@ -19,12 +25,10 @@
 namespace dsf_raster {
 
 constexpr int kRow = 16;             // floats per face row
-constexpr int kChunk = 64;           // K10's face rows per shared stage
 constexpr float kInf = 1e10f;
 constexpr int kCull = 256;           // faces a chunk box covers and the
                                      // set-up's block (raster_setup.cuh)
 constexpr int kList = 2048;          // faces a block culls into one list
-constexpr float kMargin = 1.0f;      // pixels; rasterize.BOX_MARGIN
 
 __device__ __forceinline__ float lin(float u, float v, float a, float b,
                                      float c) {
@@ -70,20 +74,42 @@ __device__ __forceinline__ bool meets(float4 box, float umin, float umax,
   return box.x <= umax && box.y >= umin && box.z <= vmax && box.w >= vmin;
 }
 
+// scan_culled's list beside its cull: every face (K1, K6, and K10 when a
+// tile overflowed) ...
+struct AnyFace {
+  static constexpr bool kAll = true;
+  __device__ __forceinline__ bool operator()(float4) const { return true; }
+};
+
+// ... or the faces whose screen box (vbox, raster_setup.cuh) meets `tile`
+// = (umin, umax, vmin, vmax) inclusively, with no margin: K10's 16x16
+// tile's list (rasterize.binned_tables).  A chunk box, the union of its
+// faces' cover boxes, holds their screen boxes, so a chunk box that
+// misses `tile` holds no listed face.
+struct TileList {
+  static constexpr bool kAll = false;
+  const float4* vbox;
+  float4 tile;
+  __device__ __forceinline__ bool operator()(float4 b) const {
+    return meets(b, tile.x, tile.y, tile.z, tile.w);
+  }
+};
+
 // One block of kThreads threads, each with up to S samples (u[j], v[j];
-// active[j] where the sample exists), against one image's F faces: rows
-// (F, 16), boxes (F) and the chunk boxes (ceil(F / kCull)) of
-// raster_setup.cuh.  Leaves in (best[j], best_i[j]) the least depth and
-// the lowest face id at it, as raster_scan does.
+// active[j] where the sample exists), against the faces of one image's F
+// that `listed` passes: rows (F, 16), cover boxes (F) and the chunk boxes
+// (ceil(F / kCull)) of raster_setup.cuh.  Leaves in (best[j], best_i[j])
+// the least depth over those faces and the lowest face id at it:
+// raster_scan's answer for AnyFace, the tile list's for TileList.
 //
-//  1. The block reduces the box of its own samples and widens it by
-//     kMargin (a rounding cannot put a sample a pixel outside a face's box
-//     inside the face: the premise of raster_scan's own near test).
+//  1. The block reduces the box of its own samples (a face whose cover
+//     box misses it covers none of them).
 //  2. It culls up to kList faces at a time into one list, kThreads faces a
-//     step, one face a thread.  A chunk box that misses the block's box
-//     skips its steps for the whole block (one uniform test, the chunk
-//     boxes read at once); otherwise each thread tests its face's box,
-//     the next step's box already in flight.  __ballot_sync, __popc and a
+//     step, one face a thread.  A chunk box that misses the block's box,
+//     or `listed`'s, skips its steps for the whole block (one uniform
+//     test, the chunk boxes read at once); otherwise each thread tests its
+//     face's cover box and, for a TileList, its screen box, the next
+//     step's boxes already in flight.  __ballot_sync, __popc and a
 //     prefix over the warps' counts give each passing face a slot in
 //     ascending face order.
 //  3. The listed rows are gathered into shared memory kThreads at a time,
@@ -91,12 +117,13 @@ __device__ __forceinline__ bool meets(float4 box, float umin, float umax,
 //     '<': faces come in ascending id order, so the lowest id at the least
 //     depth wins.
 // A block whose box meets no chunk reads no face box and no row.
-template <int kThreads, int S>
+template <int kThreads, int S, class List = AnyFace>
 __device__ __forceinline__ void scan_culled(
     const float* __restrict__ rows, const float4* __restrict__ boxes,
     const float4* __restrict__ cbox, int F, const float (&u)[S],
     const float (&v)[S], const bool (&active)[S], int tid,
-    CullShared<kThreads>& s, float (&best)[S], int (&best_i)[S]) {
+    CullShared<kThreads>& s, float (&best)[S], int (&best_i)[S],
+    List listed = List()) {
   static_assert(kCull % kThreads == 0 && kThreads % 32 == 0, "block size");
   constexpr int kWarps = kThreads / 32;
   constexpr int kSteps = kList / kThreads;
@@ -135,8 +162,7 @@ __device__ __forceinline__ void scan_culled(
     r2 = fminf(r2, s.part[2][k]);
     r3 = fmaxf(r3, s.part[3][k]);
   }
-  const float umin = r0 - kMargin, umax = r1 + kMargin;
-  const float vmin = r2 - kMargin, vmax = r3 + kMargin;
+  const float umin = r0, umax = r1, vmin = r2, vmax = r3;
 
   for (int g0 = 0; g0 < F; g0 += kList) {
     // the chunk boxes of this pass that meet the block's box, a bit each
@@ -145,23 +171,31 @@ __device__ __forceinline__ void scan_culled(
     unsigned cmask = 0;
 #pragma unroll
     for (int k = 0; k < kList / kCull; ++k) {
-      if (k < ncb && meets(cbox[c0 + k], umin, umax, vmin, vmax))
-        cmask |= 1u << k;
+      if (k < ncb) {
+        const float4 cb = cbox[c0 + k];
+        if (meets(cb, umin, umax, vmin, vmax) && listed(cb)) cmask |= 1u << k;
+      }
     }
     if (cmask == 0) continue;                   // the same for every thread
 
     int n = 0;                                  // faces listed, uniform
-    float4 next = none;
-    if ((cmask & 1u) && g0 + tid < F) next = boxes[g0 + tid];
+    float4 next = none, vnext = none;
+    if ((cmask & 1u) && g0 + tid < F) {
+      next = boxes[g0 + tid];
+      if constexpr (!List::kAll) vnext = listed.vbox[g0 + tid];
+    }
     for (int k = 0; k < kSteps; ++k) {
-      const float4 box = next;
+      const float4 box = next, vb = vnext;
       const int f = g0 + k * kThreads + tid;
       next = none;
       if (k + 1 < kSteps && ((cmask >> ((k + 1) / kPerChunk)) & 1u) &&
-          f + kThreads < F)
+          f + kThreads < F) {
         next = boxes[f + kThreads];
+        if constexpr (!List::kAll) vnext = listed.vbox[f + kThreads];
+      }
       if (!((cmask >> (k / kPerChunk)) & 1u)) continue;
-      const bool pass = f < F && meets(box, umin, umax, vmin, vmax);
+      const bool pass =
+          f < F && meets(box, umin, umax, vmin, vmax) && listed(vb);
       const unsigned m = __ballot_sync(0xffffffffu, pass);
       if (lane == 0) s.warp_n[k][warp] = __popc(m);
       __syncthreads();

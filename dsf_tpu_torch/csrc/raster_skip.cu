@@ -18,12 +18,14 @@
 // Design (two launches):
 //  * dsf_raster_skip_setup, raster_setup.cuh: one thread per (image,
 //    face) builds the face rows bitwise as rasterize.face_rows does, each
-//    face's screen box, and each 256-face chunk's box;
+//    face's cover box (its screen box widened to every pixel its rounded
+//    edge test can pass), and each 256-face chunk's box;
 //  * dsf_raster_skip: one block per (image, 4 x 16 pixel tile), one thread
 //    per pixel, a ragged edge masked.  raster_rows.cuh:scan_culled bins the
 //    faces inside the block: it reduces the tile's box, culls chunks and
-//    then faces whose boxes miss it (widened by one pixel), lists the rest
-//    in ascending face order (ballot, popc, a prefix over the warps),
+//    then faces whose cover boxes miss it (they cover none of its pixels),
+//    lists the rest in ascending face order (ballot, popc, a prefix over
+//    the warps),
 //    stages their rows in shared memory and walks them with a strict '<',
 //    so zbuf and ids are bitwise raster_scan's.  The 4 x 16 tile (4
 //    columns, 16 rows; rather than 16 x 16) quarters each block's box and

@@ -7,7 +7,16 @@ covering it (blur=0, faces_per_pixel=1, screen-space barycentric depth).
 Per-face edge and depth functions are linear in (u, v):
 ``e = a*u + b*v + c`` and ``z = az*u + bz*v + cz``, with the area sign
 folded into the edge coefficients (inside test ``e >= 0``) and 1/A into
-the depth line.
+the depth line.  A face covers a sample where it is valid and its three
+rounded edge values are >= 0: the JAX package's coverage, nothing more.
+
+Every raster below skips faces by box: a face whose cover box
+(``cover_boxes``) misses a sample covers it nowhere.  The cover box holds
+the face's screen box and every sample its rounded edge test can pass,
+with a bound on the rounding worked out from the face's own edge
+coefficients; near a needle (a face a few thousandths of a pixel wide)
+that test passes samples pixels beyond the tip, so no fixed margin would
+hold.  So each cull is exact by construction.
 
 ``raster_scan`` is the plain dense raster, with the semantics of the JAX
 package's ``_scan_minz``: faces in chunks, chunk-major strict ``<``
@@ -25,7 +34,9 @@ bitwise-equal to its plain version on the same face rows.
   4x16 pixel tiles, each culling per face by bounding box);
 - binned (``tile_hw`` given): K10, ``raster_kernel.raster_binned_cuda``
   (per 16x16 tile, the faces whose bbox meets the tile's, at most
-  ``BIN_CAP``; the dense answer for every tile when any tile overflows);
+  ``BIN_CAP``; the dense answer for every tile when any tile overflows:
+  K1's set-up plus the tiles' boxes and counts on the card, then K1's
+  body over 4x16 blocks limited to their tile's list);
 - dense (otherwise, as for a full frame): K6,
   ``raster_kernel.raster_dense_cuda`` (K1's design over blocks of 128
   consecutive samples).
@@ -55,14 +66,19 @@ from dsf_tpu_torch.ops import moments_kernel, raster_kernel
 INF = 1e10
 FACE_CHUNK = 256
 SCAN_PAIRS = 1 << 23   # (pixel, face) pairs per step of the plain scan
-BOX_MARGIN = 1.0       # pixels by which a bbox test widens a box (K1's too)
+# the cover box's bounds (``cover_boxes``; csrc/raster_setup.cuh)
+COVER_REL = 2.0 ** -22  # > the relative error of fl(fl(u*a) + fl(v*b))
+COVER_ABS = 2.0 ** -140  # > its absolute error where a product underflows
+COVER_SIN = 2.0 ** -16  # least |sin| of two edges' angle for a finite box
+COVER_PAD = 2.0 ** -10  # px, and 2^-20 of the coordinate: float64's error
+COVER_PAD_REL = 2.0 ** -20  # and the cast to float32
 
 # the JAX package's switches (dsf_tpu/ops/rasterize.py:253-254, :398-400)
 USE_PALLAS_SKIP = True
 SKIP_BLOCK = (16, 16)  # K1's pixel tile
 SKIP_FC = 64           # the TPU skip kernel's face chunk (_skip_eligible)
-BIN_TILE = 16          # K10's pixel tile (BIN_TILE x BIN_TILE)
-BIN_CAP = 512          # K10's faces per tile
+BIN_TILE = raster_kernel.BIN_TILE  # K10's pixel tile (16 x 16)
+BIN_CAP = raster_kernel.BIN_CAP    # K10's faces per tile (512)
 
 
 def project_verts(verts, paras, flip=1.0):
@@ -191,16 +207,14 @@ def raster_scan(proj, pix_uv, faces, chunk=FACE_CHUNK):
     pix_uv (B, P, 2), faces (F, 3) -> zbuf (B, P) float32 (0 =
     background), idx (B, P) int32 (-1).
 
-    Samples that lie outside every image's bbox of its valid faces,
-    widened by ``BOX_MARGIN`` pixels (as K1 widens its tiles), are
-    background without a test: a rounding cannot put a sample a pixel away
-    from a face inside it.  The others go through ``scan_rows`` (on a full
-    frame, a hand covers a few percent of it)."""
-    rows = face_rows(proj, faces)
-    lo, hi = _face_bounds(proj, faces, rows)
-    lo, hi = lo.amin(1), hi.amax(1)
-    near = ((pix_uv >= (lo - BOX_MARGIN)[:, None])
-            & (pix_uv <= (hi + BOX_MARGIN)[:, None])).all(-1).any(0)  # (P,)
+    Samples that lie outside every image's union of its faces' cover
+    boxes (``cover_boxes``) are covered by no face and are background
+    without a test.  The others go through ``scan_rows`` (on a full frame,
+    a hand covers a few percent of it)."""
+    rows, boxes, _ = skip_tables(proj, faces)
+    lo = torch.stack([boxes[..., 0].amin(1), boxes[..., 2].amin(1)], -1)
+    hi = torch.stack([boxes[..., 1].amax(1), boxes[..., 3].amax(1)], -1)
+    near = ((pix_uv >= lo[:, None]) & (pix_uv <= hi[:, None])).all(-1).any(0)
     if bool(near.all()):
         return scan_rows(rows, pix_uv, chunk)
     B, P = pix_uv.shape[0], pix_uv.shape[1]
@@ -225,16 +239,73 @@ def _face_bounds(proj, faces, rows):
             torch.where(valid, tri_uv.amax(2), -inf))
 
 
+def cover_boxes(rows, lo, hi):
+    """Each face's cover box (B, F, 4) = [umin umax vmin vmax] from its
+    rows (``face_rows``) and screen box lo, hi (``_face_bounds``): a box
+    that holds the screen box and every finite sample (u, v) at which the
+    face's rounded edge test (``_depth_or_inf``) passes, so that a raster
+    may skip a face whose cover box misses its samples.  +inf, -inf for an
+    invalid face, which covers nothing.
+
+    fl(s + c) >= 0 exactly when s + c >= 0, and s = fl(fl(u*a) + fl(v*b))
+    lies within (2^-23 + 2^-48) (|u*a| + |v*b|) + 2^-149 of u*a + v*b.  So
+    an edge passes only where a*u + b*v + c >= -COVER_REL (|a u| + |b v|)
+    - COVER_ABS: in the quadrant of the plane where u has the sign su and
+    v the sign sv, the half-plane (a + su COVER_REL |a|) u + (b + sv
+    COVER_REL |b|) v + c + COVER_ABS >= 0.  A face's three such
+    half-planes meet in a triangle (or nothing) whose corners are where
+    their lines meet pairwise.  The cover box is the union of the screen
+    box and the four quadrants' corners, in float64, each side moved out by
+    COVER_PAD + COVER_PAD_REL |x| and rounded to float32.  Where two edges
+    are within COVER_SIN of parallel, or the three do not close a
+    triangle, or a corner is not finite, the box is the whole plane.  The
+    set-up kernel (csrc/raster_setup.cuh:cover_box) repeats every
+    operation in this order."""
+    f64 = torch.float64
+    a, b = rows[..., 0:9:3].to(f64), rows[..., 1:9:3].to(f64)
+    c = rows[..., 2:9:3].to(f64) + COVER_ABS
+    ga, gb = a.abs() * COVER_REL, b.abs() * COVER_REL
+    umin, vmin = lo[..., 0].to(f64), lo[..., 1].to(f64)
+    umax, vmax = hi[..., 0].to(f64), hi[..., 1].to(f64)
+    ok = torch.ones_like(umin, dtype=torch.bool)
+    for su in (-1.0, 1.0):
+        ap = a + ga * su
+        for sv in (-1.0, 1.0):
+            bp = b + gb * sv
+            side = []
+            for j, k in ((0, 1), (1, 2), (2, 0)):
+                p, q = ap[..., j] * bp[..., k], ap[..., k] * bp[..., j]
+                det = p - q
+                u = (bp[..., j] * c[..., k] - bp[..., k] * c[..., j]) / det
+                v = (ap[..., k] * c[..., j] - ap[..., j] * c[..., k]) / det
+                ok &= ((det.abs() > (p.abs() + q.abs()) * COVER_SIN)
+                       & u.isfinite() & v.isfinite())
+                side.append(det > 0)
+                umin, umax = torch.minimum(umin, u), torch.maximum(umax, u)
+                vmin, vmax = torch.minimum(vmin, v), torch.maximum(vmax, v)
+            ok &= (side[0] == side[1]) & (side[1] == side[2])
+
+    def pad(x):
+        return COVER_PAD + x.abs() * COVER_PAD_REL
+
+    box = torch.stack([umin - pad(umin), umax + pad(umax),
+                       vmin - pad(vmin), vmax + pad(vmax)], -1).float()
+    inf = float("inf")
+    whole = box.new_tensor([-inf, inf, -inf, inf])
+    empty = box.new_tensor([inf, -inf, inf, -inf])
+    box = torch.where(ok[..., None], box, whole)
+    return torch.where((rows[..., 12] != 0)[..., None], box, empty)
+
+
 def skip_tables(proj, faces):
     """The plain version of the raster set-up (csrc/raster_setup.cuh), the
-    K1 and K6 kernels' inputs: face rows (B, F, 16) (``face_rows``), face
-    boxes (B, F, 4) = [umin umax vmin vmax] (+inf, -inf for an invalid
-    face, which no box test passes) and chunk boxes (B, ceil(F / 256), 4),
-    the union of the boxes of each ``raster_kernel.CHUNK`` faces."""
+    K1, K6 and K10 kernels' inputs: face rows (B, F, 16) (``face_rows``),
+    face cover boxes (B, F, 4) = [umin umax vmin vmax] (``cover_boxes``;
+    +inf, -inf for an invalid face, which no box test passes) and chunk
+    boxes (B, ceil(F / 256), 4), the union of the boxes of each
+    ``raster_kernel.CHUNK`` faces."""
     rows = face_rows(proj, faces)
-    lo, hi = _face_bounds(proj, faces, rows)
-    boxes = torch.stack([lo[..., 0], hi[..., 0], lo[..., 1], hi[..., 1]],
-                        dim=-1)
+    boxes = cover_boxes(rows, *_face_bounds(proj, faces, rows))
     B, F = boxes.shape[0], boxes.shape[1]
     fc = raster_kernel.CHUNK
     pad = (-F) % fc
@@ -302,6 +373,29 @@ def binned_tables(proj, pix_uv, faces, tile_hw, rows):
     lists.scatter_(2, slot, fid.expand(B, G, F))
     return (lists[..., :cap].contiguous(), counts.to(torch.int32),
             overflow)
+
+
+def tile_boxes(pix_uv, tile_hw):
+    """The box [umin umax vmin vmax] (B, G, 4) of each 16x16 tile's
+    samples, pix_uv (B, H*W, 2) row-major over tile_hw = (H, W)."""
+    puv = _tile_major(pix_uv, tile_hw)                 # (B, G, t*t, 2)
+    lo, hi = puv.amin(2), puv.amax(2)
+    return torch.stack([lo[..., 0], hi[..., 0], lo[..., 1], hi[..., 1]], -1)
+
+
+def binned_setup_plain(proj, faces, pix_uv, tile_hw):
+    """The plain version of K10's set-up (``raster_kernel.
+    binned_setup_cuda``): ``skip_tables``' rows, cover boxes and chunk
+    boxes, the faces' screen boxes [umin umax vmin vmax] (``_face_bounds``;
+    the lists' test), the tiles' sample boxes (``tile_boxes``), and
+    ``binned_tables``' counts and overflow flag."""
+    rows, boxes, cbox = skip_tables(proj, faces)
+    lo, hi = _face_bounds(proj, faces, rows)
+    vbox = torch.stack([lo[..., 0], hi[..., 0], lo[..., 1], hi[..., 1]], -1)
+    _, counts, overflow = binned_tables(proj, pix_uv, faces, tile_hw, rows)
+    return raster_kernel.BinnedTables(rows, boxes, cbox, vbox,
+                                      tile_boxes(pix_uv, tile_hw), counts,
+                                      overflow)
 
 
 def raster_binned_plain(rows, pix_uv, tile_hw, lists, counts, overflow):
@@ -419,18 +513,22 @@ def dense_forward(proj, pix_uv, faces):
 def binned_forward(proj, pix_uv, faces, tile_hw):
     """The binned route on detached inputs (ref: _raster_binned): the
     dense route when the layout is not a multiple of ``BIN_TILE`` or the
-    mesh has at most ``BIN_CAP`` faces; else ``raster_binned_plain`` / K10
-    over ``binned_tables``."""
+    mesh has at most ``BIN_CAP`` faces; else ``raster_binned_plain`` over
+    ``binned_tables`` / K10 (its set-up and raster, on the positions and
+    faces as they come: no copy, no cast)."""
     H, W = tile_hw
     if H % BIN_TILE or W % BIN_TILE or faces.shape[0] <= BIN_CAP:
         return dense_forward(proj, pix_uv, faces)
-    rows = face_rows(proj, faces)
-    tables = binned_tables(proj, pix_uv, faces, tile_hw, rows)
+
+    def plain():
+        rows = face_rows(proj, faces)
+        return raster_binned_plain(
+            rows, pix_uv, tile_hw,
+            *binned_tables(proj, pix_uv, faces, tile_hw, rows))
     return _route_forward(
-        "binned", proj, pix_uv,
-        lambda: raster_binned_plain(rows, pix_uv, tile_hw, *tables),
-        lambda: raster_kernel.raster_binned_cuda(rows, pix_uv.contiguous(),
-                                                 *tables, tile_hw))
+        "binned", proj, pix_uv, plain,
+        lambda: raster_kernel.raster_binned_cuda(proj, faces, pix_uv,
+                                                 tile_hw))
 
 
 def _skip_eligible(layout_hw, faces):

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Time K4, the offset-codec decode of dsf_tpu_torch (forward and VJP),
-and K5 bwd, the encode VJP, at other layouts on one NVIDIA GPU.
+and K5 bwd, the encode VJP, at other layouts on one NVIDIA GPU, and K5
+fwd, the encode, beside PyTorch writing the same bytes.
 
     python3 scripts/codec_shapes_gpu.py [--parent DIR] [--encode-only]
     # from the repo root
@@ -37,7 +38,10 @@ seeded random fields:
 
 Beside them, as yardsticks of what the card gives for the same bytes,
 one PyTorch call each: ``x.sum()`` reads the field, ``dx.copy_(x)`` reads
-and writes it.
+and writes it.  K5 fwd (the library's ``dsf_codec_encode``, one layout,
+held against ``joint2offset_plain`` within 1e-5) is timed, in every mode,
+beside ``out.fill_(0)`` and ``out.zero_()`` of its output's bytes (the
+field it writes; its inputs are 1/84 of that), warm and cold.
 
 Each layout is held against the plain versions
 (``offset_codec.decode_fwd_plain``: y within 1e-5, m exactly, Z within
@@ -157,6 +161,42 @@ def inputs(B, rng, dev):
     dep = rng.uniform(-1, 1.05, (B, 1, S, S)).astype(np.float32)
     g = rng.randn(B, J, 3).astype(np.float32)
     return [torch.from_numpy(a).to(dev) for a in (off, dep, g)]
+
+
+def encode_fwd_vs_fill(B, depth, rng, rows):
+    """K5 fwd at B images against PyTorch writing its output's bytes,
+    warm and cold L2 (``rows``: the summary's, keyed ("k5fwd", what))."""
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    from dsf_tpu_torch.kernels import build
+    from dsf_tpu_torch.ops import codec_kernel
+    from dsf_tpu_torch.ops import offset_codec as oc
+    joint = torch.from_numpy(rng.uniform(-1, 1, (B, J, 3)).astype(
+        np.float32)).to(depth.device)
+    out = codec_kernel.encode_cuda(joint, depth, K)
+    err = float((out - oc.joint2offset_plain(joint, depth, K)).abs().max())
+    fn = typed(build.library("codec").dsf_codec_encode, 3, 3, 1)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run(j, d, o):
+        if fn(j.data_ptr(), d.data_ptr(), o.data_ptr(), B, J, S, K, stream):
+            raise RuntimeError("K5 fwd: launch failed")
+    copies = cs.copies_past_l2((joint, depth, out))
+    times = {}
+    for what, call in (("K5 fwd", run),
+                       ("out.fill_(0)", lambda j, d, o: o.fill_(0.0)),
+                       ("out.zero_()", lambda j, d, o: o.zero_())):
+        times[what] = (cs.time_ms(lambda: call(joint, depth, out), 50),
+                       cs.time_cold_ms(call, copies, 50))
+        rows.setdefault(("k5fwd", what), {})[B] = times[what]
+    ratio = [k / f for k, f in zip(times["K5 fwd"], times["out.fill_(0)"])]
+    print(f"K5 fwd B={B}: max_abs_err against joint2offset_plain {err:.3g}; "
+          + "; ".join(f"{k} warm {w:.4f} ms, cold {c:.4f} ms"
+                      for k, (w, c) in times.items())
+          + f"; K5 fwd / fill_ warm {ratio[0]:.3f}, cold {ratio[1]:.3f}",
+          flush=True)
+    return int(not err <= 1e-5)
 
 
 def encode_layouts(B, field, depth, rng, enc, parent, rows):
@@ -394,6 +434,7 @@ def main():
                           f"{held}{same}, max rel err {rel:.3g}; warm "
                           f"{warm:.4f} ms, cold {cold:.4f} ms", flush=True)
 
+            bad += encode_fwd_vs_fill(B, d, rng, rows)
             bad += encode_layouts(B, x, d, rng, enc, libs.get("parent"),
                                   rows)
             del copies
@@ -402,6 +443,10 @@ def main():
           + "):")
     for kind in ("fwd", "bwd", "enc"):
         for B in BATCHES:
+            if kind == "enc":
+                print(f"  K5 fwd B={B}, warm / cold: " + ", ".join(
+                    f"{k[1]} {v[B][0]:.4f} / {v[B][1]:.4f}"
+                    for k, v in rows.items() if k[0] == "k5fwd"), flush=True)
             cands = [(v[B][1], k) for k, v in rows.items()
                      if k[0] == kind and B in v]
             for t, k in sorted(cands)[:3]:

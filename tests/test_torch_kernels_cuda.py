@@ -22,6 +22,7 @@ from dsf_tpu_torch.ops import offset_codec as oc
 from dsf_tpu_torch.ops import point_mesh as pm
 from dsf_tpu_torch.ops import rasterize as ras
 from dsf_tpu_torch.render import renderer as rnd
+from raster_needles import add_needles
 
 pytestmark = pytest.mark.cuda
 
@@ -132,6 +133,16 @@ def test_wrapper_rejects_wrong_layouts(cuda):
         raster_kernel.face_setup_cuda(torch.zeros(1, 8, 3, device=cuda),
                                       torch.zeros(4, 3, dtype=torch.int64,
                                                   device=cuda))
+    with pytest.raises(ValueError, match="16x16"):
+        raster_kernel.binned_setup_cuda(
+            torch.zeros(1, 8, 3, device=cuda),
+            torch.zeros(4, 3, dtype=torch.int32, device=cuda),
+            torch.zeros(1, 240, 2, device=cuda), (16, 15))
+    with pytest.raises(ValueError, match="adjacent"):
+        raster_kernel.binned_setup_cuda(
+            torch.zeros(1, 8, 3, device=cuda),
+            torch.zeros(4, 3, dtype=torch.int32, device=cuda),
+            torch.zeros(1, 2, 256, device=cuda).transpose(1, 2), (16, 16))
     with pytest.raises(ValueError):
         codec_kernel.encode_cuda(torch.zeros(1, 21, 3, device=cuda),
                                  torch.zeros(1, 1, 8, 8, device=cuda,
@@ -888,17 +899,23 @@ def test_face_setup_matches_skip_tables(renderer, lib):
     assert torch.isinf(boxes[:, -2:]).all()
 
 
-@pytest.mark.parametrize("case", ["no_hand", "shrunk", "ragged", "permuted"])
+@pytest.mark.parametrize("case", ["no_hand", "shrunk", "ragged", "permuted",
+                                  "needles"])
 def test_raster_culled_cases(renderer, case):
     """K1 and K6 against ``raster_scan`` (zbuf bitwise, ids equal) on the
     scenes their per-face cull could get wrong: an image without a hand
     (moved 5000 px off), hands shrunk 5x (tiles that stage more faces than
-    one 256-face chunk; faces under a pixel), a 90 x 94 layout (K1's tiles
-    ragged in both directions), and K6 on the samples in a random
-    order."""
+    one 256-face chunk; faces under a pixel; K10's tiles overflow), a 90 x
+    94 layout (K1's tiles ragged in both directions), K6 on the samples in
+    a random order, and needles 0.001-0.005 px wide through the crop's
+    samples in front of the hands (their rounded edges pass samples beyond
+    their tips, outside their screen boxes).  On the 16-aligned layouts, K10's
+    route against ``raster_binned_plain`` the same way."""
     proj, rays = _crop_scene(renderer, 3, 41, 1)
     hw = (96, 96)
     faces = renderer.mano.faces
+    if case == "needles":
+        proj, faces = add_needles(proj, rays, faces, hw, seed=6)
     f32 = faces.to(torch.int32)
     if case == "no_hand":
         proj[0, :, 0] += 5000.0
@@ -918,20 +935,31 @@ def test_raster_culled_cases(renderer, case):
     assert (ip >= 0).any()
     if case == "no_hand":
         assert not (ip[0] >= 0).any()
+    if case == "needles":
+        assert (ip >= len(renderer.mano.faces)).any()
     zd, i_d = raster_kernel.raster_dense_cuda(proj, f32, rays)
     assert torch.equal(zd, zp) and torch.equal(i_d, ip)
     if case != "permuted":
         zk, ik = raster_kernel.raster_skip_cuda(proj, f32, rays, hw)
         assert torch.equal(zk, zp) and torch.equal(ik, ip)
+    if case in ("no_hand", "shrunk", "needles"):
+        rows = ras.face_rows(proj, faces)
+        tables = ras.binned_tables(proj, rays, faces, hw, rows)
+        assert bool(tables[2]) == (case == "shrunk")
+        zb, ib = ras.raster_binned_plain(rows, rays, hw, *tables)
+        zt, it = raster_kernel.raster_binned_cuda(proj, faces, rays, hw)
+        assert torch.equal(zt, zb) and torch.equal(it, ib)
 
 
 @pytest.mark.parametrize("stride", [1, 2])
 def test_raster_binned_kernel_bitwise_equals_plain(renderer, stride,
                                                    monkeypatch):
     """K10 on posed hands' crops through ``rasterize_depth(tile_hw=...)``
-    with the skip route off, against its plain version on the same tables
-    and against ``raster_scan``: zbuf bitwise, ids equal, one launch; and
-    with the overflow flag set, every tile's dense answer."""
+    with the skip route off, on the crop rays as the renderer makes them (a
+    strided slice), against its plain version over ``binned_tables`` and
+    against ``raster_scan``: zbuf bitwise, ids equal, one launch; then its
+    raster on the set-up's tables the same, and with the overflow flag
+    set, every tile's dense answer."""
     from dsf_tpu_torch import geometry as geo
     monkeypatch.setattr(ras, "USE_PALLAS_SKIP", False)
     para, center, cube = _scene(renderer, 3, 30 + stride)
@@ -940,7 +968,8 @@ def test_raster_binned_kernel_bitwise_equals_plain(renderer, stride,
     verts = verts * cube[:, None] / 2.0 + center[:, None]
     com = geo.xyz_to_uvd(center[:, None], PARAS)[:, 0]
     M = geo.crop_matrix(com, cube, PARAS, renderer.crop_size)
-    rays = ras.crop_pixel_rays(M, renderer.crop_size, stride).contiguous()
+    rays = ras.crop_pixel_rays(M, renderer.crop_size, stride)
+    assert not rays.is_contiguous()
     faces = renderer.mano.faces
     H = 96 // stride
     before = kernels.LAUNCHES["raster_binned"]
@@ -949,14 +978,46 @@ def test_raster_binned_kernel_bitwise_equals_plain(renderer, stride,
     assert kernels.LAUNCHES["raster_binned"] == before + 1
     proj = ras.project_verts(verts, PARAS)
     rows = ras.face_rows(proj, faces)
-    tables = ras.binned_tables(proj, rays, faces, (H, H), rows)
-    zb, ib = ras.raster_binned_plain(rows, rays, (H, H), *tables)
+    zb, ib = ras.raster_binned_plain(
+        rows, rays, (H, H),
+        *ras.binned_tables(proj, rays, faces, (H, H), rows))
     zp, ip = ras.raster_scan(proj, rays, faces)
     assert (zp > 0).float().mean() > 0.02
     assert torch.equal(zk, zb) and torch.equal(ik, ib)
     assert torch.equal(zk, zp) and torch.equal(ik, ip)
-    lists, counts, _ = tables
-    forced = torch.ones(1, dtype=torch.int32, device=rows.device)
-    zf, i_f = ras.raster_kernel.raster_binned_cuda(rows, rays, lists, counts,
-                                                  forced, (H, H))
-    assert torch.equal(zf, zp) and torch.equal(i_f, ip)
+    rays = rays.contiguous()
+    t = raster_kernel.binned_setup_cuda(proj, faces.to(torch.int32), rays,
+                                        (H, H))
+    for flag, want in ((t.overflow, (zb, ib)),
+                       (torch.ones_like(t.overflow), (zp, ip))):
+        z, i = raster_kernel.raster_binned_launch(
+            t.rows, t.boxes, t.cbox, t.vbox, t.tbox, rays, flag, (H, H))
+        assert torch.equal(z, want[0]) and torch.equal(i, want[1])
+
+
+@pytest.mark.parametrize("case", ["hands", "overflow", "needles"])
+def test_binned_setup_matches_tables(renderer, case):
+    """K10's set-up (``binned_setup_cuda``, two launches) against its plain
+    version (``binned_setup_plain``: ``skip_tables`` and ``binned_tables``)
+    on posed hands plus two degenerate faces, the same hands shrunk 5x
+    (a tile over ``BIN_CAP``) and with needles (cover boxes that reach past
+    their tips): rows bit for bit, cover, chunk, screen and
+    tile boxes equal, counts equal, the overflow flag equal, with int64 and
+    int32 faces."""
+    proj, rays = _crop_scene(renderer, 3, 42, 1)
+    if case == "overflow":
+        mid = proj[..., :2].mean(1, keepdim=True)
+        proj[..., :2] = mid + (proj[..., :2] - mid) * 0.2
+    faces = torch.cat([renderer.mano.faces,
+                       torch.tensor([[0, 0, 1], [5, 5, 5]],
+                                    device=proj.device)])
+    if case == "needles":
+        proj, faces = add_needles(proj, rays, faces, (96, 96), seed=7)
+    ref = ras.binned_setup_plain(proj, faces, rays, (96, 96))
+    assert bool(ref.overflow) == (case == "overflow")
+    for f in (faces, faces.to(torch.int32)):
+        got = raster_kernel.binned_setup_cuda(proj, f, rays, (96, 96))
+        assert torch.equal(got.rows.view(torch.int32),
+                           ref.rows.view(torch.int32))
+        for name in ("boxes", "cbox", "vbox", "tbox", "counts", "overflow"):
+            assert torch.equal(getattr(got, name), getattr(ref, name)), name

@@ -171,10 +171,17 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                           torch.zeros(1, 1, 4),
                                           torch.zeros(1, 256, 2))
     with pytest.raises(ValueError, match="CUDA"):
-        raster_kernel.raster_binned_cuda(
-            torch.zeros(1, 64, 16), torch.zeros(1, 256, 2),
-            torch.zeros(1, 1, 512, dtype=torch.int32),
-            torch.zeros(1, 1, dtype=torch.int32),
+        raster_kernel.raster_binned_cuda(torch.zeros(1, 8, 3),
+                                         torch.zeros(4, 3, dtype=torch.int64),
+                                         torch.zeros(1, 256, 2), (16, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        raster_kernel.binned_setup_cuda(torch.zeros(1, 8, 3),
+                                        torch.zeros(4, 3, dtype=torch.int32),
+                                        torch.zeros(1, 256, 2), (16, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        raster_kernel.raster_binned_launch(
+            torch.zeros(1, 4, 16), torch.zeros(1, 4, 4), torch.zeros(1, 1, 4),
+            torch.zeros(1, 4, 4), torch.zeros(1, 1, 4), torch.zeros(1, 256, 2),
             torch.zeros(1, dtype=torch.int32), (16, 16))
     assert kernels.LAUNCHES == {name: 0 for name in (
         "raster_skip", "raster_moments", "codec_encode", "codec_encode_bwd",
@@ -222,12 +229,12 @@ def test_kernel_sources_and_build_flags():
     # the raster kernels' per-face test and row staging
     ("raster_rows.cuh", ("raster_skip", "raster_dense", "raster_binned"),
      ("__fmul_rn(", "__fadd_rn(", "r[12] ==")),
-    # the face set-up of K1 and K6 (rasterize.face_rows on the card) and
-    # their per-face cull
-    ("raster_setup.cuh", ("raster_skip", "raster_dense"),
-     ("__frcp_rn(", "__fsub_rn(", "fabsf(A) > 1e-9f")),
-    ("raster_rows.cuh", ("raster_skip", "raster_dense"),
-     ("__ballot_sync(", "kMargin", "s.list[")),
+    # the face set-up of K1, K6 and K10 (rasterize.face_rows and
+    # cover_boxes on the card) and their per-face cull
+    ("raster_setup.cuh", ("raster_skip", "raster_dense", "raster_binned"),
+     ("__frcp_rn(", "__fsub_rn(", "fabsf(A) > 1e-9f", "__ddiv_rn(")),
+    ("raster_rows.cuh", ("raster_skip", "raster_dense", "raster_binned"),
+     ("__ballot_sync(", "listed(", "s.list[")),
     # the ICP kernels' divide-free distance (K3 through its body)
     ("point_tri27.cuh", ("argmin_body.cuh", "point_mesh_v2"),
      ("c[26]", "dpn * dpn", "c[23]")),

@@ -27,6 +27,7 @@ from dsf_tpu.ops import rasterize as JR
 from dsf_tpu_torch import kernels
 from dsf_tpu_torch.ops import rasterize as TR
 from dsf_tpu_torch.ops import raster_kernel
+from raster_needles import add_needles
 
 torch.set_num_threads(2)
 
@@ -153,9 +154,11 @@ def test_chunking_does_not_change_the_plain_result(mano):
 
 def test_skip_tables_layout(mano):
     """The plain set-up (the K1 and K6 kernels' inputs): 16-float face
-    rows, each valid face's exact screen box, an empty box (+inf, -inf) for
-    each invalid face, and each 256-face chunk's box the union of its faces'
-    boxes."""
+    rows, each valid face's cover box (``cover_boxes``): its exact screen
+    box widened, by a median of under 0.005 px and under 0.1 px for 99% of
+    a posed hand's faces;
+    an empty box (+inf, -inf) for each invalid face, and each 256-face
+    chunk's box the union of its faces' boxes."""
     _, _, _, proj = _posed_scene(mano, 64, 2, seed=4)
     # two degenerate faces (a repeated vertex: zero area) at the end
     faces = torch.from_numpy(np.concatenate(
@@ -175,10 +178,12 @@ def test_skip_tables_layout(mano):
     assert v[:, :-2].all() and not v[:, -2:].any()
     tri = proj[:, faces.numpy()][..., :2]
     box = boxes.numpy()
-    for k, red in enumerate((np.min, np.max)):
-        np.testing.assert_array_equal(box[..., k][v], red(tri[..., 0], -1)[v])
-        np.testing.assert_array_equal(box[..., 2 + k][v],
-                                      red(tri[..., 1], -1)[v])
+    lo, hi = tri.min(-2), tri.max(-2)                  # (B, F, 2)
+    out = np.stack([lo[..., 0] - box[..., 0], box[..., 1] - hi[..., 0],
+                    lo[..., 1] - box[..., 2], box[..., 3] - hi[..., 1]],
+                   -1)[v]                             # widened by, >= 0
+    assert (out > 0).all() and np.median(out.max(-1)) < 0.005
+    assert (out.max(-1) < 0.1).mean() > 0.99
     np.testing.assert_array_equal(
         box[~v], np.tile([np.inf, -np.inf, np.inf, -np.inf], (4, 1)))
     cb = cbox.numpy()
@@ -188,27 +193,94 @@ def test_skip_tables_layout(mano):
         np.testing.assert_array_equal(cb[:, ci, 1::2], part[..., 1::2].max(1))
 
 
-def _culled_scan(proj, pix, faces, blocks):
-    """A plain model of the K1 and K6 kernels' cull (csrc/raster_rows.cuh:
+def _screen_boxes(proj, faces):
+    """Each face's screen box (B, F, 4) = [umin umax vmin vmax], +inf,
+    -inf for an invalid face (the tile lists' test)."""
+    lo, hi = TR._face_bounds(proj, faces, TR.face_rows(proj, faces))
+    return torch.stack([lo[..., 0], hi[..., 0], lo[..., 1], hi[..., 1]], -1)
+
+
+def _edge_pass(rows, pix):
+    """(B, P, F): where each valid face's three rounded edge values are
+    >= 0 at each sample, as ``_depth_or_inf`` evaluates them."""
+    u, v = pix[..., 0:1], pix[..., 1:2]
+    out = (rows[..., 12] != 0)[:, None].expand(-1, pix.shape[1], -1)
+    for k in range(3):
+        e = u * rows[:, None, :, 3 * k] + v * rows[:, None, :, 3 * k + 1] \
+            + rows[:, None, :, 3 * k + 2]
+        out = out & (e >= 0)
+    return out
+
+
+def _in_boxes(pix, box, margin=0.0):
+    """(B, P, F): whether each sample lies in each face's box, widened by
+    ``margin`` px."""
+    u, v = pix[..., 0:1], pix[..., 1:2]
+    box = box[:, None]
+    return ((u >= box[..., 0] - margin) & (u <= box[..., 1] + margin)
+            & (v >= box[..., 2] - margin) & (v <= box[..., 3] + margin))
+
+
+@pytest.mark.parametrize("case", ["hands_128", "needles_128", "needles_64",
+                                  "slivers"])
+def test_cover_boxes_hold_every_covered_sample(mano, case):
+    """Every sample at which a face's rounded edge test passes lies in the
+    face's cover box (``cover_boxes``), on posed hands' crops, on needles
+    0.001-0.005 px wide through the crops' samples at 128^2 and 64^2 and
+    on the random slivers and faces under a pixel.  On the needles the
+    test also passes samples more than a pixel outside the face's screen
+    box, which the cull's old premise (a margin of one pixel) missed."""
+    if case == "slivers":
+        proj, pix, faces = map(torch.from_numpy, _small_faces_scene(seed=7))
+    else:
+        stride = 2 if case.endswith("64") else 1
+        _, _, pix, proj = _posed_scene(mano, 128, stride, seed=20 + stride)
+        proj = torch.from_numpy(np.array(proj))
+        pix = torch.from_numpy(np.array(pix))
+        faces = torch.from_numpy(np.asarray(mano.faces, np.int64))
+        if case.startswith("needles"):
+            proj, faces = add_needles(proj, pix, faces, (128 // stride,) * 2,
+                                      seed=5)
+    rows, boxes, _ = TR.skip_tables(proj, faces)
+    hit = _edge_pass(rows, pix)
+    assert hit.sum() > 1000
+    assert not (hit & ~_in_boxes(pix, boxes)).any()
+    beyond = hit & ~_in_boxes(pix, _screen_boxes(proj, faces), margin=1.0)
+    assert bool(beyond.any()) == case.startswith("needles")
+
+
+def _meets(bx, box):
+    """Face boxes bx (F, 4) against one box [umin umax vmin vmax],
+    inclusive: the kernels' ``meets``."""
+    return ((bx[:, 0] <= box[1]) & (bx[:, 1] >= box[0])
+            & (bx[:, 2] <= box[3]) & (bx[:, 3] >= box[2]))
+
+
+def _culled_scan(proj, pix, faces, blocks, margin=0.0, list_box=None):
+    """A plain model of the raster kernels' cull (csrc/raster_rows.cuh:
     scan_culled): per image and block of samples (``blocks`` (nb, S) int64
-    sample indices, -1 for none), the box of the block's samples widened by
-    ``BOX_MARGIN``, the faces whose box (``skip_tables``) meets it in
+    sample indices, -1 for none), the box of the block's samples (widened
+    by ``margin`` px: the kernels' is 0), the faces whose cover box
+    (``skip_tables``) meets it and, where a ``list_box`` (B, nb, 4) is
+    given (K10's tile list), whose screen box meets the block's, in
     ascending order, and ``scan_rows`` over their rows; a block that meets
     no face is background."""
     rows, boxes, _ = TR.skip_tables(proj, faces)
     B, P = pix.shape[0], pix.shape[1]
     zbuf = torch.zeros((B, P), dtype=torch.float32)
     idx = torch.full((B, P), -1, dtype=torch.int32)
+    screen = _screen_boxes(proj, faces)
     for b in range(B):
         bx = boxes[b]
-        for blk in blocks:
+        for k, blk in enumerate(blocks):
             s = blk[blk >= 0]
             uv = pix[b, s]
-            lo = uv.amin(0) - TR.BOX_MARGIN
-            hi = uv.amax(0) + TR.BOX_MARGIN
-            fid = torch.nonzero((bx[:, 0] <= hi[0]) & (bx[:, 1] >= lo[0])
-                                & (bx[:, 2] <= hi[1])
-                                & (bx[:, 3] >= lo[1])).squeeze(1)
+            lo = uv.amin(0) - margin
+            hi = uv.amax(0) + margin
+            meet = _meets(bx, torch.stack([lo[0], hi[0], lo[1], hi[1]]))
+            if list_box is not None:
+                meet &= _meets(screen[b], list_box[b, k])
+            fid = torch.nonzero(meet).squeeze(1)
             if fid.numel() == 0:
                 continue
             z, i = TR.scan_rows(rows[b:b + 1, fid], uv[None])
@@ -272,18 +344,29 @@ def _small_faces_scene(seed, B=2, size=64):
 
 @pytest.mark.parametrize("case", ["tiles_64", "tiles_128", "tiles_ragged",
                                   "frame_strip", "slivers_tiles",
-                                  "slivers_runs", "permuted_runs"])
+                                  "slivers_runs", "permuted_runs",
+                                  "needles_tiles", "needles_runs"])
 def test_culled_scan_matches_raster_scan(mano, case):
     """The per-face, per-block cull of the K1 and K6 kernels, in plain
     torch, against ``raster_scan`` bitwise (zbuf and ids): posed hands'
     crops at 64^2 and 128^2 and a 58^2 layout in K1's tiles (ragged in
     both directions); a
     full-frame strip through the hands in K6's runs of samples; random
-    faces with slivers and faces under a pixel in both; and the hands' crop
+    faces with slivers and faces under a pixel in both; the hands' crop
     samples in a random order in K6's runs (the result may not depend on
-    the order)."""
+    the order); and needles 0.001-0.005 px wide through the 128^2 crop's
+    samples, in front of the hands, in both (their rounded edges pass
+    samples beyond their tips, outside their screen boxes and inside their
+    cover boxes)."""
     faces = np.asarray(mano.faces, np.int64)
-    if case.startswith("slivers"):
+    if case.startswith("needles"):
+        _, _, pix, proj = _posed_scene(mano, 128, 1, seed=21)
+        H = W = 128
+        p, f = add_needles(torch.from_numpy(np.array(proj)),
+                           torch.from_numpy(np.array(pix)),
+                           torch.from_numpy(faces), (H, W), seed=5)
+        proj, faces = p.numpy(), f.numpy()
+    elif case.startswith("slivers"):
         proj, pix, faces = _small_faces_scene(seed=7)
         H = W = 64
     elif case == "frame_strip":
@@ -307,11 +390,128 @@ def test_culled_scan_matches_raster_scan(mano, case):
     if case == "permuted_runs":
         perm = torch.from_numpy(np.random.RandomState(3).permutation(P))
         pix_t, z_ref, i_ref = pix_t[:, perm], z_ref[:, perm], i_ref[:, perm]
+    if case.startswith("needles"):
+        assert (i_ref >= len(mano.faces)).sum() > 0     # the needles win
     blocks = (_tile_blocks(H, W) if case.startswith("tiles")
-              or case == "slivers_tiles" else _run_blocks(P))
+              or case.endswith("_tiles") else _run_blocks(P))
     z, i = _culled_scan(proj_t, pix_t, faces_t, blocks)
     np.testing.assert_array_equal(z.numpy(), z_ref.numpy())
     np.testing.assert_array_equal(i.numpy(), i_ref.numpy())
+
+
+def _binned_scene(mano, case):
+    """K10's scenes, torch tensors (proj, pix, faces, (H, W)): posed hands'
+    crops at 64^2 (no tile over ``BIN_CAP``) and 128^2, a 64^2 crop whose
+    busiest tile holds 584 faces (the whole batch takes the dense answer),
+    the random slivers and faces under a pixel, the 128^2 crop with every
+    face twice (tied depths: the lower id wins) and with needles."""
+    faces = torch.from_numpy(np.asarray(mano.faces, np.int64))
+    if case == "slivers":
+        proj, pix, f = map(torch.from_numpy, _small_faces_scene(seed=7))
+        return proj, pix, f, (64, 64)
+    stride, seed = {"hands_64": (2, 23), "overflow": (2, 22)}.get(case,
+                                                                  (1, 21))
+    _, _, pix, proj = _posed_scene(mano, 128, stride, seed=seed)
+    proj = torch.from_numpy(np.array(proj))
+    pix = torch.from_numpy(np.array(pix))
+    hw = (128 // stride,) * 2
+    if case == "ties":
+        faces = torch.cat([faces, faces])
+    elif case == "needles":
+        proj, faces = add_needles(proj, pix, faces, hw, seed=5)
+    return proj, pix, faces, hw
+
+
+def _binned_blocks(tables, hw):
+    """K10's raster blocks (``raster_kernel.BINNED_BLOCK`` pixels inside a
+    16x16 tile) and each block's list box: its parent tile's sample box,
+    or one that every face meets when the set-up's overflow flag is set."""
+    H, W = hw
+    t = raster_kernel.BIN_TILE
+    blocks = _tile_blocks(H, W, raster_kernel.BINNED_BLOCK)
+    first = blocks[:, 0]
+    box = tables.tbox[:, (first // W // t) * (W // t) + first % W // t]
+    if bool(tables.overflow):
+        inf = float("inf")
+        box = torch.tensor([-inf, inf, -inf, inf]).expand_as(box)
+    return blocks, box
+
+
+BINNED_CASES = ["hands_64", "hands_128", "overflow", "slivers", "ties",
+                "needles"]
+
+
+@pytest.mark.parametrize("case", BINNED_CASES)
+def test_binned_cull_matches_binned_plain(mano, case):
+    """A plain model of the K10 kernel's walk (csrc/raster_binned.cu): per
+    4x16 block, the faces whose screen box meets its parent tile's sample
+    box (inclusive, no margin: the tile's list) and whose cover box meets
+    the block's own sample box, in ascending order, against
+    ``raster_binned_plain`` over ``binned_tables`` bitwise (zbuf and ids);
+    with the overflow flag set, every face passes the first test.  The
+    plain set-up's counts and flag are ``binned_tables``'."""
+    proj, pix, faces, hw = _binned_scene(mano, case)
+    tables = TR.binned_setup_plain(proj, faces, pix, hw)
+    lists, counts, overflow = TR.binned_tables(proj, pix, faces, hw,
+                                               tables.rows)
+    assert torch.equal(tables.counts, counts)
+    assert torch.equal(tables.overflow, overflow)
+    assert bool(overflow) == (case == "overflow")
+    assert int(counts.max()) > (raster_kernel.BIN_CAP if case == "overflow"
+                                else 0)
+    z_ref, i_ref = TR.raster_binned_plain(tables.rows, pix, hw, lists,
+                                          counts, overflow)
+    assert (z_ref > 0).float().mean() > 0.02
+    if case == "ties":
+        assert (i_ref < len(mano.faces)).all()
+    blocks, box = _binned_blocks(tables, hw)
+    z, i = _culled_scan(proj, pix, faces, blocks, list_box=box)
+    np.testing.assert_array_equal(z.numpy(), z_ref.numpy())
+    np.testing.assert_array_equal(i.numpy(), i_ref.numpy())
+
+
+def test_binned_cull_fails_with_a_narrower_block_box(mano):
+    """The model above is sensitive to its block box: narrowed by 0.5 px,
+    it drops faces that cover samples of the sliver scene."""
+    proj, pix, faces, hw = _binned_scene(mano, "slivers")
+    tables = TR.binned_setup_plain(proj, faces, pix, hw)
+    z_ref, i_ref = TR.raster_binned_plain(
+        tables.rows, pix, hw,
+        *TR.binned_tables(proj, pix, faces, hw, tables.rows))
+    blocks, box = _binned_blocks(tables, hw)
+    z, i = _culled_scan(proj, pix, faces, blocks, margin=-0.5, list_box=box)
+    assert (i != i_ref).sum() > 0
+
+
+@pytest.mark.parametrize("case", BINNED_CASES)
+def test_binned_plain_matches_raster_scan(mano, case):
+    """``raster_binned_plain`` over ``binned_tables`` against
+    ``raster_scan``: a pixel's answers differ exactly where the scan's
+    winner is not in the pixel's tile list (its screen box misses the
+    tile's sample box: a face whose rounded edges pass the pixel outside
+    its screen box).  That happens on the needles alone, as in the JAX
+    package's ``_raster_binned``; the two are bitwise equal on every other
+    scene, and where a tile overflows (the dense answer)."""
+    proj, pix, faces, hw = _binned_scene(mano, case)
+    rows = TR.face_rows(proj, faces)
+    tables = TR.binned_tables(proj, pix, faces, hw, rows)
+    z_b, i_b = TR.raster_binned_plain(rows, pix, hw, *tables)
+    z_s, i_s = TR.raster_scan(proj, pix, faces)
+    differ = (z_b != z_s) | (i_b != i_s)
+    tile = TR.tile_boxes(pix, hw)                    # (B, G, 4)
+    t = raster_kernel.BIN_TILE
+    p = torch.arange(pix.shape[1])
+    g = (p // hw[1] // t) * (hw[1] // t) + p % hw[1] // t
+    win = _screen_boxes(proj, faces).gather(
+        1, i_s.clamp_min(0).long()[..., None].expand(-1, -1, 4))
+    tb = tile[:, g]
+    listed = ((win[..., 0] <= tb[..., 1]) & (win[..., 1] >= tb[..., 0])
+              & (win[..., 2] <= tb[..., 3]) & (win[..., 3] >= tb[..., 2]))
+    if not bool(tables[2]):
+        assert torch.equal(differ, (i_s >= 0) & ~listed)
+    assert bool(differ.any()) == (case == "needles")
+    if case == "needles":
+        assert (i_s >= len(mano.faces)).sum() > 0
 
 
 def test_cpu_tensors_take_the_plain_version(mano):
