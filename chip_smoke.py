@@ -35,15 +35,24 @@ Phases, each printed on its own line(s); any failure exits non-zero:
    path's stage-2 render, and of 128x128, its set-up (rows bitwise, tile
    boxes, counts and overflow flag) against its plain version, its raster
    and route against raster_binned_plain, and with its overflow flag set,
-   so that every tile takes the dense branch, against raster_scan): error,
+   so that every tile takes the dense branch, against raster_scan); K9's
+   bfloat16 variant on the bfloat16 stand-in generator's own head input
+   at B=32, against its plain version on the card (within a whole
+   bfloat16 step at each of its three roundings, carried through tanh:
+   near a sum that cancels the bias a step of the sum is many steps of
+   the output; and different on at most 1% of the outputs) and against
+   tanh of the float64 sum of the same bfloat16 values (within half a
+   step at each rounding), also on the input scaled so nothing
+   saturates: error,
    kernel and plain device time (CUDA events, warm L2, the host's enqueue
    hidden behind a sleep kernel; for K1, K6, K10, K3, K7 and K8 the
    set-up, the kernel and the whole route apart; for K3, K7 and K8 the
    pair slots their body evaluates),
    the time of one PyTorch library call computing the same
    function where there is one, and the bound (the larger of bytes over
-   3.35 TB/s and float operations over 67 TFLOP/s, the H100 SXM's
-   published float32 non-tensor rate);
+   3.35 TB/s and float operations over the H100 SXM's published dense
+   rate for the operands' type: 67 TFLOP/s for float32 outside the
+   tensor cores, 989 TFLOP/s for bfloat16);
 3. slice: the two-stage ManoOCRStage InferenceEngine at full width
    (ResNet-18 trunks, 128x128 crops, 21 joints, buckets (1, 8, 32), f32)
    with a synthetic MANO asset and seeded random weights, answering
@@ -54,7 +63,17 @@ Phases, each printed on its own line(s); any failure exits non-zero:
    then the same requests with the skip raster switched off
    (``rasterize.USE_PALLAS_SKIP``): K10 in K1's place, outputs as the skip
    route's, and each K10 route call's output held against its plain
-   version on the call's own inputs; then the median latency per bucket;
+   version on the call's own inputs; then the median latency per bucket.
+   Then the same requests through the bfloat16 engine
+   (``Config(compute_dtype="bfloat16")``): the same launches, outputs
+   finite, the stage-2 render covering > 2%, its outputs against the
+   CPU's bfloat16 engine and the card's float32 engine within 3x the
+   distance from the CPU's bfloat16 engine to its float32 one (+ the
+   float32 tolerances), and away from the card's float32 engine by at
+   least a third of that distance (it does round as bfloat16; the MANO
+   head takes and returns bfloat16); the stage-1 MANO head's
+   bfloat16 GEMM with and without cuBLAS's reduced-precision reduction
+   against the CPU; the bfloat16 latency per bucket;
 4. training: the two-stage Pretrain step, the two-stage FinetuneStage step
    and the one-stage Finetune step (Trainer.train_step_fn) at full width
    (ResNet-18 trunks, 128x128 crops, B=32, f32 without TF32) from seeded
@@ -70,15 +89,32 @@ Phases, each printed on its own line(s); any failure exits non-zero:
    with ``USE_CULLED_KERNEL`` (K8).  Then the offline pre-render
    (tools/prerender.py) of 64 seeded parameter sets at NYU's 640x480 in
    batches of 32: K6 once a batch, the PNGs read back, the hands'
-   foreground median in 400-800 mm, and two frames against the CPU's;
-5. GPU = CPU: one Pretrain loss and one FinetuneStage loss (without the
+   foreground median in 400-800 mm, and two frames against the CPU's.
+   Then Pretrain, FinetuneStage and Finetune in the bfloat16 compute
+   dtype, 5 steps each (K9's bfloat16 variant once a step, the float32 K9
+   never, every other kernel as in float32; losses finite; step time and
+   peak memory);
+5. GPU = CPU: first the bfloat16 compute dtype's layers at the trunks'
+   and the generator's shapes (BatchNorm with one group in train and eval
+   mode and with two groups, the instance norm, convolutions, transposed
+   convolutions and the dense layer), card against CPU, each output
+   bfloat16 and different on at most 1% of its elements, each within one
+   bfloat16 step + 2^-14 of the output's largest magnitude (where a sum
+   cancels, float32 rounding at the terms' scale is many steps of the
+   output), the running statistics within 1e-5 of their largest
+   magnitude.  Then
+   one Pretrain loss and one FinetuneStage loss (without the
    generator) and their gradients at B=4, on the card (twice) and on the
    CPU (the kernels' plain versions), from the same weights and the same
    synth (and real) batch; silhouette flips, part labels and nearest
    faces that differ between the devices are counted.  The same loss on
    the CPU in float64 is the witness: each float32 run's gradients and
    metrics are printed against it, and the GPU's second run against its
-   first.  Then the stand-in generator's image of a B=4 synth batch on the
+   first.  The Pretrain and FinetuneStage losses also run in the bfloat16
+   compute dtype on the card and on the CPU, from the same weights and
+   batches, each held against the same float64 witness (``BF16_RATIO``;
+   per parameter also a positive cosine and the CPU's norm within 2x).
+   Then the stand-in generator's image of a B=4 synth batch on the
    card against the CPU's and float64's, and one Finetune loss with the
    generator and its gradients, held as the FinetuneStage loss is.  Last,
    a Finetune loss whose real half is rendered from the net's own MANO
@@ -106,7 +142,9 @@ import time
 import numpy as np
 
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
-PEAK_F32_FLOPS = 67e12          # H100 SXM float32, CUDA cores
+# H100 SXM dense peaks by operand type: float32 on the CUDA cores,
+# bfloat16 (float32 sums) on the tensor cores
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 SEED = 0
 INPUT_SIZE = 128                # full width: the default config's crops
 BUCKETS = (1, 8, 32)
@@ -119,8 +157,9 @@ COMPARE_BATCH = 4               # GPU step vs CPU step
 DECODE_BATCHES = (1, 32, 64)    # K4 timed at serving's bucket 1, B, 2B
 KERNELS = ("raster_skip", "raster_moments", "codec_encode",
            "codec_encode_bwd", "codec_decode", "codec_decode_bwd",
-           "point_mesh_argmin", "tail_conv", "icp_argmin_v2",
-           "icp_argmin_culled", "raster_dense", "raster_binned")
+           "point_mesh_argmin", "tail_conv", "tail_conv_bf16",
+           "icp_argmin_v2", "icp_argmin_culled", "raster_dense",
+           "raster_binned")
 
 
 def launches(**counts):
@@ -155,6 +194,18 @@ FS_STEP_LAUNCHES = launches(raster_skip=3, raster_moments=2, codec_encode=2,
 F_STEP_LAUNCHES = launches(raster_skip=2, raster_moments=1, codec_encode=1,
                            codec_decode=2, codec_decode_bwd=2,
                            point_mesh_argmin=1, tail_conv=1)
+
+
+def bf16_launches(counts):
+    """A float32 path's launch counts as the bfloat16 compute dtype runs
+    it: the generator's head is K9's bfloat16 variant, every other kernel
+    is launched as in float32 (the renders, the codec and the ICP stay
+    float32)."""
+    out = dict(counts, tail_conv_bf16=counts["tail_conv"])
+    out["tail_conv"] = 0
+    return out
+
+
 # a transferNet_pth that names no file: the trainer's seeded stand-in
 # generator, as the JAX package's bench.py and __graft_entry__.py set it
 STAND_IN = "__random_init__"
@@ -222,9 +273,11 @@ def time_cold_ms(fn, copies, iters):
     return time_ms(lambda: fn(*next(nxt)), max(iters, len(copies)))
 
 
-def bound_ms(nbytes, flops):
+def bound_ms(nbytes, flops, dtype="float32"):
+    """The least time for ``nbytes`` moved and ``flops`` done on operands
+    of ``dtype``, and which of the two bounds it."""
     t_bytes = nbytes / PEAK_BYTES_PER_S
-    t_ops = flops / PEAK_F32_FLOPS
+    t_ops = flops / PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -1513,6 +1566,142 @@ def check_tail_conv(renderer, B, rng):
             "unsaturated_plain_from_f64": d_plain}
 
 
+def bf16_step(m):
+    """The bfloat16 step at magnitude ``m`` (8 significant bits: a step is
+    2^(e - 7) for a value in [2^e, 2^(e+1))); 2^-7 at 0."""
+    import torch
+    e = torch.floor(torch.log2(torch.where(m > 0, m, torch.ones_like(m))))
+    return torch.exp2(e - 7)
+
+
+def bf16_steps(a, b):
+    """|a - b| in bfloat16 steps at the larger magnitude."""
+    import torch
+    a, b = a.double(), b.double()
+    return (a - b).abs() / bf16_step(torch.maximum(a.abs(), b.abs()))
+
+
+def tail_bf16_bound(pre, y64, b, absum, per_rounding=2.0 ** -8):
+    """How far K9's bfloat16 output may lie from tanh of the float64 sum of
+    the same bfloat16 x, w and b: the float32 sum within 1e-6 of the sum
+    of its products' magnitudes ``absum`` (as K9's float32 check), then
+    half a step (at most 2^-8 of the value) at each rounding, the sum's
+    (at most |pre| + |b|) and the pre-tanh value's, through tanh' = 1 -
+    y^2, then the output's; 1e-6 for tanhf.  From another bfloat16 result
+    of the same function (``per_rounding`` 2^-7, and 2e-6 of ``absum``): a
+    whole step at each rounding, where the two float32 sums round apart.
+    Near a sum that cancels, a step of the sum is many steps of the
+    output: the bound is in the sum's units there."""
+    r = per_rounding
+    return ((1 - y64 ** 2) * (r * (2 * pre.abs() + abs(b)) * 1.01
+                              + r * 2 ** 8 * 1e-6 * absum)
+            + r * y64.abs() * 1.001 + 1e-6)
+
+
+def check_tail_conv_bf16(renderer, B, rng):
+    """K9's bfloat16 variant on the bfloat16 stand-in generator's own head
+    input at the training steps' B, (B, 64, S+6, S+6): against its plain
+    version on the card (cuDNN's bfloat16 convolution, float32 sums
+    rounded once, the bias added in bfloat16, tanh), where each float32
+    sum runs in its own order, so a sum may round one bfloat16 step apart:
+    held within a step at each rounding (``tail_bf16_bound`` at 2^-7) and
+    different on at most 1% of the outputs; and against tanh of the
+    float64 sum of the same bfloat16 values, within half a step at each
+    rounding (``tail_bf16_bound``), on the generator's input and on it
+    scaled until |pre-tanh| < 0.9.  The
+    library call is one cuDNN bfloat16 convolution with its bias and a
+    tanh."""
+    import torch
+    from dsf_tpu_torch import demo
+    from dsf_tpu_torch.ops import tapsum, tapsum_kernel
+    from dsf_tpu_torch.training.trainer import load_transfer_net
+
+    gen = load_transfer_net(STAND_IN, "cuda", torch.bfloat16)
+    img = demo.real_batch(renderer, B, rng)["img"]
+    head = gen.model[-1]
+    x = gen.model[:-1](img).contiguous()
+    w = head.weight.bfloat16().contiguous()
+    b = head.bias.bfloat16().contiguous()
+    need(x.dtype == torch.bfloat16, f"the bfloat16 generator's head input "
+         f"is {x.dtype}")
+    def f64(xs):
+        return torch.nn.functional.conv2d(xs.double(), w.double()) + b.double()
+
+    conv = torch.nn.functional.conv2d(x.double(), w.double())
+    scale = (0.9 - float(b.float().abs())) / float(conv.abs().max())
+    need(scale > 0, f"K9's bias {float(b)} leaves no unsaturated input")
+    x2 = (x.float() * scale).bfloat16().contiguous()
+    rows = {}
+    for tag, xs in (("generator", x), ("unsaturated", x2)):
+        got = tapsum_kernel.tail_conv_cuda(xs, w, b)
+        again = tapsum_kernel.tail_conv_cuda(xs, w, b)
+        ref = tapsum.tail_conv_tanh_plain(xs, w, b)
+        pre = f64(xs)
+        y64 = torch.tanh(pre)
+        absum = torch.nn.functional.conv2d(xs.double().abs(),
+                                           w.double().abs())
+        torch.cuda.synchronize()
+        need(got.dtype == torch.bfloat16
+             and got.shape == (B, 1, x.shape[2] - 6, x.shape[3] - 6),
+             f"K9 bf16 returned {got.dtype} {tuple(got.shape)}")
+        st = bf16_steps(got, ref)
+        over = (got.double() - y64).abs() - tail_bf16_bound(
+            pre, y64, float(b), absum)
+        over_plain = (got.double() - ref.double()).abs() - tail_bf16_bound(
+            pre, y64, float(b), absum, 2.0 ** -7)
+        rows[tag] = dict(
+            max_abs_err=float((got.float() - ref.float()).abs().max()),
+            steps_max=float(st.max()), steps_share=float((st > 0).float()
+                                                         .mean()),
+            from_f64=float((got.double() - y64).abs().max()),
+            plain_from_f64=float((ref.double() - y64).abs().max()),
+            over_bound=float(over.max()),
+            over_plain_bound=float(over_plain.max()), bitwise_twice=bool(
+                torch.equal(got, again)),
+            pre_max=float(pre.abs().max()))
+    ms = time_ms(lambda: tapsum_kernel.tail_conv_cuda(x, w, b), 50)
+    plain_ms = time_ms(lambda: tapsum.tail_conv_tanh_plain(x, w, b), 50)
+    lib_ms = time_ms(lambda: torch.tanh(torch.nn.functional.conv2d(x, w, b)),
+                     50)
+    xf, wf, bf = x.float(), w.float(), b.float()
+    f32_ms = time_ms(lambda: tapsum_kernel.tail_conv_cuda(xf, wf, bf), 50)
+    gen_ms = time_ms(lambda: gen(img), 5, 1)
+    _, C, Hp, Wp = x.shape
+    H, W = Hp - 6, Wp - 6
+    # x, w and b read once (2 bytes each), the output written once; a
+    # multiply-add per tap and channel on bfloat16 operands, at the card's
+    # bfloat16 rate (the tensor cores'), and the bias add (tanh not counted)
+    nbytes = (x.numel() + w.numel() + 1 + B * H * W) * 2
+    bms, by = bound_ms(nbytes, B * H * W * (2 * C * 49 + 1), "bfloat16")
+    r = rows["generator"]
+    say(f"kernel K9 tail_conv_bf16 x {tuple(x.shape)} bfloat16: "
+        + json.dumps({k: {n: float(f"{v:.4g}") if isinstance(v, float) else v
+                          for n, v in row.items()}
+                      for k, row in rows.items()})
+        + f"; kernel {ms:.4f} ms (the float32 K9 on the same values "
+        f"{f32_ms:.4f} ms), plain {plain_ms:.4f} ms, cuDNN bfloat16 conv2d + "
+        f"tanh {lib_ms:.4f} ms, bound {bms:.6f} ms by {by}; the whole "
+        f"bfloat16 stand-in generator on {tuple(img.shape)} {gen_ms:.3f} ms")
+    for tag, row in rows.items():
+        need(row["over_plain_bound"] <= 0 and row["steps_share"] <= 0.01,
+             f"K9 bf16 disagrees with its plain version on the {tag} input: "
+             f"{row}")
+        need(row["over_bound"] <= 0, f"K9 bf16 lies beyond the rounding "
+             f"bound from float64 on the {tag} input: {row}")
+        need(row["bitwise_twice"], f"K9 bf16 differs between two runs on the "
+             f"{tag} input")
+    return {"name": "tail_conv_bf16", "route": "cuda",
+            "source": "dsf_tpu_torch/csrc/tail_conv.cu",
+            "replaces": "dsf_tpu/ops/pallas_tapsum.py:122",
+            "max_abs_err": r["max_abs_err"], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+            "float32_kernel_ms": f32_ms,
+            "steps_share_vs_plain": r["steps_share"],
+            "from_f64": r["from_f64"], "plain_from_f64": r["plain_from_f64"],
+            "unsaturated_max_abs_err": rows["unsaturated"]["max_abs_err"],
+            "unsaturated_from_f64": rows["unsaturated"]["from_f64"]}
+
+
 # ----------------------------------------------------------------- phase 3
 
 def atol_for(key):
@@ -1586,8 +1775,10 @@ def binned_serving_record(kept):
 
 def run_slice(mano_path):
     """Serving through the skip raster (K1), then through the binned one
-    (K10); returns both paths' launch counts and K10's record, from its
-    inputs on the binned path (``binned_serving_record``)."""
+    (K10); returns both paths' launch counts, K10's record, from its
+    inputs on the binned path (``binned_serving_record``), and the requests
+    with the card's and the CPU's float32 outputs (for the bfloat16
+    engine's comparison)."""
     import torch
     from dsf_tpu_torch import demo, kernels
     from dsf_tpu_torch.ops import rasterize as ras
@@ -1629,9 +1820,10 @@ def run_slice(mano_path):
     say(f"slice stage-2 render coverage {cover:.4f} of {tuple(img2.shape)}")
     need(cover > 0.02, f"stage-2 render covers {cover} <= 2% of its pixels")
 
-    worst = {}
+    worst, refs = {}, []
     for n, r, out in zip(sizes, reqs, outs):
         ref = cpu.predict(*r)
+        refs.append(ref)
         img2_cpu, _, _, _ = rnd.render_params(
             cpu.renderer, torch.from_numpy(ref["mano_para_0"]),
             torch.from_numpy(r[1]), torch.from_numpy(r[3]), img_stride=2)
@@ -1688,6 +1880,19 @@ def run_slice(mano_path):
     say("slice binned vs skip route max abs diff: "
         + json.dumps({k: float(f"{v:.3g}") for k, v in diff.items()}))
 
+    lat = predict_latency(eng, rng)
+    top = BUCKETS[-1]
+    say(f"slice median predict latency ms per bucket ({LATENCY_CALLS} calls, "
+        "host clock, to numpy): " + json.dumps(lat)
+        + f"; bucket {top} throughput {top * 1e3 / lat[top]:.1f} images/s")
+    say(f"slice peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    return counts, binned, k10, {"reqs": reqs, "gpu": outs, "cpu": refs}
+
+
+def predict_latency(eng, rng):
+    """The median host-clock latency of ``eng.predict`` per bucket, to
+    numpy, over LATENCY_CALLS calls after 3 warm ones."""
+    from dsf_tpu_torch import demo
     lat = {}
     for b in BUCKETS:
         r = demo.requests(eng.renderer, b, rng)
@@ -1699,37 +1904,162 @@ def run_slice(mano_path):
             eng.predict(*r)
             times.append((time.perf_counter() - t0) * 1e3)
         lat[b] = float(np.median(times))
+    return lat
+
+
+# the bfloat16 engine's outputs may lie from the float32 ones this many
+# times further than the CPU's bfloat16 engine lies from the CPU's float32
+# one (the witness of what bfloat16 rounding alone moves), plus atol_for
+BF16_SERVE_RATIO = 3.0
+
+
+def run_slice_bf16(mano_path, f32):
+    """The bfloat16 engine (``Config(compute_dtype="bfloat16")``) on the
+    card at full width, on phase 3's requests: every kernel of the path
+    once a bucket call (the same as float32: the net is bfloat16, the
+    stage-2 render, the codec and LBS float32), outputs finite, the
+    stage-2 render of its bfloat16 MANO parameters covering > 2% of its
+    pixels.  Its outputs against the CPU's bfloat16 engine and the card's
+    float32 engine, each within BF16_SERVE_RATIO times the distance from
+    the CPU's bfloat16 engine to the CPU's float32 one on the same
+    requests, plus atol_for.  The cuBLAS question:
+    the stage-1 MANO head (a bfloat16 GEMM, 512 -> 62) on its own input
+    with cuBLAS's reduced-precision bfloat16 reduction allowed and not,
+    against the CPU, in bfloat16 steps.  Then the median latency per
+    bucket.  Returns the launch counts."""
+    import copy
+    import torch
+    from dsf_tpu_torch import demo, kernels
+    from dsf_tpu_torch.render import renderer as rnd
+
+    eng = demo.engine(mano_path, "cuda", INPUT_SIZE, BUCKETS, SEED,
+                      compute_dtype="bfloat16")
+    cpu = demo.engine(mano_path, "cpu", INPUT_SIZE, BUCKETS, SEED,
+                      compute_dtype="bfloat16")
+    reqs, sizes = f32["reqs"], REQUEST_SIZES
+    eng.warmup()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    outs = [eng.predict(*r) for r in reqs]
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    bucket_calls = sum(-(-n // BUCKETS[-1]) for n in sizes)
+    say(f"slice_bf16 launches over requests {sizes} ({bucket_calls} bucket "
+        f"calls): {json.dumps(counts)}")
+    need(counts == launches(raster_skip=bucket_calls,
+                            codec_encode=bucket_calls,
+                            codec_decode=2 * bucket_calls),
+         f"the bfloat16 predict did not go through every kernel once per "
+         f"call: {counts}")
+    for n, out in zip(sizes, outs):
+        for k, v in out.items():
+            need(v.shape[0] == n and v.dtype == np.float32
+                 and np.isfinite(v).all(), f"bf16 request {n}: {k} not "
+                 f"finite float32 or wrong shape {v.shape} {v.dtype}")
+    r = reqs[-1]
+    with torch.inference_mode():
+        img2, _, _, _ = rnd.render_params(
+            eng.renderer, torch.from_numpy(outs[-1]["mano_para_0"]).cuda(),
+            torch.from_numpy(r[1]).cuda(), torch.from_numpy(r[3]).cuda(),
+            img_stride=2)
+    cover = float((img2 < FG).float().mean())
+    say(f"slice_bf16 stage-2 render coverage {cover:.4f} of "
+        f"{tuple(img2.shape)}")
+    need(cover > 0.02, f"bf16 stage-2 render covers {cover} <= 2%")
+
+    # the witness: the CPU's bfloat16 engine against the CPU's float32 one
+    witness, gpu_cpu, gpu_f32 = {}, {}, {}
+    for i, (r, out) in enumerate(zip(reqs, outs)):
+        ref = cpu.predict(*r)
+        for k in out:
+            for into, a, b in ((witness, ref, f32["cpu"][i]),
+                               (gpu_cpu, out, ref), (gpu_f32, out,
+                                                      f32["gpu"][i])):
+                into[k] = max(into.get(k, 0.0),
+                              float(np.abs(a[k] - b[k]).max()))
+    def fmt(d):
+        return json.dumps({k: float(f"{v:.3g}") for k, v in d.items()})
+
+    say(f"slice_bf16 max abs diff, CPU bf16 vs CPU f32 (the witness): "
+        f"{fmt(witness)}")
+    say(f"slice_bf16 max abs diff, GPU bf16 vs CPU bf16: {fmt(gpu_cpu)}")
+    say(f"slice_bf16 max abs diff, GPU bf16 vs GPU f32: {fmt(gpu_f32)}")
+    for k in witness:
+        tol = BF16_SERVE_RATIO * witness[k] + atol_for(k)
+        need(gpu_cpu[k] <= tol, f"bf16 {k}: the card's engine differs from "
+             f"the CPU's by {gpu_cpu[k]} > {tol}")
+        need(gpu_f32[k] <= tol, f"bf16 {k}: the card's bf16 engine differs "
+             f"from its f32 one by {gpu_f32[k]} > {tol}")
+        # ... and it does compute in bfloat16: it moves away from the
+        # float32 engine as the CPU's bfloat16 engine does (0.82x to 1.2x
+        # the witness measured), not by float32 rounding alone
+        need(gpu_f32[k] >= witness[k] / BF16_SERVE_RATIO, f"bf16 {k}: the "
+             f"card's bf16 engine lies only {gpu_f32[k]} from its f32 one, "
+             f"against the CPU's {witness[k]}: it does not round as bf16")
+
+    # the stage-1 MANO head's GEMM with and without cuBLAS's reduced-
+    # precision bfloat16 reduction, against the CPU
+    head = eng.net.mano_regress
+    feats = []
+    hook = head[2].register_forward_hook(
+        lambda m, inputs, o: feats.append((inputs[0], o)))
+    eng.predict(*reqs[-1])
+    hook.remove()
+    x, o = feats[0]
+    need(x.dtype == o.dtype == torch.bfloat16, f"the bf16 engine's MANO head "
+         f"takes {x.dtype} and returns {o.dtype}")
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    outs_flag = {}
+    with torch.inference_mode():
+        for allowed in (True, False):
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = (
+                allowed)
+            outs_flag[allowed] = head[2](x).cpu()
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
+        ref = copy.deepcopy(head[2]).cpu()(x.cpu())
+    for allowed, o in outs_flag.items():
+        st = bf16_steps(o, ref)
+        say(f"slice_bf16 mano_regress GEMM {tuple(x.shape)} x (512, 62) with "
+            f"allow_bf16_reduced_precision_reduction={allowed}: against the "
+            f"CPU, {float((st > 0).float().mean()):.4f} of the outputs differ, "
+            f"by at most {float(st.max()):.3g} bfloat16 steps")
+
+    lat = predict_latency(eng, np.random.RandomState(SEED + 30))
     top = BUCKETS[-1]
-    say(f"slice median predict latency ms per bucket ({LATENCY_CALLS} calls, "
-        "host clock, to numpy): " + json.dumps(lat)
+    say(f"slice_bf16 median predict latency ms per bucket ({LATENCY_CALLS} "
+        "calls, host clock, to numpy): " + json.dumps(lat)
         + f"; bucket {top} throughput {top * 1e3 / lat[top]:.1f} images/s")
-    say(f"slice peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
-    return counts, binned, k10
+    return counts
 
 
 # ----------------------------------------------------------------- phase 4
 
-def train_config(mano_path, stage_num, seed):
+def train_config(mano_path, stage_num, seed, dtype="float32"):
     """The training phases' full-width config, with the stand-in
-    generator."""
+    generator, in the compute dtype ``dtype``."""
     from dsf_tpu_torch.config import Config
     return Config(dataset="nyu", batch_size=TRAIN_BATCH, stage_num=stage_num,
                   input_size=INPUT_SIZE, seed=seed, mano_model_path=mano_path,
-                  transferNet_pth=STAND_IN)
+                  transferNet_pth=STAND_IN, compute_dtype=dtype)
 
 
-def run_training(mano_path):
-    """TRAIN_STEPS Pretrain steps at full width; returns the launch counts."""
+def run_training(mano_path, dtype="float32"):
+    """TRAIN_STEPS Pretrain steps at full width in the compute dtype
+    ``dtype``; returns the launch counts."""
     import torch
     from dsf_tpu_torch import kernels
     from dsf_tpu_torch.data.synth_params import random_param_source
     from dsf_tpu_torch.training.trainer import Trainer
 
-    tr = Trainer(train_config(mano_path, 2, SEED), mano_path, device="cuda")
+    tag = "train" if dtype == "float32" else "train_bf16"
+    expected = (STEP_LAUNCHES if dtype == "float32"
+                else bf16_launches(STEP_LAUNCHES))
+    tr = Trainer(train_config(mano_path, 2, SEED, dtype), mano_path,
+                 device="cuda")
     need(tr.transfer_net is not None, "no transfer net")
-    say(f"train: transferNet_pth {STAND_IN!r} names no file: the trainer "
+    say(f"{tag}: transferNet_pth {STAND_IN!r} names no file: the trainer "
         "runs its seeded stand-in generator (ngf 64, 9 blocks) on every "
-        "synth batch")
+        f"synth batch; compute dtype {dtype}")
     state = tr.init_state()
     src = random_param_source(TRAIN_BATCH, seed=SEED)
     batches = [dict(zip(("model_para", "cube_synth"), next(src)))
@@ -1749,20 +2079,20 @@ def run_training(mano_path):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         delta = {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES}
-        need(delta == STEP_LAUNCHES,
-             f"train step {i} did not launch every kernel of the path as "
-             f"expected: {delta} != {STEP_LAUNCHES}")
-        need(np.isfinite(losses[-1]), f"train step {i}: loss {losses[-1]}")
+        need(delta == expected,
+             f"{tag} step {i} did not launch every kernel of the path as "
+             f"expected: {delta} != {expected}")
+        need(np.isfinite(losses[-1]), f"{tag} step {i}: loss {losses[-1]}")
     counts = dict(kernels.LAUNCHES)
-    say(f"train launches over {TRAIN_STEPS} Pretrain steps (B={TRAIN_BATCH}, "
+    say(f"{tag} launches over {TRAIN_STEPS} Pretrain steps (B={TRAIN_BATCH}, "
         f"{INPUT_SIZE}^2): {json.dumps(counts)}")
-    say("train losses: " + json.dumps([float(f"{x:.6g}") for x in losses])
+    say(f"{tag} losses: " + json.dumps([float(f"{x:.6g}") for x in losses])
         + f"; updates applied {state.updates}/{TRAIN_STEPS}")
-    say("train step ms (host clock, to a synchronized loss): "
+    say(f"{tag} step ms (host clock, to a synchronized loss): "
         + json.dumps([round(t, 3) for t in times])
         + f"; median {float(np.median(times)):.3f} ms, "
         f"{TRAIN_BATCH * 1e3 / float(np.median(times)):.1f} images/s")
-    say(f"train peak device memory "
+    say(f"{tag} peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     return counts
 
@@ -1787,15 +2117,15 @@ def icp_switch(icp):
             setattr(pm, k, v)
 
 
-def run_self_supervised(mano_path, phase, icp=None):
+def run_self_supervised(mano_path, phase, icp=None, dtype="float32"):
     """TRAIN_STEPS Finetune (one stage) or FinetuneStage (two stages) steps
-    at full width, the ICP's argmin by ``icp`` (``icp_switch``); returns the
-    launch counts."""
+    at full width in the compute dtype ``dtype``, the ICP's argmin by
+    ``icp`` (``icp_switch``); returns the launch counts."""
     with icp_switch(icp):
-        return _run_self_supervised(mano_path, phase, icp)
+        return _run_self_supervised(mano_path, phase, icp, dtype)
 
 
-def _run_self_supervised(mano_path, phase, icp):
+def _run_self_supervised(mano_path, phase, icp, dtype):
     import torch
     from dsf_tpu_torch import demo, kernels
     from dsf_tpu_torch.data.synth_params import random_param_source
@@ -1808,7 +2138,10 @@ def _run_self_supervised(mano_path, phase, icp):
     tag = phase.lower() if stages == 1 else "finetune_stage"
     if icp:
         tag += "_" + icp
-    tr = Trainer(train_config(mano_path, stages, SEED), mano_path,
+    if dtype != "float32":
+        expected = bf16_launches(expected)
+        tag += "_bf16"
+    tr = Trainer(train_config(mano_path, stages, SEED, dtype), mano_path,
                  device="cuda")
     state = tr.init_state()
     src = random_param_source(TRAIN_BATCH, seed=SEED + 5)
@@ -1847,7 +2180,8 @@ def _run_self_supervised(mano_path, phase, icp):
     med = float(np.median(times))
     say(f"{tag} launches over {TRAIN_STEPS} {phase} steps "
         f"(B={TRAIN_BATCH} synth + {TRAIN_BATCH} real, {INPUT_SIZE}^2, "
-        f"stand-in generator, ICP argmin {ICP_SWITCHES[icp][0]}): "
+        f"stand-in generator, ICP argmin {ICP_SWITCHES[icp][0]}, compute "
+        f"dtype {dtype}): "
         f"{json.dumps(counts)}")
     say(f"{tag} losses: "
         + json.dumps([float(f"{x:.6g}") for x in losses])
@@ -1963,6 +2297,201 @@ def spread(errs):
     return f"median {float(np.median(v)):.3g}, max {v.max():.3g} ({top})"
 
 
+def bf16_copy(net):
+    """A copy of ``net`` computing in bfloat16 (its parameters and
+    statistics as they are, float32)."""
+    import copy
+    import torch
+    from dsf_tpu_torch.models.layers import set_compute_dtype
+    out = copy.deepcopy(net)
+    set_compute_dtype(out, torch.bfloat16)
+    return out
+
+
+def cosines(a, b):
+    return {n: float((a[n].double().flatten() @ b[n].flatten())
+                     / (a[n].double().norm() * b[n].norm() + 1e-300))
+            for n in b}
+
+
+# the bfloat16 runs of phase 5, against phase 5's float64 witness: the
+# card's gradient may lie BF16_RATIO times further from float64 than the
+# CPU's bfloat16 gradient, + 0.05, per parameter, and 1.5x + 0.01 in the
+# median over the heads and over the trunks; its median cosine with
+# float64 at least half the CPU's.  Behind the BatchNorm trunks bfloat16
+# rounding dominates the gradient at random weights (tests/
+# test_torch_bf16_pretrain.py: a relative L2 near 1 from float64 on both
+# the port and the JAX package, cosines near 0.5), so the cosine holds the
+# signal there.  The loss within 3x the CPU's bfloat16 distance from
+# float64 + 5e-3 of it (0.4% measured on the CPU test's step).  Per
+# parameter, too, the card's gradient keeps float64's direction (a
+# positive cosine) and a norm within BF16_NORM_RATIO either way of the
+# CPU's bfloat16 gradient's: a relative L2 near 1 cannot tell a zeroed
+# or halved gradient from bfloat16 noise, these can (the CPU's bfloat16
+# Pretrain gradients at B=4, 128^2: cosines with float64 0.27 to 1,
+# norms 0.80 to 1.33 of float64's)
+BF16_RATIO = 2.0
+BF16_NORM_RATIO = 2.0
+
+
+def check_bf16_runs(label, loss, grads):
+    """Phase 5's bfloat16 runs ("gpu_bf16", "cpu_bf16") against the float64
+    witness ("cpu64"), as BF16_RATIO says."""
+    heads = ("mano_regress", "finals")
+    gpu_64 = rel_l2(grads["gpu_bf16"], grads["cpu64"])
+    cpu_64 = rel_l2(grads["cpu_bf16"], grads["cpu64"])
+    gpu_cos = cosines(grads["gpu_bf16"], grads["cpu64"])
+    cpu_cos = cosines(grads["cpu_bf16"], grads["cpu64"])
+    say(f"compare {label} bfloat16: loss GPU {loss['gpu_bf16']:.7g} CPU "
+        f"{loss['cpu_bf16']:.7g} (float64 {loss['cpu64']:.10g}); gradient "
+        f"relative L2 from float64: GPU {spread(gpu_64)}; CPU "
+        f"{spread(cpu_64)}; GPU vs CPU "
+        f"{spread(rel_l2(grads['gpu_bf16'], grads['cpu_bf16']))}")
+    l64 = loss["cpu64"]
+    tol = 3 * abs(loss["cpu_bf16"] - l64) + 5e-3 * abs(l64)
+    need(abs(loss["gpu_bf16"] - l64) <= tol, f"{label} bf16 GPU loss "
+         f"{loss['gpu_bf16']} lies beyond {tol:.3g} of float64's {l64}")
+    bad = {k: (v, cpu_64[k]) for k, v in gpu_64.items()
+           if not v <= BF16_RATIO * cpu_64[k] + 0.05}
+    need(not bad, f"{label} bf16 GPU gradients lie further from float64 "
+         f"than the CPU's allow: {bad}")
+    norm = {k: float(grads["gpu_bf16"][k].double().norm()
+                     / grads["cpu_bf16"][k].double().norm())
+            for k in gpu_64}
+    say(f"compare {label} bfloat16 per parameter: cosine with float64 GPU "
+        f"min {min(gpu_cos.values()):.4g} CPU min {min(cpu_cos.values()):.4g}; "
+        f"GPU norm over CPU norm {min(norm.values()):.4g} to "
+        f"{max(norm.values()):.4g}")
+    bad = {k: (gpu_cos[k], v) for k, v in norm.items()
+           if not (gpu_cos[k] > 0 and 1 / BF16_NORM_RATIO <= v
+                   <= BF16_NORM_RATIO)}
+    need(not bad, f"{label} bf16 GPU gradients lose float64's direction or "
+         f"the CPU's norm (cosine, norm over the CPU's): {bad}")
+    for part in ("heads", "trunks"):
+        names = [n for n in gpu_64 if n.startswith(heads) == (part == "heads")]
+        mg, mc, cg, cc = (float(np.median([d[n] for n in names]))
+                          for d in (gpu_64, cpu_64, gpu_cos, cpu_cos))
+        say(f"compare {label} bfloat16 {part}: median relative L2 from "
+            f"float64 GPU {mg:.4g} CPU {mc:.4g}; median cosine GPU {cg:.4g} "
+            f"CPU {cc:.4g}")
+        need(mg <= 1.5 * mc + 0.01 and cg >= 0.5 * cc, f"{label} bf16 "
+             f"{part}: the GPU's gradients lie further from float64 than "
+             f"the CPU's allow")
+
+
+# the bfloat16 layers on the card against the same layers on the CPU: at
+# most this share of an output's elements may differ, each by at most a
+# bfloat16 step at each of the layer's roundings, at the magnitude of the
+# output plus its bias (where the bias cancels a sum, one step of the sum
+# is many steps of the output), plus BF16_LAYER_ATOL of the output's
+# largest magnitude (where a sum cancels, two float32 sums in other orders
+# differ by many steps of the output).  A layer that rounds elsewhere on
+# the card differs on far more: the two-group BatchNorm rounded once
+# differs from the JAX package's on 43% of its outputs, the instance norm
+# in float32 on 53% (tests/test_torch_bf16_layers.py); one computing in
+# float32 returns float32
+BF16_LAYER_SHARE = 0.01
+BF16_LAYER_ATOL = 2.0 ** -14
+# the batch statistics the BatchNorm cases leave, card against CPU, each
+# within this share of its tensor's largest magnitude: both sum in
+# float32, in other orders (a running mean near 0 has no relative scale)
+BF16_STATS_RTOL = 1e-5
+
+
+def compare_bf16_layers(rng):
+    """The bfloat16 compute dtype's layers at the trunks' and the
+    generator's shapes, each on the card and on the CPU from the same
+    float32 parameters and bfloat16 input: BatchNorm (one group in train
+    and eval mode, two groups in train mode, with the running statistics
+    they leave), the generator's instance norm, the convolutions (a 3x3
+    trunk conv, a 1x1 head conv with its bias), the transposed
+    convolutions (the heads' k4 s2 and the generator's k3 s2) and the
+    MANO head's dense layer.  Each output is bfloat16 and differs from the
+    CPU's on at most BF16_LAYER_SHARE of its elements, each within the
+    bound above (the roundings: the sum or the normalization, and the
+    bias add after a rounded sum; the two-group BatchNorm's and the
+    instance norm's three bfloat16 operations)."""
+    import copy
+    import torch
+    from dsf_tpu_torch.models import layers
+    from dsf_tpu_torch.models.cyclegan import InstanceNorm
+
+    gen = torch.Generator().manual_seed(int(rng.randint(2 ** 31)))
+
+    def bn(groups, train):
+        m = layers.batch_norm(64)
+        with torch.no_grad():
+            m.weight.uniform_(0.5, 1.5, generator=gen)
+            m.bias.normal_(0, 0.3, generator=gen)
+            m.running_mean.normal_(0, 0.1, generator=gen)
+            m.running_var.uniform_(0.5, 2, generator=gen)
+        m.groups = groups
+        return m.train(train)
+
+    def param_layer(m):
+        with torch.no_grad():
+            for p in m.parameters():
+                p.normal_(0, (2.0 / p[0].numel()) ** 0.5, generator=gen)
+        layers.set_compute_dtype(m, torch.bfloat16)
+        return m
+
+    # (name, module, input shape, roundings)
+    cases = (
+        ("batch_norm 1 group train", bn(1, True), (32, 64, 32, 32), 1),
+        ("batch_norm 1 group eval", bn(1, False), (32, 64, 32, 32), 1),
+        ("batch_norm 2 groups train", bn(2, True), (64, 64, 32, 32), 3),
+        ("instance_norm", InstanceNorm(256), (8, 256, 32, 32), 3),
+        ("conv 3x3 64->64", param_layer(layers.conv(64, 64, 3, 1, 1)),
+         (8, 64, 32, 32), 1),
+        ("conv 1x1 256->84 + bias",
+         param_layer(layers.conv(256, 84, 1, 1, 0, bias=True)),
+         (8, 256, 32, 32), 2),
+        ("conv_transpose k4 s2 256->256",
+         param_layer(layers.conv_transpose(256, 256)), (8, 256, 8, 8), 1),
+        ("conv_transpose k3 s2 256->128 + bias", param_layer(
+            layers.ConvTranspose2d(256, 128, 3, stride=2, padding=1,
+                                   output_padding=1)), (4, 256, 32, 32), 2),
+        ("linear 512->62 + bias", param_layer(layers.Linear(512, 62)),
+         (32, 512), 2))
+    rows = {}
+    with torch.no_grad():
+        for name, m, shape, roundings in cases:
+            x = torch.from_numpy(rng.randn(*shape).astype(np.float32) * 2
+                                 + 0.5).bfloat16()
+            mc, mg = m, copy.deepcopy(m).cuda()
+            yc, yg = mc(x).double(), mg(x.cuda()).cpu()
+            st = bf16_steps(yg, yc)
+            b = getattr(m, "bias", None)
+            b = 0.0 if b is None else b.double().abs().reshape(
+                (-1,) + (1,) * (yc.dim() - 2))
+            bound = (roundings * bf16_step(
+                torch.maximum(yg.double().abs(), yc.abs()) + b)
+                + BF16_LAYER_ATOL * float(yc.abs().max()))
+            stats = {n: float((mg.get_buffer(n).cpu() - mc.get_buffer(n))
+                              .abs().max() / mc.get_buffer(n).abs().max())
+                     for n in ("running_mean", "running_var")
+                     if isinstance(m, layers.BatchNorm2d) and m.training}
+            rows[name] = dict(dtype=str(yg.dtype).replace("torch.", ""),
+                              share=float((st > 0).float().mean()),
+                              steps_max=float(st.max()),
+                              over=float(((yg.double() - yc).abs()
+                                          - bound).max()),
+                              stats_rel=max(stats.values(), default=0.0))
+    say("compare bfloat16 layers, card against CPU (share of elements "
+        "that differ, largest difference in bfloat16 steps, largest "
+        "excess over the bound, running statistics' largest difference "
+        "over their largest magnitude): " + json.dumps(
+            {k: {n: float(f"{v:.4g}") if isinstance(v, float) else v
+                 for n, v in r.items()} for k, r in rows.items()}))
+    for name, r in rows.items():
+        need(r["dtype"] == "bfloat16", f"bf16 {name} returned {r['dtype']} "
+             "on the card")
+        need(r["over"] <= 0 and r["share"] <= BF16_LAYER_SHARE,
+             f"bf16 {name} on the card rounds apart from the CPU: {r}")
+        need(r["stats_rel"] <= BF16_STATS_RTOL, f"bf16 {name} on the card "
+             f"leaves other running statistics than the CPU: {r}")
+
+
 def compare_step(mano_path):
     """One Pretrain loss and its gradients on the card and on the CPU, from
     the same weights, on the card's synth batch; and the same loss on the
@@ -2015,6 +2544,9 @@ def compare_step(mano_path):
                                                   img_stride=2)
                 sil[key] = (img2 < FG).cpu()
 
+        # the bfloat16 compute dtype on both devices, the same weights
+        runs["gpu_bf16"] = (bf16_copy(sg.net), gpu.renderer, sample_g)
+        runs["cpu_bf16"] = (bf16_copy(sc.net), cpu.renderer, on_cpu)
         loss, grads = {}, {}
         for key, (net, r, smp) in runs.items():
             net.zero_grad(set_to_none=True)
@@ -2048,6 +2580,7 @@ def compare_step(mano_path):
              / float(np.median(list(cpu_64.values()))))
     need(ratio <= MEDIAN_RATIO, f"GPU gradients lie {ratio:.3g} times further "
          "from float64 than the CPU's, in the median over parameters")
+    check_bf16_runs("Pretrain", loss, grads)
 
 
 @contextlib.contextmanager
@@ -2121,6 +2654,8 @@ def compare_finetune_stage(mano_path):
                           [real[k].double() for k in keys],
                           draws.scores.double())}
         runs["gpu_again"] = runs["gpu"]
+        runs["gpu_bf16"] = (bf16_copy(sg.net),) + runs["gpu"][1:]
+        runs["cpu_bf16"] = (bf16_copy(sc.net),) + runs["cpu"][1:]
         loss, grads, mets, rec = {}, {}, {}, {}
         for key, (net, r, smp, rb, scores) in runs.items():
             net.zero_grad(set_to_none=True)
@@ -2175,8 +2710,8 @@ def compare_finetune_stage(mano_path):
     for k in mets["cpu"]:
         v = {run: mets[run][k] for run in mets}
         rows[k] = {run: float(f"{x:.7g}") for run, x in v.items()}
-    say("compare FinetuneStage metrics (GPU, GPU again, CPU, CPU float64): "
-        + json.dumps(rows))
+    say("compare FinetuneStage metrics (GPU, CPU, CPU float64, GPU again, "
+        "GPU bfloat16, CPU bfloat16): " + json.dumps(rows))
     rel_loss = abs(loss["gpu"] - loss["cpu"]) / abs(loss["cpu"])
     need(rel_loss <= 1e-4, f"FinetuneStage GPU loss {loss['gpu']} differs "
          f"from the CPU's {loss['cpu']}")
@@ -2214,6 +2749,7 @@ def compare_finetune_stage(mano_path):
              / float(np.median(list(cpu_64.values()))))
     need(ratio <= MEDIAN_RATIO, f"FinetuneStage GPU gradients lie {ratio:.3g} "
          "times further from float64 than the CPU's, in the median")
+    check_bf16_runs("FinetuneStage", loss, grads)
 
 
 # the Finetune metrics held in phase 5, as FS_METRICS
@@ -2487,14 +3023,16 @@ def main():
             sc = icp_scene(renderer, 2 * TRAIN_BATCH, rng)
             record.append(check_point_mesh(sc))
             record.append(check_tail_conv(renderer, TRAIN_BATCH, rng))
+            record.append(check_tail_conv_bf16(renderer, TRAIN_BATCH, rng))
             record.append(check_icp_v2(sc))
             record.append(check_icp_culled(sc))
             record.append(check_raster_dense(renderer, PRERENDER_BATCH, rng))
             check_raster_binned(renderer, KERNEL_BATCH, 2, rng)
             check_raster_binned(renderer, KERNEL_BATCH, 1, rng)
         by_path = {}
-        by_path["serve"], by_path["serve_binned"], k10 = run_slice(path)
+        by_path["serve"], by_path["serve_binned"], k10, f32 = run_slice(path)
         record.append(k10)
+        by_path["serve_bf16"] = run_slice_bf16(path, f32)
         by_path["train"] = run_training(path)
         by_path["finetune_stage"] = run_self_supervised(path, "FinetuneStage")
         by_path["finetune_stage_v2"] = run_self_supervised(
@@ -2502,7 +3040,13 @@ def main():
         by_path["finetune_stage_culled"] = run_self_supervised(
             path, "FinetuneStage", icp="culled")
         by_path["finetune"] = run_self_supervised(path, "Finetune")
+        by_path["train_bf16"] = run_training(path, "bfloat16")
+        by_path["finetune_stage_bf16"] = run_self_supervised(
+            path, "FinetuneStage", dtype="bfloat16")
+        by_path["finetune_bf16"] = run_self_supervised(path, "Finetune",
+                                                       dtype="bfloat16")
         by_path["prerender"] = run_prerender(path)
+        compare_bf16_layers(np.random.RandomState(SEED + 40))
         compare_step(path)
         compare_finetune_stage(path)
         compare_finetune(path)

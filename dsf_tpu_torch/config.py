@@ -85,7 +85,8 @@ class Config:
     feature_type: Tuple[str, ...] = ("offset",)
     feature_para: Tuple[float, ...] = (0.8,)
 
-    # accelerator knobs (the port serves float32 only so far)
+    # accelerator knobs (the port reads compute_dtype: the net's and the
+    # generator's type, float32 or bfloat16; device.compute_dtype)
     num_devices: int = 1
     n_fsdp: int = 1
     compute_dtype: str = "float32"        # 'float32' | 'bfloat16'

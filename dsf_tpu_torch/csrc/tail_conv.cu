@@ -13,6 +13,15 @@
 // channels in order (ky, then kx, within a channel), then over the groups
 // in order, so it is the plain version's float32 sum in another order.
 //
+// Two element types, one template (T): float32, and bfloat16 for the
+// generator's bfloat16 compute dtype.  In bfloat16, x, w and the bias are
+// bfloat16; each product of two bfloat16 values is exact in float32 and
+// the sum is float32, rounded to bfloat16 once; the bias is added in
+// bfloat16 (rounded) and tanh's output is rounded to bfloat16: the
+// rounding points of _reference_tail(x, w, b, bfloat16) and _fast_tail
+// (:95-114).  At the generator's shape the bfloat16 variant reads 73.5 MB
+// of x, 0.0219 ms at 3.35 TB/s, so the FMAs (0.049 ms) bound it.
+//
 // What bounds it on this card: both, about equally.  At the generator's
 // shape (B=32, C=64, 134^2 in, 128^2 out) it reads 147 MB of x and writes
 // 2 MB, 0.044 ms at 3.35 TB/s, and does 2 * 49 * 64 = 6272 float
@@ -34,17 +43,24 @@
 //  * A group stages one channel of its band at a time in shared memory,
 //    double buffered: the copy of the next channel is in flight while the
 //    group computes on this one.  The copy: a band of full-width rows of
-//    one channel is one contiguous span of (BH + 6) x Wp floats, so one
-//    cp.async.bulk per channel moves it, completed on an mbarrier, when
-//    the span is 16-byte aligned and a multiple of 16 bytes (Wp = 134 at
-//    the generator's shape: 536-byte rows, BH even; a 2-D TMA tensor map
-//    would need 16-byte row strides).  Otherwise the group copies the
-//    (BH + 6) x (BW + 6) window with 4-byte cp.async, zero-filled outside
-//    x (ragged shapes, tiles narrower than W).
+//    one channel is one contiguous span of (BH + 6) x Wp elements, so one
+//    cp.async.bulk per channel moves it, completed on an mbarrier.  In
+//    float32 the span must be 16-byte aligned and a multiple of 16 bytes
+//    (Wp = 134 at the generator's shape: 536-byte rows, BH even; a 2-D
+//    TMA tensor map would need 16-byte row strides).  In bfloat16 a
+//    134-element row is 268 bytes and a channel plane 8 bytes past a
+//    multiple of 16, so the copy takes the span widened to 16 bytes at
+//    both ends (inside x, whose start and size are multiples of 16) and
+//    the threads read it from its first element on (an even element, as
+//    the 4-byte pair reads need: Wp even).  Otherwise the group copies
+//    the (BH + 6) x (BW + 6) window, zero-filled outside x (ragged shapes,
+//    tiles narrower than W), with 4-byte cp.async in float32 and 2-byte
+//    loads in bfloat16 (its elements need not pair on 4 bytes).
 //
 // The block shape is the one of scripts/tail_shapes_gpu.py's shapes that
 // took the least time at the generator's shape (PERF.md §6).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -109,22 +125,59 @@ __device__ __forceinline__ void group_sync(int g, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(g + 1), "r"(threads) : "memory");
 }
 
-// Shared memory, in bytes: the mbarriers, the weights, then G x 2 channel
-// buffers of buf floats (their space holds the partial sums at the end).
+// two neighbouring elements of a staged row, as floats
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// an output from its float32 sum: tanhf(sum + bias) in float32; in
+// bfloat16 the sum rounded, the bias added and rounded, tanh rounded
+__device__ __forceinline__ float finish(float sum, float bias) {
+  return tanhf(sum + bias);
+}
+__device__ __forceinline__ __nv_bfloat16 finish(float sum,
+                                                __nv_bfloat16 bias) {
+  const float pre = __bfloat162float(__float2bfloat16_rn(
+      __bfloat162float(__float2bfloat16_rn(sum)) + __bfloat162float(bias)));
+  return __float2bfloat16_rn(tanhf(pre));
+}
+
+// one element global -> shared, zero outside x: 4-byte cp.async for
+// float32; a plain load and store for bfloat16
+__device__ __forceinline__ void stage1(float* dst, const float* src,
+                                       bool valid) {
+  cp_async4(dst, src, valid);
+}
+__device__ __forceinline__ void stage1(__nv_bfloat16* dst,
+                                       const __nv_bfloat16* src, bool valid) {
+  *dst = valid ? *src : __float2bfloat16_rn(0.f);
+}
+
+// Shared memory, in bytes: the mbarriers, the weights (float32), then
+// G x 2 channel buffers of buf elements (their space holds the float32
+// partial sums at the end).
 struct Layout {
-  int pitch;      // floats a staged row
-  int buf;        // floats a channel buffer
+  int pitch;      // elements a staged row
+  int buf;        // elements a channel buffer
   size_t bytes;   // the block's dynamic shared memory
 };
 
 // at most 128 registers a thread: 512 threads of an SM's 64k registers
-template <int RT, int CT, int TX, int TY, int G, bool BULK>
+template <int RT, int CT, int TX, int TY, int G, bool BULK, typename T>
 __global__ void __launch_bounds__(TX * TY * G,
                                   TX * TY * G < 512 ? 512 / (TX * TY * G) : 1)
-tail_conv_kernel(const float* __restrict__ x,      // (B, C, Hp, Wp)
-                 const float* __restrict__ w,      // (C, K, K)
-                 const float* __restrict__ bias,   // (1,)
-                 float* __restrict__ out,          // (B, H, W)
+tail_conv_kernel(const T* __restrict__ x,          // (B, C, Hp, Wp)
+                 const T* __restrict__ w,          // (C, K, K)
+                 const T* __restrict__ bias,       // (1,)
+                 T* __restrict__ out,              // (B, H, W)
                  int C, int H, int W, int pitch, int buf) {
   constexpr int GT = TX * TY;              // threads a group
   constexpr int BH = TY * RT, BW = TX * CT;
@@ -134,21 +187,21 @@ tail_conv_kernel(const float* __restrict__ x,      // (B, C, Hp, Wp)
   extern __shared__ __align__(16) unsigned char smem[];
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem);           // [G][2]
   float* s_w = reinterpret_cast<float*>(smem + 16 * G);          // [C][52]
-  float* s_x = s_w + (size_t)C * kWPitch;                        // [G][2][buf]
+  T* s_x = reinterpret_cast<T*>(s_w + (size_t)C * kWPitch);      // [G][2][buf]
 
   const int Hp = H + K - 1, Wp = W + K - 1;
   const int b = blockIdx.z, y0 = blockIdx.y * BH, x0 = blockIdx.x * BW;
   const int tid = threadIdx.x;
   const int grp = tid / GT, gt = tid - grp * GT;
   const int tx = gt % TX, ty = gt / TX;
-  const float* xb = x + (size_t)b * C * Hp * Wp;
+  const T* xb = x + (size_t)b * C * Hp * Wp;
   const int cpg = (C + G - 1) / G;                  // channels a group
   const int c0 = grp * cpg;
   const int nch = max(0, min(C, c0 + cpg) - c0);
 
   for (int i = tid; i < C * kWPitch; i += blockDim.x) {
     const int c = i / kWPitch, k = i - c * kWPitch;
-    s_w[i] = k < K * K ? w[c * K * K + k] : 0.f;
+    s_w[i] = k < K * K ? to_float(w[c * K * K + k]) : 0.f;
   }
   if (BULK && tid < 2 * G) {
     mbar_init(&bars[tid], 1);
@@ -157,15 +210,26 @@ tail_conv_kernel(const float* __restrict__ x,      // (B, C, Hp, Wp)
   __syncthreads();
 
   const int rows_in = min(BH + K - 1, Hp - y0);     // rows of x the band reads
+  // the bulk copy's span of channel c0 + s: its band's rows widened to 16
+  // bytes at both ends (exact in float32, where bulk_fits asks for it)
+  auto span = [&](int s, uintptr_t* lo) {
+    const T* band = xb + ((size_t)(c0 + s) * Hp + y0) * Wp;
+    *lo = reinterpret_cast<uintptr_t>(band) & ~uintptr_t(15);
+    const uintptr_t hi =
+        (reinterpret_cast<uintptr_t>(band + (size_t)rows_in * Wp) + 15)
+        & ~uintptr_t(15);
+    return static_cast<unsigned>(hi - *lo);
+  };
   auto issue = [&](int s) {                          // channel c0 + s
-    float* dst = s_x + (size_t)(grp * 2 + (s & 1)) * buf;
-    const float* plane = xb + (size_t)(c0 + s) * Hp * Wp;
+    T* dst = s_x + (size_t)(grp * 2 + (s & 1)) * buf;
+    const T* plane = xb + (size_t)(c0 + s) * Hp * Wp;
     if constexpr (BULK) {
       if (gt == 0) {
-        const unsigned bytes = static_cast<unsigned>(rows_in * Wp * 4);
+        uintptr_t lo;
+        const unsigned bytes = span(s, &lo);
         uint64_t* bar = &bars[grp * 2 + (s & 1)];
         mbar_expect_tx(bar, bytes);
-        bulk_copy(dst, plane + (size_t)y0 * Wp, bytes, bar);
+        bulk_copy(dst, reinterpret_cast<const void*>(lo), bytes, bar);
       }
     } else {
       constexpr int RW = BW + K - 1;
@@ -173,8 +237,8 @@ tail_conv_kernel(const float* __restrict__ x,      // (B, C, Hp, Wp)
         const int r = i / RW, q = i - r * RW;
         const int gy = y0 + r, gx = x0 + q;
         const bool valid = gy < Hp && gx < Wp;
-        cp_async4(dst + r * pitch + q,
-                  valid ? plane + (size_t)gy * Wp + gx : plane, valid);
+        stage1(dst + r * pitch + q,
+               valid ? plane + (size_t)gy * Wp + gx : plane, valid);
       }
       asm volatile("cp.async.commit_group;\n" ::);
     }
@@ -201,8 +265,17 @@ tail_conv_kernel(const float* __restrict__ x,      // (B, C, Hp, Wp)
       }
       group_sync(grp, GT);
     }
-    const float* xs = s_x + (size_t)(grp * 2 + (s & 1)) * buf
-                      + ty * RT * pitch + tx * CT;
+    // the bulk span starts up to 15 bytes before the band's first element
+    int lead = 0;
+    if constexpr (BULK && sizeof(T) < 4) {
+      uintptr_t lo;
+      span(s, &lo);
+      lead = static_cast<int>(
+          (reinterpret_cast<uintptr_t>(xb + ((size_t)(c0 + s) * Hp + y0) * Wp)
+           - lo) / sizeof(T));
+    }
+    const T* xs = s_x + (size_t)(grp * 2 + (s & 1)) * buf + lead
+                  + ty * RT * pitch + tx * CT;
     float wr[kWPitch];
     const float4* w4 = reinterpret_cast<const float4*>(
         s_w + (size_t)(c0 + s) * kWPitch);
@@ -217,10 +290,10 @@ tail_conv_kernel(const float* __restrict__ x,      // (B, C, Hp, Wp)
 #pragma unroll
     for (int iy = 0; iy < RT + K - 1; ++iy) {
       float win[WIN];
-      const float2* src = reinterpret_cast<const float2*>(xs + iy * pitch);
+      const T* src = xs + iy * pitch;
 #pragma unroll
       for (int q = 0; q < WIN / 2; ++q) {
-        const float2 v = src[q];
+        const float2 v = load2(src + 2 * q);
         win[2 * q] = v.x;
         win[2 * q + 1] = v.y;
       }
@@ -242,7 +315,7 @@ tail_conv_kernel(const float* __restrict__ x,      // (B, C, Hp, Wp)
   // the groups' partial sums, added in group order through shared memory
   __syncthreads();
   if constexpr (G > 1) {
-    float* part = s_x;                     // [G - 1][BH][BW]
+    float* part = reinterpret_cast<float*>(s_x);   // [G - 1][BH][BW]
     if (grp > 0) {
 #pragma unroll
       for (int r = 0; r < RT; ++r)
@@ -260,39 +333,45 @@ tail_conv_kernel(const float* __restrict__ x,      // (B, C, Hp, Wp)
         for (int j = 0; j < CT; ++j)
           acc[r][j] += part[((size_t)g * BH + ty * RT + r) * BW + tx * CT + j];
   }
-  const float bv = bias[0];
+  const T bv = bias[0];
 #pragma unroll
   for (int r = 0; r < RT; ++r) {
     const int oy = y0 + ty * RT + r;
     if (oy >= H) continue;
-    float* ob = out + ((size_t)b * H + oy) * W;
+    T* ob = out + ((size_t)b * H + oy) * W;
 #pragma unroll
     for (int j = 0; j < CT; ++j) {
       const int ox = x0 + tx * CT + j;
-      if (ox < W) ob[ox] = tanhf(acc[r][j] + bv);
+      if (ox < W) ob[ox] = finish(acc[r][j], bv);
     }
   }
 }
 
-// The shared memory of a shape; bulk: rows of pitch Wp, else BW + 8.
-template <int RT, int CT, int TX, int TY, int G, bool BULK>
+// The shared memory of a shape; bulk: rows of pitch Wp, else BW + 8.  A
+// bfloat16 bulk span may start 7 elements early and end 7 late.
+template <int RT, int CT, int TX, int TY, int G, bool BULK, typename T>
 Layout layout(int C, int W) {
   constexpr int BH = TY * RT, BW = TX * CT;
+  constexpr int per16 = 16 / sizeof(T);         // elements in 16 bytes
   Layout L;
   L.pitch = BULK ? W + K - 1 : BW + 8;
   // a thread past the right edge reads up to column BW + 5 of the last row
   const int slack = BW + K - 1 - L.pitch > 0 ? BW + K - 1 - L.pitch : 0;
-  L.buf = ((BH + K - 1) * L.pitch + slack + 3) / 4 * 4;
-  size_t xs = (size_t)G * 2 * L.buf;
-  if ((size_t)(G - 1) * BH * BW > xs) xs = (size_t)(G - 1) * BH * BW;
-  L.bytes = 16 * G + (size_t)C * kWPitch * 4 + xs * 4;
+  const int widen = BULK && sizeof(T) < 4 ? 2 * per16 : 0;
+  L.buf = ((BH + K - 1) * L.pitch + slack + widen + per16 - 1) / per16
+          * per16;
+  size_t xs = (size_t)G * 2 * L.buf * sizeof(T);
+  if ((size_t)(G - 1) * BH * BW * 4 > xs) xs = (size_t)(G - 1) * BH * BW * 4;
+  L.bytes = 16 * G + (size_t)C * kWPitch * 4 + xs;
   return L;
 }
 
 // Whether one cp.async.bulk per channel can move each band: the band is
-// the whole width and every span starts and ends on 16 bytes.
+// the whole width, and in float32 every span starts and ends on 16 bytes;
+// in bfloat16 x starts and ends on 16 bytes (the widened spans stay
+// inside it) and its rows have an even length (the pair reads).
 template <int RT, int CT, int TX, int TY>
-bool bulk_fits(const float* x, int H, int W) {
+bool bulk_fits(const float* x, int B, int C, int H, int W) {
   constexpr int BH = TY * RT, BW = TX * CT;
   const long Hp = H + K - 1, Wp = W + K - 1;
   const long last = Hp - (long)((H - 1) / BH) * BH;   // rows of the last band
@@ -302,12 +381,20 @@ bool bulk_fits(const float* x, int H, int W) {
          && ((last < BH + K - 1 ? last : BH + K - 1) * Wp * 4) % 16 == 0;
 }
 
-template <int RT, int CT, int TX, int TY, int G, bool BULK>
-int launch(const float* x, const float* w, const float* bias, float* out,
-           int B, int C, int H, int W, cudaStream_t stream) {
+template <int RT, int CT, int TX, int TY>
+bool bulk_fits(const __nv_bfloat16* x, int B, int C, int H, int W) {
+  constexpr int BW = TX * CT;
+  const long Wp = W + K - 1;
+  return W <= BW && reinterpret_cast<uintptr_t>(x) % 16 == 0
+         && ((long)B * C * (H + K - 1) * Wp * 2) % 16 == 0 && Wp % 2 == 0;
+}
+
+template <int RT, int CT, int TX, int TY, int G, bool BULK, typename T>
+int launch(const T* x, const T* w, const T* bias, T* out, int B, int C,
+           int H, int W, cudaStream_t stream) {
   constexpr int BH = TY * RT, BW = TX * CT;
-  const Layout L = layout<RT, CT, TX, TY, G, BULK>(C, W);
-  auto kernel = tail_conv_kernel<RT, CT, TX, TY, G, BULK>;
+  const Layout L = layout<RT, CT, TX, TY, G, BULK, T>(C, W);
+  auto kernel = tail_conv_kernel<RT, CT, TX, TY, G, BULK, T>;
   // set on every launch (a host call of about a microsecond): a cached
   // flag would be one object for every library that instantiates this
   // shape, and another library's kernel would launch without the attribute
@@ -323,12 +410,12 @@ int launch(const float* x, const float* w, const float* bias, float* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The bulk copy where it fits, else 4-byte cp.async.
-template <int RT, int CT, int TX, int TY, int G>
-int launch_any(const float* x, const float* w, const float* bias, float* out,
-               int B, int C, int H, int W, void* stream) {
+// The bulk copy where it fits, else the element-wise staging.
+template <int RT, int CT, int TX, int TY, int G, typename T>
+int launch_any(const T* x, const T* w, const T* bias, T* out, int B, int C,
+               int H, int W, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bulk_fits<RT, CT, TX, TY>(x, H, W))
+  if (bulk_fits<RT, CT, TX, TY>(x, B, C, H, W))
     return launch<RT, CT, TX, TY, G, true>(x, w, bias, out, B, C, H, W, st);
   return launch<RT, CT, TX, TY, G, false>(x, w, bias, out, B, C, H, W, st);
 }
@@ -348,6 +435,16 @@ constexpr int kG = 4;                // channel groups of 64 threads
 extern "C" int dsf_tail_conv_tanh(const float* x, const float* w,
                                   const float* bias, float* out, int B,
                                   int C, int H, int W, void* stream) {
+  return dsf_tail::launch_any<kRT, kCT, kTX, kTY, kG>(x, w, bias, out, B, C,
+                                                      H, W, stream);
+}
+
+// the bfloat16 variant: bfloat16 in and out, float32 sums
+extern "C" int dsf_tail_conv_tanh_bf16(const __nv_bfloat16* x,
+                                       const __nv_bfloat16* w,
+                                       const __nv_bfloat16* bias,
+                                       __nv_bfloat16* out, int B, int C,
+                                       int H, int W, void* stream) {
   return dsf_tail::launch_any<kRT, kCT, kTX, kTY, kG>(x, w, bias, out, B, C,
                                                       H, W, stream);
 }

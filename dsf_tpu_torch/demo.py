@@ -66,12 +66,13 @@ def real_batch(renderer, B: int, rng: np.random.RandomState,
 
 
 def engine(mano_path: str, device, input_size: int = 128,
-           buckets=(1, 8, 32), seed: int = 0):
+           buckets=(1, 8, 32), seed: int = 0,
+           compute_dtype: str = "float32"):
     """The two-stage ManoOCRStage InferenceEngine at ResNet-18 width with
     seeded random weights (a visible stage-1 hand, see
-    random_reference_state_dict)."""
+    random_reference_state_dict), computing in ``compute_dtype``."""
     from dsf_tpu_torch.serving import InferenceEngine
     cfg = Config(dataset="nyu", stage_num=2, input_size=input_size,
-                 mano_model_path=mano_path)
+                 mano_model_path=mano_path, compute_dtype=compute_dtype)
     sd = random_reference_state_dict(np.random.RandomState(seed))
     return InferenceEngine(cfg, sd, buckets=buckets, device=device)

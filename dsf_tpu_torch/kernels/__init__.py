@@ -14,6 +14,7 @@ LAUNCHES: Dict[str, int] = {"raster_skip": 0, "raster_moments": 0,
                             "codec_encode": 0, "codec_encode_bwd": 0,
                             "codec_decode": 0, "codec_decode_bwd": 0,
                             "point_mesh_argmin": 0, "tail_conv": 0,
+                            "tail_conv_bf16": 0,
                             "icp_argmin_v2": 0, "icp_argmin_culled": 0,
                             "raster_dense": 0, "raster_binned": 0}
 

@@ -19,9 +19,11 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from dsf_tpu_torch.device import widen
 from dsf_tpu_torch.models.layers import (BatchNorm2d, ConvBNRelu,
-                                         DeconvBNRelu, batch_norm, conv,
-                                         max_pool_3x3_s2)
+                                         DeconvBNRelu, Linear, batch_norm,
+                                         conv, max_pool_3x3_s2,
+                                         set_compute_dtype)
 from dsf_tpu_torch.models.resnet import RESNET_SPECS, res_layer
 from dsf_tpu_torch.ops.offset_codec import joint2offset
 from dsf_tpu_torch.render import renderer as rnd
@@ -37,10 +39,16 @@ class ManoOCRStage(nn.Module):
     mano_para (B, 62).  ``bn_groups`` > 1 runs that many stacked batches
     (the self-supervised phases' [synth | real]) as one forward whose
     train-mode BatchNorms keep statistics per group (``BatchNorm2d.groups``):
-    the same parameters and buffers, the stage-2 render once for all."""
+    the same parameters and buffers, the stage-2 render once for all.
+
+    ``dtype`` is the compute dtype (Flax's ``dtype=``, ``set_compute_dtype``):
+    with bfloat16 the parameters and BatchNorm statistics stay float32,
+    every layer computes in bfloat16 and both stages' outputs are bfloat16,
+    as the JAX package's; the stage-2 render and its remap stay float32
+    (the remap is cast to bfloat16 for the fusion)."""
 
     def __init__(self, joint_num: int = 21, depth: int = 18,
-                 refine: bool = True):
+                 refine: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.joint_num = joint_num
         self.refine = refine
@@ -60,6 +68,7 @@ class ManoOCRStage(nn.Module):
             self._add_trunk("_s2", block, layers, in_planes=256)
             # Flax heads_s2/
             self._add_heads("_s2", block)
+        set_compute_dtype(self, dtype)
 
     def _add_trunk(self, suffix, block, layers, in_planes):
         exp = block.expansion
@@ -75,7 +84,7 @@ class ManoOCRStage(nn.Module):
         # Flax heads[_s2]/mano_regress (Dense at index 2, as in the reference)
         setattr(self, f"mano_regress{suffix}", nn.Sequential(
             nn.AdaptiveAvgPool2d(1), nn.Flatten(1),
-            nn.Linear(feat_in, MANO_PARAM_DIM)))
+            Linear(feat_in, MANO_PARAM_DIM)))
         # Flax heads[_s2]/deconv4, deconv3, deconv2
         setattr(self, f"deconv_layer4{suffix}", DeconvBNRelu(feat_in, 256))
         setattr(self, f"deconv_layer3{suffix}", DeconvBNRelu(256, 256))
@@ -114,7 +123,7 @@ class ManoOCRStage(nn.Module):
         # at the decoder resolution (img_stride=2: the remap codec would
         # nearest-downsample a full render to that size anyway)
         mano_img, mano_joint_uvd, _, _ = rnd.render_params(
-            render, mano_para, center, cube, img_stride=2)
+            render, widen(mano_para), center, cube, img_stride=2)
         remap = joint2offset(mano_joint_uvd, mano_img, 0.8,
                              img_result.shape[-1])
         fusion = torch.cat([c0, img_feature, img_result,
@@ -128,5 +137,6 @@ class ManoOCRStage(nn.Module):
 class ManoOCR(ManoOCRStage):
     """Single-stage variant (ref: MANO_OCR, backbone.py:94-185)."""
 
-    def __init__(self, joint_num: int = 21, depth: int = 18):
-        super().__init__(joint_num, depth, refine=False)
+    def __init__(self, joint_num: int = 21, depth: int = 18,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(joint_num, depth, refine=False, dtype=dtype)

@@ -6,18 +6,83 @@ convtranspose_bn_relu, ...), so a reference state dict loads into them
 as it is.  BatchNorm is ``BatchNorm2d``: ``nn.BatchNorm2d``'s state-dict
 names and eval mode (running statistics), with Flax ``nn.BatchNorm``'s
 train-mode statistics.
+
+The compute dtype is Flax's ``dtype=``: ``Conv2d``, ``ConvTranspose2d``
+and ``Linear`` keep float32 parameters and, with ``compute_dtype``
+bfloat16 (``set_compute_dtype``), cast the input and the parameters to
+it, round the product and add the bias in it, as ``nn.Conv`` /
+``nn.ConvTranspose`` / ``nn.Dense`` do; gradients come back float32
+through the casts.  ``compute_dtype`` None (float32) is
+``nn.Conv2d``'s own forward, in the input's type.  BatchNorm follows
+its input's type (``BatchNorm2d``).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` with Flax ``nn.Conv``'s ``dtype``: ``compute_dtype``
+    None computes as ``nn.Conv2d``; bfloat16 casts x, the weight and the
+    bias, rounds the convolution, then adds the bias in bfloat16."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        y = self._conv_forward(x.to(dt), self.weight.to(dt), None)
+        return y if self.bias is None else y + self.bias.to(dt)[:, None, None]
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` with Flax ``nn.ConvTranspose``'s ``dtype``, as
+    ``Conv2d``."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        y = F.conv_transpose2d(x.to(dt), self.weight.to(dt), None,
+                               self.stride, self.padding, self.output_padding,
+                               self.groups, self.dilation)
+        return y if self.bias is None else y + self.bias.to(dt)[:, None, None]
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` with Flax ``nn.Dense``'s ``dtype``, as ``Conv2d``."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
+
+
+def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> None:
+    """Set the compute dtype of every ``Conv2d``, ``ConvTranspose2d`` and
+    ``Linear`` in ``module``: float32 computes in the input's type (no
+    cast), bfloat16 as Flax's ``dtype=jnp.bfloat16``."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute dtype {dtype}: float32 or bfloat16")
+    for m in module.modules():
+        if isinstance(m, (Conv2d, ConvTranspose2d, Linear)):
+            m.compute_dtype = None if dtype == torch.float32 else dtype
+
+
 def conv(in_ch, out_ch, kernel, stride=1, padding=0, bias=False):
     """torch nn.Conv2d (the Flax side's ``Conv``)."""
-    return nn.Conv2d(in_ch, out_ch, kernel, stride, padding, bias=bias)
+    return Conv2d(in_ch, out_ch, kernel, stride, padding, bias=bias)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -40,7 +105,14 @@ class BatchNorm2d(nn.BatchNorm2d):
     sequential calls would.  Each group is one ``F.batch_norm`` call on a
     contiguous slice of the batch; the outputs are concatenated (one copy
     of the activation, no extra statistics pass).  ``ManoOCRStage`` sets
-    it for the length of a forward."""
+    it for the length of a forward.
+
+    On a bfloat16 input (the compute dtype), the float32 parameters and
+    statistics are kept and the two paths round where Flax's do:
+    ``groups`` 1 (train or eval) is ``F.batch_norm``'s float32 arithmetic
+    rounded once to bfloat16, as Flax ``nn.BatchNorm``'s ``_normalize``;
+    ``groups`` > 1 is ``_grouped_bf16``, the arithmetic of the JAX
+    package's ``_GroupedBN`` in bfloat16."""
 
     groups = 1
 
@@ -49,8 +121,33 @@ class BatchNorm2d(nn.BatchNorm2d):
             return super().forward(x)
         if self.groups == 1:
             return self._train_forward(x)
+        if x.dtype == torch.bfloat16:
+            return self._grouped_bf16(x)
         return torch.cat([self._train_forward(h)
                           for h in x.chunk(self.groups)])
+
+    def _grouped_bf16(self, x):
+        """dsf_tpu/models/layers.py:_GroupedBN on a bfloat16 x: float32
+        statistics per group (the fast variance E[x^2] - E[x]^2), then
+        ``(x - mean) * mul + bias`` in bfloat16 with mean, ``mul =
+        rsqrt(var + eps) * weight`` and bias rounded to bfloat16; the
+        running statistics take Flax's EMA of the biased variance, one
+        update per group in group order."""
+        g, dt = self.groups, x.dtype
+        xf = x.float().unflatten(0, (g, -1))
+        mean = xf.mean((1, 3, 4))                                  # (g, C)
+        var = (xf * xf).mean((1, 3, 4)) - mean * mean
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        with torch.no_grad():
+            m = self.momentum
+            for i in range(g):
+                self.running_mean.mul_(1.0 - m).add_(m * mean[i])
+                self.running_var.mul_(1.0 - m).add_(m * var[i])
+            self.num_batches_tracked.add_(g)
+        y = ((x.unflatten(0, (g, -1)) - mean.to(dt)[:, None, :, None, None])
+             * mul.to(dt)[:, None, :, None, None]
+             + self.bias.to(dt)[:, None, None])
+        return y.flatten(0, 1)
 
     def _train_forward(self, x):
         # torch's EMA of the variance goes into a copy: the CPU backward
@@ -74,8 +171,7 @@ def batch_norm(ch):
 def conv_transpose(in_ch, out_ch, kernel=4, stride=2, padding=1, bias=False):
     """torch nn.ConvTranspose2d: exact 2x upsampling for k4 s2 p1 (Flax
     ``ConvTranspose``)."""
-    return nn.ConvTranspose2d(in_ch, out_ch, kernel, stride, padding,
-                              bias=bias)
+    return ConvTranspose2d(in_ch, out_ch, kernel, stride, padding, bias=bias)
 
 
 class ConvBNRelu(nn.Sequential):

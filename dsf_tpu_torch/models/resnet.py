@@ -1,6 +1,7 @@
 """ResNet blocks (counterpart of dsf_tpu/models/resnet.py; ref:
 model/resnet.py:18-98), with the reference's module names (conv1, bn1,
-conv2, bn2, downsample.{0,1})."""
+conv2, bn2, downsample.{0,1}).  The residual add runs in the activations'
+type, the compute dtype, as in the JAX package."""
 
 from __future__ import annotations
 

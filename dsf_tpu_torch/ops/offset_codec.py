@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from dsf_tpu_torch.device import widen
 from dsf_tpu_torch.ops import codec_kernel
 from dsf_tpu_torch.ops.image import resize_nearest
 
@@ -134,12 +135,16 @@ def joint2offset(joint, img, kernel_size, feature_size):
 
 def offset2joint_softmax(offset, depth, kernel_size, scale=30.0):
     """(B, 4J, S, S) feature + depth (B, 1, H, W) -> joints (B, J, 3)
-    (ref: GFM.offset2joint_softmax)."""
+    (ref: GFM.offset2joint_softmax).  A bfloat16 feature (the net's under
+    the bfloat16 compute dtype) is decoded in float32 on both devices, K4
+    on the card; the JAX package's serving decodes it in bfloat16 through
+    its jnp path (ROADMAP Queue 3 records the difference)."""
     S = offset.shape[-1]
     if depth.shape[-1] != S:
         depth = resize_nearest(depth, (S, S))
     if offset.device.type == "cpu":
-        return offset2joint_plain(offset, depth, kernel_size, scale)
+        return offset2joint_plain(widen(offset), widen(depth), kernel_size,
+                                  scale)
     if offset.device.type == "cuda":
         return codec_kernel.DecodeFn.apply(offset.float().contiguous(),
                                            depth.float().contiguous(),

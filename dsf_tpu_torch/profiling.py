@@ -11,13 +11,15 @@ train steps and ``CALLS`` two-stage FinetuneStage train steps at B=32
 (Trainer, seeded weights, 128x128 crops; the self-supervised steps' real
 half is demo.real_batch), each with the frozen CycleGAN generator's
 seeded stand-in (``transferNet_pth`` set to a missing path, as the JAX
-package's bench does).  For each it prints, per call: the host wall time
+package's bench does); then the same buckets and the same three steps in
+the bfloat16 compute dtype (``Config(compute_dtype="bfloat16")``).  For each it prints, per call: the host wall time
 (timed without the profiler), the device time summed over kernels, the
 device busy share (that sum over the wall time; one stream, so kernels do
 not overlap), the device time by kernel family and by the top kernels,
 and the float operations (torch.utils.flop_counter) over the
 convolutions' device time (the pose net's and the generator's convolution
-kernels), against the card's float32 rate outside the tensor cores.  The
+kernels), against the card's float32 rate outside the tensor cores
+(float32 cells) or its dense bfloat16 tensor-core rate (bfloat16 cells).  The
 generator's kernels (those inside its profiler range, ``transfer_net``)
 but K9 are their own family, "CycleGAN generator"; "convolution" is the
 pose net's.  (The float operations leave out K9's,
@@ -46,7 +48,8 @@ from dsf_tpu_torch.data.synth_params import random_param_source
 from dsf_tpu_torch.mano import synthetic
 from dsf_tpu_torch.training.trainer import TRANSFER_RANGE, Trainer
 
-PEAK_F32_FLOPS = 67e12          # H100 SXM float32, CUDA cores
+# H100 SXM: float32 on the CUDA cores, bfloat16 dense on the tensor cores
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 CALLS = 10                      # profiled predicts per bucket, and steps
 TRAIN_BATCH = 32                # the default config's batch
 GEN_FAMILY = "CycleGAN generator"
@@ -82,25 +85,29 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profiling: needs a CUDA card", file=sys.stderr)
         return 1
-    with tempfile.TemporaryDirectory() as tmp:
-        path = synthetic.save_synthetic_mano(os.path.join(tmp, "mano.npz"))
-        eng = demo.engine(path, "cuda")
-        trainers = {n: Trainer(
-            Config(dataset="nyu", batch_size=TRAIN_BATCH, stage_num=n,
-                   transferNet_pth=MISSING_GENERATOR), path, device="cuda")
-            for n in (1, 2)}
-    for bucket in eng.buckets:
-        profile_bucket(eng, bucket)
-    profile_pretrain(trainers[2])
-    profile_self_supervised(trainers[1], "Finetune")
-    profile_self_supervised(trainers[2], "FinetuneStage")
+    for dtype in ("float32", "bfloat16"):
+        with tempfile.TemporaryDirectory() as tmp:
+            path = synthetic.save_synthetic_mano(os.path.join(tmp, "mano.npz"))
+            eng = demo.engine(path, "cuda", compute_dtype=dtype)
+            trainers = {n: Trainer(
+                Config(dataset="nyu", batch_size=TRAIN_BATCH, stage_num=n,
+                       transferNet_pth=MISSING_GENERATOR,
+                       compute_dtype=dtype), path, device="cuda")
+                for n in (1, 2)}
+        for bucket in eng.buckets:
+            profile_bucket(eng, bucket)
+        profile_pretrain(trainers[2])
+        profile_self_supervised(trainers[1], "Finetune")
+        profile_self_supervised(trainers[2], "FinetuneStage")
+        del eng, trainers
     return 0
 
 
 def profile_bucket(eng, bucket: int) -> None:
     req = demo.requests(eng.renderer, bucket, np.random.RandomState(1))
-    measure(f"bucket {bucket}", {"bucket": bucket}, "predict calls",
-            lambda: eng.predict(*req))
+    dtype = eng.cfg.compute_dtype
+    measure(f"bucket {bucket} {dtype}", {"bucket": bucket, "dtype": dtype},
+            "predict calls", lambda: eng.predict(*req), dtype)
 
 
 def profile_pretrain(trainer: Trainer) -> None:
@@ -113,9 +120,10 @@ def profile_pretrain(trainer: Trainer) -> None:
         step(state, trainer.draw(TRAIN_BATCH),
              {"model_para": para, "cube_synth": cube})
 
-    measure(f"Pretrain step B={TRAIN_BATCH}", {"phase": "Pretrain",
-                                               "batch": TRAIN_BATCH},
-            "train steps", one)
+    dtype = trainer.cfg.compute_dtype
+    measure(f"Pretrain step B={TRAIN_BATCH} {dtype}",
+            {"phase": "Pretrain", "batch": TRAIN_BATCH, "dtype": dtype},
+            "train steps", one, dtype)
 
 
 def profile_self_supervised(trainer: Trainer, phase: str) -> None:
@@ -130,8 +138,10 @@ def profile_self_supervised(trainer: Trainer, phase: str) -> None:
         step(state, trainer.draw(TRAIN_BATCH, phase),
              dict(real, model_para=para, cube_synth=cube))
 
-    measure(f"{phase} step B={TRAIN_BATCH}",
-            {"phase": phase, "batch": TRAIN_BATCH}, "train steps", one)
+    dtype = trainer.cfg.compute_dtype
+    measure(f"{phase} step B={TRAIN_BATCH} {dtype}",
+            {"phase": phase, "batch": TRAIN_BATCH, "dtype": dtype},
+            "train steps", one, dtype)
 
 
 def generator_ranges(events):
@@ -141,9 +151,10 @@ def generator_ranges(events):
             and ev.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def measure(label: str, key: dict, what: str, call) -> None:
+def measure(label: str, key: dict, what: str, call, dtype: str) -> None:
     """Warm ``call`` up, count its float operations, time ``CALLS`` calls
-    on the host clock, then profile ``CALLS`` more and print the report."""
+    on the host clock, then profile ``CALLS`` more and print the report;
+    the convolutions' rate against the card's peak for ``dtype``."""
     for _ in range(5):
         call()
     torch.cuda.synchronize()
@@ -183,13 +194,14 @@ def measure(label: str, key: dict, what: str, call) -> None:
         fams[fam] += ms
     device_ms = sum(by_name.values())
     conv_ms = fams.get("convolution", 0.0) + gen_conv_ms
-    conv_share = flops / (conv_ms * 1e-3) / PEAK_F32_FLOPS if conv_ms else 0.0
+    peak = PEAK_FLOPS[dtype]
+    conv_share = flops / (conv_ms * 1e-3) / peak if conv_ms else 0.0
     print(f"{label}: {CALLS} {what}, host wall "
           f"{wall_ms:.3f} ms/call, device kernels {device_ms:.3f} ms/call, "
           f"{len(gen) // CALLS if gen else 0} generator range(s) a call, "
           f"device busy share {device_ms / wall_ms:.3f}, "
           f"{flops / 1e9:.1f} GFLOP/call, convolutions at "
-          f"{conv_share:.3f} of the float32 peak")
+          f"{conv_share:.3f} of the {dtype} peak ({peak / 1e12:.0f} TFLOP/s)")
     for fam, ms in sorted(fams.items(), key=lambda kv: -kv[1]):
         print(f"  family {fam}: {ms:.3f} ms/call ({ms / device_ms:.1%})")
     print("  (the generator's family holds its kernels but K9, of which "
@@ -201,7 +213,7 @@ def measure(label: str, key: dict, what: str, call) -> None:
     print(json.dumps(dict(key, wall_ms=wall_ms, device_ms=device_ms,
                           busy_share=device_ms / wall_ms,
                           gflop=flops / 1e9,
-                          conv_share_of_f32_peak=conv_share,
+                          conv_share_of_peak=conv_share,
                           generator_conv_ms=gen_conv_ms,
                           families_ms=dict(fams),
                           device=torch.cuda.get_device_name(0))))

@@ -9,7 +9,11 @@ MANO mesh and the 62-D MANO parameters of each stage.
 
 The predict body runs the skip-raster kernel once (stage-2 render),
 the codec encode once (stage-2 remap) and the codec decode once per
-stage.  Float32 only; matmuls and convolutions run without TF32.
+stage.  Matmuls and convolutions run without TF32.  ``cfg.compute_dtype``
+"bfloat16" runs the net in bfloat16, as the JAX package's engine does;
+the stage-2 render, the codec and MANO's LBS stay float32 (the decode
+reads the bfloat16 field in float32), and the ``mano_para_*`` outputs are
+bfloat16 tensors, float32 arrays with ``as_numpy``.
 
 Example::
 
@@ -27,7 +31,8 @@ import torch
 
 from dsf_tpu_torch import geometry as geo
 from dsf_tpu_torch.config import CAMERA, Config
-from dsf_tpu_torch.device import exact_float32, resolve_device
+from dsf_tpu_torch.device import (compute_dtype, exact_float32,
+                                  resolve_device, widen)
 from dsf_tpu_torch.mano import model as mano_model
 from dsf_tpu_torch.mano.constants import transfer_for_dataset
 from dsf_tpu_torch.models.backbone import ManoOCRStage
@@ -55,9 +60,7 @@ class InferenceEngine:
                  buckets: Sequence[int] = (1, 8, 32), device=None):
         if "ResNet" not in cfg.net:
             raise NotImplementedError(cfg.net)
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype {cfg.compute_dtype}: the port serves float32")
+        dtype = compute_dtype(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.buckets = tuple(sorted(buckets))
@@ -71,7 +74,7 @@ class InferenceEngine:
         self._tm = torch.as_tensor(self.transfer_map, device=self.device)
         depth = int(cfg.net.split("_")[-1])
         self.net = ManoOCRStage(joint_num=21, depth=depth,
-                                refine=cfg.stage_num == 2)
+                                refine=cfg.stage_num == 2, dtype=dtype)
         sd = (state_dict_from_jax(variables) if "params" in variables
               else variables)
         load_into(self.net, sd)
@@ -102,7 +105,7 @@ class InferenceEngine:
             juvd = offset2joint_softmax(pixel_pd, img, cfg.feature_para[0])
             jxyz = geo.uvd_nl_to_xyz_nl(juvd, center, M, cube, r.paras,
                                         cfg.input_size, r.flip)
-            mano_jxyz, mano_mesh = rnd.get_mesh_xyz(r, para_pd)
+            mano_jxyz, mano_mesh = rnd.get_mesh_xyz(r, widen(para_pd))
             out[f"joint_xyz_mm_{idx}"] = jxyz * half + center[:, None]
             out[f"mano_joint_xyz_mm_{idx}"] = (mano_jxyz * half
                                                + center[:, None])
@@ -127,7 +130,9 @@ class InferenceEngine:
         numpy arrays or tensors, any B >= 1.
 
         ``as_numpy=False`` returns tensors on the engine's device without
-        waiting for the device."""
+        waiting for the device.  Numpy has no bfloat16: ``as_numpy``
+        returns a bfloat16 output (``mano_para_*`` under the bfloat16
+        compute dtype) as float32, which holds its values exactly."""
         args = [(x if isinstance(x, torch.Tensor)
                  else torch.from_numpy(np.array(x, np.float32)))
                 .to(self.device, torch.float32)
@@ -149,12 +154,12 @@ class InferenceEngine:
         out = (chunks[0] if len(chunks) == 1 else
                {k: torch.cat([c[k] for c in chunks]) for k in chunks[0]})
         if as_numpy:
-            return {k: v.cpu().numpy() for k, v in out.items()}
+            return {k: widen(v).cpu().numpy() for k, v in out.items()}
         return out
 
     def warmup(self, buckets: Optional[Sequence[int]] = None) -> None:
         """Run each bucket once before taking traffic (builds the kernels,
-        lets cuDNN pick its algorithms)."""
+        lets cuDNN pick its algorithms for the engine's compute dtype)."""
         S = self.cfg.input_size
         for b in buckets or self.buckets:
             img = np.zeros((b, 1, S, S), np.float32)

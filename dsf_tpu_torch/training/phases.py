@@ -16,6 +16,10 @@ The net is an ``nn.Module`` in train mode, so its BatchNorm running
 statistics update in the forward.  ``transfer`` is the frozen CycleGAN
 generator's forward, or None: the net sees the transferred synth image,
 and the offset codec keeps reading the raw one, as in the JAX package.
+Under the bfloat16 compute dtype the net's outputs and the generator's
+image are cast to float32 (``_run_net``, ``_transferred``: the JAX
+package's ``_apply`` and phases.py:252, 367), so the losses, the renders
+and the codec run in float32.
 
 Random draws come in as tensors (``PretrainDraws``,
 ``FinetuneStageDraws``): ``draw_pretrain`` and ``draw_finetune_stage``
@@ -34,6 +38,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from dsf_tpu_torch import geometry as geo
+from dsf_tpu_torch.device import widen
 from dsf_tpu_torch.losses.basic import smooth_l1
 from dsf_tpu_torch.losses.icp import icp_and_joint_icp
 from dsf_tpu_torch.mano import spheres as sph
@@ -105,8 +110,16 @@ def pretrain_sample(r: rnd.Renderer, draws: PretrainDraws, model_para,
 
 
 def _transferred(img, transfer: Optional[Callable]):
-    """The net's synth input: the frozen generator's image, or img."""
-    return img if transfer is None else transfer(img)
+    """The net's synth input: the frozen generator's image (in float32),
+    or img."""
+    return img if transfer is None else widen(transfer(img))
+
+
+def _run_net(net, *args, **kw):
+    """The net's outputs with each stage's pair in float32 (the JAX
+    package's ``_apply``: the losses run in float32 whatever the net's
+    compute dtype)."""
+    return [[widen(o[0]), widen(o[1])] for o in net(*args, **kw)]
 
 
 def pretrain_loss(net, r: rnd.Renderer, sample: tuple, cfg, stage_num: int,
@@ -119,9 +132,7 @@ def pretrain_loss(net, r: rnd.Renderer, sample: tuple, cfg, stage_num: int,
     vertex SmoothL1 terms, the shape prior and the scale penalty.  Returns
     (loss, metrics)."""
     img, juvd_gt, _, jxyz_gt, vxyz_gt, center, cube_s, M = sample
-    # the losses run in the net's type: float32 (the JAX package's _apply
-    # casts its bfloat16 outputs to float32; the port trains float32 only)
-    outputs = net(_transferred(img, transfer), r, center, cube_s)
+    outputs = _run_net(net, _transferred(img, transfer), r, center, cube_s)
 
     loss = 0.0
     metrics = {}
@@ -301,9 +312,9 @@ def finetune_loss(net, r: rnd.Renderer, sample: tuple, scores, img_r,
     S = cfg.input_size
     fp = cfg.feature_para[0]
 
-    out = net(torch.cat([_transferred(img, transfer), img_r]), r,
-              torch.cat([center_s, center_r]), torch.cat([cube_s, cube_r]),
-              bn_groups=2)
+    out = _run_net(net, torch.cat([_transferred(img, transfer), img_r]), r,
+                   torch.cat([center_s, center_r]),
+                   torch.cat([cube_s, cube_r]), bn_groups=2)
     (pixel_2b, para_2b), = out
     pixel_pd, para_pd = pixel_2b[:B], para_2b[:B]
     pixel_r, para_r = pixel_2b[B:], para_2b[B:]
@@ -394,9 +405,9 @@ def finetune_stage_loss(net, r: rnd.Renderer, sample: tuple, scores, img_r,
     def two(x):
         return torch.cat([x, x])
 
-    out = net(torch.cat([_transferred(img, transfer), img_r]), r,
-              torch.cat([center_s, center_r]), torch.cat([cube_s, cube_r]),
-              bn_groups=2)
+    out = _run_net(net, torch.cat([_transferred(img, transfer), img_r]), r,
+                   torch.cat([center_s, center_r]),
+                   torch.cat([cube_s, cube_r]), bn_groups=2)
     outputs = [[o[0][:B], o[1][:B]] for o in out]
     outputs_r = [[o[0][B:], o[1][B:]] for o in out]
 

@@ -10,13 +10,18 @@ image, passed through the frozen generator when ``cfg.transferNet_pth``
 is set, backpropagate, then AdamW(weight_decay=0.01) at the schedule's
 learning rate behind a finite guard: a non-finite gradient skips the
 update and the moment update, unless it is the 9th or later in a row (ref:
-``_apply_if_finite_select`` with max_consecutive_errors=8).  Float32 with
-TF32 off.
+``_apply_if_finite_select`` with max_consecutive_errors=8).  TF32 off.
+
+``cfg.compute_dtype`` "bfloat16" runs the net and the generator in
+bfloat16, as the JAX package's trainer does: their parameters, the
+optimizer state, the losses, MANO's LBS, every render and the codec stay
+float32 (``phases`` casts the net's outputs and the generator's image to
+float32).  "float32" runs everything in float32.
 
 Ported: Pretrain; Finetune (one stage, ``cfg.stage_num=1``) and
 FinetuneStage (two stages) on the NYU camera, whose real batch is
-NYU-shaped.  Not yet: the bfloat16 compute dtype, and the self-supervised
-steps on other datasets.
+NYU-shaped, in both compute dtypes.  Not yet: the self-supervised steps
+on other datasets.
 
 Example::
 
@@ -52,7 +57,7 @@ import torch
 from torch.profiler import record_function
 
 from dsf_tpu_torch.config import CAMERA, Config
-from dsf_tpu_torch.device import exact_float32, resolve_device
+from dsf_tpu_torch.device import compute_dtype, exact_float32, resolve_device
 from dsf_tpu_torch.mano import model as mano_model
 from dsf_tpu_torch.models.backbone import ManoOCRStage
 from dsf_tpu_torch.models.cyclegan import ResnetGenerator
@@ -99,7 +104,7 @@ def make_optimizer(cfg: Config, params) -> torch.optim.AdamW:
     if cfg.opt != "adamw":
         raise NotImplementedError(
             f"optimizer {cfg.opt!r}: the port has AdamW only (ROADMAP "
-            "Queue 1, item 8)")
+            "Queue 1, item 4)")
     return torch.optim.AdamW(params, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8,
                              weight_decay=0.01)
 
@@ -145,10 +150,12 @@ def guarded_update(state: TrainState, params, lr: float) -> bool:
     return accept
 
 
-def load_transfer_net(path: str, device) -> Optional[ResnetGenerator]:
+def load_transfer_net(path: str, device,
+                      dtype: torch.dtype = torch.float32
+                      ) -> Optional[ResnetGenerator]:
     """The frozen CycleGAN generator of ``cfg.transferNet_pth`` on
-    ``device``, in eval mode with no parameter requiring a gradient; None
-    for an empty path.  As the JAX trainer (trainer.py:196-218): a path
+    ``device``, computing in ``dtype``, in eval mode with no parameter
+    requiring a gradient; None for an empty path.  As the JAX trainer (trainer.py:196-218): a path
     ending in ``.npz`` is the JAX pipeline's export, another existing path
     a reference checkpoint, and a missing path gives a seeded random
     generator (numpy seed 0, the JAX trainer's PRNGKey(0)) with a
@@ -162,7 +169,7 @@ def load_transfer_net(path: str, device) -> Optional[ResnetGenerator]:
         logging.warning("transferNet_pth %r not found; using a randomly "
                         "initialized frozen generator", path)
         sd = random_generator_state_dict(np.random.RandomState(0))
-    gen = ResnetGenerator.from_state_dict(sd)
+    gen = ResnetGenerator.from_state_dict(sd, dtype)
     return gen.to(device).eval().requires_grad_(False)
 
 
@@ -177,8 +184,10 @@ class Trainer:
 
     Args:
       cfg: a ``Config``; ``cfg.net`` must be a ResNet and
-        ``cfg.compute_dtype`` float32.  ``cfg.transferNet_pth`` names the
-        frozen CycleGAN generator (``load_transfer_net``), or is empty.
+        ``cfg.compute_dtype`` "float32" or "bfloat16" (the net's and the
+        generator's; ``device.compute_dtype``).  ``cfg.transferNet_pth``
+        names the frozen CycleGAN generator (``load_transfer_net``), or is
+        empty.
       mano_npz: the converted MANO asset.
       steps_per_epoch: for the epoch-based learning-rate schedule.
       device: ``cuda`` when None; raises if CUDA is missing.  ``"cpu"``
@@ -189,10 +198,7 @@ class Trainer:
                  device=None):
         if "ResNet" not in cfg.net:
             raise NotImplementedError(cfg.net)
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype {cfg.compute_dtype}: the port trains float32 "
-                "(ROADMAP Queue 1, item 8)")
+        self.dtype = compute_dtype(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         paras, img_size = CAMERA[cfg.dataset]
@@ -202,7 +208,7 @@ class Trainer:
         self.schedule = lr_schedule(cfg, steps_per_epoch)
         self.generator = torch.Generator().manual_seed(cfg.seed)
         self.transfer_net = load_transfer_net(cfg.transferNet_pth,
-                                              self.device)
+                                              self.device, self.dtype)
 
     @property
     def transfer(self) -> Optional[Callable]:
@@ -224,7 +230,7 @@ class Trainer:
         at zero."""
         cfg = self.cfg
         net = ManoOCRStage(joint_num=21, depth=int(cfg.net.split("_")[-1]),
-                           refine=cfg.stage_num == 2)
+                           refine=cfg.stage_num == 2, dtype=self.dtype)
         if variables is None:
             sd = random_reference_state_dict(np.random.RandomState(cfg.seed),
                                              refine=cfg.stage_num == 2)
@@ -263,8 +269,8 @@ class Trainer:
         if stages is None:
             raise NotImplementedError(
                 f"phase {phase_name!r}: the port has Pretrain, Finetune and "
-                "FinetuneStage; not yet ported: the bfloat16 compute dtype "
-                "and the self-supervised steps off the NYU camera")
+                "FinetuneStage; not yet ported: the self-supervised steps "
+                "off the NYU camera")
         if self.cfg.dataset != "nyu" or self.cfg.stage_num != stages:
             raise NotImplementedError(
                 f"{phase_name} on {self.cfg.dataset!r} with stage_num "

@@ -478,8 +478,9 @@ def test_cuda_path_carries_the_training_gradient(renderer):
     assert {k: kernels.LAUNCHES[k] - before[k] for k in before} == {
         "raster_skip": 1, "raster_moments": 1, "codec_encode": 1,
         "codec_encode_bwd": 1, "codec_decode": 1, "codec_decode_bwd": 1,
-        "point_mesh_argmin": 0, "tail_conv": 0, "icp_argmin_v2": 0,
-        "icp_argmin_culled": 0, "raster_dense": 0, "raster_binned": 0}
+        "point_mesh_argmin": 0, "tail_conv": 0, "tail_conv_bf16": 0,
+        "icp_argmin_v2": 0, "icp_argmin_culled": 0, "raster_dense": 0,
+        "raster_binned": 0}
     assert torch.equal(out["cuda"][0], out["cpu"][0])
     assert (out["cpu"][0] >= 0).float().mean() > 0.05
     for got, ref in zip(out["cuda"][1:], out["cpu"][1:]):
@@ -637,6 +638,69 @@ def test_tail_conv_kernel_matches_plain(cuda, shape):
     for a, r in zip(xs, rs):
         torch.testing.assert_close(a.grad, r.grad, rtol=0,
                                    atol=1e-5 * float(r.grad.abs().max()))
+
+
+@pytest.mark.parametrize("shape,lead", [
+    ((2, 64, 134, 134), 0), ((3, 5, 45, 37), 0), ((2, 6, 46, 72), 0),
+    ((2, 9, 150, 140), 0), ((2, 5, 46, 70), 1)])
+def test_tail_conv_bf16_kernel_matches_plain(cuda, shape, lead):
+    """K9's bfloat16 variant against its plain version in bfloat16 (cuDNN's
+    bfloat16 convolution: float32 sums rounded once, the bias added in
+    bfloat16, tanh) at the generator's head shape (one bulk copy a channel
+    band, widened to 16 bytes: 134-element rows of 268 bytes), a short
+    last band (46 x 72), and where the copy is element-wise: rows of odd
+    length (45 x 37), two column tiles (150 x 140), and x starting 8 bytes
+    past 16 (a slice of a larger batch, ``lead``).  Each float32 sum runs
+    in its own order, so a sum may round one bfloat16 step apart: within a
+    step (2^-7 of the value) at each of the three roundings, and different
+    on at most 1% of the outputs (near a sum that cancels the bias, a
+    step of the sum is many steps of the output).  Against tanh of the
+    float64 sum of the same bfloat16 values: within half a step (2^-8 of
+    the value) at each rounding, the float32 sum within 1e-6 of the sum of
+    its products' magnitudes (``chip_smoke.py``'s ``tail_bf16_bound``).  Mixed types raise; the gradient is the plain
+    version's in bfloat16 (the backward recomputes through it)."""
+    gen = torch.Generator(device=cuda).manual_seed(shape[1])
+    big = torch.randn(shape[0] + lead, *shape[1:], device=cuda,
+                      generator=gen).bfloat16()
+    x = big[lead:]
+    w = (0.1 * torch.randn(1, shape[1], 7, 7, device=cuda,
+                           generator=gen)).bfloat16()
+    b = torch.randn(1, device=cuda, generator=gen).clamp(-0.5, 0.5).bfloat16()
+    if lead:
+        assert x.data_ptr() % 16 == 8
+    before = dict(kernels.LAUNCHES)
+    got = tapsum_kernel.tail_conv_cuda(x, w, b)
+    assert kernels.LAUNCHES["tail_conv_bf16"] == before["tail_conv_bf16"] + 1
+    assert kernels.LAUNCHES["tail_conv"] == before["tail_conv"]
+    ref = tapsum.tail_conv_tanh_plain(x, w, b)
+    assert got.dtype == ref.dtype == torch.bfloat16
+    assert got.shape == ref.shape == (shape[0], 1, shape[2] - 6, shape[3] - 6)
+    pre = torch.nn.functional.conv2d(x.double(), w.double()) + b.double()
+    y64 = torch.tanh(pre)
+    absum = torch.nn.functional.conv2d(x.double().abs(), w.double().abs())
+
+    def bound(r):
+        return ((1 - y64 ** 2) * (r * (2 * pre.abs() + float(b.abs())) * 1.01
+                                  + r * 2 ** 8 * 1e-6 * absum)
+                + r * y64.abs() * 1.001 + 1e-6)
+
+    assert ((got.double() - ref.double()).abs() <= bound(2.0 ** -7)).all()
+    assert (got != ref).float().mean() <= 0.01
+    assert ((got.double() - y64).abs() <= bound(2.0 ** -8)).all()
+    assert torch.equal(got, tapsum_kernel.tail_conv_cuda(x, w, b))
+    with pytest.raises(ValueError, match="bfloat16"):
+        tapsum_kernel.tail_conv_cuda(x, w.float(), b)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tapsum_kernel.tail_conv_cuda(x.half(), w.half(), b.half())
+    xs = [t.clone().requires_grad_(True) for t in (x, w, b)]
+    cot = torch.randn(ref.shape, device=cuda, generator=gen).bfloat16()
+    tapsum.tail_conv_tanh(*xs).backward(cot)
+    rs = [t.clone().requires_grad_(True) for t in (x, w, b)]
+    tapsum.tail_conv_tanh_plain(*rs).backward(cot)
+    for a, r in zip(xs, rs):
+        assert a.grad.dtype == torch.bfloat16
+        torch.testing.assert_close(a.grad.float(), r.grad.float(), rtol=0,
+                                   atol=1e-2 * float(r.grad.abs().max()))
 
 
 def test_generator_on_the_card_matches_cpu(cuda):

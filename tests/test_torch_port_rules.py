@@ -146,6 +146,14 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         tapsum_kernel.tail_conv_cuda(torch.zeros(1, 8, 14, 14),
                                      torch.zeros(1, 8, 7, 7), torch.zeros(1))
     with pytest.raises(ValueError, match="CUDA"):
+        tapsum_kernel.tail_conv_cuda(
+            *(torch.zeros(s, dtype=torch.bfloat16)
+              for s in ((1, 8, 14, 14), (1, 8, 7, 7), (1,))))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tapsum_kernel.tail_conv_cuda(
+            *(torch.zeros(s, dtype=torch.float16)
+              for s in ((1, 8, 14, 14), (1, 8, 7, 7), (1,))))
+    with pytest.raises(ValueError, match="CUDA"):
         point_mesh_kernel.argmin_faces_v2_cuda(torch.zeros(1, 16, 3),
                                                torch.zeros(1, 4, 3, 3))
     with pytest.raises(ValueError, match="CUDA"):
@@ -186,8 +194,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     assert kernels.LAUNCHES == {name: 0 for name in (
         "raster_skip", "raster_moments", "codec_encode", "codec_encode_bwd",
         "codec_decode", "codec_decode_bwd", "point_mesh_argmin", "tail_conv",
-        "icp_argmin_v2", "icp_argmin_culled", "raster_dense",
-        "raster_binned")}
+        "tail_conv_bf16", "icp_argmin_v2", "icp_argmin_culled",
+        "raster_dense", "raster_binned")}
 
 
 def test_kernel_sources_and_build_flags():

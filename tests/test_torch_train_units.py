@@ -92,8 +92,9 @@ def test_trainer_phases_other_than_pretrain_raise(tmp_path):
     """Pretrain, Finetune (one stage) and FinetuneStage (two stages) are
     ported, the last two on the NYU camera at their own stage count, and
     so is the CycleGAN transfer net; other phases, the self-supervised
-    steps off the NYU camera or at the other stage count, bfloat16 and
-    optimizers other than AdamW raise."""
+    steps off the NYU camera or at the other stage count, compute dtypes
+    other than float32 and bfloat16, and optimizers other than AdamW
+    raise."""
     from dsf_tpu_torch.mano import synthetic
     path = str(tmp_path / "syn.npz")
     synthetic.save_synthetic_mano(path)
@@ -114,7 +115,9 @@ def test_trainer_phases_other_than_pretrain_raise(tmp_path):
     assert TT.Trainer(Config(input_size=64, transferNet_pth=str(
         tmp_path / "missing.pth")), path, device="cpu").transfer_net is not None
     assert tr.transfer_net is None
-    with pytest.raises(NotImplementedError, match="float32"):
-        TT.Trainer(Config(compute_dtype="bfloat16"), path, device="cpu")
+    assert TT.Trainer(Config(input_size=64, compute_dtype="bfloat16"), path,
+                      device="cpu").dtype == torch.bfloat16
+    with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
+        TT.Trainer(Config(compute_dtype="float16"), path, device="cpu")
     with pytest.raises(NotImplementedError, match="AdamW"):
         TT.make_optimizer(Config(opt="sgd"), [torch.nn.Parameter(torch.ones(1))])

@@ -4,6 +4,8 @@ splits as ``dsf_tpu.training.phases._aug_keys``, ``renderer.synth_sample``,
 ``renderer.mask_img`` and ``ops.cloud.img_to_pcl``, handed to the port as
 tensors."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -139,6 +141,89 @@ def gradient_spread(seed=0, batch=2, size=64):
     out["one image: port vs jit"] = spread(port, jit_one)
     out["one image: port vs eager"] = spread(port, eager_one)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the bfloat16 step tests' float64 witness (test_torch_bf16_pretrain.py,
+# test_torch_bf16_finetune_stage.py)
+
+HEADS = ("mano_regress", "finals_s2")
+
+
+def float64_renderer(r):
+    """``r`` with its MANO constants in float64 (the faces stay int64)."""
+    m = r.mano
+    f64 = {f.name: getattr(m, f.name).double() for f in dataclasses.fields(m)
+           if torch.is_tensor(getattr(m, f.name))
+           and getattr(m, f.name).is_floating_point()}
+    return dataclasses.replace(r, mano=dataclasses.replace(m, **f64))
+
+
+def _rel(a, b):
+    return float(np.linalg.norm(a - b) / (np.linalg.norm(b) + 1e-30))
+
+
+def _cos(a, b):
+    a, b = a.ravel().astype(np.float64), b.ravel().astype(np.float64)
+    return float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b) + 1e-300))
+
+
+def check_gradients(port, ref, exact, label):
+    """Every parameter's gradient of a bfloat16 step (float32 on both
+    sides) against the float64 witness, in relative L2.  The heads feed
+    the losses only: JAX lies within 0.5 of float64 there (its offset
+    heads' bias gradients, summed over the pixels of a bfloat16
+    cotangent: 0.12 in the Pretrain step, up to 0.35 in FinetuneStage's;
+    the port's 0.004 to 0.07), and the port within 1.5x JAX's + 0.02.
+    Behind the BatchNorm trunks bfloat16 rounding dominates the gradient
+    at these random weights: each side lies about the gradient's own norm
+    from float64 (Pretrain: a median 0.94 for the port, 0.88 for JAX) and
+    as far from the other.  There the port is held within 1.5x JAX's
+    distance + 0.02 per parameter and 1.2x in the median, JAX's below
+    1.5, and the signal too: the median cosine between the port's
+    gradient and float64's at least 0.7x JAX's (Pretrain: 0.55 and 0.60),
+    which a zero or random gradient does not reach."""
+    d_port, d_jax, c_port, c_jax = {}, {}, {}, {}
+    for name, g in port["grads"].items():
+        assert g.dtype == np.float32 and np.isfinite(g).all(), name
+        e = exact["grads"][name]
+        d_port[name], d_jax[name] = _rel(g, e), _rel(ref["grads"][name], e)
+        c_port[name], c_jax[name] = _cos(g, e), _cos(ref["grads"][name], e)
+        head = name.startswith(HEADS)
+        assert d_jax[name] < (0.5 if head else 1.5), (name, d_jax[name])
+        assert d_port[name] <= 1.5 * d_jax[name] + 0.02, (
+            name, d_port[name], d_jax[name])
+    for part, names in (("heads", [n for n in d_port if n.startswith(HEADS)]),
+                        ("trunks", [n for n in d_port
+                                    if not n.startswith(HEADS)])):
+        mp, mj, cp, cj = (float(np.median([d[n] for n in names]))
+                          for d in (d_port, d_jax, c_port, c_jax))
+        print(f"{label} bf16 gradients, {part}: median relative L2 from "
+              f"float64 port {mp:.4g}, JAX {mj:.4g}; median cosine with "
+              f"float64 port {cp:.4g}, JAX {cj:.4g}")
+        assert mp <= 1.2 * mj + 1e-3, (part, mp, mj)
+        assert cp >= 0.7 * cj and cj > 0.1, (part, cp, cj)
+
+
+def check_batch_stats(port, ref, exact, label):
+    """The float32 running statistics after a bfloat16 step, each side's
+    largest distance from float64's relative to the tensor's largest
+    entry: the port's within 2x JAX's + 0.01 per tensor, and within 1.5x
+    JAX's in the median.  Both come from bfloat16 activations; stage 2's
+    from a re-render of bfloat16 MANO parameters, where the two sides
+    round apart (Pretrain: JAX up to 0.039 from float64)."""
+    dp, dj = {}, {}
+    for name, b in port["buffers"].items():
+        e = exact["buffers"][name]
+        scale = np.abs(e).max()
+        dp[name] = np.abs(b - e).max() / scale
+        dj[name] = np.abs(ref["buffers"][name] - e).max() / scale
+        assert dp[name] <= 2 * dj[name] + 0.01, (name, dp[name], dj[name])
+    mp, mj = np.median(list(dp.values())), np.median(list(dj.values()))
+    print(f"{label} bf16 batch statistics from float64, median (largest): "
+          f"port {mp:.3g} ({max(dp.values()):.3g}), JAX {mj:.3g} "
+          f"({max(dj.values()):.3g})")
+    assert mp <= 1.5 * mj + 1e-5
 
 
 if __name__ == "__main__":
