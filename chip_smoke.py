@@ -63,7 +63,9 @@ Phases, each printed on its own line(s); any failure exits non-zero:
    then the same requests with the skip raster switched off
    (``rasterize.USE_PALLAS_SKIP``): K10 in K1's place, outputs as the skip
    route's, and each K10 route call's output held against its plain
-   version on the call's own inputs; then the median latency per bucket.
+   version on the call's own inputs; then ``predict_from_depth`` on one
+   raw 640x480 frame (the host crop), against the CPU engine; then the
+   median latency per bucket.
    Then the same requests through the bfloat16 engine
    (``Config(compute_dtype="bfloat16")``): the same launches, outputs
    finite, the stage-2 render covering > 2%, its outputs against the
@@ -120,7 +122,30 @@ Phases, each printed on its own line(s); any failure exits non-zero:
    a Finetune loss whose real half is rendered from the net's own MANO
    prediction (its MANO head's weight zeroed, so the prediction is the
    head's bias whatever the image), so that the M2P gate passes: the M2P
-   term and its gradient on the card against the CPU and float64.
+   term and its gradient on the card against the CPU and float64;
+6. loop: the trainer's own entry point.  A fake NYU set (256 train and
+   70 test frames, the test ones in 3 views) built on the card
+   (data.fake.make_fake_nyu: K6 once per batch of 32), timed; the
+   loader alone (augmented batches of 32 at 128^2, decoding the PNGs,
+   then from its depth cache); ``training.loop.run`` at full width
+   (the default FinetuneStage config, two stages, B=32, 128^2, the
+   stand-in generator, one epoch of 8 steps, test_during_train,
+   result and mesh exports), each step's launch deltas as phase 4's and
+   each eval batch's K1 x1, K4 x2, K5 x1, every loss and eval error
+   finite, latest, best, train.log (Epoch#0, test:) and 70 rows in each
+   view's result_0/1; the epoch's steps/s and its median step against
+   phase 4's, the 3-view evaluation's frames/s; a second run resumed
+   from the run directory (epoch 1; the net and the AdamW moments on
+   the card and bitwise the saved ones); view 0's first batch evaluated
+   on the card and on the CPU from the seeded weights the loop starts
+   from, saved as a checkpoint (stage 1 within 1e-2 mm, stage 2 within
+   0.5 mm), and from the loop's best checkpoint (printed: after 8 steps
+   its eval-mode errors reach far beyond the engine's range, where
+   float32 cannot resolve those tolerances); InferenceEngine.from_run_dir and
+   predict_from_depth on a test frame; the finite guard
+   (``guarded_update``, a finite and a NaN gradient) under
+   ``torch.cuda.set_sync_debug_mode("error")``, and the host syncs left
+   in one FinetuneStage step, listed with mode "warn".
 
 The last two lines are the kernels' JSON record and the device JSON.
 Without CUDA, or outside the repository, it exits non-zero and prints
@@ -196,6 +221,11 @@ F_STEP_LAUNCHES = launches(raster_skip=2, raster_moments=1, codec_encode=1,
                            point_mesh_argmin=1, tail_conv=1)
 
 
+# one eval batch of the loop: the stage-2 re-render, its remap, a decode
+# per stage
+EVAL_LAUNCHES = launches(raster_skip=1, codec_encode=1, codec_decode=2)
+
+
 def bf16_launches(counts):
     """A float32 path's launch counts as the bfloat16 compute dtype runs
     it: the generator's head is K9's bfloat16 variant, every other kernel
@@ -217,6 +247,9 @@ ICP_PER_PAIR_FLOPS = 63
 PRERENDER_N = 64                # parameter sets of the pre-render path
 PRERENDER_BATCH = 32            # the pre-render tool's default batch
 HOLD_CYCLES = 200_000_000       # ~0.1 s of the card's clock, see time_ms
+FAKE_TRAIN, FAKE_TEST = 256, 70  # the loop's fake NYU set: 8 steps of 32,
+                                 # and a 6-frame tail in each test view
+STEP_MEDIAN_MS = {}             # phase 4's median step ms by path tag
 L2_BYTES = 50 * 2 ** 20         # the H100's L2 cache
 # the codec's foreground test on a normalized depth image; the background
 # normalizes to 1.0, or just under it in float32 when the crop centre's
@@ -1880,6 +1913,7 @@ def run_slice(mano_path):
     say("slice binned vs skip route max abs diff: "
         + json.dumps({k: float(f"{v:.3g}") for k, v in diff.items()}))
 
+    check_raw_frame(eng, cpu, rng)
     lat = predict_latency(eng, rng)
     top = BUCKETS[-1]
     say(f"slice median predict latency ms per bucket ({LATENCY_CALLS} calls, "
@@ -1887,6 +1921,35 @@ def run_slice(mano_path):
         + f"; bucket {top} throughput {top * 1e3 / lat[top]:.1f} images/s")
     say(f"slice peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     return counts, binned, k10, {"reqs": reqs, "gpu": outs, "cpu": refs}
+
+
+def check_raw_frame(eng, cpu, rng):
+    """``predict_from_depth`` on one raw 640x480 frame (a seeded hand
+    rendered on the card, K6 outside any counted path): the centre of mass
+    and the host crop, then the engine; outputs finite and within
+    ``atol_for`` of the CPU engine's on the same frame."""
+    import torch
+    from dsf_tpu_torch.mano import model as mano
+    from dsf_tpu_torch.ops import rasterize as ras
+    r = eng.renderer
+    with torch.inference_mode():
+        p = torch.from_numpy(prerender_params(1, rng)).cuda()
+        verts, _ = mano.get_mano_vertices(r.mano, *mano.split_params(p))
+        frame = ras.rasterize_depth(
+            verts, r.mano.faces, ras.full_frame_pixel_rays((640, 480), "cuda"),
+            r.paras).reshape(480, 640).cpu().numpy().astype(np.uint16)
+    out, ref = eng.predict_from_depth(frame), cpu.predict_from_depth(frame)
+    worst = {}
+    for k, v in out.items():
+        d = float(np.abs(v - ref[k]).max())
+        worst[k] = d
+        need(np.isfinite(v).all() and d <= atol_for(k), f"predict_from_depth: "
+             f"{k} not finite or {d} > {atol_for(k)} from the CPU engine")
+    say(f"slice predict_from_depth on a {frame.shape} frame "
+        f"({int((frame > 0).sum())} hand pixels): joint_xyz_mm "
+        f"{np.round(out['joint_xyz_mm'][0, 0], 2).tolist()} ...; GPU vs CPU "
+        "max abs diff " + json.dumps({k: float(f"{v:.3g}")
+                                      for k, v in worst.items()}))
 
 
 def predict_latency(eng, rng):
@@ -2087,7 +2150,7 @@ def run_training(mano_path, dtype="float32"):
     say(f"{tag} launches over {TRAIN_STEPS} Pretrain steps (B={TRAIN_BATCH}, "
         f"{INPUT_SIZE}^2): {json.dumps(counts)}")
     say(f"{tag} losses: " + json.dumps([float(f"{x:.6g}") for x in losses])
-        + f"; updates applied {state.updates}/{TRAIN_STEPS}")
+        + f"; updates applied {int(state.updates)}/{TRAIN_STEPS}")
     say(f"{tag} step ms (host clock, to a synchronized loss): "
         + json.dumps([round(t, 3) for t in times])
         + f"; median {float(np.median(times)):.3f} ms, "
@@ -2178,6 +2241,7 @@ def _run_self_supervised(mano_path, phase, icp, dtype):
     gen_moved = sum(int(not torch.equal(a, b))
                     for a, b in zip(gen_before, tr.transfer_net.parameters()))
     med = float(np.median(times))
+    STEP_MEDIAN_MS[tag] = med
     say(f"{tag} launches over {TRAIN_STEPS} {phase} steps "
         f"(B={TRAIN_BATCH} synth + {TRAIN_BATCH} real, {INPUT_SIZE}^2, "
         f"stand-in generator, ICP argmin {ICP_SWITCHES[icp][0]}, compute "
@@ -2185,7 +2249,7 @@ def _run_self_supervised(mano_path, phase, icp, dtype):
         f"{json.dumps(counts)}")
     say(f"{tag} losses: "
         + json.dumps([float(f"{x:.6g}") for x in losses])
-        + f"; updates applied {state.updates}/{TRAIN_STEPS}; parameter "
+        + f"; updates applied {int(state.updates)}/{TRAIN_STEPS}; parameter "
         f"tensors moved {moved} of {len(before_params)}; generator tensors "
         f"moved {gen_moved}")
     say(f"{tag} first step metrics: "
@@ -2974,6 +3038,347 @@ def compare_m2p(mano_path):
     need(not bad, f"M2P's GPU gradient differs from float64: {bad}")
 
 
+# ----------------------------------------------------------------- phase 6
+
+@contextlib.contextmanager
+def max_epochs(n):
+    """``Config.max_epoch`` (a per-dataset property) set to ``n``."""
+    from dsf_tpu_torch.config import Config
+    saved = Config.max_epoch
+    Config.max_epoch = property(lambda self: n)
+    try:
+        yield
+    finally:
+        Config.max_epoch = saved
+
+
+@contextlib.contextmanager
+def watched_loop(rec):
+    """The loop's trainer with each train step, eval batch, epoch, restore
+    and 3-view evaluation recorded in ``rec``: per call its launch deltas,
+    its host start time, its metrics or errors (left on the device)."""
+    import torch
+    from dsf_tpu_torch import kernels
+    from dsf_tpu_torch.training import checkpoints as ck
+    from dsf_tpu_torch.training import loop as L
+    from dsf_tpu_torch.training import trainer as T
+    orig = (T.Trainer.train_step_fn, T.Trainer._eval_step,
+            T.Trainer.fit_epoch, ck.restore, L._test_views)
+    for k in ("steps", "starts", "metrics", "evals", "errors", "epochs",
+              "restored", "views_s"):
+        rec.setdefault(k, [])
+
+    def delta(before):
+        return {k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES}
+
+    def train_step_fn(self, phase):
+        step = orig[0](self, phase)
+
+        def watched(state, draws, batch):
+            before = dict(kernels.LAUNCHES)
+            rec["starts"].append(time.perf_counter())
+            state, metrics = step(state, draws, batch)
+            rec["steps"].append(delta(before))
+            rec["metrics"].append(metrics)
+            return state, metrics
+        return watched
+
+    def eval_step(self, state, batch):
+        before = dict(kernels.LAUNCHES)
+        errors, results = orig[1](self, state, batch)
+        rec["evals"].append(delta(before))
+        rec["errors"].append(errors)
+        return errors, results
+
+    def fit_epoch(self, *a, **kw):
+        t0 = time.perf_counter()
+        out = orig[2](self, *a, **kw)
+        torch.cuda.synchronize()
+        rec["epochs"].append(time.perf_counter() - t0)
+        return out
+
+    def restore(*a, **kw):
+        state, epoch = orig[3](*a, **kw)
+        rec["restored"].append((state, epoch))
+        return state, epoch
+
+    def test_views(*a, **kw):
+        t0 = time.perf_counter()
+        orig[4](*a, **kw)
+        torch.cuda.synchronize()
+        rec["views_s"].append(time.perf_counter() - t0)
+
+    (T.Trainer.train_step_fn, T.Trainer._eval_step, T.Trainer.fit_epoch,
+     ck.restore, L._test_views) = (train_step_fn, eval_step, fit_epoch,
+                                   restore, test_views)
+    try:
+        yield rec
+    finally:
+        (T.Trainer.train_step_fn, T.Trainer._eval_step, T.Trainer.fit_epoch,
+         ck.restore, L._test_views) = orig
+
+
+def loop_config(mano_path, root, save_dir, **kw):
+    """The default configuration (FinetuneStage, two stages, NYU) at full
+    width with the stand-in generator, one epoch, every export on."""
+    from dsf_tpu_torch.config import Config
+    return Config(dataset="nyu", batch_size=TRAIN_BATCH, stage_num=2,
+                  train_stage="Finetune", input_size=INPUT_SIZE, seed=SEED,
+                  root_dir=root, mano_model_path=mano_path, save_dir=save_dir,
+                  transferNet_pth=STAND_IN, test_during_train=True,
+                  save_result=True, save_mesh=True, image_every=0, **kw)
+
+
+def run_loop(mano_path, smi):
+    """Phase 6: the trainer's own entry point.  A fake NYU set built on
+    the card (K6), ``loop.run`` on it at full width (one epoch: 8
+    FinetuneStage steps fed by the loader, the per-epoch test, latest and
+    best, the 3-view evaluation and exports), a resume from its run
+    directory, its checkpoint evaluated on the card against the CPU, the
+    finite guard under ``set_sync_debug_mode("error")``, the other host
+    syncs of a step, and the loader's, the epoch's and the evaluation's
+    rates.  Returns the launch counts of the fake set's build and of the
+    loop's run."""
+    import warnings
+    import zlib
+
+    import torch
+    from dsf_tpu_torch import kernels
+    from dsf_tpu_torch.data import datasets as D
+    from dsf_tpu_torch.data import native, readers
+    from dsf_tpu_torch.data.fake import make_fake_nyu
+    from dsf_tpu_torch.data.synth_params import random_param_source
+    from dsf_tpu_torch.serving import InferenceEngine
+    from dsf_tpu_torch.training import checkpoints as ck
+    from dsf_tpu_torch.training import loop as L
+    from dsf_tpu_torch.training.trainer import Trainer, guarded_update
+
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "data")
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        make_fake_nyu(root, mano_path, n_train=FAKE_TRAIN, n_test=FAKE_TEST,
+                      seed=SEED, batch_size=TRAIN_BATCH)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts["fake"] = dict(kernels.LAUNCHES)
+        n = FAKE_TRAIN + FAKE_TEST
+        batches = -(-FAKE_TRAIN // TRAIN_BATCH) + -(-FAKE_TEST // TRAIN_BATCH)
+        say(f"loop fake NYU set: {FAKE_TRAIN} train + {FAKE_TEST} test "
+            f"frames (x3 views) of 640x480 in {secs:.3f} s, "
+            f"{n / secs:.1f} frames/s (render, PNG writing, labels); "
+            f"launches {json.dumps(counts['fake'])}; {smi}")
+        need(counts["fake"] == launches(raster_dense=batches),
+             f"the fake set did not launch K6 once a batch: {counts['fake']}")
+        nyu = os.path.join(root, "nyu")
+
+        # the loader alone: one augmented pass decoding every PNG, then one
+        # from its depth cache; and one thread's decode of a frame
+        frames = [os.path.join(nyu, "train", f"depth_1_{i + 1:07d}.png")
+                  for i in range(TRAIN_BATCH)]
+        t0 = time.perf_counter()
+        native.load()
+        say(f"loop host library csrc/host_data.cpp built and loaded in "
+            f"{time.perf_counter() - t0:.3f} s (c++ at first use)")
+        t0 = time.perf_counter()
+        raws = [readers.read_png_chunks(f) for f in frames]
+        t1 = time.perf_counter()
+        raws = [zlib.decompress(idat) for _, idat in raws]
+        t2 = time.perf_counter()
+        for r in raws:
+            native.png_nyu_depth(r, 480, 640, 3)
+        t3 = time.perf_counter()
+        say(f"loop one thread's decode of a 640x480 frame, ms: read "
+            f"{(t1 - t0) * 1e3 / len(frames):.3f}, inflate "
+            f"{(t2 - t1) * 1e3 / len(frames):.3f}, unfilter and unpack "
+            f"{(t3 - t2) * 1e3 / len(frames):.3f}; os.cpu_count() "
+            f"{os.cpu_count()}")
+        ds = D.NYUDataset(nyu, "train", img_size=INPUT_SIZE, seed=SEED)
+        ds.enable_depth_cache()
+        rates = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            k = sum(1 for _ in ds.prefetch_batches(TRAIN_BATCH, shuffle=True))
+            rates.append(k / (time.perf_counter() - t0))
+        ds.close()
+        say(f"loop loader alone: augmented batches of {TRAIN_BATCH} at "
+            f"{INPUT_SIZE}^2, {ds.NUM_WORKERS} worker threads: "
+            f"{rates[0]:.2f} batches/s decoding the PNGs, {rates[1]:.2f} "
+            f"from the depth cache; {smi}")
+
+        # the loop, one epoch
+        cfg = loop_config(mano_path, root, os.path.join(tmp, "ckpt"))
+        rec = {}
+        with max_epochs(1), watched_loop(rec):
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            run_dir = L.run(cfg)
+            torch.cuda.synchronize()
+            counts["loop"] = dict(kernels.LAUNCHES)
+        steps = FAKE_TRAIN // TRAIN_BATCH
+        evals = 4 * -(-FAKE_TEST // TRAIN_BATCH)    # view 0, then 3 views
+        say(f"loop launches over {len(rec['steps'])} FinetuneStage steps and "
+            f"{len(rec['evals'])} eval batches: {json.dumps(counts['loop'])}")
+        need(len(rec["steps"]) == steps and len(rec["evals"]) == evals,
+             f"the loop ran {len(rec['steps'])} steps and "
+             f"{len(rec['evals'])} eval batches, not {steps} and {evals}")
+        for i, d in enumerate(rec["steps"]):
+            need(d == FS_STEP_LAUNCHES, f"loop step {i} did not launch every "
+                 f"kernel of the path as expected: {d} != {FS_STEP_LAUNCHES}")
+        for i, d in enumerate(rec["evals"]):
+            need(d == EVAL_LAUNCHES, f"loop eval batch {i}: {d} != "
+                 f"{EVAL_LAUNCHES}")
+        losses = [float(m["loss"]) for m in rec["metrics"]]
+        bad = [(i, k) for i, m in enumerate(rec["metrics"])
+               for k, v in m.items() if not np.isfinite(float(v))]
+        need(not bad, f"loop steps with non-finite metrics: {bad}")
+        errs = torch.stack([e for e in rec["errors"]]).cpu().numpy()
+        need(np.isfinite(errs).all(), "a non-finite eval error")
+        log = open(os.path.join(run_dir, "train.log")).read()
+        need("Epoch#0" in log and "test:" in log, "train.log lacks Epoch#0 "
+             "or test:")
+        for name in ("latest", "best"):
+            need(os.path.exists(os.path.join(run_dir, name, ck.FILE)),
+                 f"no {name} checkpoint")
+        for view in range(3):
+            for i in (0, 1):
+                rows = np.loadtxt(os.path.join(run_dir,
+                                               f"result_{i}_{view}.txt"))
+                need(rows.shape == (FAKE_TEST, 63) and np.isfinite(rows).all(),
+                     f"result_{i}_{view}: {rows.shape}")
+            mesh = np.loadtxt(os.path.join(run_dir, f"mesh_result_3_{view}.txt"))
+            need(mesh.shape[0] == FAKE_TEST, f"mesh_result_3_{view}: "
+                 f"{mesh.shape}")
+        starts = np.diff(rec["starts"]) * 1e3
+        med = float(np.median(starts[1:]))
+        epoch_s = rec["epochs"][0]
+        frames = 3 * FAKE_TEST
+        say(f"loop losses: {json.dumps([float(f'{x:.6g}') for x in losses])}; "
+            f"eval errors mm (mean per row over the batches) "
+            f"{np.round(errs.mean(axis=(0, 2)), 3).tolist()}")
+        say(f"loop epoch: {steps} steps in {epoch_s:.3f} s, "
+            f"{steps / epoch_s:.3f} steps/s; median step {med:.3f} ms inside "
+            f"the loop (host clock between step starts, steps 2-{steps}; the "
+            f"loader's batches read one step late) against phase 4's "
+            f"{STEP_MEDIAN_MS['finetune_stage']:.3f} ms for the same step "
+            f"without the loader; {smi}")
+        say(f"loop 3-view evaluation: {frames} frames in "
+            f"{rec['views_s'][-1]:.3f} s, {frames / rec['views_s'][-1]:.1f} "
+            f"frames/s (batches of {TRAIN_BATCH}, the tail padded; exports "
+            f"written); {smi}")
+
+        # resume from the run directory: epoch 1, the saved state bitwise
+        rec2 = {}
+        with max_epochs(1), watched_loop(rec2):
+            L.run(cfg.replace(add_info="resume", load_model=run_dir))
+        state, epoch = rec2["restored"][0]
+        need(epoch == 1 and not rec2["steps"], f"the resumed run started at "
+             f"epoch {epoch} and ran {len(rec2['steps'])} steps")
+        saved = torch.load(os.path.join(run_dir, "latest", ck.FILE),
+                           map_location="cpu", weights_only=True)
+        pairs = list(state.net.state_dict().items()) + [
+            (f"optimizer.{k}", v) for k, v in state.optimizer.buffers.items()]
+        ref = dict(saved["net"], **{f"optimizer.{k}": v
+                                    for k, v in saved["optimizer"].items()})
+        off = [k for k, v in pairs if v.device.type != "cuda"
+               or not torch.equal(v.cpu(), ref[k])]
+        need(not off, f"restored tensors off the card or not bitwise the "
+             f"saved ones: {off[:5]}")
+        say(f"loop resume: epoch {epoch}, {len(pairs)} tensors (the net and "
+            f"the AdamW moments) on the card and bitwise the saved ones; "
+            f"updates {int(state.updates)}")
+
+        # a checkpoint evaluated on the card and on the CPU: the seeded
+        # weights the loop starts from (saved as a checkpoint), at the
+        # engine's tolerance, and the loop's best (after 8 steps its
+        # eval-mode outputs leave the engine's range: printed)
+        ecfg = cfg.replace(transferNet_pth="")
+        batch = next(D.NYUDataset(nyu, "test", img_size=INPUT_SIZE).batches(
+            TRAIN_BATCH))
+        tr0 = Trainer(ecfg, mano_path, device="cpu")
+        ck.save(os.path.join(tmp, "init"), tr0, tr0.init_state(), 0)
+        ck.wait_until_finished()
+        diffs = {}
+        for name in ("init", "best"):
+            path = os.path.join(tmp, "init") if name == "init" else \
+                os.path.join(run_dir, "best")
+            out = {}
+            for dev in ("cuda", "cpu"):
+                tr = Trainer(ecfg, mano_path, device=dev)
+                st, _ = ck.restore(path, tr, tr.init_state())
+                out[dev] = tr.eval_step_fn()(st, batch)[0].cpu().numpy()
+            need(np.isfinite(out["cuda"]).all(), f"{name}: a non-finite "
+                 "eval error on the card")
+            diffs[name] = (np.abs(out["cuda"] - out["cpu"]).max(axis=1),
+                           np.abs(out["cpu"]).max(axis=1))
+        for name, (d, mag) in diffs.items():
+            say(f"loop eval of view 0's first batch from the {name} "
+                f"checkpoint, card vs CPU, max abs mm per row (stage 1 pixel, "
+                f"MANO, stage 2 pixel, MANO): {np.round(d, 5).tolist()}; the "
+                f"rows' largest error {np.round(mag, 3).tolist()} mm")
+        d = diffs["init"][0]
+        need(d[:2].max() <= 1e-2 and d[2:].max() <= 0.5, "the card's eval "
+             f"differs from the CPU's: {d}")
+
+        # serving the run directory, from a raw test frame
+        eng = InferenceEngine.from_run_dir(run_dir)
+        frame = readers.nyu_reader(os.path.join(nyu, "test",
+                                                "depth_1_0000001.png"))
+        pred = eng.predict_from_depth(frame)
+        need(all(np.isfinite(v).all() for v in pred.values()),
+             "from_run_dir + predict_from_depth: a non-finite output")
+
+        # the guard never waits for the card; the step's other host syncs
+        tr = Trainer(cfg, mano_path, device="cuda", steps_per_epoch=steps)
+        state = tr.init_state()
+        params = list(state.net.parameters())
+        for p in params:
+            p.grad = torch.randn_like(p) * 1e-3
+        nan_grad = params[0].grad.clone()
+        nan_grad.view(-1)[0] = float("nan")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ok = guarded_update(state)
+            params[0].grad = nan_grad
+            rejected = guarded_update(state)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        need(bool(ok) and not bool(rejected)
+             and int(state.notfinite_count) == 1,
+             "the guard's decisions or counters are wrong")
+        batch = next(D.NYUDataset(nyu, "train", img_size=INPUT_SIZE).batches(
+            TRAIN_BATCH))
+        batch = L._to_device(torch.device("cuda"))(batch)
+        draws = tr.draw(TRAIN_BATCH, "FinetuneStage")
+        para, cube = next(random_param_source(TRAIN_BATCH, seed=SEED))
+        step = tr.train_step_fn("FinetuneStage")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                step(state, draws, dict(batch, model_para=para,
+                                        cube_synth=cube))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        sites = {}
+        for w in caught:
+            if "synchroniz" in str(w.message):
+                where = f"{os.path.relpath(w.filename)}:{w.lineno}"
+                sites[where] = sites.get(where, 0) + 1
+        say(f"loop guard: guarded_update with a finite and a NaN gradient "
+            f"under set_sync_debug_mode('error'): no synchronization "
+            f"(accepted {bool(ok)}, then {bool(rejected)})")
+        say(f"loop host syncs left in one FinetuneStage step "
+            f"(set_sync_debug_mode('warn')): {sum(sites.values())} at "
+            + json.dumps(sites))
+    return counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3051,6 +3456,7 @@ def main():
         compare_finetune_stage(path)
         compare_finetune(path)
         compare_m2p(path)
+        by_path.update(run_loop(path, smi))
     need(sorted(r["name"] for r in record) == sorted(KERNELS),
          "the kernels' record does not list every kernel once")
     for rec in record:

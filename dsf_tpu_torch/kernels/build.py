@@ -10,6 +10,10 @@ is never loaded stale; the hash covers the shared ``.cuh`` headers of
 ``csrc`` too.  Every exported C function launches on the stream it is
 given and returns ``cudaGetLastError()`` as an int, which the Python
 wrapper turns into an exception.
+
+``host_library`` builds the loader's host library, ``csrc/host_data.cpp``
+(C++ for the CPU, not a kernel), the same way with the host C++ compiler
+(``$CXX`` or ``c++``), which a machine with the CUDA toolkit also has.
 """
 
 from __future__ import annotations
@@ -31,6 +35,12 @@ SOURCES = ("raster_skip", "moments", "codec", "point_mesh", "tail_conv",
            "raster_binned")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+HOST_SOURCE = "host_data"
+# no -march=native (one build serves any x86-64 or arm64 host) and no
+# contraction into fused multiply-adds: the library reproduces numpy's and
+# OpenCV's roundings operation by operation
+HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC", "-pthread",
+              "-ffp-contract=off")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -50,12 +60,17 @@ def nvcc_path() -> str:
 
 def _lib_path(name: str) -> str:
     h = hashlib.sha256()
-    # the source, then every shared header it may include
-    for fn in [name + ".cu"] + sorted(f for f in os.listdir(CSRC)
-                                      if f.endswith(".cuh")):
+    if name == HOST_SOURCE:
+        files, flags = [name + ".cpp"], HOST_FLAGS
+    else:
+        # the source, then every shared header it may include
+        files = [name + ".cu"] + sorted(f for f in os.listdir(CSRC)
+                                        if f.endswith(".cuh"))
+        flags = NVCC_FLAGS
+    for fn in files:
         with open(os.path.join(CSRC, fn), "rb") as f:
             h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     return os.path.join(BUILD_DIR, f"{name}_{h.hexdigest()[:16]}.so")
 
 
@@ -93,6 +108,30 @@ def library(name: str) -> ctypes.CDLL:
                 build_all()
             lib = ctypes.CDLL(_lib_path(name))
             _libs[name] = lib
+        return lib
+
+
+def host_library() -> ctypes.CDLL:
+    """The loaded host library ``csrc/host_data.cpp``, compiled with the
+    host C++ compiler on first use; raises if it does not build."""
+    with _lock:
+        lib = _libs.get(HOST_SOURCE)
+        if lib is None:
+            out = _lib_path(HOST_SOURCE)
+            if not os.path.exists(out):
+                os.makedirs(BUILD_DIR, exist_ok=True)
+                cxx = os.environ.get("CXX") or shutil.which("c++") or "g++"
+                tmp = f"{out}.{os.getpid()}.tmp"
+                res = subprocess.run(
+                    [cxx, *HOST_FLAGS, "-o", tmp,
+                     os.path.join(CSRC, HOST_SOURCE + ".cpp")],
+                    capture_output=True, text=True)
+                if res.returncode != 0:
+                    raise RuntimeError(f"{cxx} failed for {HOST_SOURCE}.cpp:"
+                                       f"\n{res.stdout}{res.stderr}")
+                os.replace(tmp, out)
+            lib = ctypes.CDLL(out)
+            _libs[HOST_SOURCE] = lib
         return lib
 
 

@@ -15,15 +15,26 @@ the stage-2 render, the codec and MANO's LBS stay float32 (the decode
 reads the bfloat16 field in float32), and the ``mano_para_*`` outputs are
 bfloat16 tensors, float32 arrays with ``as_numpy``.
 
+Raw frames go through ``predict_from_depth`` (the host crop of
+``data.crop``, centred on the given or the foreground's centre of mass),
+and a run directory of the port's loop loads through ``from_run_dir``.
+
 Example::
 
     eng = InferenceEngine(cfg, variables)          # device defaults to cuda
     out = eng.predict(img, center, M, cube)        # normalized crops
     out["joint_xyz_mm"]                            # (B, J_dataset, 3)
+
+    eng = InferenceEngine.from_run_dir("checkpoint/nyu/<run>")
+    out = eng.predict_from_depth(depth_frame)      # raw (480, 640) mm
 """
 
 from __future__ import annotations
 
+import ast
+import dataclasses
+import json
+import os
 from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
@@ -40,6 +51,30 @@ from dsf_tpu_torch.models.weights import (load_into, load_reference_state_dict,
                                           state_dict_from_jax)
 from dsf_tpu_torch.ops.offset_codec import offset2joint_softmax
 from dsf_tpu_torch.render import renderer as rnd
+
+
+def _load_config(run_dir: str) -> Config:
+    """The ``Config`` of a run directory's config.json (its values are
+    strings, as ``training.loop.run`` writes them; parsed back by field
+    type)."""
+    with open(os.path.join(run_dir, "config.json")) as f:
+        raw = json.load(f)
+    kwargs = {}
+    for fld in dataclasses.fields(Config):
+        if fld.name not in raw:
+            continue
+        s = raw[fld.name]
+        if not isinstance(s, str):
+            kwargs[fld.name] = s
+        elif isinstance(fld.default, bool):
+            kwargs[fld.name] = s in ("True", "true", "1")
+        elif isinstance(fld.default, tuple):
+            kwargs[fld.name] = tuple(ast.literal_eval(s))
+        elif isinstance(fld.default, (int, float)):
+            kwargs[fld.name] = type(fld.default)(s)
+        else:
+            kwargs[fld.name] = s
+    return Config(**kwargs)
 
 
 class InferenceEngine:
@@ -91,6 +126,24 @@ class InferenceEngine:
                      mano_model_path=mano_npz)
         return cls(cfg, load_reference_state_dict(pth), buckets=buckets,
                    device=device)
+
+    @classmethod
+    def from_run_dir(cls, run_dir: str, which: str = "best",
+                     mano_npz: Optional[str] = None,
+                     buckets: Sequence[int] = (1, 8, 32), device=None):
+        """Serve a run of the port's loop: its config.json and its ``which``
+        checkpoint (``best``, written with test_during_train, or
+        ``latest``), falling back best -> latest; a checkpoint directory
+        inside ``run_dir`` is not needed when ``run_dir`` is one."""
+        from dsf_tpu_torch.training import checkpoints as ckpt
+        cfg = _load_config(run_dir)
+        path = run_dir
+        for cand in (which, "latest"):
+            if os.path.isdir(os.path.join(run_dir, cand)):
+                path = os.path.join(run_dir, cand)
+                break
+        return cls(cfg, ckpt.restore_variables(path), mano_npz=mano_npz,
+                   buckets=buckets, device=device)
 
     # ------------------------------------------------------------ predict
 
@@ -156,6 +209,54 @@ class InferenceEngine:
         if as_numpy:
             return {k: widen(v).cpu().numpy() for k, v in out.items()}
         return out
+
+    def predict_from_depth(self, depth, com_xyz=None, cube_mm=None):
+        """Raw frames: ``depth`` (H, W) or (B, H, W) in mm; ``com_xyz``
+        (B, 3) the hand centres in camera mm, or None for the foreground's
+        centre of mass (``_com``; pass refined centres for protocol-grade
+        crops); ``cube_mm`` (3,) or (B, 3), default the config's cube.
+        Each frame is cropped and normalized on the host
+        (``crop.crop_image_deep_pp``), then served by ``predict``."""
+        from dsf_tpu_torch.data import crop as C
+        depth = np.asarray(depth, np.float32)
+        if depth.ndim == 2:
+            depth = depth[None]
+        B = depth.shape[0]
+        cube = np.asarray(
+            cube_mm if cube_mm is not None
+            else np.tile(np.asarray(self.cfg.cube_size, np.float32), (B, 1)),
+            np.float32)
+        if cube.ndim == 1:
+            cube = np.tile(cube, (B, 1))
+        if com_xyz is None:
+            com_xyz = np.stack([self._com(d) for d in depth])
+        com_xyz = np.asarray(com_xyz, np.float32)
+        S = self.cfg.input_size
+        imgs = np.empty((B, 1, S, S), np.float32)
+        Ms = np.empty((B, 3, 3), np.float32)
+        for i in range(B):
+            com_uvd = C.joint_3d_to_img(com_xyz[i], self.paras,
+                                        self.renderer.flip)
+            dcrop, trans = C.crop_image_deep_pp(
+                depth[i], com_uvd, cube[i].astype(np.float64), (S, S),
+                self.paras)
+            imgs[i, 0] = C.normalize_img(dcrop.max(), dcrop, com_xyz[i],
+                                         cube[i])
+            Ms[i] = trans
+        return self.predict(imgs, com_xyz, Ms, cube)
+
+    def _com(self, depth) -> np.ndarray:
+        """The foreground's centre of mass in camera xyz mm (serving
+        without a detector); (0, 0, cube z) for an empty frame."""
+        from dsf_tpu_torch.data import crop as C
+        v, u = np.nonzero(depth > 0)
+        if len(v) == 0:
+            return np.array([0.0, 0.0, float(self.cfg.cube_size[2])],
+                            np.float32)
+        z = depth[v, u]
+        com_uvd = np.array([u.mean(), v.mean(), z.mean()], np.float32)
+        return C.joint_img_to_3d(com_uvd, self.paras,
+                                 self.renderer.flip).astype(np.float32)
 
     def warmup(self, buckets: Optional[Sequence[int]] = None) -> None:
         """Run each bucket once before taking traffic (builds the kernels,

@@ -23,16 +23,10 @@ import numpy as np
 import torch
 
 from dsf_tpu_torch.config import CAMERA
+from dsf_tpu_torch.data.readers import PNG_SIGNATURE, png_chunk, read_png_chunks
 from dsf_tpu_torch.device import exact_float32, resolve_device
 from dsf_tpu_torch.mano import model as mano_model
 from dsf_tpu_torch.ops import rasterize as ras
-
-_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-
-
-def _chunk(kind: bytes, data: bytes) -> bytes:
-    return (struct.pack(">I", len(data)) + kind + data
-            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
 
 
 def write_png16(path: str, img: np.ndarray) -> None:
@@ -46,32 +40,19 @@ def write_png16(path: str, img: np.ndarray) -> None:
     rows[:, 1:] = img.astype(">u2").view(np.uint8).reshape(H, 2 * W)
     ihdr = struct.pack(">IIBBBBB", W, H, 16, 0, 0, 0, 0)
     with open(path, "wb") as f:
-        f.write(_SIGNATURE + _chunk(b"IHDR", ihdr)
-                + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
-                + _chunk(b"IEND", b""))
+        f.write(PNG_SIGNATURE + png_chunk(b"IHDR", ihdr)
+                + png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+                + png_chunk(b"IEND", b""))
 
 
 def read_png16(path: str) -> np.ndarray:
     """Read back a 16-bit grayscale PNG whose rows all use filter 0, as
     ``write_png16`` writes them -> (H, W) uint16."""
-    with open(path, "rb") as f:
-        data = f.read()
-    if not data.startswith(_SIGNATURE):
-        raise ValueError(f"{path}: not a PNG")
-    pos, idat, hdr = len(_SIGNATURE), [], None
-    while pos < len(data):
-        (n,) = struct.unpack(">I", data[pos:pos + 4])
-        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
-        pos += 12 + n
-        if kind == b"IHDR":
-            hdr = struct.unpack(">IIBBBBB", body)
-        elif kind == b"IDAT":
-            idat.append(body)
-    if hdr is None or hdr[2:] != (16, 0, 0, 0, 0):
+    hdr, idat = read_png_chunks(path)
+    if hdr[2:] != (16, 0, 0, 0, 0):
         raise ValueError(f"{path}: not a 16-bit grayscale PNG: {hdr}")
     W, H = hdr[0], hdr[1]
-    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8
-                         ).reshape(H, 1 + 2 * W)
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(H, 1 + 2 * W)
     if rows[:, 0].any():
         raise ValueError(f"{path}: rows with a filter other than 0")
     return rows[:, 1:].copy().view(">u2").astype(np.uint16).reshape(H, W)

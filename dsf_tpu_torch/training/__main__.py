@@ -1,0 +1,52 @@
+"""The trainer's command line: ``python -m dsf_tpu_torch.training [--key
+value ...]`` (counterpart of dsf_tpu/training/__main__.py; ref: the
+edit-the-file + ``python train_render.py`` flow, train_render.py:874-889).
+
+Every ``Config`` field is an option (tuples as comma-separated values,
+booleans as true/false).  With the default ``--phase train`` it trains on
+the card (each epoch saves ``latest``, tests view 0 and keeps ``best``),
+then evaluates the three NYU views; ``--phase test`` only evaluates.
+The ``ccssl`` and ``cyclegan`` subcommands are not ported yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+
+
+def parse_config(argv=None, description="dsf_tpu_torch trainer"):
+    """A ``Config`` from ``--field value`` options."""
+    from dsf_tpu_torch.config import Config
+    parser = argparse.ArgumentParser(description=description)
+    for f in dataclasses.fields(Config):
+        if f.type in ("bool", bool):
+            parser.add_argument(f"--{f.name}", type=lambda s: s.lower() in
+                                ("1", "true", "yes"), default=f.default)
+        elif isinstance(f.default, tuple):
+            parser.add_argument(f"--{f.name}", type=str,
+                                default=",".join(map(str, f.default)))
+        else:
+            parser.add_argument(f"--{f.name}", type=type(f.default),
+                                default=f.default)
+    args = vars(parser.parse_args(argv))
+    for f in dataclasses.fields(Config):
+        if isinstance(f.default, tuple) and isinstance(args[f.name], str):
+            cast = str if isinstance(f.default[0], str) else float
+            args[f.name] = tuple(cast(e) for e in args[f.name].split(","))
+    return Config(**args)
+
+
+def main(argv=None):
+    import sys
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] in ("ccssl", "cyclegan"):
+        raise NotImplementedError(
+            f"the {argv[0]} pipeline is not ported yet (ROADMAP Queue 1, "
+            "item 10)")
+    from dsf_tpu_torch.training.loop import run
+    run(parse_config(argv))
+
+
+if __name__ == "__main__":
+    main()

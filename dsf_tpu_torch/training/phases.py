@@ -42,7 +42,7 @@ from dsf_tpu_torch.device import widen
 from dsf_tpu_torch.losses.basic import smooth_l1
 from dsf_tpu_torch.losses.icp import icp_and_joint_icp
 from dsf_tpu_torch.mano import spheres as sph
-from dsf_tpu_torch.mano.constants import transfer_for_dataset
+from dsf_tpu_torch.mano.constants import ICVL_Z_BIAS, transfer_for_dataset
 from dsf_tpu_torch.ops import cloud
 from dsf_tpu_torch.ops.offset_codec import joint2offset, offset2joint_softmax
 from dsf_tpu_torch.render import renderer as rnd
@@ -52,12 +52,29 @@ TRANSFER_NYU = transfer_for_dataset("nyu")
 CLOUD_POINTS = 2048     # points per cloud of the real-image prep
 
 
-def xyz2error_mm(pd_nl, gt_nl, center, cube):
+def xyz2error_mm(pd_nl, gt_nl, center, cube, keep_batch=False,
+                 keep_joint=False, dataset=None):
     """Mean 3D error in mm between normalized predictions and GT (ref:
-    Trainer.xyz2error)."""
+    Trainer.xyz2error, train_render.py:826-864): per (sample, joint) with
+    ``keep_joint``, per sample with ``keep_batch``, else the mean.  ICVL
+    subtracts its per-joint z bias from the prediction (the first
+    min(J, 16) joints); MSRA's mean skips the wrist."""
     pd = pd_nl * cube[:, None] / 2.0 + center[:, None]
     gt = gt_nl * cube[:, None] / 2.0 + center[:, None]
-    return torch.sqrt(((pd - gt) ** 2).sum(-1) + 1e-12).mean()
+    if dataset == "icvl":
+        J = pd.shape[1]
+        k = min(J, 16)
+        bias = torch.zeros(J, dtype=pd.dtype, device=pd.device)
+        bias[:k] = torch.as_tensor(ICVL_Z_BIAS[:k], dtype=pd.dtype)
+        pd = torch.cat([pd[..., :2], (pd[..., 2] - bias)[..., None]], -1)
+    err = torch.sqrt(((pd - gt) ** 2).sum(-1) + 1e-12)
+    if keep_joint:
+        return err
+    if keep_batch:
+        return err.mean(-1)
+    if dataset == "msra":
+        return err[:, 1:].mean()
+    return err.mean()
 
 
 @dataclasses.dataclass(frozen=True)

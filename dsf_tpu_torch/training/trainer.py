@@ -7,10 +7,13 @@ One step: draw (or take) the random draws, render the synth batch
 phase's loss with the net in train mode (BatchNorm statistics update in
 the forward, whatever the guard decides, as in the JAX step) on the synth
 image, passed through the frozen generator when ``cfg.transferNet_pth``
-is set, backpropagate, then AdamW(weight_decay=0.01) at the schedule's
-learning rate behind a finite guard: a non-finite gradient skips the
-update and the moment update, unless it is the 9th or later in a row (ref:
-``_apply_if_finite_select`` with max_consecutive_errors=8).  TF32 off.
+is set, backpropagate, then ``cfg.opt`` (AdamW with weight decay 0.01 by
+default, or Adam, or SGD) at the schedule's learning rate behind a finite
+guard: a non-finite gradient skips the update and the moment update,
+unless it is the 9th or later in a row (ref: ``_apply_if_finite_select``
+with max_consecutive_errors=8).  The guard, its counters and the
+schedule run on the device (``GuardedOptimizer``): a step does not wait
+for the device to decide.  TF32 off.
 
 ``cfg.compute_dtype`` "bfloat16" runs the net and the generator in
 bfloat16, as the JAX package's trainer does: their parameters, the
@@ -20,8 +23,9 @@ float32).  "float32" runs everything in float32.
 
 Ported: Pretrain; Finetune (one stage, ``cfg.stage_num=1``) and
 FinetuneStage (two stages) on the NYU camera, whose real batch is
-NYU-shaped, in both compute dtypes.  Not yet: the self-supervised steps
-on other datasets.
+NYU-shaped, in both compute dtypes; the eval step (``eval_step_fn``,
+``evaluate``) and one epoch of the configured phase (``fit_epoch``).  Not
+yet: the self-supervised steps on other datasets.
 
 Example::
 
@@ -50,32 +54,42 @@ import dataclasses
 import functools
 import logging
 import os
-from typing import Callable, Dict, Mapping, Optional
+from typing import Callable, Dict, Iterator, Mapping, Optional
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
+from dsf_tpu_torch import geometry as geo
 from dsf_tpu_torch.config import CAMERA, Config
-from dsf_tpu_torch.device import compute_dtype, exact_float32, resolve_device
+from dsf_tpu_torch.device import (compute_dtype, exact_float32,
+                                  resolve_device, widen)
 from dsf_tpu_torch.mano import model as mano_model
 from dsf_tpu_torch.models.backbone import ManoOCRStage
 from dsf_tpu_torch.models.cyclegan import ResnetGenerator
+from dsf_tpu_torch.mano.constants import transfer_for_dataset
 from dsf_tpu_torch.models.weights import (load_generator_npz, load_into,
                                           load_reference_generator,
                                           random_generator_state_dict,
                                           random_reference_state_dict,
                                           state_dict_from_jax)
+from dsf_tpu_torch.ops.offset_codec import offset2joint_softmax
 from dsf_tpu_torch.render import renderer as rnd
 from dsf_tpu_torch.training import phases
 
 MAX_CONSECUTIVE_ERRORS = 8
 TRANSFER_RANGE = "transfer_net"     # the profiler range around the generator
+ADAM_BETAS, ADAM_EPS = (0.9, 0.999), 1e-8
+ADAMW_DECAY = 0.01                  # optax.adamw's weight_decay here
+SGD_DECAY, SGD_MOMENTUM = 1e-4, 0.9
 
 
-def lr_schedule(cfg: Config, steps_per_epoch: int) -> Callable[[int], float]:
-    """The reference's three scheduler modes, read at the optimizer's count
-    of updates before this one (optax's convention):
+def lr_schedule(cfg: Config, steps_per_epoch: int
+                ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The reference's three scheduler modes, as a function of the
+    optimizer's int32 count of updates before this one (optax's
+    convention) to a float32 learning rate on the count's device, with no
+    host read:
 
     * ``step``       — StepLR(step_size epochs, gamma=0.1)
     * ``multi_step`` — MultiStepLR(milestones, 0.1); ``cfg.step_size`` is
@@ -87,67 +101,174 @@ def lr_schedule(cfg: Config, steps_per_epoch: int) -> Callable[[int], float]:
     if not isinstance(milestones, (tuple, list)):
         milestones = (milestones,)
 
-    def schedule(count: int) -> float:
-        epoch = count // max(steps_per_epoch, 1)
-        if cfg.scheduler == "multi_step":
-            return cfg.lr * 0.1 ** sum(epoch >= m for m in milestones)
+    def schedule(count: torch.Tensor) -> torch.Tensor:
+        # (fills on the device: a tensor from a host scalar would be a copy)
+        tenth = torch.full((), 0.1, dtype=torch.float32, device=count.device)
+        epoch = torch.div(count, max(steps_per_epoch, 1), rounding_mode="floor")
         if cfg.scheduler == "auto":
-            return cfg.lr
-        return cfg.lr * 0.1 ** (epoch // cfg.step_size)
+            return torch.full((), cfg.lr, dtype=torch.float32,
+                              device=count.device)
+        if cfg.scheduler == "multi_step":
+            k = sum((epoch >= m).int() for m in milestones)
+        else:
+            k = torch.div(epoch, cfg.step_size, rounding_mode="floor")
+        return cfg.lr * torch.pow(tenth, k.float())
 
     return schedule
 
 
-def make_optimizer(cfg: Config, params) -> torch.optim.AdamW:
-    """AdamW(weight_decay=0.01, betas (0.9, 0.999), eps 1e-8), as optax's
-    adamw; the learning rate is set before each update from the schedule."""
-    if cfg.opt != "adamw":
-        raise NotImplementedError(
-            f"optimizer {cfg.opt!r}: the port has AdamW only (ROADMAP "
-            "Queue 1, item 4)")
-    return torch.optim.AdamW(params, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8,
-                             weight_decay=0.01)
+class GuardedOptimizer:
+    """optax's ``adamw`` (weight decay 0.01), ``adam`` or ``sgd``
+    (``add_decayed_weights(1e-4)``, momentum 0.9) at the schedule's
+    learning rate, behind the finite guard of the JAX package's
+    ``_apply_if_finite_select``: an update is accepted when every gradient
+    is finite, or when more than MAX_CONSECUTIVE_ERRORS non-finite ones
+    came in a row; a rejected update changes no parameter, no moment and
+    not the count of updates.  Everything runs on the parameters' device
+    with selects, so a step never waits for it.
+
+    The state lives in flat float32 buffers over the parameters in order
+    (``mu`` and ``nu`` for Adam, ``trace`` for SGD) and int32 / bool 0-d
+    tensors: ``count`` (accepted updates: the schedule's and the bias
+    correction's count), ``notfinite_count`` (non-finite gradients in a
+    row), ``last_finite``, ``total_notfinite``.  Each update takes optax's
+    operations in optax's order, so on the CPU it is optax's, bitwise.
+    """
+
+    KINDS = ("adamw", "adam", "sgd")
+
+    def __init__(self, params, kind: str, schedule):
+        if kind not in self.KINDS:
+            raise ValueError(f"optimizer {kind!r}: one of {self.KINDS}")
+        self.params = list(params)
+        self.kind = kind
+        self.schedule = schedule
+        dev = self.params[0].device
+        n = sum(p.numel() for p in self.params)
+        zeros = lambda: torch.zeros(n, dtype=torch.float32, device=dev)
+        self.buffers = ({"trace": zeros()} if kind == "sgd"
+                        else {"mu": zeros(), "nu": zeros()})
+        i32 = dict(dtype=torch.int32, device=dev)
+        self.count = torch.zeros((), **i32)
+        self.notfinite_count = torch.zeros((), **i32)
+        self.last_finite = torch.ones((), dtype=torch.bool, device=dev)
+        self.total_notfinite = torch.zeros((), **i32)
+
+    COUNTERS = ("count", "notfinite_count", "last_finite", "total_notfinite")
+
+    @torch.no_grad()
+    def step(self) -> torch.Tensor:
+        """One guarded update from the parameters' ``.grad`` (a parameter
+        without one gets a zero gradient, as in the JAX step, so weight
+        decay reaches it).  Returns whether it was accepted, a 0-d bool
+        tensor on the device."""
+        params = self.params
+        g = torch.cat([(p.grad if p.grad is not None
+                        else torch.zeros_like(p)).reshape(-1) for p in params])
+        w = torch.cat([p.reshape(-1) for p in params])
+        finite = torch.isfinite(g).all()
+        one = torch.ones((), dtype=torch.int32, device=g.device)
+        notfinite = torch.where(finite, 0 * one, self.notfinite_count + one)
+        accept = finite | (notfinite > MAX_CONSECUTIVE_ERRORS)
+        lr = self.schedule(self.count)
+        count_inc = self.count + one
+        if self.kind == "sgd":
+            u = g + SGD_DECAY * w
+            trace = u + SGD_MOMENTUM * self.buffers["trace"]
+            new = {"trace": trace}
+            u = trace
+        else:
+            b1, b2 = ADAM_BETAS
+            mu = (1 - b1) * g + b1 * self.buffers["mu"]
+            nu = (1 - b2) * (g * g) + b2 * self.buffers["nu"]
+            c = count_inc.float()
+            f32 = dict(dtype=torch.float32, device=g.device)
+            bc1 = 1 - torch.pow(torch.full((), b1, **f32), c)
+            bc2 = 1 - torch.pow(torch.full((), b2, **f32), c)
+            u = (mu / bc1) / (torch.sqrt(nu / bc2) + ADAM_EPS)
+            if self.kind == "adamw":
+                u = u + ADAMW_DECAY * w
+            new = {"mu": mu, "nu": nu}
+        u = torch.where(accept, (-lr) * u, torch.zeros_like(u))
+        torch._foreach_add_(params, [x.view_as(p) for x, p in zip(
+            u.split([p.numel() for p in params]), params)])
+        for k, v in new.items():
+            self.buffers[k] = torch.where(accept, v, self.buffers[k])
+        self.count = torch.where(accept, count_inc, self.count)
+        self.total_notfinite = torch.where(finite, self.total_notfinite,
+                                           self.total_notfinite + one)
+        self.notfinite_count = notfinite
+        self.last_finite = finite
+        return accept
+
+    @property
+    def param_groups(self):
+        """torch.optim's view of the parameters: one group."""
+        return [{"params": self.params}]
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        return {"kind": self.kind, **self.buffers,
+                **{k: getattr(self, k) for k in self.COUNTERS}}
+
+    def load_state_dict(self, sd: Mapping) -> None:
+        if sd["kind"] != self.kind:
+            raise ValueError(f"a {sd['kind']} state for a {self.kind} "
+                             "optimizer")
+        dev = self.count.device
+        for k in self.buffers:
+            if sd[k].shape != self.buffers[k].shape:
+                raise ValueError(f"{k}: {tuple(sd[k].shape)} for "
+                                 f"{tuple(self.buffers[k].shape)}")
+            self.buffers[k] = sd[k].to(dev, torch.float32).clone()
+        for k in self.COUNTERS:
+            setattr(self, k, sd[k].to(dev).clone())
+
+
+def make_optimizer(cfg: Config, params, steps_per_epoch: int = 1000
+                   ) -> GuardedOptimizer:
+    """``cfg.opt`` (adamw, adam or sgd) at ``lr_schedule``'s rate behind
+    the finite guard (ref: train_render.py:102-109, 148-153)."""
+    return GuardedOptimizer(params, cfg.opt,
+                            lr_schedule(cfg, steps_per_epoch))
 
 
 @dataclasses.dataclass
 class TrainState:
-    """The net (train mode), its optimizer, and the step and guard
-    counters: ``updates`` counts accepted updates (the schedule's count),
+    """The net (train mode), its guarded optimizer, and the host's count
+    of steps taken.  The guard's counters are the optimizer's device
+    tensors: ``updates`` counts accepted updates (the schedule's count),
     ``notfinite_count`` consecutive non-finite gradients,
     ``total_notfinite`` all of them."""
     net: ManoOCRStage
-    optimizer: torch.optim.AdamW
+    optimizer: GuardedOptimizer
     step: int = 0
-    updates: int = 0
-    notfinite_count: int = 0
-    last_finite: bool = True
-    total_notfinite: int = 0
+
+    @property
+    def updates(self) -> torch.Tensor:
+        return self.optimizer.count
+
+    @property
+    def notfinite_count(self) -> torch.Tensor:
+        return self.optimizer.notfinite_count
+
+    @property
+    def last_finite(self) -> torch.Tensor:
+        return self.optimizer.last_finite
+
+    @property
+    def total_notfinite(self) -> torch.Tensor:
+        return self.optimizer.total_notfinite
 
 
-def guarded_update(state: TrainState, params, lr: float) -> bool:
-    """Apply the optimizer to ``params``' gradients unless one is not
-    finite; after more than MAX_CONSECUTIVE_ERRORS non-finite gradients in
-    a row the update is applied all the same (ref:
-    ``_apply_if_finite_select``).  Parameters without a gradient get a
-    zero one, as in the JAX step, so weight decay reaches them.  Updates
-    the guard counters of ``state`` and returns whether the update was
-    applied."""
-    grads = []
-    for p in params:
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-        grads.append(p.grad)
-    finite = bool(torch.stack([torch.isfinite(g).all() for g in grads]).all())
-    state.notfinite_count = 0 if finite else state.notfinite_count + 1
-    state.total_notfinite += 0 if finite else 1
-    state.last_finite = finite
-    accept = finite or state.notfinite_count > MAX_CONSECUTIVE_ERRORS
-    if accept:
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr
-        state.optimizer.step()
-        state.updates += 1
-    return accept
+def guarded_update(state: TrainState) -> torch.Tensor:
+    """Apply ``state.optimizer`` behind the finite guard
+    (``GuardedOptimizer.step``), on the device, with no host read.
+    Returns whether the update was accepted, a 0-d bool tensor."""
+    return state.optimizer.step()
 
 
 def load_transfer_net(path: str, device,
@@ -205,7 +326,7 @@ class Trainer:
         self.renderer = rnd.Renderer.create(
             mano_model.load_model(mano_npz, device=self.device), cfg.dataset,
             paras, img_size, (cfg.input_size, cfg.input_size))
-        self.schedule = lr_schedule(cfg, steps_per_epoch)
+        self.steps_per_epoch = steps_per_epoch
         self.generator = torch.Generator().manual_seed(cfg.seed)
         self.transfer_net = load_transfer_net(cfg.transferNet_pth,
                                               self.device, self.dtype)
@@ -239,7 +360,8 @@ class Trainer:
         load_into(net, sd)
         net.to(self.device).train()
         return TrainState(net=net,
-                          optimizer=make_optimizer(cfg, net.parameters()))
+                          optimizer=make_optimizer(cfg, net.parameters(),
+                                                   self.steps_per_epoch))
 
     def draw(self, batch_size: int, phase_name: str = "Pretrain"):
         """The next step's random draws for a phase, from the trainer's
@@ -282,8 +404,7 @@ class Trainer:
 
     def _update(self, state: TrainState, loss) -> None:
         loss.backward()
-        guarded_update(state, list(state.net.parameters()),
-                       self.schedule(state.updates))
+        guarded_update(state)
         state.step += 1
 
     def _pretrain_step(self, state: TrainState, draws: phases.PretrainDraws,
@@ -294,7 +415,7 @@ class Trainer:
                       for k in ("model_para", "cube_synth")]
         draws = draws.to(dev)
         net.train()
-        state.optimizer.zero_grad(set_to_none=True)
+        state.optimizer.zero_grad()
         with exact_float32():
             sample = phases.pretrain_sample(self.renderer, draws, para, cube)
             loss, metrics = phases.pretrain_loss(net, self.renderer, sample,
@@ -313,7 +434,7 @@ class Trainer:
                                              "center", "cube", "M", "xyz_gt")]
         draws = draws.to(dev)
         net.train()
-        state.optimizer.zero_grad(set_to_none=True)
+        state.optimizer.zero_grad()
         with exact_float32():
             sample = phases.finetune_stage_sample(self.renderer, draws, para,
                                                   cube)
@@ -323,3 +444,122 @@ class Trainer:
             self._update(state, loss)
         metrics: Dict[str, torch.Tensor] = dict(metrics, loss=loss.detach())
         return state, metrics
+
+    # ------------------------------------------------------------- eval
+
+    def eval_step_fn(self):
+        """The per-batch test errors (ref: Trainer.test_iter,
+        train_render.py:355-400): ``step(state, batch) -> (errors,
+        results)``.  The net runs in eval mode in the trainer's compute
+        dtype, without gradients.  ``errors`` (2 * stages, B) holds, per
+        stage, the pixel branch's and the MANO branch's mm error per
+        sample on the transfer-mapped joints but the last (MSRA's mean
+        skips the wrist); ``results`` holds ``joint_xyz_i``,
+        ``mano_joint_xyz_i`` and ``mano_mesh_i`` (normalized units) and
+        ``mano_para_i``.  ``batch`` holds ``img``, ``xyz_gt``, ``center``,
+        ``M``, ``cube`` (arrays or tensors)."""
+        return self._eval_step
+
+    def _eval_step(self, state: TrainState, batch: Mapping):
+        cfg, r, dev = self.cfg, self.renderer, self.device
+        img, xyz_gt, center, M, cube = [
+            _tensor(batch[k], dev) for k in ("img", "xyz_gt", "center", "M",
+                                             "cube")]
+        tm = torch.as_tensor(transfer_for_dataset(cfg.dataset), device=dev)
+        n_eval = len(tm) - 1
+        net = state.net
+        was_training = net.training
+        net.eval()
+        try:
+            with torch.no_grad(), exact_float32():
+                outputs = net(img, r, center, cube)
+                errors, results = [], {}
+                gt = xyz_gt[:, :n_eval]
+                for idx, (pixel_pd, para_pd) in enumerate(outputs):
+                    juvd = offset2joint_softmax(pixel_pd, img,
+                                                cfg.feature_para[0])
+                    jxyz = geo.uvd_nl_to_xyz_nl(juvd, center, M, cube,
+                                                r.paras, cfg.input_size,
+                                                r.flip)
+                    mano_jxyz, mano_mesh = rnd.get_mesh_xyz(r, widen(para_pd))
+                    for pd in (jxyz, mano_jxyz):
+                        pd = pd[:, tm][:, :n_eval]
+                        if cfg.dataset == "msra":
+                            e = phases.xyz2error_mm(pd, gt, center, cube,
+                                                    keep_joint=True,
+                                                    dataset=cfg.dataset)
+                            errors.append(e[:, 1:].mean(-1))
+                        else:
+                            errors.append(phases.xyz2error_mm(
+                                pd, gt, center, cube, keep_batch=True,
+                                dataset=cfg.dataset))
+                    results[f"joint_xyz_{idx}"] = jxyz
+                    results[f"mano_joint_xyz_{idx}"] = mano_jxyz
+                    results[f"mano_mesh_{idx}"] = mano_mesh
+                    results[f"mano_para_{idx}"] = para_pd
+        finally:
+            net.train(was_training)
+        return torch.stack(errors), results
+
+    def evaluate(self, state: TrainState, batches: Iterator[Mapping]):
+        """The mean per-stage errors (2 * stages,) over ``batches``, a
+        numpy array."""
+        totals, n = None, 0
+        for batch in batches:
+            errors, _ = self._eval_step(state, batch)
+            s = errors.sum(-1)
+            totals = s if totals is None else totals + s
+            n += errors.shape[-1]
+        return (totals / max(n, 1)).cpu().numpy()
+
+    # -------------------------------------------------------------- fit
+
+    def phase(self) -> str:
+        """The train step ``fit_epoch`` runs: ``cfg.train_stage`` when it
+        is Pretrain, else Finetune (one stage) or FinetuneStage (two)."""
+        cfg = self.cfg
+        if cfg.train_stage == "Pretrain":
+            return "Pretrain"
+        return "Finetune" if cfg.stage_num == 1 else "FinetuneStage"
+
+    def fit_epoch(self, state: TrainState, synth_iter, real_iter=None,
+                  num_steps: Optional[int] = None, writer=None, epoch=0,
+                  image_every=0):
+        """One epoch of ``phase()``: each step takes (model_para,
+        cube_synth) from ``synth_iter``, a real batch dict from
+        ``real_iter`` (not for Pretrain) and its draws from ``draw``.
+        Each step's metrics are read one step late (after the next step
+        is queued), so the host does not stall the device.  With a
+        TensorBoard ``writer`` every metric is logged per step (images
+        are not ported: ``image_every`` > 0 logs one warning).  Returns
+        (state, the epoch-mean metrics as floats)."""
+        phase = self.phase()
+        step = self.train_step_fn(phase)
+        steps = num_steps or self.steps_per_epoch
+        if (writer is not None and image_every and phase != "Pretrain"
+                and not getattr(self, "_warned_images", False)):
+            self._warned_images = True
+            logging.warning("fit_epoch: pose and depth images are not ported "
+                            "(utils/vis, ROADMAP Queue 1); scalars only")
+        sums: Dict[str, float] = {}
+        pending = None
+        for i in range(steps):
+            model_para, cube_synth = next(synth_iter)
+            batch = {"model_para": model_para, "cube_synth": cube_synth}
+            if phase != "Pretrain":
+                batch.update(next(real_iter))
+            B = len(batch["model_para"])
+            state, metrics = step(state, self.draw(B, phase), batch)
+            if pending is not None:
+                self._log_step(writer, epoch, steps, *pending, sums)
+            pending = (i, metrics)
+        if pending is not None:
+            self._log_step(writer, epoch, steps, *pending, sums)
+        return state, {k: v / steps for k, v in sums.items()}
+
+    def _log_step(self, writer, epoch, steps, i, metrics, sums) -> None:
+        vals = {k: float(v) for k, v in metrics.items()}
+        for k, v in vals.items():
+            sums[k] = sums.get(k, 0.0) + v
+            if writer is not None:
+                writer.add_scalar(k, v, global_step=epoch * steps + i)

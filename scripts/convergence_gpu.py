@@ -77,7 +77,7 @@ def run(dtype: str, args, mano_path: str) -> dict:
     head, tail = curve[:1], curve[-3:]
     summary = {"dtype": dtype, "steps": args.steps,
                "median_step_ms": float(np.median(times[1:] or times) * 1e3),
-               "updates": state.updates, "ok": True}
+               "updates": int(state.updates), "ok": True}
     for k in sorted(curve[-1]):
         if not k.startswith(("pixel_error", "mano_error")):
             continue

@@ -25,7 +25,8 @@ from dsf_tpu_torch.training.trainer import Trainer
 torch.set_num_threads(2)
 
 PKG = os.path.dirname(dsf_tpu_torch.__file__)
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "dsf_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "dsf_tpu", "cv2",
+             "PIL", "tensorboardX")
 
 
 def _py_files():
@@ -90,6 +91,47 @@ def test_default_device_is_cuda_and_raises_without_it(tmp_path, monkeypatch):
         prerender_dataset(str(tmp_path / "none.npz"),
                           np.zeros((1, 62), np.float32), str(tmp_path / "out"))
     assert not (tmp_path / "out").exists()
+
+
+def test_loop_entry_points_raise_without_cuda(tmp_path, monkeypatch):
+    """The trainer's loop, its command line and the fake NYU set run on the
+    card by default and raise without one before they write anything;
+    datasets and subcommands that are not ported raise NotImplementedError
+    naming the ROADMAP item."""
+    from dsf_tpu_torch.data.fake import make_fake_nyu
+    from dsf_tpu_torch.training import __main__ as cli
+    from dsf_tpu_torch.training.loop import run
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = Config(save_dir=str(tmp_path / "ckpt"), root_dir=str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["--save_dir", str(tmp_path / "ckpt"), "--root_dir",
+                  str(tmp_path), "--batch_size", "4"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_fake_nyu(str(tmp_path / "fake"), str(tmp_path / "none.npz"))
+    assert sorted(os.listdir(tmp_path)) == []
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 4"):
+        run(cfg.replace(dataset="icvl"), device="cpu")
+    for sub in ("ccssl", "cyclegan"):
+        with pytest.raises(NotImplementedError, match="Queue 1, item 10"):
+            cli.main([sub])
+    parsed = cli.parse_config(["--batch_size", "4", "--augment_para",
+                               "5,0.1,90", "--test_during_train", "false",
+                               "--opt", "sgd"])
+    assert parsed == Config(batch_size=4, augment_para=(5.0, 0.1, 90.0),
+                            test_during_train=False, opt="sgd")
+
+
+def test_host_library_build_flags():
+    """The loader's host library: the host compiler, no -march=native, no
+    fused multiply-add contraction (it reproduces numpy's and OpenCV's
+    roundings), and not among the CUDA sources."""
+    from dsf_tpu_torch.kernels import build
+    assert "-ffp-contract=off" in build.HOST_FLAGS
+    assert not any("march" in f or "fast-math" in f for f in build.HOST_FLAGS)
+    assert build.HOST_SOURCE not in build.SOURCES
+    assert os.path.exists(os.path.join(build.CSRC, build.HOST_SOURCE + ".cpp"))
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
