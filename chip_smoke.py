@@ -116,6 +116,9 @@ Phases, each printed on its own line(s); any failure exits non-zero:
    compute dtype on the card and on the CPU, from the same weights and
    batches, each held against the same float64 witness (``BF16_RATIO``;
    per parameter also a positive cosine and the CPU's norm within 2x).
+   The FinetuneStage loss runs again on ICVL's camera (``demo.real_batch``
+   on the ICVL renderer, synth hands 150-600 mm away, ICVL's joint order
+   and error rule), held by the same loss, metric and gradient rules.
    Then the stand-in generator's image of a B=4 synth batch on the
    card against the CPU's and float64's, and one Finetune loss with the
    generator and its gradients, held as the FinetuneStage loss is.  Last,
@@ -145,7 +148,26 @@ Phases, each printed on its own line(s); any failure exits non-zero:
    predict_from_depth on a test frame; the finite guard
    (``guarded_update``, a finite and a NaN gradient) under
    ``torch.cuda.set_sync_debug_mode("error")``, and the host syncs left
-   in one FinetuneStage step, listed with mode "warn".
+   in one FinetuneStage step, listed with mode "warn";
+7. datasets: the other datasets.  ICVL (128 train, 40 test frames and
+   the two test lines its loader drops), MSRA (subjects 3 and 7, cubes
+   180 and 160, to train; subject 2 to test) and SHREC (40 frames of
+   640x480) stand-ins built on the card from rendered MANO hands
+   (tests/torch_fake_sets.py, imported from the tests directory: K6 once
+   per batch of 32), timed; K6 on 32
+   ICVL frames (320x240) against its plain version, timed; the ICVL and
+   MSRA loaders' augmented batches/s; ``loop.run`` at full width on ICVL
+   (FinetuneStage) and MSRA (Finetune, one stage), one epoch of 4 steps
+   each with test_during_train and the exports: each step's launch
+   deltas as phase 4's, each eval batch's (K1, K4 x2, K5 for two stages;
+   K4 for one), every loss finite, one result row per test frame, view 0
+   only; the trained weights' eval errors printed (after 4 steps their
+   eval-mode outputs can overflow float32); the median step and the eval
+   frames/s; one test batch of each from the seeded weights on the card
+   against the CPU, finite (stage 1 within 1e-2 mm, stage 2 within
+   0.5 mm); ``export_skeletons``
+   over the SHREC set on the card: (40, 63) finite rows within 0.5 mm of
+   the CPU's.
 
 The last two lines are the kernels' JSON record and the device JSON.
 Without CUDA, or outside the repository, it exits non-zero and prints
@@ -1320,16 +1342,16 @@ def check_icp_culled(sc):
             "padding": 1 - real / slots, "admissible_pairs": sc["pairs"]}
 
 
-def prerender_params(n, rng):
+def prerender_params(n, rng, depth=(550, 700)):
     """n seeded MANO parameter sets for the pre-render: random poses and
-    global rotations, scale 1, the hand 550-700 mm in front of the NYU
-    camera and up to 60 mm off its axis."""
+    global rotations, scale 1, the hand ``depth`` mm (550-700: NYU's
+    camera) in front of the camera and up to 60 mm off its axis."""
     params = np.zeros((n, 62), np.float32)
     params[:, :3] = rng.randn(n, 3) * 0.2
     params[:, 3:48] = rng.randn(n, 45) * 0.3
     params[:, 58] = 1.0
     params[:, 59:61] = rng.uniform(-60, 60, (n, 2))
-    params[:, 61] = rng.uniform(550, 700, n)
+    params[:, 61] = rng.uniform(depth[0], depth[1], n)
     return params
 
 
@@ -1346,24 +1368,24 @@ def frame_pair_count(proj, faces, W, H):
     return int((n[..., 0] * n[..., 1]).sum())
 
 
-def check_raster_dense(renderer, B, rng):
-    """K6 at the pre-render's shape: B NYU frames of 640x480 of seeded
-    hands (``prerender_params``): the set-up against its plain version,
+def check_raster_dense(renderer, B, rng, depth=(550, 700)):
+    """K6 at the pre-render's shape: B full frames of the renderer's
+    camera (NYU's 640x480 by default) of seeded hands ``depth`` mm away
+    (``prerender_params``): the set-up against its plain version,
     then the raster on its tables and the whole route
     (``rasterize.dense_forward``) against ``raster_scan``, zbuf bitwise and
     ids equal, and the raster on the frames' samples in a random order
     (the same answers, permuted).  Times the set-up, the raster and the
     route apart, with the face rows built in PyTorch beside them."""
     import torch
-    from dsf_tpu_torch import demo
     from dsf_tpu_torch.mano import model as mano
     from dsf_tpu_torch.ops import raster_kernel
     from dsf_tpu_torch.ops import rasterize as ras
 
     W, H = renderer.img_size
-    params = torch.from_numpy(prerender_params(B, rng)).cuda()
+    params = torch.from_numpy(prerender_params(B, rng, depth)).cuda()
     verts, _ = mano.get_mano_vertices(renderer.mano, *mano.split_params(params))
-    proj = ras.project_verts(verts, demo.PARAS)
+    proj = ras.project_verts(verts, renderer.paras)
     rays = ras.full_frame_pixel_rays((W, H), "cuda").expand(B, -1, -1)
     rays = rays.contiguous()
     faces = renderer.mano.faces
@@ -2671,10 +2693,12 @@ FS_METRICS = ("d2m_0", "d2m_1", "pd2m_0", "pd2m_1", "m2d_0", "m2d_1",
               "coll_0", "coll_1", "P2M", "M2P")
 
 
-def compare_finetune_stage(mano_path):
+def compare_finetune_stage(mano_path, dataset="nyu"):
     """One FinetuneStage loss and its gradients on the card and on the CPU,
     from the same weights, on the card's synth batch and one real batch
-    (the same cloud-sampling scores); the same loss on the CPU in float64
+    (the same cloud-sampling scores) on ``dataset``'s camera (NYU's, and
+    ICVL's: synth hands 150-600 mm away, its joint order and error rule;
+    the bfloat16 runs on NYU's only); the same loss on the CPU in float64
     is the witness.  The stage-1 MANO head feeds the losses and, through
     the stage-2 remap render, the stage-2 trunk: the share of its gradient
     that comes that way (measured on the CPU run) is held at the trunks'
@@ -2693,7 +2717,8 @@ def compare_finetune_stage(mano_path):
     from dsf_tpu_torch.training.trainer import Trainer
 
     B = COMPARE_BATCH
-    cfg = Config(dataset="nyu", batch_size=B, stage_num=2,
+    name = "FinetuneStage" + ("" if dataset == "nyu" else f" on {dataset}")
+    cfg = Config(dataset=dataset, batch_size=B, stage_num=2,
                  input_size=INPUT_SIZE, seed=SEED + 7,
                  mano_model_path=mano_path)
     gpu = Trainer(cfg, mano_path, device="cuda")
@@ -2704,7 +2729,8 @@ def compare_finetune_stage(mano_path):
     para, cube = next(random_param_source(B, seed=SEED + 8))
     para, cube = torch.from_numpy(para), torch.from_numpy(cube)
     draws = gpu.draw(B, "FinetuneStage")
-    real = demo.real_batch(cpu.renderer, B, np.random.RandomState(SEED + 9))
+    real = demo.real_batch(cpu.renderer, B, np.random.RandomState(SEED + 9),
+                           dataset=dataset)
     keys = ("img", "center", "cube", "M", "xyz_gt")
     with exact_float32():
         sample_g = phases.finetune_stage_sample(
@@ -2718,8 +2744,9 @@ def compare_finetune_stage(mano_path):
                           [real[k].double() for k in keys],
                           draws.scores.double())}
         runs["gpu_again"] = runs["gpu"]
-        runs["gpu_bf16"] = (bf16_copy(sg.net),) + runs["gpu"][1:]
-        runs["cpu_bf16"] = (bf16_copy(sc.net),) + runs["cpu"][1:]
+        if dataset == "nyu":
+            runs["gpu_bf16"] = (bf16_copy(sg.net),) + runs["gpu"][1:]
+            runs["cpu_bf16"] = (bf16_copy(sc.net),) + runs["cpu"][1:]
         loss, grads, mets, rec = {}, {}, {}, {}
         for key, (net, r, smp, rb, scores) in runs.items():
             net.zero_grad(set_to_none=True)
@@ -2756,7 +2783,7 @@ def compare_finetune_stage(mano_path):
     win_diff = int((rec["gpu"]["argmin_faces"][1].cpu()
                     != rec["cpu"]["argmin_faces"][1]).sum())
     n_pts = rec["cpu"]["_prep_real"][2].numel()
-    say(f"compare FinetuneStage B={B} {INPUT_SIZE}^2: joint-cloud part labels "
+    say(f"compare {name} B={B} {INPUT_SIZE}^2: joint-cloud part labels "
         f"that differ between the GPU and CPU runs {seg_diff} of {n_pts}; "
         f"ICP nearest faces (K3 against the plain argmin) {win_diff} of "
         f"{4 * n_pts}")
@@ -2764,7 +2791,7 @@ def compare_finetune_stage(mano_path):
     gpu_64 = rel_l2(grads["gpu"], grads["cpu64"])
     cpu_64 = rel_l2(grads["cpu"], grads["cpu64"])
     gpu_gpu = rel_l2(grads["gpu_again"], grads["gpu"])
-    say(f"compare FinetuneStage loss GPU {loss['gpu']:.7g} CPU "
+    say(f"compare {name} loss GPU {loss['gpu']:.7g} CPU "
         f"{loss['cpu']:.7g} CPU float64 {loss['cpu64']:.10g}; gradient "
         f"relative L2 per parameter: GPU vs CPU {spread(gpu_cpu)}; GPU vs "
         f"float64 {spread(gpu_64)}; CPU vs float64 {spread(cpu_64)}; GPU vs "
@@ -2774,10 +2801,9 @@ def compare_finetune_stage(mano_path):
     for k in mets["cpu"]:
         v = {run: mets[run][k] for run in mets}
         rows[k] = {run: float(f"{x:.7g}") for run, x in v.items()}
-    say("compare FinetuneStage metrics (GPU, CPU, CPU float64, GPU again, "
-        "GPU bfloat16, CPU bfloat16): " + json.dumps(rows))
+    say(f"compare {name} metrics ({', '.join(mets)}): " + json.dumps(rows))
     rel_loss = abs(loss["gpu"] - loss["cpu"]) / abs(loss["cpu"])
-    need(rel_loss <= 1e-4, f"FinetuneStage GPU loss {loss['gpu']} differs "
+    need(rel_loss <= 1e-4, f"{name} GPU loss {loss['gpu']} differs "
          f"from the CPU's {loss['cpu']}")
     for k in FS_METRICS:
         m64 = mets["cpu64"][k]
@@ -2785,12 +2811,12 @@ def compare_finetune_stage(mano_path):
                        abs(mets["gpu"][k] - mets["gpu_again"][k]))
                + 1e-3 * abs(m64))
         need(abs(mets["gpu"][k] - mets["cpu"][k]) <= tol,
-             f"FinetuneStage metric {k}: GPU {mets['gpu'][k]} CPU "
+             f"{name} metric {k}: GPU {mets['gpu'][k]} CPU "
              f"{mets['cpu'][k]} float64 {m64} (tolerance {tol:.3g})")
 
     heads = {k: (float(f"{gpu_cpu[k]:.3g}"), float(f"{cpu_64[k]:.3g}"))
              for k in gpu_cpu if k.startswith(("mano_regress", "finals_s2"))}
-    say("compare FinetuneStage heads' gradients (GPU vs CPU, CPU vs float64): "
+    say(f"compare {name} heads' gradients (GPU vs CPU, CPU vs float64): "
         + json.dumps(heads))
 
     def tol(name):
@@ -2801,19 +2827,20 @@ def compare_finetune_stage(mano_path):
         return grad_tol(name)
 
     bad = {k: v for k, v in gpu_cpu.items() if not v <= tol(k)}
-    need(not bad, f"FinetuneStage GPU gradients differ from the CPU's: {bad}")
+    need(not bad, f"{name} GPU gradients differ from the CPU's: {bad}")
     # against float64, also twice the CPU's own distance where float32
     # rounding alone moves a gradient further: the part labels, nearest
     # faces and silhouettes the losses select move with it, and a second
     # float32 run that far from float64 may lie twice as far
     bad = {k: v for k, v in gpu_64.items()
            if not v <= max(tol(k), 2 * cpu_64[k])}
-    need(not bad, f"FinetuneStage GPU gradients differ from float64: {bad}")
+    need(not bad, f"{name} GPU gradients differ from float64: {bad}")
     ratio = (float(np.median(list(gpu_64.values())))
              / float(np.median(list(cpu_64.values()))))
-    need(ratio <= MEDIAN_RATIO, f"FinetuneStage GPU gradients lie {ratio:.3g} "
+    need(ratio <= MEDIAN_RATIO, f"{name} GPU gradients lie {ratio:.3g} "
          "times further from float64 than the CPU's, in the median")
-    check_bf16_runs("FinetuneStage", loss, grads)
+    if dataset == "nyu":
+        check_bf16_runs("FinetuneStage", loss, grads)
 
 
 # the Finetune metrics held in phase 5, as FS_METRICS
@@ -3120,13 +3147,15 @@ def watched_loop(rec):
 
 def loop_config(mano_path, root, save_dir, **kw):
     """The default configuration (FinetuneStage, two stages, NYU) at full
-    width with the stand-in generator, one epoch, every export on."""
+    width with the stand-in generator, one epoch, every export on; ``kw``
+    overrides."""
     from dsf_tpu_torch.config import Config
-    return Config(dataset="nyu", batch_size=TRAIN_BATCH, stage_num=2,
-                  train_stage="Finetune", input_size=INPUT_SIZE, seed=SEED,
-                  root_dir=root, mano_model_path=mano_path, save_dir=save_dir,
-                  transferNet_pth=STAND_IN, test_during_train=True,
-                  save_result=True, save_mesh=True, image_every=0, **kw)
+    base = dict(dataset="nyu", batch_size=TRAIN_BATCH, stage_num=2,
+                train_stage="Finetune", input_size=INPUT_SIZE, seed=SEED,
+                root_dir=root, mano_model_path=mano_path, save_dir=save_dir,
+                transferNet_pth=STAND_IN, test_during_train=True,
+                save_result=True, save_mesh=True, image_every=0)
+    return Config(**dict(base, **kw))
 
 
 def run_loop(mano_path, smi):
@@ -3379,6 +3408,227 @@ def run_loop(mano_path, smi):
     return counts
 
 
+# ----------------------------------------------------------------- phase 7
+
+# the other datasets' stand-ins (tests/torch_fake_sets.py): ICVL 128 train
+# and 40 test frames (+ 2 test lines its loader drops), MSRA's P3 and P7
+# (cubes 180 and 160) 2 gestures x 32 frames to train on, P2 (200) 2 x 20
+# to test on, SHREC one sequence of 40 frames; K6 renders each in batches
+# of 32 (ICVL's 170 frames in one call, MSRA's per gesture, SHREC's 40)
+ICVL_TRAIN, ICVL_TEST, SHREC_FRAMES, MSRA_TEST_ID = 128, 40, 40, 2
+MSRA_FRAMES = {2: (("1", "2"), 20), 3: (("1", "2"), 32), 7: (("1", "2"), 32)}
+MSRA_TEST = sum(len(g) * n for p, (g, n) in MSRA_FRAMES.items()
+                if p == MSRA_TEST_ID)
+MSRA_TRAIN = sum(len(g) * n for g, n in MSRA_FRAMES.values()) - MSRA_TEST
+# one eval batch of a one-stage net: a decode
+EVAL1_LAUNCHES = launches(codec_decode=1)
+
+
+def run_datasets(mano_path, smi):
+    """Phase 7: the other datasets.  ICVL, MSRA and SHREC stand-ins built
+    on the card (K6 at 320x240 and 640x480), K6 checked and timed on 32
+    ICVL frames; the ICVL and MSRA loaders' augmented batches/s;
+    ``loop.run`` at full width on ICVL (FinetuneStage) and on MSRA
+    (Finetune, subject 2 left out), one epoch of 4 steps each with the
+    per-epoch test and the exports, each step's and eval batch's launch
+    deltas as phase 4's; one ICVL and one MSRA eval batch from the seeded
+    weights on the card against the CPU; ``export_skeletons`` over the
+    SHREC set on the card against the CPU's.  Returns the launch counts
+    of the sets' build, the two loops and the export."""
+    import torch
+    from dsf_tpu_torch import kernels
+    from dsf_tpu_torch.config import CAMERA
+    from dsf_tpu_torch.data import datasets as D
+    from dsf_tpu_torch.mano import model as mano
+    from dsf_tpu_torch.render import renderer as rnd
+    from dsf_tpu_torch.tools.skeleton_export import export_skeletons
+    from dsf_tpu_torch.training import checkpoints as ck
+    from dsf_tpu_torch.training import loop as L
+    from dsf_tpu_torch.training.trainer import Trainer
+    # the stand-ins' builders sit beside the tests that use them (another
+    # installed package may own the name "tests")
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    import torch_fake_sets as F
+
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "data")
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        F.make_icvl(root, mano_path, ICVL_TRAIN, ICVL_TEST, seed=SEED,
+                    batch_size=TRAIN_BATCH)
+        F.make_msra(root, mano_path, MSRA_FRAMES, test_id=MSRA_TEST_ID,
+                    seed=SEED + 1, batch_size=TRAIN_BATCH)
+        F.make_shrec(root, mano_path, SHREC_FRAMES, seed=SEED + 2,
+                     batch_size=TRAIN_BATCH)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts["sets"] = dict(kernels.LAUNCHES)
+        n = ICVL_TRAIN + ICVL_TEST + 2 + MSRA_TRAIN + MSRA_TEST + SHREC_FRAMES
+        k6 = -(-(ICVL_TRAIN + ICVL_TEST + 2) // TRAIN_BATCH) + sum(
+            len(g) * -(-f // TRAIN_BATCH) for g, f in MSRA_FRAMES.values()) \
+            + -(-SHREC_FRAMES // TRAIN_BATCH)
+        say(f"datasets stand-ins built: ICVL {ICVL_TRAIN} + {ICVL_TEST} (+2 "
+            f"dropped) frames of 320x240, MSRA {MSRA_TRAIN} + {MSRA_TEST} of "
+            f"320x240, "
+            f"SHREC {SHREC_FRAMES} of 640x480 in {secs:.3f} s, "
+            f"{n / secs:.1f} frames/s (render, PNG and .bin writing, "
+            f"labels); launches {json.dumps(counts['sets'])}; {smi}")
+        need(counts["sets"] == launches(raster_dense=k6),
+             f"the sets did not launch K6 once a batch: {counts['sets']}")
+
+        paras, wh = CAMERA["icvl"]
+        icvl_r = rnd.Renderer.create(mano.load_model(mano_path, device="cuda"),
+                                     "icvl", paras, wh)
+        with torch.inference_mode():
+            k6 = check_raster_dense(icvl_r, TRAIN_BATCH,
+                                    np.random.RandomState(SEED + 3),
+                                    depth=(250, 450))
+        say(f"datasets K6 at 320x240 (ICVL's camera, B={TRAIN_BATCH}): "
+            f"kernel {k6['ms']:.4f} ms, route {k6['route_ms']:.4f} ms, plain "
+            f"{k6['plain_ms']:.4f} ms, bound {k6['bound_ms']:.6f} ms by "
+            f"{k6['bound_by']}; {smi}")
+
+        icvl, msra = os.path.join(root, "icvl"), os.path.join(root, "msra")
+        for name, make in (
+                ("ICVL", lambda: D.ICVLDataset(icvl, "train",
+                                               img_size=INPUT_SIZE, seed=SEED)),
+                ("MSRA", lambda: D.MSRADataset(msra, "train",
+                                               test_persons=MSRA_TEST_ID,
+                                               img_size=INPUT_SIZE,
+                                               seed=SEED))):
+            ds = make()
+            ds.enable_depth_cache()
+            rates = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                k = sum(1 for _ in ds.prefetch_batches(TRAIN_BATCH,
+                                                       shuffle=True))
+                rates.append(k / (time.perf_counter() - t0))
+            ds.close()
+            say(f"datasets {name} loader alone: augmented batches of "
+                f"{TRAIN_BATCH} at {INPUT_SIZE}^2, {ds.NUM_WORKERS} worker "
+                f"threads: {rates[0]:.2f} batches/s decoding the frames, "
+                f"{rates[1]:.2f} from the depth cache; {smi}")
+
+        runs = {"icvl": ("FinetuneStage", 2, FS_STEP_LAUNCHES, EVAL_LAUNCHES,
+                         ICVL_TRAIN, ICVL_TEST, "finetune_stage"),
+                "msra": ("Finetune", 1, F_STEP_LAUNCHES, EVAL1_LAUNCHES,
+                         MSRA_TRAIN, MSRA_TEST, "finetune")}
+        for dataset, (phase, stages, step_l, eval_l, n_train, n_test, tag) \
+                in runs.items():
+            cfg = loop_config(mano_path, root, os.path.join(tmp, "ckpt"),
+                              dataset=dataset, stage_num=stages,
+                              test_id=MSRA_TEST_ID)
+            rec = {}
+            with max_epochs(1), watched_loop(rec):
+                torch.cuda.synchronize()
+                kernels.reset_launch_counts()
+                run_dir = L.run(cfg)
+                torch.cuda.synchronize()
+                counts[f"loop_{dataset}"] = dict(kernels.LAUNCHES)
+            steps = n_train // TRAIN_BATCH
+            evals = 2 * -(-n_test // TRAIN_BATCH)   # per-epoch, then final
+            say(f"datasets {dataset} loop launches over {len(rec['steps'])} "
+                f"{phase} steps and {len(rec['evals'])} eval batches: "
+                + json.dumps(counts[f"loop_{dataset}"]))
+            need(len(rec["steps"]) == steps and len(rec["evals"]) == evals,
+                 f"the {dataset} loop ran {len(rec['steps'])} steps and "
+                 f"{len(rec['evals'])} eval batches, not {steps} and {evals}")
+            for i, d in enumerate(rec["steps"]):
+                need(d == step_l, f"{dataset} loop step {i}: {d} != {step_l}")
+            for i, d in enumerate(rec["evals"]):
+                need(d == eval_l, f"{dataset} loop eval batch {i}: {d} != "
+                     f"{eval_l}")
+            bad = [(i, k) for i, m in enumerate(rec["metrics"])
+                   for k, v in m.items() if not np.isfinite(float(v))]
+            need(not bad, f"{dataset} loop steps with non-finite metrics: "
+                 f"{bad}")
+            # the eval errors of the trained weights are printed, not held:
+            # after 4 steps from random weights the eval-mode outputs (the
+            # running statistics lag the weights) reach 5e16 mm in one run
+            # and overflow float32 in the next; the eval path's finiteness
+            # and card = CPU are held on the seeded weights below
+            errs = torch.stack(rec["errors"]).cpu().numpy()
+            for name in ("latest", "best"):
+                need(os.path.exists(os.path.join(run_dir, name, ck.FILE)),
+                     f"{dataset}: no {name} checkpoint")
+            for i in (0, 1):
+                rows = np.loadtxt(os.path.join(run_dir, f"result_{i}_0.txt"))
+                need(rows.shape == (n_test, 63), f"{dataset} result_{i}_0: "
+                     f"{rows.shape}")
+            need(not os.path.exists(os.path.join(run_dir, "result_0_1.txt")),
+                 f"{dataset}: views past 0 evaluated")
+            losses = [float(m["loss"]) for m in rec["metrics"]]
+            med = float(np.median(np.diff(rec["starts"])[1:] * 1e3))
+            say(f"datasets {dataset} loop: losses "
+                f"{json.dumps([float(f'{x:.6g}') for x in losses])}; eval "
+                f"errors mm (the trained weights, mean per row) "
+                f"{np.round(errs.mean(axis=(0, 2)), 3).tolist()}, "
+                f"{int((~np.isfinite(errs)).sum())} of {errs.size} not "
+                f"finite; "
+                f"epoch {steps} steps in {rec['epochs'][0]:.3f} s, median "
+                f"step {med:.3f} ms inside the loop (steps 2-{steps}) against "
+                f"phase 4's {STEP_MEDIAN_MS[tag]:.3f} ms; evaluation of "
+                f"{n_test} frames in {rec['views_s'][-1]:.3f} s, "
+                f"{n_test / rec['views_s'][-1]:.1f} frames/s; {smi}")
+
+            # one test batch from the seeded weights on the card and the CPU
+            ecfg = cfg.replace(transferNet_pth="")
+            ds = L._test_dataset(ecfg)
+            batch = next(ds.batches(TRAIN_BATCH))
+            ds.close()
+            out = {}
+            for dev in ("cuda", "cpu"):
+                tr = Trainer(ecfg, mano_path, device=dev)
+                out[dev] = tr.eval_step_fn()(tr.init_state(), batch)[0]
+                out[dev] = out[dev].cpu().numpy()
+            d = np.abs(out["cuda"] - out["cpu"]).max(axis=1)
+            say(f"datasets {dataset} eval of the test split's first batch from "
+                f"the seeded weights, card vs CPU, max abs mm per row: "
+                f"{np.round(d, 5).tolist()}; the rows' largest error "
+                f"{np.round(np.abs(out['cpu']).max(axis=1), 3).tolist()} mm")
+            need(np.isfinite(out["cuda"]).all() and d[:2].max() <= 1e-2
+                 and d[2:].max(initial=0.0) <= 0.5, f"{dataset}: the card's "
+                 f"eval differs from the CPU's: {d}")
+
+        # the skeleton export over the SHREC set, card and CPU
+        scfg = loop_config(mano_path, root, os.path.join(tmp, "ckpt"),
+                           dataset="shrec", transferNet_pth="")
+        shrec = os.path.join(root, "shrec")
+        ds = D.SHRECDataset(shrec, img_size=INPUT_SIZE)
+        pred = {}
+        for dev in ("cuda", "cpu"):
+            tr = Trainer(scfg, mano_path, device=dev)
+            state = tr.init_state()
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            seqs = export_skeletons(tr, state, ds, batch_size=TRAIN_BATCH,
+                                    out_name=f"pred_{dev}.txt")
+            torch.cuda.synchronize()
+            if dev == "cuda":
+                secs = time.perf_counter() - t0
+                counts["export_shrec"] = dict(kernels.LAUNCHES)
+            pred[dev] = np.loadtxt(os.path.join(seqs[0], f"pred_{dev}.txt"))
+        ds.close()
+        d = float(np.abs(pred["cuda"] - pred["cpu"]).max())
+        say(f"datasets SHREC export_skeletons: {pred['cuda'].shape} rows in "
+            f"{secs:.3f} s on the card ({SHREC_FRAMES / secs:.1f} frames/s); "
+            f"card vs CPU max abs {d:.5f} mm; launches "
+            f"{json.dumps(counts['export_shrec'])}; {smi}")
+        need(pred["cuda"].shape == (SHREC_FRAMES, 63)
+             and np.isfinite(pred["cuda"]).all(), "the SHREC export's rows")
+        need(d <= 0.5, f"the SHREC export differs from the CPU's by {d} mm")
+        need(counts["export_shrec"] == {
+            k: v * -(-SHREC_FRAMES // TRAIN_BATCH)
+            for k, v in EVAL_LAUNCHES.items()},
+            f"the export's launches: {counts['export_shrec']}")
+    return counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3454,9 +3704,11 @@ def main():
         compare_bf16_layers(np.random.RandomState(SEED + 40))
         compare_step(path)
         compare_finetune_stage(path)
+        compare_finetune_stage(path, "icvl")
         compare_finetune(path)
         compare_m2p(path)
         by_path.update(run_loop(path, smi))
+        by_path.update(run_datasets(path, smi))
     need(sorted(r["name"] for r in record) == sorted(KERNELS),
          "the kernels' record does not list every kernel once")
     for rec in record:

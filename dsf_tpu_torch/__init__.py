@@ -17,13 +17,16 @@ codec's VJPs as kernels, AdamW behind a finite guard).
 
 Layer map:
   config, geometry — configuration, camera/crop math
-  mano             — MANO LBS, static tables, synthetic asset
+  mano             — MANO LBS, static tables, synthetic asset, the
+                     MANO_RIGHT.pkl converter
   ops              — rasterizer + K1 skip-raster + K2 moments (backward),
                      offset codec + K4/K5 (forward and backward)
   render           — crop-frame renderer (render_params, synth_sample)
   models           — ManoOCRStage (reference state-dict names), weights
   losses, training — SmoothL1; the Pretrain phase and its trainer
-  data             — MANO-parameter sources (numpy)
+  data             — depth readers, the NYU, ICVL, MSRA, SHREC and DHG
+                     loaders, MANO-parameter sources (numpy, host library)
+  tools            — offline pre-render, SHREC skeleton export
   serving          — bucketed InferenceEngine
   kernels, csrc    — CUDA sources and their build
 """

@@ -5,9 +5,10 @@
 // thresholds and normalization, the NYU byte unpack), plus what the JAX
 // package takes from OpenCV on the same path:
 //
-//   * png_nyu_depth: the PNG row unfilter (all five filter types, as
-//     libpng writes them through cv2.imwrite) fused with NYU's packed
-//     depth, depth = G * 256 + B;
+//   * png_nyu_depth / png_gray: the PNG row unfilter (all five filter
+//     types, as libpng writes them through cv2.imwrite) fused with the
+//     unpack of NYU's packed depth (G * 256 + B) or of a single-band
+//     8- or 16-bit depth image (ICVL, SHREC, DHG; PIL's read of them);
 //   * warp_affine_nearest / warp_perspective_nearest: cv2.warpAffine and
 //     cv2.warpPerspective with INTER_NEAREST and BORDER_CONSTANT, rounding
 //     as OpenCV 5 does (below);
@@ -154,6 +155,49 @@ inline int paeth(int a, int b, int c) {
   return pb <= pc ? b : c;
 }
 
+// Undo the PNG row filters (None, Sub, Up, Average, Paeth) of H rows of
+// a filter byte and rb bytes, the filters looking back bpp bytes (the
+// bytes of a whole pixel: 3 for RGB, 2 for 16-bit gray), handing each
+// unfiltered row to emit(r, row).  Returns 0, or the 1-based row whose
+// filter byte is not 0-4.
+template <class Emit>
+int unfilter_rows(const uint8_t* raw, int H, int rb, int bpp, Emit emit) {
+  std::vector<uint8_t> prev(rb, 0), cur(rb);
+  for (int r = 0; r < H; ++r) {
+    const uint8_t* line = raw + (size_t)r * (rb + 1);
+    const uint8_t* x = line + 1;
+    switch (line[0]) {
+      case 0:
+        std::memcpy(cur.data(), x, rb);
+        break;
+      case 1:
+        for (int i = 0; i < rb; ++i)
+          cur[i] = (uint8_t)(x[i] + (i >= bpp ? cur[i - bpp] : 0));
+        break;
+      case 2:
+        for (int i = 0; i < rb; ++i) cur[i] = (uint8_t)(x[i] + prev[i]);
+        break;
+      case 3:
+        for (int i = 0; i < rb; ++i)
+          cur[i] = (uint8_t)(x[i] + (((i >= bpp ? cur[i - bpp] : 0)
+                                      + prev[i]) >> 1));
+        break;
+      case 4:
+        for (int i = 0; i < rb; ++i) {
+          const int a = i >= bpp ? cur[i - bpp] : 0;
+          const int c = i >= bpp ? prev[i - bpp] : 0;
+          cur[i] = (uint8_t)(x[i] + paeth(a, prev[i], c));
+        }
+        break;
+      default:
+        return r + 1;
+    }
+    emit(r, cur.data());
+    std::swap(prev, cur);
+  }
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -237,49 +281,34 @@ void nyu_unpack(const uint8_t* bgr, int H, int W, float* out) {
 
 // The inflated IDAT stream of an 8-bit RGB (channels 3) or RGBA (4) PNG,
 // H rows of a filter byte and W * channels bytes, unfiltered row by row
-// (None, Sub, Up, Average, Paeth) into NYU's depth G * 256 + B (the
-// channels cv2.imread returns as [:, :, 1] and [:, :, 0]).  Returns 0, or
-// the 1-based row whose filter byte is not 0-4.
+// into NYU's depth G * 256 + B (the channels cv2.imread returns as
+// [:, :, 1] and [:, :, 0]).  Returns 0, or the 1-based row whose filter
+// byte is not 0-4.
 int png_nyu_depth(const uint8_t* raw, int H, int W, int channels,
                   float* out) {
-  const int rb = W * channels, bpp = channels;
-  std::vector<uint8_t> prev(rb, 0), cur(rb);
-  for (int r = 0; r < H; ++r) {
-    const uint8_t* line = raw + (size_t)r * (rb + 1);
-    const int filter = line[0];
-    const uint8_t* x = line + 1;
-    switch (filter) {
-      case 0:
-        std::memcpy(cur.data(), x, rb);
-        break;
-      case 1:
-        for (int i = 0; i < rb; ++i)
-          cur[i] = (uint8_t)(x[i] + (i >= bpp ? cur[i - bpp] : 0));
-        break;
-      case 2:
-        for (int i = 0; i < rb; ++i) cur[i] = (uint8_t)(x[i] + prev[i]);
-        break;
-      case 3:
-        for (int i = 0; i < rb; ++i)
-          cur[i] = (uint8_t)(x[i] + (((i >= bpp ? cur[i - bpp] : 0)
-                                      + prev[i]) >> 1));
-        break;
-      case 4:
-        for (int i = 0; i < rb; ++i) {
-          const int a = i >= bpp ? cur[i - bpp] : 0;
-          const int c = i >= bpp ? prev[i - bpp] : 0;
-          cur[i] = (uint8_t)(x[i] + paeth(a, prev[i], c));
-        }
-        break;
-      default:
-        return r + 1;
-    }
+  return unfilter_rows(raw, H, W * channels, channels,
+                       [&](int r, const uint8_t* cur) {
     float* o = out + (size_t)r * W;
     for (int k = 0; k < W; ++k)
       o[k] = (float)cur[k * channels + 2] + (float)cur[k * channels + 1] * 256.f;
-    std::swap(prev, cur);
-  }
-  return 0;
+  });
+}
+
+// The inflated IDAT stream of a single-band (grayscale) PNG of 8 (bytes
+// 1) or 16 (bytes 2) bits a sample, unfiltered with the filters looking
+// back one sample's bytes, into float32: 8-bit samples as they are,
+// 16-bit ones big-endian (PNG's byte order).  Returns as png_nyu_depth.
+int png_gray(const uint8_t* raw, int H, int W, int bytes, float* out) {
+  return unfilter_rows(raw, H, W * bytes, bytes,
+                       [&](int r, const uint8_t* cur) {
+    float* o = out + (size_t)r * W;
+    if (bytes == 1) {
+      for (int k = 0; k < W; ++k) o[k] = (float)cur[k];
+    } else {
+      for (int k = 0; k < W; ++k)
+        o[k] = (float)(((unsigned)cur[2 * k] << 8) | cur[2 * k + 1]);
+    }
+  });
 }
 
 // cv2.getRotationMatrix2D(center, angle, scale) -> 2x3, row major

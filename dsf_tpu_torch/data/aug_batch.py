@@ -16,7 +16,9 @@ The augmentation pipeline of ``crop.augment_crop``, batched:
     tail of the JAX package's ``NYUDataset.__getitem__``, op for op.
 
 The draws come from one ``RandomState`` (``draw_params``), so a batch is
-deterministic given the dataset's seed.
+deterministic given the dataset's seed.  With every draw "none"
+(``unaugmented_batch``) the same pipeline is the JAX package's per-item
+eval path (``SHRECDataset`` / ``DHGDataset.__getitem__``), bitwise.
 """
 
 from __future__ import annotations
@@ -36,16 +38,18 @@ def draw_params(rng, B, aug_para):
 
 
 def augment_fast_batch(depths, joints_xyz, centers_xyz, cubes64, paras,
-                       flip, img_size, draws, nthreads=4):
+                       flip, img_size, draws, nthreads=4, coms=None):
     """Full augmented train batch from decoded full-frame depths.
 
     depths (B,H,W) f32; joints_xyz (B,J,3) f32; centers_xyz (B,3) f32;
-    cubes64 (B,3) f64; draws: list of (mode, off, rot, sc).
+    cubes64 (B,3) f64; draws: list of (mode, off, rot, sc); coms (B,3)
+    f32 the crop centres in uvd (the centres' projection when None).
     Returns the batch dict of ``datasets.NYUDataset``.
     """
     B = depths.shape[0]
     S = img_size
-    coms = C.joint_3d_to_img(centers_xyz, paras, flip)          # (B,3) f32
+    if coms is None:
+        coms = C.joint_3d_to_img(centers_xyz, paras, flip)      # (B,3) f32
     crops, _ = native.batch_crop_raw(
         depths, coms.astype(np.float32), cubes64.astype(np.float32),
         np.asarray(paras, np.float32), S, nthreads=nthreads)
@@ -171,3 +175,19 @@ def augment_fast_batch(depths, joints_xyz, centers_xyz, cubes64, paras,
         "M": out_Ms.astype(np.float32),
         "cube": out_cubes.astype(np.float32),
     }
+
+
+NO_AUGMENT = (C.AUG_MODES.index("none"), np.zeros(3), 0.0, 1.0)
+
+
+def unaugmented_batch(depths, joints_xyz, coms, cubes64, paras, flip,
+                      img_size, nthreads=4):
+    """The unaugmented batch of the JAX package's per-item path (crop,
+    normalize and labels op for op as its ``__getitem__`` computes them),
+    with crop centres ``coms`` (B, 3) f32 in uvd: ``augment_fast_batch``
+    with every draw "none"."""
+    coms = np.asarray(coms, np.float32)
+    return augment_fast_batch(
+        depths, joints_xyz, C.joint_img_to_3d(coms, paras, flip), cubes64,
+        paras, flip, img_size, [NO_AUGMENT] * len(coms), nthreads=nthreads,
+        coms=coms)

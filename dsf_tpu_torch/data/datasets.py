@@ -1,16 +1,24 @@
-"""The NYU loader (counterpart of dsf_tpu/data/datasets.py's
-``BaseDataset`` and ``NYUDataset``; ref: nyu_loader,
-render_loader.py:1803-1947).
+"""The dataset loaders: NYU, ICVL, MSRA, SHREC and DHG (counterpart of
+dsf_tpu/data/datasets.py's ``BaseDataset``, ``NYUDataset``,
+``ICVLDataset``, ``MSRADataset``, ``SHRECDataset``,
+``read_dhg_sequences`` and ``DHGDataset``; ref: render_loader.py
+:1803-3185).
 
-Batches are (img, xyz_gt, uvd_gt, center, M, cube) dicts of numpy arrays,
-made by the batched fast paths of the JAX package: the PNG decode fans
-out over a worker pool (``readers.nyu_reader``), the crop, warps and
-normalization run in the threaded host library (``native``,
-``aug_batch``), the label math is vectorized numpy.  An item is a batch of
-one: there is no second, per-item path.  Augmented (train) batches draw
-their (mode, off, rot, sc) from the dataset's one ``RandomState``.
+Batches are (img, xyz_gt, uvd_gt, center, M, cube) dicts of numpy arrays
+(DHG's also carry ``gesture`` and ``label28``), made by batched paths:
+the depth decode fans out over a worker pool (``readers``), the crop,
+warps and normalization run in the threaded host library (``native``,
+``aug_batch``), the label math is vectorized numpy.  An item is a batch
+of one: there is no second, per-item path.  Augmented batches draw their
+(mode, off, rot, sc) from the dataset's one ``RandomState``.
 
-ICVL, MSRA and SHREC loaders are not ported yet (ROADMAP Queue 1).
+NYU, ICVL and MSRA batches are the JAX package's batched fast paths
+(``_eval_fast_batch``, ``_aug_fast_batch``), bitwise.  SHREC and DHG,
+which the JAX package serves item by item, go through
+``aug_batch.unaugmented_batch`` (and DHG's ``augment=True`` through
+``aug_batch.augment_fast_batch``), whose items are the JAX package's
+``__getitem__`` items bitwise (DHG's augmented ones given the same draws).
+MSRA's cubes differ by subject, so its batches carry one cube a frame.
 """
 
 from __future__ import annotations
@@ -28,6 +36,8 @@ from dsf_tpu_torch.data import crop as C
 from dsf_tpu_torch.data import native, readers
 from dsf_tpu_torch.mano.constants import (NYU2MANO, NYU_CALCULATE,
                                           NYU_JOINT_SELECT)
+
+ICVL_JOINTS, MSRA_JOINTS = 16, 21
 
 
 class BaseDataset:
@@ -131,6 +141,17 @@ class BaseDataset:
             "M": Ms.astype(np.float32),
             "cube": cubes.astype(np.float32),
         }
+
+    def _depths(self, idx) -> np.ndarray:
+        """The frames ``idx``' full-frame depths, decoded on the pool."""
+        return np.stack(list(self._worker_pool().map(self._read_depth_cached,
+                                                     idx)))
+
+    def _fast_batch(self, idx, joints_xyz, centers, cubes) -> dict:
+        """The frames ``idx`` as the augmented batch when ``self.augment``,
+        else the eval batch."""
+        fetch = self._aug_fast_batch if self.augment else self._eval_fast_batch
+        return fetch(idx, self._depths(idx), joints_xyz, centers, cubes)
 
     def batches(self, batch_size: int, shuffle=False, seed=0,
                 drop_last=True, loop=False) -> Iterator[dict]:
@@ -247,13 +268,427 @@ class NYUDataset(BaseDataset):
 
     def _fetch_batch(self, idx) -> dict:
         idx = np.asarray(idx)
-        depths = np.stack(list(self._worker_pool().map(
-            self._read_depth_cached, idx)))
         cubes = (self.test_cubesize[idx] if self.phase == "test"
                  else np.tile(self.cube_size, (len(idx), 1))).astype(
                      np.float32)
+        return self._fast_batch(idx, self.all_joints_xyz,
+                                self.center_xyz[idx], cubes)
+
+
+class ICVLDataset(BaseDataset):
+    """ICVL with the left-right flip (ref: flip_icvl_loader,
+    render_loader.py:2305-2455).
+
+    The reference's layout: {root}/train.txt or {root}/test_seq_1.txt and
+    test_seq_2.txt, {root}/center_{phase}_refined.txt, images under
+    {root}/Depth/; else {root}/[Training|Testing]/labels.txt.  The test
+    list is filtered to the protocol's subsequences as the reference
+    filters it (render_loader.py:2421-2433; ``sub_seq`` ("0",) unless
+    ``full_img``): a frame whose first path component is longer than 6
+    characters passes, a short-named subsequence only when listed in
+    ``sub_seq``; frames with an ``invalid`` refined centre or without an
+    image file are skipped.  The centre file is indexed by the line's
+    position in the list before filtering.  Images are flipped left to
+    right at read, u becomes 320 - u in the labels and the refined
+    centre's x is negated.
+    """
+
+    def __init__(self, root_dir, phase, img_size=128,
+                 cube_size=(200, 200, 200), center_type="refine",
+                 aug_para=(10, 0.2, 180), seed=0, full_img=False,
+                 sub_seq=("0",)):
+        self.paras = (240.99, 240.96, 160.0, 120.0)
+        self.ori_img_size = (320, 240)
+        self.flip = 1.0
+        self.phase = phase
+        self.img_size = img_size
+        self.cube_size = np.asarray(cube_size, np.float32)
+        self.aug_para = aug_para
+        self.rng = np.random.RandomState(seed)
+        self.root_dir = root_dir
+        self.augment = phase == "train"
+
+        if os.path.exists(os.path.join(root_dir, "train.txt")) or \
+                os.path.exists(os.path.join(root_dir, "test_seq_1.txt")):
+            names, uvds, centers = self._read_reference_layout(
+                root_dir, phase, full_img, sub_seq)
+        else:
+            names, uvds, centers = self._read_flat_layout(root_dir, phase)
+        self.img_names = names
+        self.all_joints_uvd = (np.stack(uvds).astype(np.float32) if uvds
+                               else np.zeros((0, ICVL_JOINTS, 3), np.float32))
+        # the image is flipped at read: u -> W - u
+        self.all_joints_uvd[:, :, 0] = \
+            self.ori_img_size[0] - self.all_joints_uvd[:, :, 0]
+        self.all_joints_xyz = C.joint_img_to_3d(
+            self.all_joints_uvd, self.paras, self.flip)
+        if center_type == "refine" and centers is not None:
+            self.center_xyz = np.asarray(centers, np.float32).reshape(-1, 3)
+            # the reference re-projects the centre and flips u about
+            # cx = 160 (render_loader.py:2338-2341): x negated
+            self.center_xyz[:, 0] = -self.center_xyz[:, 0]
+        else:
+            self.center_xyz = self.all_joints_xyz.mean(1)
+
+    @staticmethod
+    def _read_reference_layout(root_dir, phase, full_img, sub_seq):
+        """ref: flip_icvl_loader.read_joints (render_loader.py:2399-2453)."""
+        if phase == "train":
+            with open(os.path.join(root_dir, "train.txt")) as f:
+                lines = f.read().splitlines()
+            center_path = os.path.join(root_dir, "center_train_refined.txt")
+        else:
+            lines = []
+            for seq in ("test_seq_1.txt", "test_seq_2.txt"):
+                with open(os.path.join(root_dir, seq)) as f:
+                    lines += f.read().splitlines()
+            lines = [ln for ln in lines if ln]
+            center_path = os.path.join(root_dir, "center_test_refined.txt")
+        center_lines = None
+        if os.path.exists(center_path):
+            with open(center_path) as f:
+                center_lines = f.readlines()
+
+        names, uvds, centers = [], [], []
+        sub_seq = list(sub_seq)
+        for index, line in enumerate(lines):
+            strs = line.split()
+            p = strs[0].split("/")
+            if not full_img and not (("0" in sub_seq and len(p[0]) > 6)
+                                     or (p[0] in sub_seq and len(p[0]) <= 6)):
+                continue
+            img_path = os.path.join(root_dir, "Depth", strs[0])
+            if not os.path.isfile(img_path):
+                continue
+            if center_lines is not None:
+                cstr = center_lines[index].split()
+                if cstr[0] == "invalid":
+                    continue
+                centers.append([float(v) for v in cstr])
+            names.append(img_path)
+            uvds.append(np.asarray(strs[1:1 + 3 * ICVL_JOINTS],
+                                   np.float32).reshape(ICVL_JOINTS, 3))
+        return names, uvds, (centers if center_lines is not None else None)
+
+    @staticmethod
+    def _read_flat_layout(root_dir, phase):
+        phase_dir = "Training" if phase == "train" else "Testing"
+        label_path = os.path.join(root_dir, phase_dir, "labels.txt")
+        center_path = os.path.join(root_dir, phase_dir,
+                                   f"center_{phase}_refined.txt")
+        names, uvds = [], []
+        with open(label_path) as f:
+            for line in f:
+                parts = line.strip().split()
+                if len(parts) < 1 + 3 * ICVL_JOINTS:
+                    continue
+                names.append(os.path.join(root_dir, phase_dir, "Depth",
+                                          parts[0]))
+                uvds.append(np.asarray(parts[1:1 + 3 * ICVL_JOINTS],
+                                       np.float32).reshape(ICVL_JOINTS, 3))
+        centers = None
+        if os.path.exists(center_path):
+            centers = np.loadtxt(center_path).astype(np.float32)
+        return names, uvds, centers
+
+    def __len__(self):
+        return len(self.img_names)
+
+    def _read_depth(self, index) -> np.ndarray:
+        depth = readers.icvl_reader(self.img_names[index])
+        return depth[:, ::-1].copy()                # left-right flip
+
+    def _fetch_batch(self, idx) -> dict:
+        idx = np.asarray(idx)
+        cubes = np.tile(self.cube_size.astype(np.float32), (len(idx), 1))
+        return self._fast_batch(idx, self.all_joints_xyz,
+                                self.center_xyz[idx], cubes)
+
+
+class MSRADataset(BaseDataset):
+    """MSRA's 9-subject leave-one-out (ref: msra_loader,
+    render_loader.py:2458-2620): the test split is subject
+    ``test_persons``, the train split the other eight.  Each subject has
+    its own cube (``PERSON_CUBES``), so each frame carries its own.
+
+    Needs {root}/P{p}/{gesture}/joint.txt (the frame count, then 21 x 3
+    world joints a frame, y and z negated) and {i:06d}_depth.bin frames;
+    with ``center_type="refine"``, {root}/center_{phase}_{test_persons}
+    _refined.txt, one row a frame, y negated, else the joints' mean.
+    """
+
+    PERSON_CUBES = [200, 200, 200, 180, 180, 180, 170, 160, 150]
+    GESTURES = ["1", "2", "3", "4", "5", "6", "7", "8", "9", "I", "IP", "L",
+                "MP", "RP", "T", "TIP", "Y"]
+
+    def __init__(self, root_dir, phase, test_persons=0, img_size=128,
+                 center_type="refine", aug_para=(10, 0.2, 180), seed=0,
+                 write_record=False):
+        self.paras = (241.42, 241.42, 160.0, 120.0)
+        self.ori_img_size = (320, 240)
+        self.flip = 1.0
+        self.phase = phase
+        self.img_size = img_size
+        self.aug_para = aug_para
+        self.rng = np.random.RandomState(seed)
+        self.root_dir = root_dir
+        self.augment = phase == "train"
+
+        persons = ([test_persons] if phase == "test"
+                   else [p for p in range(9) if p != test_persons])
+        self.files, self.rel_files, cubes, joints = [], [], [], []
+        for p in persons:
+            pdir = os.path.join(root_dir, f"P{p}")
+            if not os.path.isdir(pdir):
+                continue
+            for g in self.GESTURES:
+                gdir = os.path.join(pdir, g)
+                jfile = os.path.join(gdir, "joint.txt")
+                if not os.path.exists(jfile):
+                    continue
+                with open(jfile) as f:
+                    n = int(f.readline())
+                    data = np.loadtxt(f).reshape(n, MSRA_JOINTS, 3)
+                # y and z negated in the raw file (the reference negates z,
+                # then its flip=-1 / flip=1 uvd round trip negates y,
+                # render_loader.py:2507-2512)
+                data[:, :, 1] = -data[:, :, 1]
+                data[:, :, 2] = -data[:, :, 2]
+                for i in range(n):
+                    self.files.append(os.path.join(gdir, f"{i:06d}_depth.bin"))
+                    self.rel_files.append(f"P{p}/{g}/{i:06d}_depth.bin")
+                    cubes.append(float(self.PERSON_CUBES[p]))
+                    joints.append(data[i])
+        self.joints_xyz = (np.stack(joints).astype(np.float32) if joints
+                           else np.zeros((0, MSRA_JOINTS, 3), np.float32))
+        self.cubes = np.asarray(cubes, np.float32)
+        if write_record:
+            # the reference writes msra_record_list.txt and msra_label.txt
+            # at init (render_loader.py:2467, 2492-2495); here into root_dir
+            with open(os.path.join(root_dir, "msra_record_list.txt"),
+                      "w") as f:
+                f.write("".join(r + "\r\n" for r in self.rel_files))
+            uvd = C.joint_3d_to_img(self.joints_xyz, self.paras, self.flip)
+            np.savetxt(os.path.join(root_dir, "msra_label.txt"),
+                       uvd.reshape(len(uvd), -1), fmt="%.3f")
+
+        self.center_xyz = (self.joints_xyz.mean(1) if len(self.joints_xyz)
+                           else np.zeros((0, 3)))
+        center_path = os.path.join(
+            root_dir, f"center_{phase}_{int(test_persons)}_refined.txt")
+        if center_type == "refine" and os.path.exists(center_path):
+            # the y-negation round trip of the reference (render_loader.py
+            # :2495-2500)
+            raw = np.loadtxt(center_path).astype(np.float32).reshape(-1, 3)
+            uvd = C.joint_3d_to_img(raw, self.paras, -1.0)
+            self.center_xyz = C.joint_img_to_3d(
+                uvd, self.paras, self.flip).astype(np.float32)
+            if len(self.center_xyz) != len(self.files):
+                raise ValueError(
+                    f"center file rows {len(self.center_xyz)} != frames "
+                    f"{len(self.files)} ({center_path})")
+
+    def __len__(self):
+        return len(self.files)
+
+    def _read_depth(self, index) -> np.ndarray:
+        return readers.msra_reader(self.files[index], self.paras)[0]
+
+    def _fetch_batch(self, idx) -> dict:
+        idx = np.asarray(idx)
+        cubes = np.repeat(self.cubes[idx][:, None], 3, axis=1)
+        return self._fast_batch(idx, self.joints_xyz, self.center_xyz[idx],
+                                cubes)
+
+
+def _item_center_uvd(joints_xyz, paras, flip) -> np.ndarray:
+    """The JAX SHREC item's crop centre from its joints: the mean of
+    their (u, v, d), float32 (ref: shrec_loader)."""
+    uvd = C.joint_3d_to_img(joints_xyz, paras, flip)
+    return np.asarray([uvd[:, 0].mean(), uvd[:, 1].mean(), uvd[:, 2].mean()],
+                      np.float32)
+
+
+def _blob_center_uvd(depth) -> np.ndarray:
+    """The crop centre of a frame without joints: the mean (u, v, d) of
+    the pixels with 100 < d < 1000 mm."""
+    fg = (depth > 100) & (depth < 1000)
+    vs, us = np.nonzero(fg)
+    return np.asarray([us.mean(), vs.mean(), depth[fg].mean()], np.float32)
+
+
+class SHRECDataset(BaseDataset):
+    """SHREC'17 gesture sequences for the skeleton export (ref:
+    shrec_loader, render_loader.py:3078-3185): every directory under
+    ``root_dir`` holding ``*_depth.png`` frames (640x480) is a sequence,
+    its frames in sorted name order.  Joints come from the sequence's
+    ``pred_file`` where it exists, and the crop centre is their (u, v, d)
+    mean; else the centre is the depth blob's (100 < d < 1000 mm) and
+    every joint sits at it.  ``samples`` holds (depth path, joints or
+    None, sequence directory, frame) per frame.
+    """
+
+    def __init__(self, root_dir, img_size=128, cube_size=(200, 200, 200),
+                 aug_para=(0, 0, 0), seed=0,
+                 pred_file="skeletons_world_pred.txt"):
+        self.paras = (463.889, 463.889, 320.0, 240.0)
+        self.ori_img_size = (640, 480)
+        self.flip = 1.0
+        self.phase = "train"
+        self.img_size = img_size
+        self.cube_size = np.asarray(cube_size, np.float32)
+        self.aug_para = aug_para
+        self.rng = np.random.RandomState(seed)
+        self.root_dir = root_dir
+        self.samples = []
+        self._centers = []      # the item's crop centre (u, v, d), or None
+        for dirpath, _, files in os.walk(root_dir):
+            depths = sorted(f for f in files if f.endswith("_depth.png"))
+            if not depths:
+                continue
+            pred = os.path.join(dirpath, pred_file)
+            joints = None
+            if os.path.exists(pred):
+                joints = np.loadtxt(pred).reshape(-1, 21, 3)
+            for i, fname in enumerate(depths):
+                j = (joints[i].astype(np.float32)
+                     if joints is not None and i < len(joints) else None)
+                self.samples.append((os.path.join(dirpath, fname), j,
+                                     dirpath, i))
+                self._centers.append(
+                    None if j is None
+                    else _item_center_uvd(j, self.paras, self.flip))
+
+    def __len__(self):
+        return len(self.samples)
+
+    def _read_depth(self, index) -> np.ndarray:
+        return readers.shrec_reader(self.samples[index][0])
+
+    def _fetch_batch(self, idx) -> dict:
+        idx = np.asarray(idx)
+        depths = self._depths(idx)
+        coms = np.stack([
+            _blob_center_uvd(d) if self._centers[i] is None
+            else self._centers[i] for i, d in zip(idx, depths)])
+        centers = C.joint_img_to_3d(coms, self.paras, self.flip)
+        joints = np.stack([
+            np.tile(c, (21, 1)) if self.samples[i][1] is None
+            else self.samples[i][1] for i, c in zip(idx, centers)])
+        cubes = np.tile(self.cube_size.astype(np.float64), (len(idx), 1))
+        return aug_batch.unaugmented_batch(
+            depths, joints, coms, cubes, self.paras, self.flip,
+            self.img_size, nthreads=self.NUM_WORKERS)
+
+
+def read_dhg_sequences(root_dir):
+    """The DHG 14/28 index (ref: DHG_loader.read_joints,
+    render_loader.py:3026-3051): the rows ``gesture finger subject essai
+    start end`` of ``informations_troncage_sequences.txt``, each naming
+    gesture_{g}/finger_{f}/subject_{s}/essai_{e}/.  Returns a list of
+    dicts {dir, gesture, finger, subject, essai, start, end}."""
+    import re
+    info = os.path.join(root_dir, "informations_troncage_sequences.txt")
+    seqs = []
+    splitter = re.compile(r"[ \t\n\r]+")
+    with open(info) as f:
+        for line in f:
+            parts = [p for p in splitter.split(line) if p]
+            if len(parts) < 6:
+                continue
+            g, fi, s, e, start, end = parts[:6]
+            seqs.append({
+                "dir": os.path.join(
+                    root_dir, f"gesture_{g}", f"finger_{fi}",
+                    f"subject_{s}", f"essai_{e}"),
+                "gesture": int(g), "finger": int(fi), "subject": int(s),
+                "essai": int(e), "start": int(start), "end": int(end),
+            })
+    return seqs
+
+
+class DHGDataset(BaseDataset):
+    """DHG 14/28 gesture sequences (ref: DHG_loader,
+    render_loader.py:2964-3075), indexed by ``read_dhg_sequences``: the
+    frames ``depth_{frame + 1}.png`` of each truncated range, joints from
+    the sequence's ``pred_file`` (one row a truncated frame), the crop
+    centre the uv mean of ``skeleton_image.txt``'s row and the joints'
+    mean depth x 1000.  The image and the centre's u are flipped left to
+    right (640 - u).  Batches also carry ``gesture`` (1-14) and
+    ``label28``, (gesture - 1) * 2 + finger - 1.
+    """
+
+    def __init__(self, root_dir, img_size=128, cube_size=(250, 250, 250),
+                 aug_para=(10, 0.1, 180), seed=0,
+                 pred_file="skeletons_world_pred_normal_DSSF.txt",
+                 augment=False):
+        self.paras = (463.889, 463.889, 320.0, 240.0)
+        self.ori_img_size = (640, 480)
+        self.flip = 1.0
+        self.phase = "train"
+        self.img_size = img_size
+        self.cube_size = np.asarray(cube_size, np.float32)
+        self.aug_para = aug_para
+        self.augment = augment
+        self.rng = np.random.RandomState(seed)
+        self.root_dir = root_dir
+        self.sequences = read_dhg_sequences(root_dir)
+
+        self.samples = []          # (depth path, xyz (21, 3), centre uvd, seq)
+        for seq in self.sequences:
+            d = seq["dir"]
+            xyz = np.loadtxt(os.path.join(d, pred_file), ndmin=2)
+            uvd = np.loadtxt(os.path.join(d, "skeleton_image.txt"), ndmin=2)
+            for k, frame in enumerate(range(seq["start"], seq["end"] + 1)):
+                jx = xyz[k].reshape(-1, 3)
+                center_uvd = np.concatenate([
+                    uvd[frame].reshape(-1, 2).mean(0),
+                    jx.mean(0)[2:3] * 1000.0])
+                center_uvd[0] = 640 - center_uvd[0]     # u flip (ref :2979)
+                self.samples.append(
+                    (os.path.join(d, f"depth_{frame + 1}.png"),
+                     jx.astype(np.float32), center_uvd.astype(np.float32),
+                     seq))
+
+    def __len__(self):
+        return len(self.samples)
+
+    def _read_depth(self, index) -> np.ndarray:
+        depth = readers.shrec_reader(self.samples[index][0])
+        return depth[:, ::-1].copy()                  # flip (ref :2988)
+
+    def _fetch_batch(self, idx) -> dict:
+        idx = np.asarray(idx)
+        depths = self._depths(idx)
+        joints = np.stack([self.samples[i][1] for i in idx])
+        coms = np.stack([self.samples[i][2] for i in idx])
+        cubes = np.tile(self.cube_size.astype(np.float64), (len(idx), 1))
         if self.augment:
-            return self._aug_fast_batch(idx, depths, self.all_joints_xyz,
-                                        self.center_xyz[idx], cubes)
-        return self._eval_fast_batch(idx, depths, self.all_joints_xyz,
-                                     self.center_xyz[idx], cubes)
+            out = aug_batch.augment_fast_batch(
+                depths, joints, C.joint_img_to_3d(coms, self.paras, self.flip),
+                cubes, self.paras, self.flip, self.img_size,
+                aug_batch.draw_params(self.rng, len(idx), self.aug_para),
+                nthreads=self.NUM_WORKERS, coms=coms)
+        else:
+            out = aug_batch.unaugmented_batch(
+                depths, joints, coms, cubes, self.paras, self.flip,
+                self.img_size, nthreads=self.NUM_WORKERS)
+        seqs = [self.samples[i][3] for i in idx]
+        out["gesture"] = np.asarray([s["gesture"] for s in seqs], np.int32)
+        out["label28"] = np.asarray([(s["gesture"] - 1) * 2 + s["finger"] - 1
+                                     for s in seqs], np.int32)
+        return out
+
+    def write_joints(self, predict_xyz, out_name="skeletons_world_pred.txt"):
+        """Write the predicted skeletons (N, 21, 3) world mm, one row a
+        truncated frame in the dataset's order, as ``out_name`` in each
+        sequence's directory (ref: DHG_loader.write_joints,
+        render_loader.py:3058-3075).  Returns the frames written."""
+        i = 0
+        for seq in self.sequences:
+            n = seq["end"] - seq["start"] + 1
+            np.savetxt(os.path.join(seq["dir"], out_name),
+                       np.asarray(predict_xyz[i:i + n]).reshape(n, -1),
+                       fmt="%.8f")
+            i += n
+        return i

@@ -36,6 +36,8 @@ def load() -> ctypes.CDLL:
     lib.nyu_unpack.argtypes = [u8p, i, i, f32p]
     lib.png_nyu_depth.argtypes = [u8p, i, i, i, f32p]
     lib.png_nyu_depth.restype = i
+    lib.png_gray.argtypes = [u8p, i, i, i, f32p]
+    lib.png_gray.restype = i
     lib.rotation_matrix_2d.argtypes = [f, f, ctypes.c_double, ctypes.c_double,
                                        f64p]
     lib.warp_affine_nearest.argtypes = [f32p, i, i, f64p, i, i, f, f32p]
@@ -108,6 +110,25 @@ def png_nyu_depth(raw: bytes, H: int, W: int, channels: int) -> np.ndarray:
                          f"{H} rows of 1 + {W} x {channels}")
     out = np.empty((H, W), np.float32)
     bad = load().png_nyu_depth(np.ascontiguousarray(buf), H, W, channels, out)
+    if bad:
+        raise ValueError(f"PNG row {bad - 1} has an unknown filter type")
+    return out
+
+
+def png_gray(raw: bytes, H: int, W: int, bytes_per_sample: int
+             ) -> np.ndarray:
+    """The inflated IDAT bytes of a single-band PNG of 8 (1 byte a sample)
+    or 16 bits (2, big-endian) -> (H, W) float32 samples, every PNG row
+    filter undone."""
+    if bytes_per_sample not in (1, 2):
+        raise ValueError(f"bytes per sample {bytes_per_sample}: 1 or 2")
+    buf = np.frombuffer(raw, np.uint8)
+    if buf.size != H * (1 + W * bytes_per_sample):
+        raise ValueError(f"PNG data holds {buf.size} bytes, not "
+                         f"{H} rows of 1 + {W} x {bytes_per_sample}")
+    out = np.empty((H, W), np.float32)
+    bad = load().png_gray(np.ascontiguousarray(buf), H, W, bytes_per_sample,
+                          out)
     if bad:
         raise ValueError(f"PNG row {bad - 1} has an unknown filter type")
     return out

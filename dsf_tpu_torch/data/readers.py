@@ -7,7 +7,14 @@ reader inflates the IDAT stream with ``zlib`` and undoes the row filters
 in the host library (``native.png_nyu_depth``): files written by libpng,
 as ``cv2.imwrite`` writes them, use all five filter types.
 ``write_nyu_png`` writes such a file (every row with filter 0).
-ICVL, MSRA and SHREC readers are not ported yet (ROADMAP Queue 1).
+
+ICVL, SHREC and DHG store depth as a single-band PNG, which the JAX
+package reads with PIL (``np.asarray(Image.open(p), np.float32)`` after
+``assert len(img.getbands()) == 1``): ``read_gray_png`` reads 8- and
+16-bit grayscale the same way through the host library
+(``native.png_gray``), and raises on any other PNG (colour, palette, 1-,
+2- or 4-bit gray, interlaced).  MSRA's ``.bin`` frames are read with
+numpy (``msra_reader``).
 """
 
 from __future__ import annotations
@@ -63,6 +70,74 @@ def nyu_reader(img_path: str) -> np.ndarray:
     # the inflated size as the buffer: one allocation, no regrowth
     return native.png_nyu_depth(zlib.decompress(idat, bufsize=H * (1 + W * C)),
                                 H, W, C)
+
+
+def read_gray_png(img_path: str, bits=(8, 16)) -> np.ndarray:
+    """A single-band PNG of one of ``bits`` (8 or 16) bits a sample ->
+    (H, W) float32 samples (16-bit samples big-endian in the file)."""
+    (W, H, depth, colour, _, _, interlace), idat = read_png_chunks(img_path)
+    if colour != 0 or depth not in bits or interlace:
+        raise ValueError(f"{img_path}: need an 8- or 16-bit grayscale PNG "
+                         f"without interlace, got depth {depth} colour type "
+                         f"{colour} interlace {interlace}")
+    nb = depth // 8
+    return native.png_gray(zlib.decompress(idat, bufsize=H * (1 + W * nb)),
+                           H, W, nb)
+
+
+def icvl_reader(img_path: str) -> np.ndarray:
+    """ICVL's depth PNG -> (H, W) float32 mm (ref: icvl_reader)."""
+    return read_gray_png(img_path)
+
+
+def shrec_reader(img_path: str) -> np.ndarray:
+    """SHREC's and DHG's depth PNG -> (H, W) float32 mm (ref:
+    shrec_reader)."""
+    return read_gray_png(img_path)
+
+
+def msra_reader(image_name: str, paras):
+    """MSRA binary: a uint32 header (w, h, left, top, right, bottom), then
+    the float32 depth patch from byte 24 (ref: msra_reader,
+    render_loader.py:221-241).  Returns (the (h, w) float32 depth image,
+    the patch's non-zero points in world mm, (N, 3) float64, with the
+    module's y flip)."""
+    with open(image_name, "rb") as f:
+        data = np.fromfile(f, dtype=np.uint32, count=6)
+        width, height, left, top, right, bottom = data
+        f.seek(4 * 6)
+        patch = np.fromfile(f, dtype=np.float32)
+    depth = np.zeros((height, width), dtype=np.float32)
+    patch = patch.reshape(bottom - top, right - left)
+    depth[top:bottom, left:right] = patch
+
+    fx, fy, fu, fv = paras
+    h, w = patch.shape
+    us = (np.tile(np.arange(w), (h, 1)).astype(np.float64) + left).ravel()
+    vs = (np.repeat(np.arange(h), w).astype(np.float64) + top).ravel()
+    z = patch.ravel()
+    # pixel2world with the module-level y flip (ref render_loader.py:70-74)
+    x = (us - fu) * z / fx
+    y = (fv - vs) * z / fy
+    pts = np.stack([x, y, z], axis=0)
+    valid = (pts != 0).any(axis=0)
+    return depth, pts[:, valid].T
+
+
+def write_msra_bin(path: str, depth: np.ndarray) -> None:
+    """Write a (H, W) depth image as an MSRA ``.bin``: the header, then
+    the float32 patch of the non-zero pixels' bounding box (an empty box
+    at (0, 0) when every pixel is zero)."""
+    depth = np.asarray(depth, np.float32)
+    if depth.ndim != 2:
+        raise ValueError(f"need a (H, W) depth image, got {depth.shape}")
+    H, W = depth.shape
+    rows, cols = np.nonzero(depth.any(1))[0], np.nonzero(depth.any(0))[0]
+    top, bottom = (rows[0], rows[-1] + 1) if len(rows) else (0, 0)
+    left, right = (cols[0], cols[-1] + 1) if len(cols) else (0, 0)
+    with open(path, "wb") as f:
+        np.asarray([W, H, left, top, right, bottom], np.uint32).tofile(f)
+        np.ascontiguousarray(depth[top:bottom, left:right]).tofile(f)
 
 
 def write_nyu_png(path: str, depth: np.ndarray) -> None:

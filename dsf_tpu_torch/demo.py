@@ -12,23 +12,29 @@ import numpy as np
 import torch
 
 from dsf_tpu_torch import geometry as geo
-from dsf_tpu_torch.config import CAMERA, Config
+from dsf_tpu_torch.config import CAMERA, CUBE, JOINT, Config
 from dsf_tpu_torch.mano.constants import transfer_for_dataset
 from dsf_tpu_torch.models.weights import random_reference_state_dict
 from dsf_tpu_torch.render import renderer as rnd
 
 PARAS = CAMERA["nyu"][0]
+# the hands' depth in mm by the renderer's synth depth range: NYU's
+# (500-1200 mm) or ICVL's and MSRA's (150-600 mm)
+POSED_DEPTH = {(500.0, 1200.0): (650.0, 900.0), (150.0, 600.0): (250.0, 450.0)}
 
 
-def posed_params(renderer, B: int, rng: np.random.RandomState):
+def posed_params(renderer, B: int, rng: np.random.RandomState,
+                 cube_size: float = 250.0):
     """(mano_para (B, 62), center (B, 3) mm, cube (B, 3) mm) on the
-    renderer's device: random poses in front of the NYU camera."""
+    renderer's device: random poses in front of its camera, at the depths
+    of its synth range (``POSED_DEPTH``)."""
+    lo, hi = POSED_DEPTH[tuple(renderer.depth_range)]
     para = np.zeros((B, 62), np.float32)
     para[:, :48] = rng.randn(B, 48).astype(np.float32) * 0.3
     para[:, 58] = rng.uniform(0.9, 1.1, B)
     para[:, 59:] = rng.randn(B, 3).astype(np.float32) * 0.05
-    center = rng.uniform([-40, -40, 650], [40, 40, 900], (B, 3)).astype(np.float32)
-    cube = np.full((B, 3), 250.0, np.float32)
+    center = rng.uniform([-40, -40, lo], [40, 40, hi], (B, 3)).astype(np.float32)
+    cube = np.full((B, 3), cube_size, np.float32)
     dev = renderer.mano.device
     return tuple(torch.from_numpy(x).to(dev) for x in (para, center, cube))
 
@@ -39,28 +45,31 @@ def requests(renderer, n: int, rng: np.random.RandomState):
     para, center, cube = posed_params(renderer, n, rng)
     with torch.inference_mode():
         img, _, _, _ = rnd.render_params(renderer, para, center, cube)
-        com = geo.xyz_to_uvd(center[:, None], PARAS)[:, 0]
-        M = geo.crop_matrix(com, cube, PARAS, renderer.crop_size)
+        com = geo.xyz_to_uvd(center[:, None], renderer.paras)[:, 0]
+        M = geo.crop_matrix(com, cube, renderer.paras, renderer.crop_size)
     return [t.cpu().numpy() for t in (img, center, M, cube)]
 
 
 def real_batch(renderer, B: int, rng: np.random.RandomState,
-               para=None) -> dict:
-    """A seeded NYU-shaped "real" batch for the FinetuneStage step, as
-    tensors on the renderer's device: rendered MANO hands from
-    ``posed_params`` (or with the MANO parameters ``para`` (B, 62) in
-    their place) as normalized depth crops ("img" (B, 1, S, S)),
-    "center", "cube", "M" (B, 3, 3), and "xyz_gt" (B, 14, 3), the rendered
-    joints in NYU's joint order (``transfer_for_dataset("nyu")``) for its
-    first 12 joints; NYU's last two have no MANO counterpart and repeat
-    the wrist (the step reads the first 12)."""
-    posed, center, cube = posed_params(renderer, B, rng)
+               para=None, dataset: str = "nyu") -> dict:
+    """A seeded "real" batch of ``dataset``'s shape for the Finetune and
+    FinetuneStage steps, as tensors on the renderer's device (its camera
+    is the dataset's): rendered MANO hands from ``posed_params`` at the
+    dataset's cube (or with the MANO parameters ``para`` (B, 62) in their
+    place) as normalized depth crops ("img" (B, 1, S, S)), "center",
+    "cube", "M" (B, 3, 3), and "xyz_gt" (B, J, 3), J the dataset's joint
+    count, the rendered joints in its joint order
+    (``transfer_for_dataset``); joints without a MANO counterpart (NYU's
+    last two) repeat the wrist (the step reads the mapped ones)."""
+    posed, center, cube = posed_params(renderer, B, rng,
+                                       float(CUBE[dataset][0]))
     para = posed if para is None else para.to(posed)
     with torch.no_grad():
         img, _, joint_xyz, _ = rnd.render_params(renderer, para, center, cube)
-        com = geo.xyz_to_uvd(center[:, None], PARAS)[:, 0]
-        M = geo.crop_matrix(com, cube, PARAS, renderer.crop_size)
-    xyz_gt = joint_xyz[:, transfer_for_dataset("nyu") + [0, 0]]
+        com = geo.xyz_to_uvd(center[:, None], renderer.paras)[:, 0]
+        M = geo.crop_matrix(com, cube, renderer.paras, renderer.crop_size)
+    tm = transfer_for_dataset(dataset)
+    xyz_gt = joint_xyz[:, tm + [0] * (JOINT[dataset] - len(tm))]
     return {"img": img, "center": center, "cube": cube, "M": M,
             "xyz_gt": xyz_gt}
 

@@ -10,7 +10,8 @@ images (mm) and written as 16-bit grayscale PNGs, the ``synthdepth_*`` /
 The PNGs are written with the standard library (``zlib``, ``struct``):
 16-bit big-endian grayscale, the pixels ``cv2.imwrite`` stores for a
 ``uint16`` array, so the files read back the same with OpenCV or PIL.
-``read_png16`` reads such a file back without either.
+``read_png16`` reads such a file back without either, whatever its row
+filters (``readers.read_gray_png``).
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import numpy as np
 import torch
 
 from dsf_tpu_torch.config import CAMERA
-from dsf_tpu_torch.data.readers import PNG_SIGNATURE, png_chunk, read_png_chunks
+from dsf_tpu_torch.data.readers import PNG_SIGNATURE, png_chunk, read_gray_png
 from dsf_tpu_torch.device import exact_float32, resolve_device
 from dsf_tpu_torch.mano import model as mano_model
 from dsf_tpu_torch.ops import rasterize as ras
@@ -46,16 +47,8 @@ def write_png16(path: str, img: np.ndarray) -> None:
 
 
 def read_png16(path: str) -> np.ndarray:
-    """Read back a 16-bit grayscale PNG whose rows all use filter 0, as
-    ``write_png16`` writes them -> (H, W) uint16."""
-    hdr, idat = read_png_chunks(path)
-    if hdr[2:] != (16, 0, 0, 0, 0):
-        raise ValueError(f"{path}: not a 16-bit grayscale PNG: {hdr}")
-    W, H = hdr[0], hdr[1]
-    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(H, 1 + 2 * W)
-    if rows[:, 0].any():
-        raise ValueError(f"{path}: rows with a filter other than 0")
-    return rows[:, 1:].copy().view(">u2").astype(np.uint16).reshape(H, W)
+    """Read back a 16-bit grayscale PNG -> (H, W) uint16."""
+    return read_gray_png(path, bits=(16,)).astype(np.uint16)
 
 
 def prerender_dataset(mano_npz, params_62d, out_dir, dataset="nyu",

@@ -5,7 +5,10 @@ edit-the-file + ``python train_render.py`` flow, train_render.py:874-889).
 Every ``Config`` field is an option (tuples as comma-separated values,
 booleans as true/false).  With the default ``--phase train`` it trains on
 the card (each epoch saves ``latest``, tests view 0 and keeps ``best``),
-then evaluates the three NYU views; ``--phase test`` only evaluates.
+then evaluates the test set (NYU's three views); ``--phase test`` only
+evaluates.  ``--dataset`` is nyu (the default), icvl, msra (with
+``--test_id``, the left-out subject 0-8) or shrec; the data sits under
+``{root_dir}/{dataset}``.
 The ``ccssl`` and ``cyclegan`` subcommands are not ported yet.
 """
 

@@ -1,22 +1,26 @@
-"""The train and test loop: epochs, checkpoints, logging and the NYU
-3-view export (counterpart of dsf_tpu/training/loop.py; ref:
+"""The train and test loop: epochs, checkpoints, logging and the test
+exports (counterpart of dsf_tpu/training/loop.py; ref:
 Trainer.train/test, train_render.py:231-353, and the __main__ block
 :874-889: train -> per-epoch test -> best, then the 3-view NYU eval).
 
-``run(cfg)`` trains on the card (``device`` "cpu" for tests) from an
-NYU-layout dataset under ``cfg.root_dir/nyu``: the augmented train
-batches come from ``datasets.NYUDataset`` on a prefetch thread, which
-also copies them to the device; each epoch runs ``Trainer.fit_epoch``,
-saves ``latest``, and with ``cfg.test_during_train`` evaluates view 0 and
-keeps ``best``.  At the end (or with ``cfg.phase == "test"``) every frame
-of the three views is evaluated, the tail batch padded and masked, and
-the result_*, mesh_result_*, MANO_result_* files (and with
-``cfg.save_obj`` one .obj per frame) are written to the run directory.
+``run(cfg)`` trains on the card (``device`` "cpu" for tests) from the
+dataset ``cfg.dataset`` under ``cfg.root_dir/{dataset}``: NYU, ICVL,
+MSRA (``cfg.test_id`` the left-out subject) or SHREC
+(``_make_datasets``).  The augmented train batches come from the loader
+on a prefetch thread, which also copies them to the device; each epoch
+runs ``Trainer.fit_epoch``, saves ``latest``, and with
+``cfg.test_during_train`` evaluates view 0 and keeps ``best``.  At the
+end (or with ``cfg.phase == "test"``) every test frame is evaluated (NYU:
+its three views; the other datasets: their one), the tail batch padded
+and masked, and the result_*, mesh_result_*, MANO_result_* files (and
+with ``cfg.save_obj`` one .obj per frame) are written to the run
+directory; ICVL's exported u is un-flipped (W - u), as its loader flips
+the images.
 
 Each epoch's random streams (the shuffle, the augmentation draws, the
 synth parameters, the steps' draws) are seeded from (``cfg.seed``,
 epoch), so a run resumed from ``latest`` continues as the uninterrupted
-run would.  Datasets other than NYU are not ported (ROADMAP Queue 1).
+run would.
 """
 
 from __future__ import annotations
@@ -37,18 +41,35 @@ SNAPSHOT = ("training/phases.py", "training/trainer.py", "config.py",
             "models/backbone.py", "render/renderer.py", "mano/model.py",
             "ops/rasterize.py")
 BATCH_KEYS = ("img", "xyz_gt", "center", "M", "cube")
+DATASETS = ("nyu", "icvl", "msra", "shrec")
 
 
 def _check_dataset(cfg: Config) -> None:
-    if cfg.dataset != "nyu":
-        raise NotImplementedError(
-            f"dataset {cfg.dataset!r}: the port's loop has the NYU loader "
-            "only; ICVL, MSRA and SHREC wait for their loaders (ROADMAP "
-            "Queue 1, item 4)")
+    if cfg.dataset not in DATASETS:
+        raise ValueError(f"dataset {cfg.dataset!r}: one of {DATASETS}")
 
 
 def _epoch_seed(cfg: Config, epoch: int, stream: int):
     return [cfg.seed, epoch, stream]
+
+
+def _test_dataset(cfg: Config, view: int = 0):
+    """The test split: NYU's ``view``, or the other datasets' one (SHREC's
+    frames are both its train and its test split)."""
+    from dsf_tpu_torch.data import datasets as D
+    root = os.path.join(cfg.root_dir, cfg.dataset)
+    if cfg.dataset == "nyu":
+        return D.NYUDataset(root, "test", view=view, img_size=cfg.input_size,
+                            cube_size=cfg.cube_size,
+                            center_type=cfg.center_type)
+    if cfg.dataset == "icvl":
+        return D.ICVLDataset(root, "test", img_size=cfg.input_size,
+                             cube_size=cfg.cube_size)
+    if cfg.dataset == "msra":
+        return D.MSRADataset(root, "test", test_persons=cfg.test_id,
+                             img_size=cfg.input_size)
+    return D.SHRECDataset(root, img_size=cfg.input_size,
+                          cube_size=cfg.cube_size)
 
 
 def _make_datasets(cfg: Config):
@@ -61,10 +82,21 @@ def _make_datasets(cfg: Config):
     root = os.path.join(cfg.root_dir, cfg.dataset)
     train_ds = None
     if cfg.phase == "train":
-        train_ds = D.NYUDataset(root, "train", img_size=cfg.input_size,
-                                cube_size=cfg.cube_size,
-                                center_type=cfg.center_type,
-                                aug_para=cfg.augment_para)
+        if cfg.dataset == "nyu":
+            train_ds = D.NYUDataset(root, "train", img_size=cfg.input_size,
+                                    cube_size=cfg.cube_size,
+                                    center_type=cfg.center_type,
+                                    aug_para=cfg.augment_para)
+        elif cfg.dataset == "icvl":
+            train_ds = D.ICVLDataset(root, "train", img_size=cfg.input_size,
+                                     cube_size=cfg.cube_size,
+                                     aug_para=cfg.augment_para)
+        elif cfg.dataset == "msra":
+            train_ds = D.MSRADataset(root, "train", test_persons=cfg.test_id,
+                                     img_size=cfg.input_size,
+                                     aug_para=cfg.augment_para)
+        else:
+            train_ds = _test_dataset(cfg)
     if train_ds is not None and cfg.cache_depths:
         # decode-once RAM cache, bounded to half of the available RAM
         try:
@@ -226,22 +258,20 @@ def _run(cfg: Config, run_dir: str, device) -> None:
 
 
 def _test_views(tr, state, cfg: Config, run_dir: str) -> None:
-    for view in range(3):
+    for view in range(3 if cfg.dataset == "nyu" else 1):
         errs = _test_view(tr, state, cfg, view, run_dir)
         print(f"view {view}: " + " ".join(f"[{e:.2f}mm]" for e in errs))
 
 
 def _test_view(tr, state, cfg: Config, view: int, run_dir=None):
-    """Evaluate every frame of one NYU test view -> the mean per-stage
-    errors (2 * stages,); with ``run_dir``, also write its exports (ref:
-    train_render.py:320-325, 383-398)."""
+    """Evaluate every frame of one test view (NYU's ``view``, or the
+    other datasets' one) -> the mean per-stage errors (2 * stages,); with
+    ``run_dir``, also write its exports (ref: train_render.py:320-325,
+    383-398)."""
     from dsf_tpu_torch.data import crop as C
-    from dsf_tpu_torch.data import datasets as D
     from dsf_tpu_torch.device import widen
 
-    root = os.path.join(cfg.root_dir, cfg.dataset)
-    ds = D.NYUDataset(root, "test", view=view, img_size=cfg.input_size,
-                      cube_size=cfg.cube_size, center_type=cfg.center_type)
+    ds = _test_dataset(cfg, view)
     export = run_dir is not None and (cfg.save_result or cfg.save_mesh
                                       or cfg.save_obj)
     files = {}
@@ -291,6 +321,10 @@ def _test_view(tr, state, cfg: Config, view: int, run_dir=None):
                                 (f"mano_joint_xyz_{last}", files["r1"])):
                     world = res[key] * cube / 2 + center
                     uvd = C.joint_3d_to_img(world, ds.paras, ds.flip)
+                    if cfg.dataset == "icvl":
+                        # the loader flips the images: un-flip u (ref
+                        # train_render.py:857-860)
+                        uvd[:, :, 0] = ds.ori_img_size[0] - uvd[:, :, 0]
                     np.savetxt(fh, uvd.reshape(valid, -1), fmt="%.3f")
             mesh_world = res[f"mano_mesh_{last}"] * cube / 2 + center
             if cfg.save_mesh:

@@ -5,12 +5,16 @@ Ported:
 
 * Pretrain, the synth-only supervised phase: ``pretrain_sample`` (the
   synth batch) and ``pretrain_loss`` (the net and the losses on it);
-* Finetune, the one-stage self-supervised phase on the NYU camera:
-  ``finetune_stage_sample`` (its synth batch is FinetuneStage's) and
-  ``finetune_loss``;
+* Finetune, the one-stage self-supervised phase: ``finetune_stage_sample``
+  (its synth batch is FinetuneStage's) and ``finetune_loss``;
 * FinetuneStage, the two-stage self-supervised phase with stage 2 as the
-  teacher, on the NYU camera: ``finetune_stage_sample`` and
-  ``finetune_stage_loss``.
+  teacher: ``finetune_stage_sample`` and ``finetune_stage_loss``.
+
+Both run on any dataset's camera (the renderer's): their error metrics
+read the real batch's joints through the dataset's joint order
+(``transfer_for_dataset(cfg.dataset)``, the JAX trainer's
+``transfer_map``) with its error rules (``xyz2error_mm``'s ``dataset``:
+ICVL's z bias, MSRA's mean without the wrist).
 
 The net is an ``nn.Module`` in train mode, so its BatchNorm running
 statistics update in the forward.  ``transfer`` is the frozen CycleGAN
@@ -47,8 +51,6 @@ from dsf_tpu_torch.ops import cloud
 from dsf_tpu_torch.ops.offset_codec import joint2offset, offset2joint_softmax
 from dsf_tpu_torch.render import renderer as rnd
 
-# MANO joints -> NYU's 12 evaluated joints, the first 12 of its 14
-TRANSFER_NYU = transfer_for_dataset("nyu")
 CLOUD_POINTS = 2048     # points per cloud of the real-image prep
 
 
@@ -381,13 +383,14 @@ def finetune_loss(net, r: rnd.Renderer, sample: tuple, scores, img_r,
     loss = loss + m2p * cfg.M2P_weight
     loss = loss + coll * cfg.coll_weight
 
-    nt = len(TRANSFER_NYU)
+    tm = transfer_for_dataset(cfg.dataset)
+    nt = len(tm)
     with torch.no_grad():
         metrics = {
-            "pixel_error": xyz2error_mm(jxyz_r[:, TRANSFER_NYU],
-                                        xyz_gt_r[:, :nt], center_r, cube_r),
-            "mano_error": xyz2error_mm(mano_jxyz_r[:, TRANSFER_NYU],
-                                       xyz_gt_r[:, :nt], center_r, cube_r)}
+            "pixel_error": xyz2error_mm(jxyz_r[:, tm], xyz_gt_r[:, :nt],
+                                        center_r, cube_r, dataset=cfg.dataset),
+            "mano_error": xyz2error_mm(mano_jxyz_r[:, tm], xyz_gt_r[:, :nt],
+                                       center_r, cube_r, dataset=cfg.dataset)}
     metrics.update({k: v.detach() for k, v in (
         ("m2d", m2d), ("pd2m", pd2m), ("P2M", p2m), ("coll", coll),
         ("M2P", m2p), ("d2m", d2m))})
@@ -401,8 +404,9 @@ def finetune_stage_loss(net, r: rnd.Renderer, sample: tuple, scores, img_r,
     """The FinetuneStage phase's losses (ref: train_render.py:622-823) on
     the synth batch from ``finetune_stage_sample`` and a real batch:
     img_r (B, 1, S, S) normalized depth crops, center_r (B, 3) and cube_r
-    (B, 3) mm, M_r (B, 3, 3) crop matrices, xyz_gt_r (B, >=12, 3)
-    normalized NYU ground truth (its first 12 joints are read, for the
+    (B, 3) mm, M_r (B, 3, 3) crop matrices, xyz_gt_r (B, J, 3)
+    normalized ground truth in the dataset's joint order (its first
+    ``len(transfer_for_dataset(cfg.dataset))`` joints are read, for the
     error metrics only).  ``scores`` are the cloud-sampling draws.  The
     net sees the synth image through ``transfer`` when it is given.
 
@@ -476,17 +480,19 @@ def finetune_stage_loss(net, r: rnd.Renderer, sample: tuple, scores, img_r,
         mesh_r2, two(pcl), two(joint_pcl), r.mano.faces,
         r.mano.joint_face_mask, two(seg))
 
-    nt = len(TRANSFER_NYU)
+    tm = transfer_for_dataset(cfg.dataset)
+    nt = len(tm)
     for idx in range(2):
         sl = slice(idx * B, (idx + 1) * B)
         juvd_r, jxyz_r = juvd_r2[sl], jxyz_r2[sl]
         mano_juvd_r, mano_jxyz_r = mano_juvd_r2[sl], mano_jxyz_r2[sl]
         with torch.no_grad():
             metrics[f"pixel_error_{idx}"] = xyz2error_mm(
-                jxyz_r[:, TRANSFER_NYU], xyz_gt_r[:, :nt], center_r, cube_r)
+                jxyz_r[:, tm], xyz_gt_r[:, :nt], center_r, cube_r,
+                dataset=cfg.dataset)
             metrics[f"mano_error_{idx}"] = xyz2error_mm(
-                mano_jxyz_r[:, TRANSFER_NYU], xyz_gt_r[:, :nt], center_r,
-                cube_r)
+                mano_jxyz_r[:, tm], xyz_gt_r[:, :nt], center_r, cube_r,
+                dataset=cfg.dataset)
         if idx == 0:
             # stage 1 distills from the stage-2 teacher (ref :706-724)
             loss = loss + smooth_l1(pixel_r2[sl], pixel_t) * cfg.deconv_weight

@@ -22,10 +22,10 @@ float32 (``phases`` casts the net's outputs and the generator's image to
 float32).  "float32" runs everything in float32.
 
 Ported: Pretrain; Finetune (one stage, ``cfg.stage_num=1``) and
-FinetuneStage (two stages) on the NYU camera, whose real batch is
-NYU-shaped, in both compute dtypes; the eval step (``eval_step_fn``,
-``evaluate``) and one epoch of the configured phase (``fit_epoch``).  Not
-yet: the self-supervised steps on other datasets.
+FinetuneStage (two stages) on ``cfg.dataset``'s camera (NYU, ICVL, MSRA
+or SHREC), whose real batch is that dataset's, in both compute dtypes;
+the eval step (``eval_step_fn``, ``evaluate``) and one epoch of the
+configured phase (``fit_epoch``).
 
 Example::
 
@@ -37,7 +37,7 @@ Example::
                           {"model_para": para, "cube_synth": cube})
 
     step = tr.train_step_fn("FinetuneStage")         # + a real batch
-    real = demo.real_batch(tr.renderer, cfg.batch_size, rng)
+    real = demo.real_batch(tr.renderer, cfg.batch_size, rng, dataset=cfg.dataset)
     state, metrics = step(state, tr.draw(cfg.batch_size, "FinetuneStage"),
                           {"model_para": para, "cube_synth": cube, **real})
 
@@ -382,8 +382,9 @@ class Trainer:
         the caller's own) and ``batch`` of arrays or tensors:
         {"model_para" (B, 62), "cube_synth" (B, 3)} for Pretrain, and for
         Finetune and FinetuneStage also the real batch {"img" (B, 1, S, S),
-        "center" (B, 3), "cube" (B, 3), "M" (B, 3, 3), "xyz_gt" (B, 14,
-        3)}.  The state is updated in place and returned; metrics are 0-d
+        "center" (B, 3), "cube" (B, 3) (one cube a frame), "M" (B, 3, 3),
+        "xyz_gt" (B, J, 3) in the dataset's joint order}; their
+        ``cfg.stage_num`` must be 1 and 2.  The state is updated in place and returned; metrics are 0-d
         tensors on the device, ``loss`` included."""
         if phase_name == "Pretrain":
             return self._pretrain_step
@@ -393,11 +394,10 @@ class Trainer:
                 f"phase {phase_name!r}: the port has Pretrain, Finetune and "
                 "FinetuneStage; not yet ported: the self-supervised steps "
                 "off the NYU camera")
-        if self.cfg.dataset != "nyu" or self.cfg.stage_num != stages:
-            raise NotImplementedError(
-                f"{phase_name} on {self.cfg.dataset!r} with stage_num "
-                f"{self.cfg.stage_num}: the port has the {stages}-stage NYU "
-                "step only (datasets other than NYU are not ported)")
+        if self.cfg.stage_num != stages:
+            raise ValueError(
+                f"{phase_name} is the {stages}-stage step; the config has "
+                f"stage_num {self.cfg.stage_num}")
         return functools.partial(self._self_supervised_step,
                                  phases.finetune_loss if stages == 1
                                  else phases.finetune_stage_loss)

@@ -4,7 +4,9 @@
 and bfloat16, and the port's ``loop.run`` end to end on the CPU over a
 fake NYU set (the artifacts of tests/test_loop_e2e.py, a resume that
 continues bitwise as the uninterrupted run, and the 3-view exports
-against the JAX package's ``_test_view`` on the same weights).
+against the JAX package's ``_test_view`` on the same weights).  The fake
+set, the JAX trainers and their compiled eval steps are built once for
+the module (``setup``, ``_jax_trainer``).
 
 Shapes follow test_loop_e2e.py (input 64, eval batch 8), so the
 persistent JAX cache can serve the JAX eval step.  The port's loop runs
@@ -12,6 +14,7 @@ at B=2 (two steps over four train frames) to keep the CPU time small.
 """
 
 import os
+import shutil
 import types
 
 import numpy as np
@@ -182,37 +185,48 @@ def _state(run_dir):
 
 
 def test_loop_trains_saves_evaluates_and_resumes(setup, monkeypatch):
-    """loop.run on the CPU: one epoch of FinetuneStage (2 steps) leaves
-    train.log (Epoch#0, test:), config.json, the source snapshot,
-    ``latest`` and ``best``, and every test frame's rows in result_0/1 of
-    each view (the 2-frame tail padded and masked).  Resumed from that run
-    directory for a second epoch, it matches an uninterrupted 2-epoch run
-    bitwise: parameters, moments, the guard's counters and the exports."""
-    _epochs(monkeypatch, 1)
-    first = TL.run(_loop_cfg(setup, add_info="first"), device="cpu")
-    log = open(os.path.join(first, "train.log")).read()
-    assert "Epoch#0:" in log and "test:" in log
+    """loop.run on the CPU: two epochs of FinetuneStage (2 steps each)
+    leave train.log (Epoch#0, Epoch#1, test:), config.json, the source
+    snapshot, ``latest`` and ``best``, and every test frame's rows in
+    result_0/1 of each view (the 2-frame tail padded and masked); its
+    ``latest`` after epoch 0 holds 2 steps and 2 updates.  Resumed from
+    that checkpoint for the second epoch, a run matches the uninterrupted
+    one bitwise: parameters, moments, the guard's counters and the
+    exports.  (The uninterrupted run's epoch-0 ``latest`` is kept as it
+    is saved, so one run serves as both the first run and the whole.)"""
+    snap = setup["dir"] / "ckpt" / "epoch0"
+    save = ckpt.save
+
+    def keep_epoch0(path, tr, state, epoch):
+        save(path, tr, state, epoch)
+        if epoch == 0 and os.path.basename(path) == "latest":
+            ckpt.wait_until_finished()
+            shutil.copytree(path, snap / "latest")
+
+    monkeypatch.setattr(ckpt, "save", keep_epoch0)
+    _epochs(monkeypatch, 2)
+    whole = TL.run(_loop_cfg(setup, add_info="whole"), device="cpu")
+    monkeypatch.setattr(ckpt, "save", save)
+    log = open(os.path.join(whole, "train.log")).read()
+    assert "Epoch#0:" in log and "Epoch#1:" in log and "test:" in log
     for name in ("config.json", "latest", "best"):
-        assert os.path.exists(os.path.join(first, name))
-    assert sorted(os.listdir(os.path.join(first, "files"))) == sorted(
+        assert os.path.exists(os.path.join(whole, name))
+    assert sorted(os.listdir(os.path.join(whole, "files"))) == sorted(
         r.replace("/", "_") for r in TL.SNAPSHOT)
     for view in range(3):
         for i in (0, 1):
-            rows = np.loadtxt(os.path.join(first, f"result_{i}_{view}.txt"))
+            rows = np.loadtxt(os.path.join(whole, f"result_{i}_{view}.txt"))
             assert rows.shape == (N_TEST, 21 * 3) and np.isfinite(rows).all()
         for i in (2, 3):
-            assert os.path.exists(os.path.join(first, f"result_{i}_{view}.txt"))
-    saved = _state(first)
+            assert os.path.exists(os.path.join(whole, f"result_{i}_{view}.txt"))
+    saved = _state(str(snap))
     assert saved["epoch"] == 0 and saved["step"] == 2
     assert int(saved["optimizer"]["count"]) == 2
 
-    _epochs(monkeypatch, 2)
-    resumed = TL.run(_loop_cfg(setup, add_info="resumed", load_model=first,
+    resumed = TL.run(_loop_cfg(setup, add_info="resumed", load_model=str(snap),
                                test_during_train=False), device="cpu")
     log = open(os.path.join(resumed, "train.log")).read()
     assert "Epoch#1:" in log and "Epoch#0:" not in log
-    whole = TL.run(_loop_cfg(setup, add_info="whole",
-                             test_during_train=False), device="cpu")
     a, b = _state(resumed), _state(whole)
     assert a["epoch"] == b["epoch"] == 1 and a["step"] == b["step"] == 4
     for part in ("net", "optimizer"):
@@ -225,10 +239,10 @@ def test_loop_trains_saves_evaluates_and_resumes(setup, monkeypatch):
             assert open(os.path.join(resumed, name)).read() == \
                 open(os.path.join(whole, name)).read()
 
-    # the first run's directory serves: its config and its best weights
-    eng = InferenceEngine.from_run_dir(first, device="cpu")
-    assert eng.cfg == _loop_cfg(setup, add_info="first")
-    best = torch.load(os.path.join(first, "best", ckpt.FILE),
+    # the run's directory serves: its config and its best weights
+    eng = InferenceEngine.from_run_dir(whole, device="cpu")
+    assert eng.cfg == _loop_cfg(setup, add_info="whole")
+    best = torch.load(os.path.join(whole, "best", ckpt.FILE),
                       weights_only=True)["net"]
     for k, v in eng.net.state_dict().items():
         assert torch.equal(v, best[k]), k

@@ -57,7 +57,43 @@ def test_no_jax_flax_or_dsf_tpu_imports():
     assert not bad, bad
 
 
+def test_modules_and_readers_run_without_pil_cv2_or_jax(tmp_path):
+    """In a process where importing PIL, cv2, jax, flax or dsf_tpu fails
+    (the card's machine has none of them), every dsf_tpu_torch module
+    imports and the depth readers read a 16-bit PNG and an MSRA frame."""
+    import subprocess
+    import sys
+    code = f"""
+import importlib, pkgutil, sys
+import numpy as np
+BLOCK = {FORBIDDEN!r}
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCK:
+            raise ImportError("blocked: " + name)
+sys.meta_path.insert(0, Block())
+import dsf_tpu_torch
+for m in pkgutil.walk_packages(dsf_tpu_torch.__path__, "dsf_tpu_torch."):
+    if not m.name.endswith("__main__"):
+        importlib.import_module(m.name)
+from dsf_tpu_torch.data import readers
+from dsf_tpu_torch.tools.prerender import write_png16
+img = np.arange(12, dtype=np.uint16).reshape(3, 4) * 999
+write_png16({str(tmp_path / "d.png")!r}, img)
+assert (readers.icvl_reader({str(tmp_path / "d.png")!r}) == img).all()
+readers.write_msra_bin({str(tmp_path / "f.bin")!r}, img.astype(np.float32))
+assert (readers.msra_reader({str(tmp_path / "f.bin")!r},
+                            (241.42, 241.42, 160.0, 120.0))[0] == img).all()
+assert not [m for m in sys.modules if m.split(".")[0] in BLOCK]
+"""
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=os.path.dirname(PKG), timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+
+
 @pytest.mark.parametrize("script", ["chip_smoke.py",
+                                    "tests/torch_fake_sets.py",
+                                    "scripts/datasets_cli_gpu.py",
                                     "scripts/raster_shapes_gpu.py",
                                     "scripts/argmin_shapes_gpu.py",
                                     "scripts/tail_shapes_gpu.py",
@@ -94,10 +130,11 @@ def test_default_device_is_cuda_and_raises_without_it(tmp_path, monkeypatch):
 
 
 def test_loop_entry_points_raise_without_cuda(tmp_path, monkeypatch):
-    """The trainer's loop, its command line and the fake NYU set run on the
-    card by default and raise without one before they write anything;
-    datasets and subcommands that are not ported raise NotImplementedError
-    naming the ROADMAP item."""
+    """The trainer's loop (on every dataset), its command line and the
+    fake NYU set run on the card by default and raise without one before
+    they write anything; an unknown dataset raises ValueError, and
+    subcommands that are not ported raise NotImplementedError naming the
+    ROADMAP item."""
     from dsf_tpu_torch.data.fake import make_fake_nyu
     from dsf_tpu_torch.training import __main__ as cli
     from dsf_tpu_torch.training.loop import run
@@ -110,9 +147,12 @@ def test_loop_entry_points_raise_without_cuda(tmp_path, monkeypatch):
                   str(tmp_path), "--batch_size", "4"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make_fake_nyu(str(tmp_path / "fake"), str(tmp_path / "none.npz"))
+    for dataset in ("icvl", "msra", "shrec"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            run(cfg.replace(dataset=dataset))
     assert sorted(os.listdir(tmp_path)) == []
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 4"):
-        run(cfg.replace(dataset="icvl"), device="cpu")
+    with pytest.raises(ValueError, match="dataset 'hands'"):
+        run(cfg.replace(dataset="hands"), device="cpu")
     for sub in ("ccssl", "cyclegan"):
         with pytest.raises(NotImplementedError, match="Queue 1, item 10"):
             cli.main([sub])

@@ -12,7 +12,7 @@ import torch
 
 from dsf_tpu.config import Config as JConfig
 from dsf_tpu.training import trainer as JT
-from dsf_tpu_torch.config import Config
+from dsf_tpu_torch.config import CAMERA, Config
 from dsf_tpu_torch.training import trainer as TT
 
 torch.set_num_threads(2)
@@ -171,28 +171,30 @@ def test_guarded_optimizer_state_round_trip():
 
 def test_trainer_phases_other_than_pretrain_raise(tmp_path):
     """Pretrain, Finetune (one stage) and FinetuneStage (two stages) are
-    ported, the last two on the NYU camera at their own stage count, and
-    so is the CycleGAN transfer net; other phases, the self-supervised
-    steps off the NYU camera or at the other stage count, compute dtypes
-    other than float32 and bfloat16, and optimizers other than AdamW,
-    Adam and SGD raise."""
+    ported, the last two on every dataset's camera at their own stage
+    count, and so is the CycleGAN transfer net; other phases, the
+    self-supervised steps at the other stage count, compute dtypes other
+    than float32 and bfloat16, and optimizers other than AdamW, Adam and
+    SGD raise."""
     from dsf_tpu_torch.mano import synthetic
     path = str(tmp_path / "syn.npz")
     synthetic.save_synthetic_mano(path)
     tr = TT.Trainer(Config(input_size=64), path, device="cpu")
     assert callable(tr.train_step_fn("Pretrain"))
     assert callable(tr.train_step_fn("FinetuneStage"))
-    with pytest.raises(NotImplementedError, match="1-stage NYU"):
+    with pytest.raises(ValueError, match="1-stage step"):
         tr.train_step_fn("Finetune")
     one = TT.Trainer(Config(input_size=64, stage_num=1), path, device="cpu")
     assert callable(one.train_step_fn("Finetune"))
-    with pytest.raises(NotImplementedError, match="2-stage NYU"):
+    with pytest.raises(ValueError, match="2-stage step"):
         one.train_step_fn("FinetuneStage")
     with pytest.raises(NotImplementedError, match="Pretrain, Finetune"):
         tr.train_step_fn("CycleGAN")
-    with pytest.raises(NotImplementedError, match="NYU"):
-        TT.Trainer(Config(dataset="icvl", input_size=64), path,
-                   device="cpu").train_step_fn("FinetuneStage")
+    for dataset in ("icvl", "msra", "shrec"):
+        other = TT.Trainer(Config(dataset=dataset, input_size=64), path,
+                           device="cpu")
+        assert callable(other.train_step_fn("FinetuneStage"))
+        assert other.renderer.paras == CAMERA[dataset][0]
     assert TT.Trainer(Config(input_size=64, transferNet_pth=str(
         tmp_path / "missing.pth")), path, device="cpu").transfer_net is not None
     assert tr.transfer_net is None
