@@ -167,7 +167,25 @@ Phases, each printed on its own line(s); any failure exits non-zero:
    against the CPU, finite (stage 1 within 1e-2 mm, stage 2 within
    0.5 mm); ``export_skeletons``
    over the SHREC set on the card: (40, 63) finite rows within 0.5 mm of
-   the CPU's.
+   the CPU's;
+8. cyclegan: the CycleGAN trainer's pipeline (``python -m
+   dsf_tpu_torch.training cyclegan``'s ``pipelines.run_cyclegan``) at full
+   width (two ResnetGenerators, ngf 64, 9 blocks, two PatchGAN
+   discriminators, 128^2, B=32, float32 without TF32) for 6 steps on
+   phase 6's fake NYU set, synth crops rendered from random MANO
+   parameters: each step's launch deltas (K1 x1 for the synth batch, K9
+   x6, the six generator passes' heads, trained through the plain
+   version's backward), finite metrics, the median step time of the last
+   5 (host clock to a synchronized g_loss) and images/s (B synth + B real
+   a step), the peak memory; the exported ``transfer_G_A.npz`` read by
+   ``load_transfer_net`` (bitwise G_A) and one FinetuneStage step of the
+   trainer with it as the transfer net (phase 4's launches); then one
+   CycleGAN step at full width, B=2, card against CPU and the CPU in
+   float64 from the same seeded weights and inputs: g_loss and d_loss
+   within 1e-4 relative, both fakes within 1e-3 max abs, each net's
+   gradients within CYCLEGAN_GRAD_TOL of float64 and the card's median
+   within 6x the CPU's, the biases before an instance norm (zero
+   gradients) within 1e-4 of their weight's gradient.
 
 The last two lines are the kernels' JSON record and the device JSON.
 Without CUDA, or outside the repository, it exits non-zero and prints
@@ -3158,9 +3176,10 @@ def loop_config(mano_path, root, save_dir, **kw):
     return Config(**dict(base, **kw))
 
 
-def run_loop(mano_path, smi):
+def run_loop(mano_path, smi, root):
     """Phase 6: the trainer's own entry point.  A fake NYU set built on
-    the card (K6), ``loop.run`` on it at full width (one epoch: 8
+    the card (K6) under ``root`` (phase 8 trains on it too), ``loop.run``
+    on it at full width (one epoch: 8
     FinetuneStage steps fed by the loader, the per-epoch test, latest and
     best, the 3-view evaluation and exports), a resume from its run
     directory, its checkpoint evaluated on the card against the CPU, the
@@ -3184,7 +3203,6 @@ def run_loop(mano_path, smi):
 
     counts = {}
     with tempfile.TemporaryDirectory() as tmp:
-        root = os.path.join(tmp, "data")
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
@@ -3629,6 +3647,266 @@ def run_datasets(mano_path, smi):
     return counts
 
 
+# ----------------------------------------------------------------- phase 8
+
+CYCLEGAN_STEPS = 6
+CYCLEGAN_COMPARE_BATCH = 2
+# one step of the CycleGAN pipeline: K1 renders the synth batch, K9 is the
+# head of each of the six generator passes (fake, reconstruction and
+# identity of both generators; its backward is the plain version's)
+CYCLEGAN_STEP_LAUNCHES = launches(raster_skip=1, tail_conv=6)
+CYCLEGAN_NETS = ("G_A", "G_B", "D_A", "D_B")
+# the generators' float32 gradients at full width lie ~0.6% from float64
+# (relative L2, on the CPU at 64^2; the cycle term through both
+# generators: the port's CPU 2.2e-3 and the JAX package's 3.9e-3 on one
+# tensor), where the narrow test nets lie 3e-6
+CYCLEGAN_GRAD_TOL = 0.05
+# ... and there the card's float32 lies further from float64 than the
+# CPU's: a generator's median 3.33x the CPU's in the first full-width run
+# (0.0049 against 0.00147; the JAX package's CPU float32 lies 1.76x the
+# port's CPU on one tensor at 64^2), so the nets are held at twice phase
+# 5's median ratio
+CYCLEGAN_MEDIAN_RATIO = 2 * MEDIAN_RATIO
+
+
+@contextlib.contextmanager
+def watched_cyclegan(rec):
+    """``pipelines.run_cyclegan`` with each step's launch deltas (since
+    the previous step's end: the synth render, the real batch, the step),
+    its host time to a synchronized ``g_loss`` and its metrics in
+    ``rec``."""
+    from dsf_tpu_torch import kernels
+    from dsf_tpu_torch.training import cyclegan_trainer as CT
+    orig = CT.CycleGANTrainer.train_step_fn
+    for k in ("steps", "ms", "metrics"):
+        rec.setdefault(k, [])
+    last = [dict(kernels.LAUNCHES)]
+
+    def train_step_fn(self):
+        step = orig(self)
+
+        def watched(state, synth, real):
+            t0 = time.perf_counter()
+            state, metrics = step(state, synth, real)
+            float(metrics["g_loss"])
+            rec["ms"].append((time.perf_counter() - t0) * 1e3)
+            now = dict(kernels.LAUNCHES)
+            rec["steps"].append({k: now[k] - last[0][k] for k in now})
+            last[0] = now
+            rec["metrics"].append({k: float(v) for k, v in metrics.items()})
+            return state, metrics
+        return watched
+
+    CT.CycleGANTrainer.train_step_fn = train_step_fn
+    try:
+        yield rec
+    finally:
+        CT.CycleGANTrainer.train_step_fn = orig
+
+
+def cyclegan_losses_and_grads(gan, state, synth, real, fakes=None):
+    """One CycleGAN step's losses, both fakes and every net's gradients
+    (float64, on the CPU), from ``state`` on ``synth`` and ``real``; the
+    discriminators' on ``fakes`` (fake_real, fake_synth) when given, else
+    on the step's own."""
+    import torch
+    g_loss, aux = gan._g_loss(state, synth, real)
+    g = torch.autograd.grad(g_loss, state.generators())
+    if fakes is None:
+        fakes = aux["fake_real"], aux["fake_synth"]
+    d_loss = gan._d_loss(state, synth, real, *fakes)
+    d = torch.autograd.grad(d_loss, state.discriminators())
+    names = [f"{k}.{n}" for k in CYCLEGAN_NETS
+             for n, _ in getattr(state, k).named_parameters()]
+    out = {"g_loss": float(g_loss), "d_loss": float(d_loss),
+           "fake_real": aux["fake_real"].detach().double().cpu(),
+           "fake_synth": aux["fake_synth"].detach().double().cpu()}
+    return out, dict(zip(names, (t.detach().double().cpu() for t in (*g, *d))))
+
+
+def compare_cyclegan_step(mano_path, root):
+    """One CycleGAN step at full width (ngf 64, 9 blocks, PatchGAN ndf 64)
+    at B=2, 128^2, on the card and on the CPU (the plain tail conv) from
+    the same seeded weights and inputs (a synth render, a real crop of the
+    fake NYU set), and on the CPU in float64 (the discriminators' loss and
+    gradients on float64's fakes on every device): g_loss and d_loss within
+    1e-4 relative, both fakes within 1e-3 max abs (cuDNN may pick other
+    algorithms); each net's gradients against float64: every tensor within
+    CYCLEGAN_GRAD_TOL relative L2, the card's median over the net within
+    CYCLEGAN_MEDIAN_RATIO x the CPU's.  The bias of a conv feeding an
+    instance norm has a zero
+    gradient (float64's within 1e-9 of its weight's): both devices' within
+    1e-4 of the weight gradient's norm (2.2e-6 on the CPU at 64^2)."""
+    import torch
+    from dsf_tpu_torch import demo
+    from dsf_tpu_torch.data import datasets as D
+    from dsf_tpu_torch.data.synth_params import random_param_source
+    from dsf_tpu_torch.mano import model as mano
+    from dsf_tpu_torch.render import renderer as rnd
+    from dsf_tpu_torch.training.cyclegan_trainer import CycleGANTrainer
+    from dsf_tpu_torch.training.pipelines import synth_batch
+
+    Bc = CYCLEGAN_COMPARE_BATCH
+    r = rnd.Renderer.create(mano.load_model(mano_path, device="cuda"), "nyu",
+                            demo.PARAS, (640, 480), (INPUT_SIZE, INPUT_SIZE))
+    para, cube = next(random_param_source(Bc, seed=SEED + 81))
+    synth = synth_batch(r, torch.Generator().manual_seed(SEED + 82), para,
+                        cube).cpu()
+    ds = D.NYUDataset(os.path.join(root, "nyu"), "train",
+                      img_size=INPUT_SIZE)
+    real = torch.from_numpy(next(ds.batches(Bc, shuffle=True,
+                                            seed=SEED + 83))["img"])
+    ds.close()
+    runs = {}
+    for label, dev, dt in (("cpu64", "cpu", torch.float64),
+                           ("card", "cuda", torch.float32),
+                           ("cpu", "cpu", torch.float32)):
+        gan = CycleGANTrainer(device=dev)
+        state = gan.init_state(torch.Generator().manual_seed(SEED + 80))
+        for k in CYCLEGAN_NETS:
+            getattr(state, k).to(dt)
+        # the discriminators' inputs: float64's fakes, so that their
+        # gradients measure their own arithmetic (each device's fakes lie
+        # 1e-5 apart, and D's gradients follow their leaky ReLUs' kinks)
+        fakes = None if dt == torch.float64 else tuple(
+            runs["cpu64"][0][k].to(dev, dt) for k in ("fake_real",
+                                                      "fake_synth"))
+        runs[label] = cyclegan_losses_and_grads(
+            gan, state, synth.to(dev, dt), real.to(dev, dt), fakes)
+    (card, g_card), (cpu, g_cpu), (c64, g_64) = (runs[k] for k in
+                                                  ("card", "cpu", "cpu64"))
+    for k in ("g_loss", "d_loss"):
+        say(f"cyclegan compare B={Bc} {INPUT_SIZE}^2 {k}: card {card[k]:.7g} "
+            f"CPU {cpu[k]:.7g} CPU float64 {c64[k]:.10g}")
+        need(np.isfinite(card[k]) and abs(card[k] - cpu[k]) <= 1e-4 * abs(
+            cpu[k]), f"cyclegan {k}: card {card[k]} against CPU {cpu[k]}")
+    for k in ("fake_real", "fake_synth"):
+        d = float((card[k] - cpu[k]).abs().max())
+        say(f"cyclegan compare {k}: card vs CPU max abs {d:.3g}, CPU vs "
+            f"float64 {float((cpu[k] - c64[k]).abs().max()):.3g}")
+        need(d <= 1e-3, f"cyclegan {k}: card vs CPU max abs {d}")
+    rel = lambda a, b: float((a - b).norm() / (b.norm() + 1e-300))
+    for net in CYCLEGAN_NETS:
+        names = [n for n in g_64 if n.startswith(net + ".")]
+        noise = [n for n in names if n.endswith(".bias") and float(
+            g_64[n].norm()) <= 1e-9 * float(
+                g_64[n[:-len("bias")] + "weight"].norm())]
+        worst = 0.0
+        for n in noise:
+            scale = float(g_64[n[:-len("bias")] + "weight"].norm())
+            worst = max(worst, float(g_card[n].norm()) / scale,
+                        float(g_cpu[n].norm()) / scale)
+        need(worst <= 1e-4, f"cyclegan {net}: a bias before an instance "
+             f"norm has a gradient {worst:.3g} of its weight's")
+        card_64 = {n: rel(g_card[n], g_64[n]) for n in names
+                   if n not in noise}
+        cpu_64 = {n: rel(g_cpu[n], g_64[n]) for n in names if n not in noise}
+        card_cpu = {n: rel(g_card[n], g_cpu[n]) for n in card_64}
+        med = (float(np.median(list(card_64.values()))),
+               float(np.median(list(cpu_64.values()))))
+        say(f"cyclegan compare {net} gradients ({len(card_64)} tensors, "
+            f"{len(noise)} biases before an instance norm at "
+            f"{worst:.3g} of their weight's): relative L2 card vs CPU max "
+            f"{max(card_cpu.values()):.3g}; card vs float64 median "
+            f"{med[0]:.3g}, max {max(card_64.values()):.3g} "
+            f"({max(card_64, key=card_64.get)}); CPU vs float64 median "
+            f"{med[1]:.3g}, max {max(cpu_64.values()):.3g}")
+        bad = {n: v for n, v in card_64.items() if v > CYCLEGAN_GRAD_TOL}
+        need(not bad, f"cyclegan {net} card gradients differ from float64: "
+             f"{bad}")
+        need(med[0] <= CYCLEGAN_MEDIAN_RATIO * med[1], f"cyclegan {net} card "
+             f"gradients lie {med[0] / med[1]:.3g} times further from "
+             "float64 than the CPU's, in the median")
+
+
+def run_cyclegan_phase(mano_path, smi, root):
+    """Phase 8: ``pipelines.run_cyclegan`` at full width on phase 6's fake
+    NYU set (B=32, 128^2, CYCLEGAN_STEPS steps): each step's launch deltas
+    (K1 x1, K9 x6), finite metrics, the median step time of the last 5
+    and the peak memory; the export read back by ``load_transfer_net``
+    (bitwise G_A) and one FinetuneStage step of the port's trainer with it
+    (phase 4's launches, K9 among them); then ``compare_cyclegan_step``.
+    Returns the launch counts of the pipeline and of that step."""
+    import torch
+    from dsf_tpu_torch import demo, kernels
+    from dsf_tpu_torch.config import Config
+    from dsf_tpu_torch.data.synth_params import random_param_source
+    from dsf_tpu_torch.training import pipelines
+    from dsf_tpu_torch.training.trainer import Trainer, load_transfer_net
+
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = Config(dataset="nyu", batch_size=TRAIN_BATCH,
+                     input_size=INPUT_SIZE, root_dir=root, seed=SEED,
+                     mano_model_path=mano_path,
+                     save_dir=os.path.join(tmp, "ckpt"))
+        rec = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        with watched_cyclegan(rec):
+            t0 = time.perf_counter()
+            out, state = pipelines.run_cyclegan(cfg, steps=CYCLEGAN_STEPS)
+            secs = time.perf_counter() - t0
+        counts["cyclegan"] = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        need(len(rec["steps"]) == CYCLEGAN_STEPS and state.step ==
+             CYCLEGAN_STEPS, f"run_cyclegan ran {len(rec['steps'])} steps")
+        for i, d in enumerate(rec["steps"]):
+            need(d == CYCLEGAN_STEP_LAUNCHES, f"cyclegan step {i} did not "
+                 f"launch every kernel of the path as expected: {d} != "
+                 f"{CYCLEGAN_STEP_LAUNCHES}")
+        bad = [(i, k) for i, m in enumerate(rec["metrics"])
+               for k, v in m.items() if not np.isfinite(v)]
+        need(not bad, f"cyclegan steps with non-finite metrics: {bad}")
+        med = float(np.median(rec["ms"][-5:]))
+        say(f"cyclegan launches over {CYCLEGAN_STEPS} steps (B={TRAIN_BATCH} "
+            f"synth + {TRAIN_BATCH} real, {INPUT_SIZE}^2, ngf 64, 9 blocks, "
+            f"float32): {json.dumps(counts['cyclegan'])}")
+        say("cyclegan losses (g_loss, d_loss): " + json.dumps(
+            [[float(f"{m['g_loss']:.6g}"), float(f"{m['d_loss']:.6g}")]
+             for m in rec["metrics"]]) + "; first step " + json.dumps(
+            {k: float(f"{v:.5g}") for k, v in rec["metrics"][0].items()}))
+        say(f"cyclegan step ms (host clock, to a synchronized g_loss): "
+            + json.dumps([round(t, 3) for t in rec["ms"]])
+            + f"; median of the last 5 {med:.3f} ms, "
+            f"{2 * TRAIN_BATCH * 1e3 / med:.1f} images/s (B synth + B real "
+            f"a step); the run with its set-up and export {secs:.3f} s; "
+            f"{smi}")
+        say(f"cyclegan peak device memory {peak:.1f} MiB")
+
+        # the export as the training steps' transfer net
+        gen = load_transfer_net(out, "cuda")
+        same = all(torch.equal(a, b) for a, b in zip(
+            state.G_A.state_dict().values(), gen.state_dict().values()))
+        need(same, "the exported transfer_G_A.npz is not G_A bitwise")
+        tr = Trainer(Config(dataset="nyu", batch_size=TRAIN_BATCH,
+                            input_size=INPUT_SIZE, seed=SEED,
+                            mano_model_path=mano_path, transferNet_pth=out),
+                     mano_path, device="cuda")
+        fs = tr.train_step_fn("FinetuneStage")
+        para, cube = next(random_param_source(TRAIN_BATCH, seed=SEED + 84))
+        batch = dict(demo.real_batch(tr.renderer, TRAIN_BATCH,
+                                     np.random.RandomState(SEED + 85)),
+                     model_para=para, cube_synth=cube)
+        st = tr.init_state()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        st, m = fs(st, tr.draw(TRAIN_BATCH, "FinetuneStage"), batch)
+        loss = float(m["loss"])
+        counts["cyclegan_finetune"] = dict(kernels.LAUNCHES)
+        need(counts["cyclegan_finetune"] == FS_STEP_LAUNCHES,
+             f"the FinetuneStage step with the exported generator: "
+             f"{counts['cyclegan_finetune']} != {FS_STEP_LAUNCHES}")
+        need(np.isfinite(loss), f"the FinetuneStage step with the exported "
+             f"generator: loss {loss}")
+        say(f"cyclegan export {os.path.basename(out)} read by "
+            f"load_transfer_net (G_A bitwise); one FinetuneStage step with "
+            f"it as the transfer net: loss {loss:.6g}, launches "
+            f"{json.dumps(counts['cyclegan_finetune'])}")
+    compare_cyclegan_step(mano_path, root)
+    return counts
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3707,8 +3985,10 @@ def main():
         compare_finetune_stage(path, "icvl")
         compare_finetune(path)
         compare_m2p(path)
-        by_path.update(run_loop(path, smi))
+        fake_nyu = os.path.join(tmp, "fake_nyu")
+        by_path.update(run_loop(path, smi, fake_nyu))
         by_path.update(run_datasets(path, smi))
+        by_path.update(run_cyclegan_phase(path, smi, fake_nyu))
     need(sorted(r["name"] for r in record) == sorted(KERNELS),
          "the kernels' record does not list every kernel once")
     for rec in record:

@@ -1,8 +1,10 @@
 """Configuration: a copy of dsf_tpu/config.py (the reference Config's
 field surface as a frozen dataclass) with the per-dataset ``CAMERA`` table
 moved in from dsf_tpu/training/trainer.py, so the port imports nothing of
-dsf_tpu.  Fields that only the JAX package reads (num_devices, n_fsdp,
-cache_depths) are kept so one config describes both packages.
+dsf_tpu.  ``num_devices`` and ``n_fsdp`` are kept so one config describes
+both packages: the port runs on one card, and its loop, trainer and
+engine raise for more (``check_one_device``).  ``cache_depths`` is read by
+the loop (``training/loop.py``: the loader's decode-once depth cache).
 """
 
 from __future__ import annotations
@@ -85,8 +87,9 @@ class Config:
     feature_type: Tuple[str, ...] = ("offset",)
     feature_para: Tuple[float, ...] = (0.8,)
 
-    # accelerator knobs (the port reads compute_dtype: the net's and the
-    # generator's type, float32 or bfloat16; device.compute_dtype)
+    # accelerator knobs (compute_dtype: the net's and the generator's type,
+    # float32 or bfloat16, device.compute_dtype; num_devices and n_fsdp
+    # above 1 raise, check_one_device)
     num_devices: int = 1
     n_fsdp: int = 1
     compute_dtype: str = "float32"        # 'float32' | 'bfloat16'
@@ -126,3 +129,15 @@ class Config:
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
+
+
+def check_one_device(cfg: Config) -> None:
+    """Raise ValueError when ``cfg`` asks for more than one device
+    (``num_devices`` or ``n_fsdp`` above 1): the port runs on one card,
+    and multi-GPU training and serving are not ported yet (ROADMAP
+    Queue 1, item 3)."""
+    for name in ("num_devices", "n_fsdp"):
+        if getattr(cfg, name) > 1:
+            raise ValueError(
+                f"{name}={getattr(cfg, name)}: the port runs on one device; "
+                "multi-GPU is not ported yet (ROADMAP Queue 1, item 3)")

@@ -11,14 +11,17 @@ port (counterpart of dsf_tpu/models/torch_import.py).
           running_mean / running_var
 
 ``generator_state_dict_from_jax`` is the inverse of
-``convert_cyclegan_generator`` for the frozen CycleGAN generator, with the
-same conv and deconv rules.
+``convert_cyclegan_generator`` for the CycleGAN generator, with the same
+conv and deconv rules, and ``discriminator_state_dict_from_jax`` carries
+the PatchGAN discriminator; ``*_to_jax`` are their exact inverses (the
+CycleGAN trainer's export), and ``convs_from_jax`` / ``convs_to_jax``
+with the ``*_convs`` tables carry every CycleGAN net.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -187,30 +190,112 @@ def _generator_blocks(params: Mapping) -> int:
     return sum(1 for k in params if k.startswith("res"))
 
 
+# Each CycleGAN net's convolutions as (path in the JAX package's params
+# tree, the port's module name): the tree holds ``kernel`` (HWIO, or a
+# transposed conv's (kh, kw, out, in)) and ``bias`` at the path, the port
+# ``.weight`` and ``.bias`` under the name.
+
+def encoder_convs(n_blocks: int) -> List[Tuple[str, str]]:
+    """``ResnetEncoder``'s (and the generator's first half's) convs."""
+    convs = [("stem/conv", "model.1"), ("down0/conv", "model.4"),
+             ("down1/conv", "model.7")]
+    for i in range(n_blocks):
+        convs += [(f"res{i}/c1/conv", f"model.{10 + i}.conv_block.1"),
+                  (f"res{i}/c2/conv", f"model.{10 + i}.conv_block.5")]
+    return convs
+
+
+def decoder_convs(first: int = 0) -> List[Tuple[str, str]]:
+    """``ResnetDecoder``'s convs, its Sequential starting at ``first``
+    (10 + n_blocks inside the generator)."""
+    return [("up0/deconv", f"model.{first}"),
+            ("up1/deconv", f"model.{first + 3}"),
+            ("head/conv", f"model.{first + 7}")]
+
+
+def generator_convs(n_blocks: int) -> List[Tuple[str, str]]:
+    """``ResnetGenerator``'s convs (the reference's pix2pix names)."""
+    return encoder_convs(n_blocks) + decoder_convs(10 + n_blocks)
+
+
+def discriminator_convs(n_layers: int = 3) -> List[Tuple[str, str]]:
+    """``NLayerDiscriminator``'s convs (pix2pix's indices)."""
+    return ([("c0/conv", "model.0")]
+            + [(f"c{i}/conv", f"model.{3 * i - 1}")
+               for i in range(1, n_layers + 1)]
+            + [("head/conv", f"model.{3 * n_layers + 2}")])
+
+
+def pixel_discriminator_convs() -> List[Tuple[str, str]]:
+    """``PixelDiscriminator``'s convs."""
+    return [("c0/conv", "net.0"), ("c1/conv", "net.2"), ("head/conv", "net.5")]
+
+
+def unet_convs(num_downs: int) -> List[Tuple[str, str]]:
+    """``UnetGenerator``'s convs."""
+    return ([(f"down{i}", f"downs.{i}") for i in range(num_downs)]
+            + [(f"up{i}/deconv", f"ups.{i}") for i in range(num_downs - 1)]
+            + [("head/deconv", "head")])
+
+
+def convs_from_jax(variables: Mapping, convs) -> Dict[str, torch.Tensor]:
+    """A JAX ``{"params": ...}`` tree (numpy or jax arrays) -> the port's
+    state dict over ``convs``; kernels .transpose(3, 2, 0, 1)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for path, name in convs:
+        p = variables["params"]
+        for part in path.split("/"):
+            p = p[part]
+        sd[f"{name}.weight"] = _kernel(p["kernel"])
+        sd[f"{name}.bias"] = _t(p["bias"])
+    return sd
+
+
+def convs_to_jax(sd: Mapping, convs) -> Dict:
+    """The exact inverse of ``convs_from_jax``: the port's state dict (or
+    a module's) -> ``{"params": ...}`` of float32 numpy arrays, kernels
+    .transpose(2, 3, 1, 0)."""
+    params: Dict = {}
+    for path, name in convs:
+        node = params
+        for part in path.split("/"):
+            node = node.setdefault(part, {})
+        w = torch.as_tensor(sd[f"{name}.weight"]).detach().cpu()
+        node["kernel"] = w.numpy().astype(np.float32).transpose(2, 3, 1, 0)
+        node["bias"] = np.array(torch.as_tensor(sd[f"{name}.bias"]).detach()
+                                .cpu().numpy(), np.float32)
+    return {"params": params}
+
+
 def generator_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     """The JAX package's ``ResnetGenerator`` tree ``{"params": {stem,
     down0, down1, res{i}/{c1, c2}, up0, up1, head}}`` (numpy or jax
     arrays) -> the port's ``ResnetGenerator`` state dict, the reference's
     pix2pix names (the inverse of the JAX package's
     ``torch_import.convert_cyclegan_generator``)."""
-    P = variables["params"]
-    n = _generator_blocks(P)
-    sd: Dict[str, torch.Tensor] = {}
+    return convs_from_jax(
+        variables, generator_convs(_generator_blocks(variables["params"])))
 
-    def put(dst, p):
-        sd[f"{dst}.weight"] = _kernel(p["kernel"])
-        sd[f"{dst}.bias"] = _t(p["bias"])
 
-    put("model.1", P["stem"]["conv"])
-    put("model.4", P["down0"]["conv"])
-    put("model.7", P["down1"]["conv"])
-    for i in range(n):
-        for j, c in ((1, "c1"), (5, "c2")):
-            put(f"model.{10 + i}.conv_block.{j}", P[f"res{i}"][c]["conv"])
-    put(f"model.{10 + n}", P["up0"]["deconv"])
-    put(f"model.{13 + n}", P["up1"]["deconv"])
-    put(f"model.{17 + n}", P["head"]["conv"])
-    return sd
+def generator_state_dict_to_jax(sd: Mapping) -> Dict:
+    """The exact inverse of ``generator_state_dict_from_jax``: the port's
+    generator state dict -> the JAX tree ``{"params": ...}`` (numpy)."""
+    n = sum(1 for k in sd if k.endswith("conv_block.1.weight"))
+    return convs_to_jax(sd, generator_convs(n))
+
+
+def discriminator_state_dict_from_jax(variables: Mapping
+                                      ) -> Dict[str, torch.Tensor]:
+    """The JAX package's ``NLayerDiscriminator`` tree ``{"params": {c0 ..
+    c{n_layers}, head}}`` -> the port's state dict (pix2pix's names)."""
+    n_layers = sum(1 for k in variables["params"] if k.startswith("c")) - 1
+    return convs_from_jax(variables, discriminator_convs(n_layers))
+
+
+def discriminator_state_dict_to_jax(sd: Mapping) -> Dict:
+    """The exact inverse of ``discriminator_state_dict_from_jax``."""
+    n_layers = sum(1 for k in sd if k.endswith(".weight")) - 2
+    return convs_to_jax(sd, discriminator_convs(n_layers))
 
 
 def load_reference_generator(path_or_dir: str) -> Dict[str, torch.Tensor]:
@@ -227,11 +312,10 @@ def load_reference_generator(path_or_dir: str) -> Dict[str, torch.Tensor]:
                                "num_batches_tracked"))}
 
 
-def load_generator_npz(path: str) -> Dict[str, torch.Tensor]:
-    """A generator exported by the JAX package's CycleGAN pipeline
-    (``transfer_G_A.npz``: each leaf of the variables tree under its
-    "/"-joined path, as ``pipelines.save_variables_npz`` writes it) -> the
-    port's state dict."""
+def load_variables_npz(path: str) -> Dict:
+    """A variables tree saved as an npz of its leaves under their
+    "/"-joined paths (``pipelines.save_variables_npz``, and the JAX
+    package's) -> the nested dict of numpy arrays."""
     tree: Dict = {}
     with np.load(path) as raw:
         for key in raw.files:
@@ -240,7 +324,14 @@ def load_generator_npz(path: str) -> Dict[str, torch.Tensor]:
             for p in parts[:-1]:
                 node = node.setdefault(p, {})
             node[parts[-1]] = raw[key]
-    return generator_state_dict_from_jax(tree)
+    return tree
+
+
+def load_generator_npz(path: str) -> Dict[str, torch.Tensor]:
+    """A generator exported by a CycleGAN pipeline, the port's or the JAX
+    package's (``transfer_G_A.npz``, ``load_variables_npz``'s layout) ->
+    the port's state dict."""
+    return generator_state_dict_from_jax(load_variables_npz(path))
 
 
 def _truncated_normal(rng: np.random.RandomState, shape, std):
@@ -282,4 +373,22 @@ def random_generator_state_dict(rng: np.random.RandomState, ngf: int = 64,
     deconv(f"model.{10 + n_blocks}", 4 * ngf, 2 * ngf)
     deconv(f"model.{13 + n_blocks}", 2 * ngf, ngf)
     conv(f"model.{17 + n_blocks}", 1, ngf, 7)
+    return sd
+
+
+def random_discriminator_state_dict(rng: np.random.RandomState, ndf: int = 64,
+                                    n_layers: int = 3, input_nc: int = 1
+                                    ) -> Dict[str, np.ndarray]:
+    """A ``NLayerDiscriminator`` state dict drawn with numpy from the JAX
+    discriminator's init, Flax ``nn.Conv``'s default: lecun-normal
+    (truncated) 4x4 kernels, zero biases; in the order c0, c1 ..,
+    head."""
+    sd: Dict[str, np.ndarray] = {}
+    chans = [input_nc, ndf] + [ndf * min(2 ** i, 8)
+                               for i in range(1, n_layers + 1)] + [1]
+    for (_, name), c_in, c_out in zip(discriminator_convs(n_layers),
+                                      chans[:-1], chans[1:]):
+        sd[f"{name}.weight"] = _truncated_normal(
+            rng, (c_out, c_in, 4, 4), np.sqrt(1.0 / (c_in * 16)))
+        sd[f"{name}.bias"] = np.zeros(c_out, np.float32)
     return sd

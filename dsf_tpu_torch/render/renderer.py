@@ -80,11 +80,13 @@ def synth_sample(r: Renderer, model_para, cube, depth_z, augment_view,
     ``depth_z`` (B, 1) drawn in the renderer's depth range.  The draws:
     ``augment_view`` (B, 3) rotation about that point, ``augment_shape``
     (B, 10) added to the MANO shape, ``augment_center`` (B, 3) mm added to
-    the crop centre, ``augment_size`` (B, 1) scaling the cube; ``mask`` the
+    the crop centre, ``augment_size`` (B, 1) scaling the cube, each None
+    to leave that step out (the JAX factory's None); ``mask`` the
     sphere-occlusion draws, or None for no occlusion.  Returns (img,
     joint_uvd, verts_uvd, joint_xyz, verts_xyz, center3d, cube, M)."""
     rot, theta, beta, cam = mano.split_params(model_para)
-    beta = beta + augment_shape
+    if augment_shape is not None:
+        beta = beta + augment_shape
 
     verts, joints = mano.get_mano_vertices(r.mano, rot, theta, beta, cam)
     synth_center = joints.mean(dim=1, keepdim=True)
@@ -96,10 +98,13 @@ def synth_sample(r: Renderer, model_para, cube, depth_z, augment_view,
     verts = verts + center3d[:, None]
     joints = joints + center3d[:, None]
 
-    verts = geo.rotate_points_about(verts, center3d, augment_view)
-    joints = geo.rotate_points_about(joints, center3d, augment_view)
-    center3d = center3d + augment_center
-    cube = cube * augment_size
+    if augment_view is not None:
+        verts = geo.rotate_points_about(verts, center3d, augment_view)
+        joints = geo.rotate_points_about(joints, center3d, augment_view)
+    if augment_center is not None:
+        center3d = center3d + augment_center
+    if augment_size is not None:
+        cube = cube * augment_size
 
     com_uvd = geo.xyz_to_uvd(center3d[:, None], r.paras, r.flip)[:, 0]
     M = geo.crop_matrix(com_uvd, cube, r.paras, r.crop_size)

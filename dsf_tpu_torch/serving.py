@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from dsf_tpu_torch import geometry as geo
-from dsf_tpu_torch.config import CAMERA, Config
+from dsf_tpu_torch.config import CAMERA, Config, check_one_device
 from dsf_tpu_torch.device import (compute_dtype, exact_float32,
                                   resolve_device, widen)
 from dsf_tpu_torch.mano import model as mano_model
@@ -87,7 +87,8 @@ class InferenceEngine:
       mano_npz: the converted MANO asset (default ``cfg.mano_model_path``).
       buckets: allowed batch sizes, ascending; larger requests are chunked.
       device: ``cuda`` when None; raises if CUDA is missing.  ``"cpu"``
-        runs the plain versions of the kernels.
+        runs the plain versions of the kernels.  ``cfg.num_devices`` and
+        ``cfg.n_fsdp`` above 1 raise (``config.check_one_device``).
     """
 
     def __init__(self, cfg: Config, variables: Mapping,
@@ -95,6 +96,7 @@ class InferenceEngine:
                  buckets: Sequence[int] = (1, 8, 32), device=None):
         if "ResNet" not in cfg.net:
             raise NotImplementedError(cfg.net)
+        check_one_device(cfg)
         dtype = compute_dtype(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg

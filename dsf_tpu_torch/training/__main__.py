@@ -9,7 +9,12 @@ then evaluates the test set (NYU's three views); ``--phase test`` only
 evaluates.  ``--dataset`` is nyu (the default), icvl, msra (with
 ``--test_id``, the left-out subject 0-8) or shrec; the data sits under
 ``{root_dir}/{dataset}``.
-The ``ccssl`` and ``cyclegan`` subcommands are not ported yet.
+
+``python -m dsf_tpu_torch.training cyclegan --key value ...`` trains the
+CycleGAN transfer net on the card (``pipelines.run_cyclegan``) and writes
+``{save_dir}/{dataset}/cyclegan_{run_name}/transfer_G_A.npz``, which
+``--transferNet_pth`` then names.  The ``ccssl`` subcommand is not ported
+yet (ROADMAP Queue 1, item 4).
 """
 
 from __future__ import annotations
@@ -43,10 +48,18 @@ def parse_config(argv=None, description="dsf_tpu_torch trainer"):
 def main(argv=None):
     import sys
     argv = list(sys.argv[1:] if argv is None else argv)
+    # subcommands for the auxiliary pipelines; default = the main trainer
     if argv and argv[0] in ("ccssl", "cyclegan"):
-        raise NotImplementedError(
-            f"the {argv[0]} pipeline is not ported yet (ROADMAP Queue 1, "
-            "item 10)")
+        sub, rest = argv[0], argv[1:]
+        cfg = parse_config(rest, description=f"dsf_tpu_torch {sub} pipeline")
+        import logging
+        logging.basicConfig(level=logging.INFO)
+        from dsf_tpu_torch.training import pipelines
+        if sub == "ccssl":
+            pipelines.run_ccssl(cfg)
+        else:
+            pipelines.run_cyclegan(cfg)
+        return
     from dsf_tpu_torch.training.loop import run
     run(parse_config(argv))
 

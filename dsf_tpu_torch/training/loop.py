@@ -34,7 +34,7 @@ import time
 import numpy as np
 import torch
 
-from dsf_tpu_torch.config import Config
+from dsf_tpu_torch.config import Config, check_one_device
 from dsf_tpu_torch.device import resolve_device
 
 SNAPSHOT = ("training/phases.py", "training/trainer.py", "config.py",
@@ -141,10 +141,12 @@ def _real_iter(ds, cfg: Config, device, epoch: int):
 
 def run(cfg: Config, device=None) -> str:
     """Train (and test) per ``cfg`` on ``device`` (``cuda`` when None;
-    raises without it).  Returns the run directory,
+    raises without it, and for more than one device,
+    ``config.check_one_device``).  Returns the run directory,
     ``{cfg.save_dir}/{cfg.dataset}/{cfg.run_name()}``, which gets
     ``train.log`` and ``config.json``."""
     _check_dataset(cfg)
+    check_one_device(cfg)
     device = resolve_device(device)
     run_dir = os.path.join(cfg.save_dir, cfg.dataset, cfg.run_name())
     os.makedirs(run_dir, exist_ok=True)

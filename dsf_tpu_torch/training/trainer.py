@@ -42,10 +42,11 @@ Example::
                           {"model_para": para, "cube_synth": cube, **real})
 
 With ``Config(transferNet_pth=...)`` every step runs the net on the
-generator's image: a ``.npz`` exported by the JAX package's CycleGAN
-pipeline, a reference ``.pth`` (or a directory holding
-``latest_net_G_A.pth``), or, when the path does not exist, a seeded random
-generator, as the JAX trainer does (it logs a warning).
+generator's image: a ``.npz`` exported by a CycleGAN pipeline (the port's
+``python -m dsf_tpu_torch.training cyclegan`` or the JAX package's), a
+reference ``.pth`` (or a directory holding ``latest_net_G_A.pth``), or,
+when the path does not exist, a seeded random generator, as the JAX
+trainer does (it logs a warning).
 """
 
 from __future__ import annotations
@@ -61,7 +62,7 @@ import torch
 from torch.profiler import record_function
 
 from dsf_tpu_torch import geometry as geo
-from dsf_tpu_torch.config import CAMERA, Config
+from dsf_tpu_torch.config import CAMERA, Config, check_one_device
 from dsf_tpu_torch.device import (compute_dtype, exact_float32,
                                   resolve_device, widen)
 from dsf_tpu_torch.mano import model as mano_model
@@ -276,8 +277,9 @@ def load_transfer_net(path: str, device,
                       ) -> Optional[ResnetGenerator]:
     """The frozen CycleGAN generator of ``cfg.transferNet_pth`` on
     ``device``, computing in ``dtype``, in eval mode with no parameter
-    requiring a gradient; None for an empty path.  As the JAX trainer (trainer.py:196-218): a path
-    ending in ``.npz`` is the JAX pipeline's export, another existing path
+    requiring a gradient; None for an empty path.  As the JAX trainer
+    (trainer.py:196-218): a path ending in ``.npz`` is a CycleGAN
+    pipeline's export (the port's or the JAX package's), another existing path
     a reference checkpoint, and a missing path gives a seeded random
     generator (numpy seed 0, the JAX trainer's PRNGKey(0)) with a
     warning."""
@@ -306,9 +308,10 @@ class Trainer:
     Args:
       cfg: a ``Config``; ``cfg.net`` must be a ResNet and
         ``cfg.compute_dtype`` "float32" or "bfloat16" (the net's and the
-        generator's; ``device.compute_dtype``).  ``cfg.transferNet_pth``
-        names the frozen CycleGAN generator (``load_transfer_net``), or is
-        empty.
+        generator's; ``device.compute_dtype``); ``num_devices`` and
+        ``n_fsdp`` above 1 raise (``config.check_one_device``).
+        ``cfg.transferNet_pth`` names the frozen CycleGAN generator
+        (``load_transfer_net``), or is empty.
       mano_npz: the converted MANO asset.
       steps_per_epoch: for the epoch-based learning-rate schedule.
       device: ``cuda`` when None; raises if CUDA is missing.  ``"cpu"``
@@ -319,6 +322,7 @@ class Trainer:
                  device=None):
         if "ResNet" not in cfg.net:
             raise NotImplementedError(cfg.net)
+        check_one_device(cfg)
         self.dtype = compute_dtype(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -384,16 +388,15 @@ class Trainer:
         Finetune and FinetuneStage also the real batch {"img" (B, 1, S, S),
         "center" (B, 3), "cube" (B, 3) (one cube a frame), "M" (B, 3, 3),
         "xyz_gt" (B, J, 3) in the dataset's joint order}; their
-        ``cfg.stage_num`` must be 1 and 2.  The state is updated in place and returned; metrics are 0-d
-        tensors on the device, ``loss`` included."""
+        ``cfg.stage_num`` must be 1 and 2.  Another phase raises
+        ValueError (as the JAX trainer).  The state is updated in place and
+        returned; metrics are 0-d tensors on the device, ``loss``
+        included."""
         if phase_name == "Pretrain":
             return self._pretrain_step
         stages = {"Finetune": 1, "FinetuneStage": 2}.get(phase_name)
         if stages is None:
-            raise NotImplementedError(
-                f"phase {phase_name!r}: the port has Pretrain, Finetune and "
-                "FinetuneStage; not yet ported: the self-supervised steps "
-                "off the NYU camera")
+            raise ValueError(phase_name)
         if self.cfg.stage_num != stages:
             raise ValueError(
                 f"{phase_name} is the {stages}-stage step; the config has "

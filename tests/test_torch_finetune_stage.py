@@ -42,7 +42,7 @@ from dsf_tpu_torch.models.weights import (random_reference_state_dict,
                                           state_dict_from_jax)
 from dsf_tpu_torch.training import phases as TP
 from dsf_tpu_torch.training.trainer import Trainer
-from torch_parity import jax_finetune_stage_draws
+from torch_parity import eval_after_step, jax_finetune_stage_draws
 
 torch.set_num_threads(2)
 
@@ -161,7 +161,9 @@ def step(tmp_path_factory):
         grads={n: sd_grads[n].numpy() for n in port["grads"]},
         params={n: sd_after[n].numpy() for n in port["params"]},
         buffers={n: sd_after[n].numpy() for n in port["buffers"]},
-        variables=variables)
+        variables=variables,
+        after={"params": new_params, "batch_stats": new_state["batch_stats"]},
+        trainer=tr, path=path, jcfg=jcfg)
     return port, ref
 
 
@@ -293,3 +295,20 @@ def test_m2p_gate_and_masked_sl1_match_jax():
     g_j = np.asarray(g_j)
     np.testing.assert_allclose(at.grad.numpy(), g_j, rtol=0,
                                atol=1e-6 * np.abs(g_j).max())
+
+
+def test_eval_after_step_matches_jax(step):
+    """Eval mode after the FinetuneStage step (Queue 3 item 3), as
+    test_torch_train_step.py's after Pretrain (``eval_after_step``): on
+    the same weights JAX's eval gives the port's errors within the eval
+    tolerances, and one float64 evaluator reproduces each side's own
+    errors, so the gap between the two sides' own weights is the weights'
+    (measured 1.88 mm at stage 1 and 7.76 mm at stage 2 after this one
+    step; JAX on the port's weights within 2.4e-4 mm)."""
+    port, ref = step
+    tr = ref["trainer"]
+    jtr = JT.Trainer(ref["jcfg"], ref["path"], steps_per_epoch=10)
+    batch = {k: np.asarray(v) for k, v in demo.real_batch(
+        tr.renderer, B, np.random.RandomState(3)).items()}
+    eval_after_step(port["state"], tr, ref["after"], jtr, batch,
+                    "FinetuneStage, one step")

@@ -640,6 +640,45 @@ def test_tail_conv_kernel_matches_plain(cuda, shape):
                                    atol=1e-5 * float(r.grad.abs().max()))
 
 
+def test_tail_conv_gradients_at_the_generator_shape(cuda):
+    """K9 in training, as the CycleGAN trainer runs it: the generator's head
+    input at B=32 (32, 64, 134, 134) through ``TailConvFn`` (the kernel
+    forward, one launch), its input, weight and bias gradients for a
+    random cotangent against autograd of the plain version on the card
+    (the same computation: within 1e-6 of each gradient's largest entry)
+    and against float64 autograd on the card (each within 1e-4 relative
+    L2, no further than 2x the plain version's distance + 1e-6)."""
+    from dsf_tpu_torch.device import exact_float32
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.randn(32, 64, 134, 134, device=cuda, generator=gen)
+    w = (torch.randn(1, 64, 7, 7, device=cuda, generator=gen)
+         / np.sqrt(64 * 49))
+    b = 0.1 * torch.randn(1, device=cuda, generator=gen)
+    cot = torch.randn(32, 1, 128, 128, device=cuda, generator=gen)
+    grads = {}
+    with exact_float32():
+        for name, fn, dt in (("kernel", tapsum_kernel.TailConvFn.apply,
+                              torch.float32),
+                             ("plain", tapsum.tail_conv_tanh_plain,
+                              torch.float32),
+                             ("float64", tapsum.tail_conv_tanh_plain,
+                              torch.float64)):
+            ts = [t.to(dt).clone().requires_grad_(True) for t in (x, w, b)]
+            before = kernels.LAUNCHES["tail_conv"]
+            fn(*ts).backward(cot.to(dt))
+            assert kernels.LAUNCHES["tail_conv"] == before + (
+                name == "kernel")
+            grads[name] = [t.grad.double() for t in ts]
+    for got, plain, exact, what in zip(*grads.values(), ("x", "w", "b")):
+        assert torch.isfinite(got).all(), what
+        torch.testing.assert_close(got, plain, rtol=0,
+                                   atol=1e-6 * float(plain.abs().max()))
+        d_got = float((got - exact).norm() / exact.norm())
+        d_plain = float((plain - exact).norm() / exact.norm())
+        assert d_got <= 1e-4 and d_got <= 2 * d_plain + 1e-6, (
+            what, d_got, d_plain)
+
+
 @pytest.mark.parametrize("shape,lead", [
     ((2, 64, 134, 134), 0), ((3, 5, 45, 37), 0), ((2, 6, 46, 72), 0),
     ((2, 9, 150, 140), 0), ((2, 5, 46, 70), 1)])

@@ -94,6 +94,7 @@ assert not [m for m in sys.modules if m.split(".")[0] in BLOCK]
 @pytest.mark.parametrize("script", ["chip_smoke.py",
                                     "tests/torch_fake_sets.py",
                                     "scripts/datasets_cli_gpu.py",
+                                    "scripts/selfsup_gpu.py",
                                     "scripts/raster_shapes_gpu.py",
                                     "scripts/argmin_shapes_gpu.py",
                                     "scripts/tail_shapes_gpu.py",
@@ -133,8 +134,8 @@ def test_loop_entry_points_raise_without_cuda(tmp_path, monkeypatch):
     """The trainer's loop (on every dataset), its command line and the
     fake NYU set run on the card by default and raise without one before
     they write anything; an unknown dataset raises ValueError, and
-    subcommands that are not ported raise NotImplementedError naming the
-    ROADMAP item."""
+    the ccssl subcommand, not ported, raises NotImplementedError naming
+    its ROADMAP item."""
     from dsf_tpu_torch.data.fake import make_fake_nyu
     from dsf_tpu_torch.training import __main__ as cli
     from dsf_tpu_torch.training.loop import run
@@ -153,14 +154,60 @@ def test_loop_entry_points_raise_without_cuda(tmp_path, monkeypatch):
     assert sorted(os.listdir(tmp_path)) == []
     with pytest.raises(ValueError, match="dataset 'hands'"):
         run(cfg.replace(dataset="hands"), device="cpu")
-    for sub in ("ccssl", "cyclegan"):
-        with pytest.raises(NotImplementedError, match="Queue 1, item 10"):
-            cli.main([sub])
+    with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
+        cli.main(["ccssl"])
     parsed = cli.parse_config(["--batch_size", "4", "--augment_para",
                                "5,0.1,90", "--test_during_train", "false",
                                "--opt", "sgd"])
     assert parsed == Config(batch_size=4, augment_para=(5.0, 0.1, 90.0),
                             test_during_train=False, opt="sgd")
+
+
+def test_cyclegan_entry_points_raise_without_cuda(tmp_path, monkeypatch):
+    """The CycleGAN trainer, ``run_cyclegan``, the ``cyclegan`` subcommand
+    and the efficacy script run on the card by default and raise without
+    one before they write anything."""
+    import importlib.util
+    from dsf_tpu_torch.training import __main__ as cli
+    from dsf_tpu_torch.training.cyclegan_trainer import CycleGANTrainer
+    from dsf_tpu_torch.training.pipelines import run_cyclegan
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = Config(save_dir=str(tmp_path / "ckpt"), root_dir=str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        CycleGANTrainer()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_cyclegan(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["cyclegan", "--save_dir", str(tmp_path / "ckpt"),
+                  "--root_dir", str(tmp_path)])
+    spec = importlib.util.spec_from_file_location(
+        "selfsup_gpu", os.path.join(os.path.dirname(PKG), "scripts",
+                                    "selfsup_gpu.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.run(out_path=str(tmp_path / "out.json"),
+                data_root=str(tmp_path / "data"))
+    assert sorted(os.listdir(tmp_path)) == []
+
+
+@pytest.mark.parametrize("field", ["num_devices", "n_fsdp"])
+def test_more_than_one_device_raises(tmp_path, field):
+    """The port runs on one card: ``loop.run``, ``Trainer`` and
+    ``InferenceEngine`` raise ValueError naming the multi-GPU item for
+    ``num_devices`` or ``n_fsdp`` above 1, before they touch a device or a
+    file; 1 passes the check."""
+    from dsf_tpu_torch.config import check_one_device
+    from dsf_tpu_torch.training.loop import run
+    cfg = Config(save_dir=str(tmp_path / "ckpt"), root_dir=str(tmp_path),
+                 mano_model_path=str(tmp_path / "none.npz"), **{field: 2})
+    for make in (lambda: run(cfg, device="cpu"),
+                 lambda: Trainer(cfg, cfg.mano_model_path, device="cpu"),
+                 lambda: InferenceEngine(cfg, {}, device="cpu")):
+        with pytest.raises(ValueError, match=f"{field}=2.*Queue 1, item 3"):
+            make()
+    assert sorted(os.listdir(tmp_path)) == []
+    check_one_device(cfg.replace(**{field: 1}))
 
 
 def test_host_library_build_flags():

@@ -226,6 +226,72 @@ def check_batch_stats(port, ref, exact, label):
     assert mp <= 1.5 * mj + 1e-5
 
 
+# ---------------------------------------------------------------------------
+# eval mode after training steps (test_torch_train_step.py,
+# test_torch_finetune_stage.py)
+
+def eval_after_step(state, tr, jax_variables, jtr, batch, label):
+    """Eval mode on one batch after a step, from each side's own weights:
+    the port's eval errors (per stage pixel and MANO, per sample) and
+    JAX's; JAX's eval on the port's weights and running statistics
+    carried over; and one evaluator, the port's eval in float64, on each
+    side's weights.  Holds the eval path (JAX on the port's weights
+    within 1e-2 mm at stage 1 and 0.1 mm at stage 2, the eval tests'
+    tolerances) and the float64 evaluator on each side's weights within
+    the same of that side's own errors, so the gap between the two sides'
+    own errors is the weights'.  Returns that gap (mm, the largest per
+    stage) and the parameters' largest difference."""
+    import copy
+    import pytest
+    from dsf_tpu.models import torch_import as TI
+    from dsf_tpu_torch.models.weights import load_into, state_dict_from_jax
+    from dsf_tpu_torch.training import trainer as TT
+
+    def jax_eval(variables):
+        e, _ = jtr.eval_step_fn()(
+            variables["params"], variables["batch_stats"],
+            {k: jnp.asarray(v) for k, v in batch.items()})
+        return np.asarray(e)
+
+    def port_eval(s, t, b):
+        return t.eval_step_fn()(s, b)[0].double().numpy()
+
+    sd = {k: v.detach().numpy() for k, v in state.net.state_dict().items()}
+    got = port_eval(state, tr, batch)
+    want = jax_eval(jax_variables)
+    carried = jax_eval(jax.tree_util.tree_map(
+        np.asarray, TI.convert_mano_ocr_stage(sd, refine=True)))
+    tr64 = copy.copy(tr)
+    tr64.renderer = float64_renderer(tr.renderer)
+    b64 = {k: torch.from_numpy(v).double() for k, v in batch.items()}
+    own, theirs = copy.deepcopy(state), copy.deepcopy(state)
+    load_into(theirs.net, state_dict_from_jax(jax_variables))
+    with pytest.MonkeyPatch.context() as mp:
+        # the eval step casts its batch to float32; the witness keeps float64
+        mp.setattr(TT, "_tensor", lambda x, dev: torch.as_tensor(x).to(dev))
+        e_own = port_eval(_double(own), tr64, b64)
+        e_theirs = port_eval(_double(theirs), tr64, b64)
+    tol = np.array([1e-2, 1e-2, 0.1, 0.1])[:len(got), None]
+    assert np.isfinite(got).all() and np.isfinite(want).all(), label
+    assert (np.abs(carried - got) <= tol).all(), (label, carried - got)
+    assert (np.abs(e_own - got) <= tol).all(), (label, e_own - got)
+    assert (np.abs(e_theirs - want) <= tol).all(), (label, e_theirs - want)
+    jsd = state_dict_from_jax(jax_variables)
+    dw = max(float((p.detach() - jsd[k]).abs().max())
+             for k, p in state.net.named_parameters())
+    gap = np.abs(got - want).reshape(-1, 2, got.shape[-1]).max(axis=(1, 2))
+    print(f"{label}: eval errors, port's own weights against JAX's own, "
+          f"largest gap per stage {np.round(gap, 4).tolist()} mm; parameters' "
+          f"largest difference {dw:.3g}; JAX on the port's weights "
+          f"{float(np.abs(carried - got).max()):.3g} mm")
+    return gap, dw
+
+
+def _double(state):
+    state.net.double()
+    return state
+
+
 if __name__ == "__main__":
     # python tests/torch_parity.py  (JAX on the CPU; a few minutes)
     jax.config.update("jax_platforms", "cpu")
