@@ -187,6 +187,41 @@ Phases, each printed on its own line(s); any failure exits non-zero:
    within 6x the CPU's, the biases before an instance norm (zero
    gradients) within 1e-4 of their weight's gradient.
 
+9. parallel: the multi-GPU path (``parallel/``, the synchronized
+   BatchNorm, the guarded optimizer's exchange, the engine's replicas).
+   Each comparison prints ``par_distances``' readings (loss, heads,
+   trunks' median, largest and least cosine, statistics in stage 1 and
+   2) beside its limits (``PAR_*``, each with its readings).
+   (a) World 1 over NCCL, this process a group of one: two FinetuneStage
+   and two Pretrain steps at full width (B=32, 128^2, the stand-in
+   generator) in float32 and bfloat16 with ``Mesh(collectives=True)``
+   (every all-reduce runs) against the one-device steps from the same
+   weights and draws: the launches per step phase 4's, the first step
+   within PAR_SAME_SPLIT (float32; phase 5's tolerances) or PAR_BF16;
+   the step ms of both paths.  (b) Two ranks of this script
+   (``--phase9-rank``) on this card over gloo, 16 rows each of the global
+   32: two steps of each phase against world 1's at B=32 (the second
+   from rank 0's state after the first, carried into world 1, so that
+   Adam's sign steps do not part the runs), each within PAR_SPLIT and,
+   against world 1 rendering its synth batch in the ranks' stripes,
+   within PAR_STRIPED; each rank's launches per step phase 4's, both
+   ranks' parameters equal; the witnesses of the trunks' gap: world 1
+   rendering in stripes against world 1 rendering whole, each rank's
+   synth render against its rows of both (PAR_RENDER: the striped one),
+   one step of each phase with cuDNN off on both sides (PAR_SPLIT
+   still); the control, one step of each phase with BatchNorm on each
+   rank's own rows, which must break PAR_SPLIT by each reading of
+   PAR_CAUGHT; a conv+BN stack against
+   world 1 within 1e-5; each rank's step ms and the flat gradient's
+   all-reduce ms (gloo, staged through the host: not NCCL's time).
+   (c) The same ranks with ``n_fsdp=2``: the guarded AdamW fed (b)'s
+   gradients bitwise data parallelism's, and two FinetuneStage steps
+   (the second from (b)'s state) within PAR_SAME_SPLIT of (b)'s, the
+   ranks' gathered parameters equal.  (d) The engine with
+   ``num_devices=2`` on devices (cuda:0, cuda:0), buckets 8 and 32,
+   against the one-device engine by phase 3's tolerances.  (e) As (b)
+   over NCCL on two cards where the machine has them, else one line.
+
 The last two lines are the kernels' JSON record and the device JSON.
 Without CUDA, or outside the repository, it exits non-zero and prints
 no result.
@@ -2081,7 +2116,7 @@ def run_slice_bf16(mano_path, f32):
                 into[k] = max(into.get(k, 0.0),
                               float(np.abs(a[k] - b[k]).max()))
     def fmt(d):
-        return json.dumps({k: float(f"{v:.3g}") for k, v in d.items()})
+        return json.dumps({k: float(f"{v:.4g}") for k, v in d.items()})
 
     say(f"slice_bf16 max abs diff, CPU bf16 vs CPU f32 (the witness): "
         f"{fmt(witness)}")
@@ -3907,6 +3942,644 @@ def run_cyclegan_phase(mano_path, smi, root):
     compare_cyclegan_step(mano_path, root)
     return counts
 
+# ----------------------------------------------------------------- phase 9
+
+PAR_STEPS = 2                   # steps of each phase in (a), (b), (c), (e)
+PAR_RANKS = 2
+PAR_TIMEOUT = 420               # seconds for a world of ranks
+PAR_PHASES = ("FinetuneStage", "Pretrain")
+# the parameters whose gradients feed the losses only (grad_tol's heads)
+HEADS = ("mano_regress", "finals_s2")
+# Limits of ``par_distances``' readings: the loss's relative distance,
+# the heads' largest gradient relative L2, the trunks' median and largest
+# and least cosine, the running statistics' largest distance over scale
+# in stage 1 and 2.  Readings below: NVIDIA H100 80GB HBM3 at 700 W.
+# Two runs of one split of the batch, phase 5's float32 tolerances
+# (grad_tol): (a)'s world 1 against the one-device step (trunks median
+# 0.02-0.08, largest 0.12, heads up to 7.7e-4, statistics 4e-7 / 1.6e-4)
+# and (c) against (b) (heads up to 5.0e-3).
+PAR_SAME_SPLIT = dict(loss=1e-4, heads=1e-2, trunk_max=0.2, stats1=1e-3,
+                      stats2=5e-2)
+# (b) against world 1 rendering its synth batch in the ranks' stripes: as
+# PAR_SAME_SPLIT (measured trunks median 0.03-0.09, largest 0.13, loss
+# up to 8.4e-6, statistics 6.4e-7 / 1.7e-4), but the heads 5e-2: the
+# losses' own renders inside the step still take 16 rows on a rank and 32
+# in world 1 (FinetuneStage heads 5.1e-3, then 1.01e-2 on the second
+# step, where the whole render's lie 0.019-0.034 apart).
+PAR_STRIPED = dict(PAR_SAME_SPLIT, heads=5e-2)
+# (a) in bfloat16 (FinetuneStage bitwise; Pretrain: loss 1.2e-4, heads
+# 4.4e-3, trunks median 0.68 and least cosine 0.56, statistics 3.7e-4 /
+# 2.8e-3): bfloat16 rounding of the trunks at random weights (phase 5),
+# so their cosine, which a zeroed or flipped gradient fails.
+PAR_BF16 = dict(loss=1e-3, heads=5e-2, trunk_cos=0.25, stats1=5e-3,
+                stats2=5e-2)
+# (b), (e): two ranks of 16 rows against world 1 rendering all 32.  A
+# row's synth render rounds by the batch it is rendered in (joints 1e-6
+# mm apart, 0.003-0.008% of the pixels moved by more than 1e-3 at edges),
+# and the trunks' gradients at random weights are ill-conditioned in
+# those pixels: world 1 rendering in two stripes, with no collective,
+# lies as far from world 1 (trunks median 0.35 FinetuneStage / 0.59
+# Pretrain, least cosine 0.85 / 0.65, statistics 3.6e-4 / 1.6e-3 in
+# stage 1 and 1.9e-3 / 4.9e-3 in stage 2, heads 2.6e-3 / 5.0e-3, loss
+# 1.9e-5 / 2.3e-4) as the ranks do; the second step lies nearer (trunks
+# median 0.14-0.18, heads up to 0.034).  The control, BatchNorm on each
+# rank's own rows: trunks median 1.04-1.12, least cosine 0.03-0.09,
+# statistics 2.3e-2-2.5e-2 and 3.4e-2-3.8e-2; its loss (3.9e-4, 5.4e-4)
+# and heads (9e-3, 1.2e-2) lie among the sound readings, so those two
+# limits are sanity bounds only.  Each limit of PAR_CAUGHT lies between.
+PAR_SPLIT = dict(loss=1e-3, heads=5e-2, trunk_median=0.8, trunk_cos=0.3,
+                 stats1=5e-3, stats2=1.5e-2)
+# (b) with cuDNN off on both sides (every convolution outside cuDNN): the
+# gap stays as it is (not cuDNN's algorithms by batch)
+PAR_SPLIT_NO_CUDNN = PAR_SPLIT
+# the readings by which BatchNorm on each rank's own rows (the control)
+# must break PAR_SPLIT
+PAR_CAUGHT = ("trunk_median", "trunk_cos", "stats1", "stats2")
+# the share of a rank's synth render's pixels that may differ from its rows
+# of world 1's render made in the ranks' stripes (0 measured)
+PAR_RENDER = 1e-3
+
+
+def par_names(net):
+    """(name, numel) of the net's parameters in the optimizer's order."""
+    return [(n, p.numel()) for n, p in net.named_parameters()]
+
+
+def par_split(flat, names):
+    import torch
+    flat = torch.as_tensor(flat)
+    return dict(zip([n for n, _ in names],
+                    flat.split([k for _, k in names])))
+
+
+def par_steps(mano_path, mesh, dtype, phase, steps, device, out_dir=None,
+              carry=None, local_bn=False, cudnn=True, witness=False,
+              render_parts=1):
+    """``steps`` steps of ``phase`` (Pretrain or FinetuneStage) at the
+    global B=TRAIN_BATCH from the seeded weights, draws and batches, on
+    this process's stripe (``mesh``); per step the global loss, the flat
+    gradient of this process's rows, the running statistics, the launch
+    deltas and the step ms.  ``out_dir``: save the state after each step
+    but the last; ``carry(k)``: a saved state to load before step k > 0
+    (the other side's, so that Adam's sign steps do not part the runs).
+    ``local_bn``: BatchNorm on this rank's own rows (the control that
+    phase 9's limits must catch); ``cudnn`` False: every convolution
+    outside cuDNN; ``witness``: the first step's record also holds the
+    synth batch's render and joints, rendered apart from the step;
+    ``render_parts``: the synth batch rendered in that many row stripes
+    (``par_split_render``)."""
+    import torch
+    from dsf_tpu_torch.data.synth_params import random_param_source
+    from dsf_tpu_torch.training.trainer import Trainer
+    B = TRAIN_BATCH
+    stages = 2
+    tr = Trainer(train_config(mano_path, stages, SEED, dtype), mano_path,
+                 device=device, mesh=mesh)
+    state = tr.init_state()
+    if local_bn:
+        state.net.sync = None
+    src = random_param_source(B, seed=SEED + 5)
+    rng = np.random.RandomState(SEED + 6)
+    step = tr.train_step_fn(phase)
+    recs = []
+    was = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = cudnn
+    try:
+        with par_split_render(render_parts):
+            for k in range(steps):
+                state, rec = _par_step(tr, state, step, phase, src, rng, k,
+                                       carry, witness and k == 0)
+                recs.append(rec)
+                if out_dir is None or k + 1 == steps:
+                    continue
+                sd = state.optimizer.state_dict()  # a collective (n_fsdp)
+                if tr.mesh.rank == 0:
+                    torch.save({"net": state.net.state_dict(),
+                                "optimizer": sd},
+                               os.path.join(out_dir, f"{phase}_{k + 1}.pt"))
+    finally:
+        torch.backends.cudnn.enabled = was
+    return recs, par_names(state.net)
+
+
+@contextlib.contextmanager
+def par_split_render(parts):
+    """Inside, the steps render their synth batch in ``parts`` row
+    stripes, as ``parts`` ranks each render their own (a row's render
+    depends at rounding on the batch it is rendered in, and the raster
+    turns that into other pixels)."""
+    import torch
+    from dsf_tpu_torch.parallel.mesh import Mesh
+    from dsf_tpu_torch.training import phases
+    saved = phases.pretrain_sample, phases.finetune_stage_sample
+    meshes = [Mesh(world=parts, rank=i) for i in range(parts)]
+
+    def split(fn):
+        def sample(r, draws, para, cube):
+            outs = [fn(r, draws.stripe(m), m.stripe(para), m.stripe(cube))
+                    for m in meshes]
+            return tuple(torch.cat(t) for t in zip(*outs))
+        return sample
+
+    if parts > 1:
+        phases.pretrain_sample, phases.finetune_stage_sample = map(split,
+                                                                   saved)
+    try:
+        yield
+    finally:
+        phases.pretrain_sample, phases.finetune_stage_sample = saved
+
+
+def _par_step(tr, state, step, phase, src, rng, k, carry, witness):
+    """Step k of ``par_steps`` -> (state, its record)."""
+    import torch
+    from dsf_tpu_torch import demo, kernels
+    from dsf_tpu_torch.device import exact_float32
+    from dsf_tpu_torch.training import phases
+    B = TRAIN_BATCH
+    batch = dict(zip(("model_para", "cube_synth"), next(src)))
+    if phase != "Pretrain":
+        batch.update(demo.real_batch(tr.renderer, B, rng))
+    batch = {key: tr.mesh.stripe(v) for key, v in batch.items()}
+    draws = tr.draw(B, phase)
+    if carry is not None and k > 0:
+        saved = torch.load(carry(k), map_location=tr.device,
+                           weights_only=True)
+        state.net.load_state_dict(saved["net"])
+        state.optimizer.load_state_dict(saved["optimizer"])
+    seen = {}
+    if witness:
+        sample = (phases.pretrain_sample if phase == "Pretrain"
+                  else phases.finetune_stage_sample)
+        with torch.no_grad(), exact_float32():
+            smp = sample(tr.renderer, draws.to(tr.device), *[
+                torch.as_tensor(np.asarray(batch[key], np.float32),
+                                device=tr.device)
+                for key in ("model_para", "cube_synth")])
+        seen = dict(render=smp[0].cpu(), joints=smp[3].cpu())
+    torch.cuda.synchronize(tr.device)
+    before = dict(kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    state, m = step(state, draws, batch)
+    loss = float(tr.global_metrics(m)["loss"])
+    torch.cuda.synchronize(tr.device)
+    ms = (time.perf_counter() - t0) * 1e3
+    return state, dict(
+        seen, loss=loss, ms=ms,
+        launches={n: kernels.LAUNCHES[n] - before[n] for n in KERNELS},
+        grad=torch.cat([p.grad.reshape(-1) for p in
+                        state.net.parameters()]).float().cpu(),
+        stats={n: b.detach().cpu().clone()
+               for n, b in state.net.named_buffers() if "running" in n},
+        params=torch.cat([p.detach().reshape(-1) for p in
+                          state.net.parameters()]).cpu())
+
+
+def par_expected(phase, dtype):
+    counts = STEP_LAUNCHES if phase == "Pretrain" else FS_STEP_LAUNCHES
+    return counts if dtype == "float32" else bf16_launches(counts)
+
+
+def par_allreduce_ms(numel, group, device, iters=5):
+    """The flat gradient's all-reduce over ``group``: median ms on the host
+    clock, from the call to the card's synchronize (gloo returns when its
+    host-staged reduction is done, NCCL when it is queued)."""
+    import torch
+    import torch.distributed as dist
+    g = torch.ones(numel, device=device)
+    dist.all_reduce(g, group=group)
+    torch.cuda.synchronize(device)
+    times = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        dist.all_reduce(g, group=group)
+        torch.cuda.synchronize(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def free_port():
+    import socket
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def par_bn_stack(mesh, device):
+    """Two conv+BN+ReLU layers (1 -> 8 -> 16 channels, 24^2) in train mode
+    without TF32, one group and two of 8 rows each (group-major, each rank
+    its stripe of every group; world 1 with ``mesh`` None) from seeded
+    weights: by group count, the output, the running statistics and the
+    gradients of sum(y * r) (this process's share), as
+    tests/test_torch_parallel.py holds them on the CPU."""
+    from dsf_tpu_torch.device import exact_float32
+    with exact_float32():
+        return {g: _par_bn_stack(mesh, device, g) for g in (1, 2)}
+
+
+def _par_bn_stack(mesh, device, g):
+    import torch
+    from dsf_tpu_torch.models import layers as TL
+    rng = np.random.RandomState(SEED + 70 + g)
+    f = lambda *sh: torch.from_numpy(rng.randn(*sh).astype(np.float32))
+    x = torch.cat([f(8, 1, 24, 24) * (1 + i) + 2 * i for i in range(g)])
+    r = f(8 * g, 16, 24, 24)
+    net = torch.nn.Sequential(TL.ConvBNRelu(1, 8), TL.ConvBNRelu(8, 16))
+    with torch.no_grad():
+        for layer in net:
+            layer[0].weight.copy_(f(*layer[0].weight.shape) * 0.3)
+    net = net.to(device)
+    for m in net.modules():
+        if isinstance(m, TL.BatchNorm2d):
+            m.groups, m.sync = g, mesh
+    if mesh is not None:
+        x, r = (torch.cat([mesh.stripe(h) for h in t.chunk(g)])
+                for t in (x, r))
+    y = net(x.to(device))
+    (y * r.to(device)).sum().backward()
+    return dict(y=y.detach().cpu(), stats=[
+        t.detach().cpu().clone() for layer in net
+        for t in (layer[1].running_mean, layer[1].running_var)],
+        grads={n: p.grad.cpu() for n, p in net.named_parameters()})
+
+
+def par_fsdp_same_grads(dp, fsdp, names, grads, device):
+    """The guarded AdamW of data parallelism (``dp``) and of ``n_fsdp=2``
+    (``fsdp``) from the same seeded weights, fed this rank's gradients of
+    (b)'s steps: whether the parameters after each update and the
+    gathered moments are bitwise the same (the exchange's collectives on
+    the card: reduce-scatter and all-gather against one all-reduce; the
+    steps themselves are not repeatable on the card, so this isolates
+    them)."""
+    import torch
+    from dsf_tpu_torch.config import Config
+    from dsf_tpu_torch.training.trainer import make_optimizer
+    gen = torch.Generator().manual_seed(SEED + 80)
+    w = [torch.randn(k, generator=gen) for _, k in names]
+    sides = []
+    for mesh in (dp, fsdp):
+        params = [torch.nn.Parameter(t.to(device)) for t in w]
+        sides.append((params, make_optimizer(Config(), params, 1000, mesh)))
+    same = []
+    for g in grads:
+        for params, opt in sides:
+            for p, x in zip(params, g.split([k for _, k in names])):
+                p.grad = x.to(device)
+            opt.step()
+        same.append(all(torch.equal(a, b) for a, b in zip(sides[0][0],
+                                                            sides[1][0])))
+    sd = [opt.state_dict() for _, opt in sides]
+    same.append(all(torch.equal(sd[0][k], sd[1][k]) for k in ("mu", "nu")))
+    return same
+
+
+def parallel_rank(out_dir):
+    """One rank of phase 9's worlds (``chip_smoke.py --phase9-rank DIR``,
+    started by ``run_parallel`` with torchrun's environment; ``PAR_BACKEND``
+    gloo puts every rank on cuda:0, nccl rank r on cuda:r): PAR_STEPS
+    FinetuneStage and Pretrain steps with data parallelism, one step of
+    each with rank-local BatchNorm (the control) and one with cuDNN off
+    (the witness), then the FinetuneStage steps again with ``n_fsdp=2``,
+    each from (b)'s state after the step before; its records go to
+    ``out_dir/rank{r}.pt``."""
+    import torch
+    from dsf_tpu_torch.device import exact_float32
+    from dsf_tpu_torch.parallel import distributed
+    from dsf_tpu_torch.parallel.mesh import make_mesh
+    backend = os.environ["PAR_BACKEND"]
+    local = 0 if backend == "gloo" else int(os.environ["LOCAL_RANK"])
+    device = distributed.initialize(f"cuda:{local}", backend=backend)
+    path = os.environ["PAR_MANO"]
+    out = {"device": str(device), "backend": backend}
+    with exact_float32():
+        mesh = make_mesh()
+        for phase in PAR_PHASES:
+            out[phase], names = par_steps(path, mesh, "float32", phase,
+                                          PAR_STEPS, device, out_dir=out_dir,
+                                          witness=True)
+            out[f"{phase} local_bn"], _ = par_steps(
+                path, mesh, "float32", phase, 1, device, local_bn=True)
+            out[f"{phase} no_cudnn"], _ = par_steps(
+                path, mesh, "float32", phase, 1, device, cudnn=False)
+        out["bn"] = par_bn_stack(mesh, device)
+        n = sum(k for _, k in names)
+        out["allreduce_ms"] = par_allreduce_ms(n, mesh.group, device)
+        out["numel"] = n
+        fsdp = make_mesh(2)
+        out["fsdp_same"] = par_fsdp_same_grads(
+            mesh, fsdp, names, [r["grad"] for r in out["FinetuneStage"]],
+            device)
+        out["fsdp"], _ = par_steps(
+            path, fsdp, "float32", "FinetuneStage", PAR_STEPS, device,
+            carry=lambda k: os.path.join(out_dir, f"FinetuneStage_{k}.pt"))
+    r = distributed.rank()
+    torch.save(out, os.path.join(out_dir, f"rank{r}.pt"))
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def par_world(backend, mano_path, out_dir):
+    """Start PAR_RANKS ranks of this script (``parallel_rank``) and return
+    their records; a rank that fails or passes PAR_TIMEOUT fails the
+    phase (every rank is killed first)."""
+    import torch
+    port = free_port()
+    procs = []
+    for r in range(PAR_RANKS):
+        env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r),
+                   WORLD_SIZE=str(PAR_RANKS), MASTER_ADDR="localhost",
+                   MASTER_PORT=str(port), PAR_BACKEND=backend,
+                   PAR_MANO=mano_path)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--phase9-rank",
+             out_dir], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT))
+    try:
+        logs = [p.communicate(timeout=PAR_TIMEOUT)[0].decode(
+            errors="replace") for p in procs]
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.wait()
+        raise SmokeFailure(f"parallel ({backend}): the ranks passed "
+                           f"{PAR_TIMEOUT} s")
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        need(p.returncode == 0, f"parallel ({backend}) rank {r} failed "
+             f"({p.returncode}):\n{log[-4000:]}")
+    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"),
+                       weights_only=False) for r in range(PAR_RANKS)]
+
+
+def par_distances(got, ref, names):
+    """``par_hold``'s readings of a step (``got``: its global loss, flat
+    gradient and running statistics) against ``ref``'s: the loss's
+    relative distance; each parameter's gradient's relative L2, as the
+    heads' largest and the trunks' median and largest, and the trunks'
+    least cosine; the running statistics' largest distance over each
+    tensor's largest entry, in stage 1 and in stage 2."""
+    import torch
+    g, r = par_split(got["grad"], names), par_split(ref["grad"], names)
+    errs = rel_l2(g, {n: v.double() for n, v in r.items()})
+    trunks = [n for n in errs if not n.startswith(HEADS)]
+    cos = [float(torch.nn.functional.cosine_similarity(
+        g[n].double(), r[n].double(), dim=0)) for n in trunks
+        if float(r[n].norm()) > 0]
+    st = {True: 0.0, False: 0.0}
+    for n, v in ref["stats"].items():
+        d = float((got["stats"][n] - v).abs().max() / v.abs().max())
+        s2 = "_s2" in n or n.startswith("fusion")
+        st[s2] = max(st[s2], d)
+    t = [errs[n] for n in trunks]
+    return dict(loss=abs(got["loss"] - ref["loss"]) / abs(ref["loss"]),
+                heads=max(e for n, e in errs.items() if n.startswith(HEADS)),
+                trunk_median=float(np.median(t)), trunk_max=max(t),
+                trunk_cos=min(cos), stats1=st[False], stats2=st[True])
+
+
+def par_breaches(d, limits):
+    """The readings of ``d`` outside ``limits`` (a least for trunk_cos, a
+    most for the others)."""
+    return {k: d[k] for k, lim in limits.items()
+            if (d[k] < lim if k == "trunk_cos" else d[k] > lim)}
+
+
+def par_hold(tag, got, ref, names, limits):
+    """Print ``got``'s readings against ``ref`` (``par_distances``) and
+    fail on any outside ``limits``."""
+    d = par_distances(got, ref, names)
+    say(f"{tag}: loss {got['loss']:.7g} vs {ref['loss']:.7g}; readings "
+        + json.dumps({k: float(f"{v:.4g}") for k, v in d.items()})
+        + " (limits " + json.dumps(limits) + ")")
+    bad = par_breaches(d, limits)
+    need(not bad, f"{tag}: outside the limits: {bad}")
+    return d
+
+
+def par_mean(ranks, key, k):
+    """Step k of the ranks' records ``key``, with the ranks' mean
+    gradient (the global one)."""
+    return dict(ranks[0][key][k], grad=sum(
+        rk[key][k]["grad"] for rk in ranks) / len(ranks))
+
+
+def par_check_world(tag, ranks, plain, names):
+    """A world of ranks (b, e) against world 1 (``plain``): each step's
+    readings within PAR_SPLIT, each rank's launches per step phase 4's,
+    the ranks' parameters after the steps equal; the step with cuDNN off
+    within PAR_SPLIT_NO_CUDNN of world 1's with cuDNN off; the step with
+    rank-local BatchNorm outside PAR_SPLIT by each of PAR_CAUGHT; the
+    conv+BN stack (``par_bn_stack``) within 1e-5 of world 1's."""
+    import torch
+    for phase in PAR_PHASES:
+        for k, ref in enumerate(plain[phase]):
+            for r, rk in enumerate(ranks):
+                rec = rk[phase][k]
+                need(rec["launches"] == par_expected(phase, "float32"),
+                     f"{tag} rank {r} {phase} step {k}: launches "
+                     f"{rec['launches']}")
+            par_hold(f"{tag} {phase} step {k}", par_mean(ranks, phase, k),
+                     ref, names, PAR_SPLIT)
+            par_hold(f"{tag} {phase} step {k} against world 1 rendering its "
+                     "synth batch in the ranks' stripes",
+                     par_mean(ranks, phase, k),
+                     plain[f"{phase} split_render"][k], names, PAR_STRIPED)
+        for rk in ranks[1:]:
+            need(torch.equal(rk[phase][-1]["params"],
+                             ranks[0][phase][-1]["params"]),
+                 f"{tag}: the ranks' {phase} parameters differ")
+        whole, split = plain[phase][0], plain[f"{phase} split_render"][0]
+        d = par_distances(split, whole, names)
+        say(f"{tag} {phase} step 0, the witness: world 1 rendering its synth "
+            f"batch in {len(ranks)} stripes against world 1 rendering it "
+            "whole (one process, no collective): readings " + json.dumps(
+                {k: float(f"{v:.4g}") for k, v in d.items()}))
+        for r, rk in enumerate(ranks):
+            rows = slice(r * TRAIN_BATCH // len(ranks),
+                         (r + 1) * TRAIN_BATCH // len(ranks))
+            img = rk[phase][0]["render"]
+            gap = (img - whole["render"][rows]).abs()
+            same = float((img != split["render"][rows]).float().mean())
+            say(f"{tag} {phase} step 0 rank {r}: its synth render of "
+                f"{img.shape[0]} rows against its rows of world 1's whole "
+                f"render: {100 * float((gap > 0).float().mean()):.4g}% of "
+                f"the pixels differ, {100 * float((gap > 1e-3).float().mean()):.4g}"
+                f"% by more than 1e-3 (largest {float(gap.max()):.4g}), "
+                "joints " + f"{float((rk[phase][0]['joints'] - whole['joints'][rows]).abs().max()):.4g}"
+                f" mm apart; against world 1's striped render: "
+                f"{100 * same:.4g}% differ")
+            need(same <= PAR_RENDER, f"{tag} {phase} rank {r}: the synth "
+                 f"render differs from world 1's striped one on {same:.3g} "
+                 "of its pixels")
+        par_hold(f"{tag} {phase} step 0, cuDNN off on both sides",
+                 par_mean(ranks, f"{phase} no_cudnn", 0),
+                 plain[f"{phase} no_cudnn"][0], names, PAR_SPLIT_NO_CUDNN)
+        d = par_distances(par_mean(ranks, f"{phase} local_bn", 0),
+                          plain[phase][0], names)
+        caught = par_breaches(d, {k: PAR_SPLIT[k] for k in PAR_CAUGHT})
+        say(f"{tag} {phase} step 0 with rank-local BatchNorm (the "
+            "control): readings " + json.dumps(
+                {k: float(f"{v:.4g}") for k, v in d.items()})
+            + f"; outside PAR_SPLIT by {sorted(caught)}")
+        need(len(caught) == len(PAR_CAUGHT), f"{tag} {phase}: rank-local "
+             f"BatchNorm stays within PAR_SPLIT by {set(PAR_CAUGHT) - set(caught)}")
+        say(f"{tag} {phase} step ms by rank (the first step chooses cuDNN's "
+            "algorithms; the ranks share the card): " + json.dumps(
+                [[round(s["ms"], 3) for s in rk[phase]] for rk in ranks])
+            + "; cuDNN off: " + json.dumps(
+                [round(rk[f"{phase} no_cudnn"][0]["ms"], 3) for rk in ranks]))
+    one = par_bn_stack(None, "cuda")
+    for g in (1, 2):
+        y = torch.cat([torch.cat([rk["bn"][g]["y"].chunk(g)[i] for rk in ranks])
+                       for i in range(g)])
+        grads = {n: sum(rk["bn"][g]["grads"][n] for rk in ranks)
+                 for n in one[g]["grads"]}
+        dy = float((y - one[g]["y"]).abs().max() / one[g]["y"].abs().max())
+        dg = max(rel_l2(grads, {n: v.double() for n, v in
+                                one[g]["grads"].items()}).values())
+        ds = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(
+            ranks[0]["bn"][g]["stats"], one[g]["stats"]))
+        say(f"{tag} conv+BN stack, {g} group(s), 8 rows a group over the "
+            f"ranks against world 1: output {dy:.3g} of its scale, "
+            f"gradients {dg:.3g} relative L2, statistics {ds:.3g}")
+        need(dy <= 1e-5 and dg <= 1e-4 and ds <= 1e-5,
+             f"{tag}: the synchronized BatchNorm differs from world 1's")
+
+
+def run_parallel(mano_path, smi):
+    """Phase 9: the multi-GPU path.  Returns the launch counts by path."""
+    import torch
+    import torch.distributed as dist
+    from dsf_tpu_torch import demo, kernels
+    from dsf_tpu_torch.parallel.mesh import Mesh
+    from dsf_tpu_torch.serving import InferenceEngine
+    from dsf_tpu_torch.models.weights import random_reference_state_dict
+    by_path = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (b) and (c): two ranks on this card over gloo
+        gloo = par_world("gloo", mano_path, tmp)
+        for r, rk in enumerate(gloo):
+            by_path[f"parallel_gloo_rank{r}"] = {
+                n: sum(s["launches"][n] for p in PAR_PHASES + ("fsdp",)
+                       for s in rk[p]) for n in KERNELS}
+
+        # (a) world 1 over NCCL: this process's group of one
+        dist.init_process_group("nccl",
+                                init_method=f"tcp://localhost:{free_port()}",
+                                rank=0, world_size=1)
+        try:
+            one = Mesh(collectives=True)
+            plain = {}
+            for dtype in ("float32", "bfloat16"):
+                for phase in PAR_PHASES:
+                    f32 = dtype == "float32"
+                    carry = ((lambda k, p=phase: os.path.join(
+                        tmp, f"{p}_{k}.pt")) if f32 else None)
+                    p_recs, names = par_steps(
+                        mano_path, None, dtype, phase, PAR_STEPS, "cuda",
+                        carry=carry, witness=f32)
+                    kernels.reset_launch_counts()
+                    c_recs, _ = par_steps(mano_path, one, dtype, phase,
+                                          PAR_STEPS, "cuda")
+                    by_path[f"parallel_world1_{phase.lower()}_"
+                            f"{dtype}"] = dict(kernels.LAUNCHES)
+                    need(all(c["launches"] == p["launches"]
+                             == par_expected(phase, dtype)
+                             for c, p in zip(c_recs, p_recs)),
+                         f"world 1 {phase} {dtype}: launches "
+                         f"{[c['launches'] for c in c_recs]} and "
+                         f"{[p['launches'] for p in p_recs]}")
+                    par_hold(f"parallel world 1 (NCCL) {phase} {dtype}",
+                             c_recs[0], p_recs[0], names,
+                             PAR_SAME_SPLIT if f32 else PAR_BF16)
+                    say(f"parallel world 1 {phase} {dtype} second step ms "
+                        f"(host clock to a synchronized loss): distributed "
+                        f"path {c_recs[-1]['ms']:.3f}, one-device path "
+                        f"{p_recs[-1]['ms']:.3f}; {smi}")
+                    if f32:
+                        plain[phase] = p_recs
+                        plain[f"{phase} no_cudnn"], _ = par_steps(
+                            mano_path, None, dtype, phase, 1, "cuda",
+                            cudnn=False)
+                        plain[f"{phase} split_render"], _ = par_steps(
+                            mano_path, None, dtype, phase, PAR_STEPS, "cuda",
+                            carry=carry, witness=True,
+                            render_parts=PAR_RANKS)
+            n = sum(k for _, k in names)
+            say(f"parallel world 1: the flat gradient's all-reduce "
+                f"({n} float32) over NCCL, world 1: "
+                f"{par_allreduce_ms(n, None, torch.device('cuda')):.4f} ms; {smi}")
+        finally:
+            dist.destroy_process_group()
+
+        par_check_world("parallel (b) 2 ranks, gloo on one card", gloo,
+                        plain, names)
+        say(f"parallel (b): the flat gradient's all-reduce ({gloo[0]['numel']}"
+            f" float32) over gloo between two processes on one card (not "
+            f"NCCL's; gloo stages CUDA tensors through the host): "
+            + json.dumps([round(rk["allreduce_ms"], 3) for rk in gloo])
+            + f" ms by rank; {smi}")
+
+        # (c) n_fsdp=2 on the same two ranks
+        for r, rk in enumerate(gloo):
+            say(f"parallel (c) n_fsdp=2 rank {r}, the guarded AdamW fed "
+                f"(b)'s gradients: parameters after each of {PAR_STEPS} "
+                "updates, then the gathered moments, bitwise data "
+                f"parallelism's: {rk['fsdp_same']}")
+            need(all(rk["fsdp_same"]), "n_fsdp=2's update differs from "
+                 "data parallelism's on the same gradients")
+            need(all(s["launches"] == par_expected("FinetuneStage", "float32")
+                     for s in rk["fsdp"]),
+                 f"n_fsdp=2 rank {r}: launches "
+                 f"{[s['launches'] for s in rk['fsdp']]}")
+        for k in range(PAR_STEPS):
+            par_hold(f"parallel (c) n_fsdp=2 FinetuneStage step {k} against "
+                     "(b)'s (step 1 from (b)'s state after step 0)",
+                     par_mean(gloo, "fsdp", k),
+                     par_mean(gloo, "FinetuneStage", k), names,
+                     PAR_SAME_SPLIT)
+        need(torch.equal(gloo[0]["fsdp"][-1]["params"],
+                         gloo[1]["fsdp"][-1]["params"]),
+             "n_fsdp=2: the ranks' gathered parameters differ")
+
+        # (d) the engine on two replicas of this card
+        sd = random_reference_state_dict(np.random.RandomState(SEED))
+        cfg = train_config(mano_path, 2, SEED).replace(num_devices=2,
+                                                      phase="test")
+        single = InferenceEngine(cfg.replace(num_devices=1), sd,
+                                 buckets=(8, 32), device="cuda")
+        two = InferenceEngine(cfg, sd, buckets=(8, 32),
+                              devices=("cuda:0", "cuda:0"))
+        rng = np.random.RandomState(SEED + 90)
+        kernels.reset_launch_counts()
+        for n in (8, 32):
+            req = demo.requests(single.renderer, n, rng)
+            a, b = single.predict(*req), two.predict(*req)
+            worst = {k: float(np.abs(a[k] - b[k]).max()) for k in a}
+            bad = {k: v for k, v in worst.items() if v > atol_for(k)}
+            say(f"parallel (d) engine on devices (cuda:0, cuda:0), bucket "
+                f"{n}: largest difference from one device by output "
+                + json.dumps({k: float(f"{v:.3g}") for k, v in worst.items()}))
+            need(not bad, f"the two-replica engine differs: {bad}")
+        by_path["serve_two_replicas"] = dict(kernels.LAUNCHES)
+
+        # (e) two cards over NCCL
+        if torch.cuda.device_count() >= 2:
+            with tempfile.TemporaryDirectory() as tmp2:
+                nccl = par_world("nccl", mano_path, tmp2)
+            par_check_world("parallel (e) 2 ranks, NCCL on two cards", nccl,
+                            plain, names)
+            say("parallel (e): the flat gradient's all-reduce over NCCL: "
+                + json.dumps([round(rk["allreduce_ms"], 3) for rk in nccl])
+                + f" ms by rank; {smi}")
+        else:
+            say(f"parallel (e) did not run: {torch.cuda.device_count()} "
+                "card(s) here, two needed for NCCL between processes")
+    return by_path
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3923,6 +4596,8 @@ def main():
         print(f"chip_smoke: the dsf_tpu_torch package is missing ({e}); run "
               "from the root of the repository", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--phase9-rank"]:
+        return parallel_rank(sys.argv[2])
 
     smi = nvidia_smi_line()
     say(f"device: {smi}; torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -3989,6 +4664,7 @@ def main():
         by_path.update(run_loop(path, smi, fake_nyu))
         by_path.update(run_datasets(path, smi))
         by_path.update(run_cyclegan_phase(path, smi, fake_nyu))
+        by_path.update(run_parallel(path, smi))
     need(sorted(r["name"] for r in record) == sorted(KERNELS),
          "the kernels' record does not list every kernel once")
     for rec in record:

@@ -1,10 +1,11 @@
 """Configuration: a copy of dsf_tpu/config.py (the reference Config's
 field surface as a frozen dataclass) with the per-dataset ``CAMERA`` table
 moved in from dsf_tpu/training/trainer.py, so the port imports nothing of
-dsf_tpu.  ``num_devices`` and ``n_fsdp`` are kept so one config describes
-both packages: the port runs on one card, and its loop, trainer and
-engine raise for more (``check_one_device``).  ``cache_depths`` is read by
-the loop (``training/loop.py``: the loader's decode-once depth cache).
+dsf_tpu.  ``batch_size`` is the global batch, split over the ranks of a
+``torchrun`` world; ``n_fsdp`` shards the optimizer state over that many
+ranks (it must divide the world: ``check_world``); ``num_devices`` is the
+serving engine's replicas (``check_devices``).  ``cache_depths`` is read
+by the loop (``training/loop.py``: the loader's decode-once depth cache).
 """
 
 from __future__ import annotations
@@ -88,8 +89,8 @@ class Config:
     feature_para: Tuple[float, ...] = (0.8,)
 
     # accelerator knobs (compute_dtype: the net's and the generator's type,
-    # float32 or bfloat16, device.compute_dtype; num_devices and n_fsdp
-    # above 1 raise, check_one_device)
+    # float32 or bfloat16, device.compute_dtype; num_devices: the engine's
+    # replicas; n_fsdp: the ranks that share one optimizer state)
     num_devices: int = 1
     n_fsdp: int = 1
     compute_dtype: str = "float32"        # 'float32' | 'bfloat16'
@@ -131,13 +132,18 @@ class Config:
         return dataclasses.replace(self, **kw)
 
 
-def check_one_device(cfg: Config) -> None:
-    """Raise ValueError when ``cfg`` asks for more than one device
-    (``num_devices`` or ``n_fsdp`` above 1): the port runs on one card,
-    and multi-GPU training and serving are not ported yet (ROADMAP
-    Queue 1, item 3)."""
-    for name in ("num_devices", "n_fsdp"):
-        if getattr(cfg, name) > 1:
-            raise ValueError(
-                f"{name}={getattr(cfg, name)}: the port runs on one device; "
-                "multi-GPU is not ported yet (ROADMAP Queue 1, item 3)")
+def check_world(cfg: Config, world: int) -> None:
+    """Raise ValueError unless ``cfg.n_fsdp`` divides ``world`` ranks and
+    ``world`` divides the global ``cfg.batch_size``; it touches no device
+    and no file."""
+    from dsf_tpu_torch.parallel.mesh import check_layout
+    check_layout(world, cfg.n_fsdp, cfg.batch_size)
+
+
+def check_devices(cfg: Config, available: int) -> None:
+    """Raise ValueError when the engine is asked for more replicas
+    (``cfg.num_devices``) than the ``available`` devices (given or
+    visible); it touches no device and no file."""
+    if cfg.num_devices < 1 or cfg.num_devices > available:
+        raise ValueError(f"num_devices={cfg.num_devices}: {available} "
+                         "device(s) given or visible")

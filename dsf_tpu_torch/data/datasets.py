@@ -42,7 +42,7 @@ ICVL_JOINTS, MSRA_JOINTS = 16, 21
 
 class BaseDataset:
     """Batching, prefetching and the depth cache over a subclass's
-    ``_read_depth(index)`` and ``_fetch_batch(idx)``."""
+    ``_read_depth(index)`` and ``_fetch_batch(idx, stripe)``."""
     paras: tuple
     ori_img_size: tuple
     flip: float = 1.0
@@ -53,7 +53,9 @@ class BaseDataset:
     def __len__(self):
         raise NotImplementedError
 
-    def _fetch_batch(self, idx) -> dict:
+    def _fetch_batch(self, idx, stripe=(0, 1)) -> dict:
+        """The frames ``idx`` as a batch; ``stripe`` (rank, world) says
+        which rows of the global batch's augmentation draws they take."""
         raise NotImplementedError
 
     def __getitem__(self, i) -> dict:
@@ -103,14 +105,22 @@ class BaseDataset:
 
     # ------------------------------------------------------------ batching
 
-    def _aug_fast_batch(self, idx, depths, joints_xyz, centers, cubes):
-        """The augmented batch (``aug_batch.augment_fast_batch``), its
-        draws from the dataset's RandomState."""
-        draws = aug_batch.draw_params(self.rng, len(idx), self.aug_para)
+    def _aug_draws(self, n, stripe):
+        """The augmentation draws of ``n`` rows from the dataset's
+        RandomState: rank r of ``stripe`` (r, world) draws the global
+        batch's ``n * world`` and keeps its rows."""
+        rank, world = stripe
+        draws = aug_batch.draw_params(self.rng, n * world, self.aug_para)
+        return draws[rank * n:(rank + 1) * n]
+
+    def _aug_fast_batch(self, idx, depths, joints_xyz, centers, cubes,
+                        stripe=(0, 1)):
+        """The augmented batch (``aug_batch.augment_fast_batch``) with
+        ``_aug_draws``."""
         return aug_batch.augment_fast_batch(
             depths, joints_xyz[idx], centers, cubes.astype(np.float64),
-            self.paras, self.flip, self.img_size, draws,
-            nthreads=self.NUM_WORKERS)
+            self.paras, self.flip, self.img_size,
+            self._aug_draws(len(idx), stripe), nthreads=self.NUM_WORKERS)
 
     def _eval_fast_batch(self, idx, depths, joints_xyz, centers, cubes):
         """The unaugmented batch: crop and normalize in the host library,
@@ -147,23 +157,44 @@ class BaseDataset:
         return np.stack(list(self._worker_pool().map(self._read_depth_cached,
                                                      idx)))
 
-    def _fast_batch(self, idx, joints_xyz, centers, cubes) -> dict:
+    def _fast_batch(self, idx, joints_xyz, centers, cubes,
+                    stripe=(0, 1)) -> dict:
         """The frames ``idx`` as the augmented batch when ``self.augment``,
         else the eval batch."""
-        fetch = self._aug_fast_batch if self.augment else self._eval_fast_batch
-        return fetch(idx, self._depths(idx), joints_xyz, centers, cubes)
+        if self.augment:
+            return self._aug_fast_batch(idx, self._depths(idx), joints_xyz,
+                                        centers, cubes, stripe)
+        return self._eval_fast_batch(idx, self._depths(idx), joints_xyz,
+                                     centers, cubes)
 
     def batches(self, batch_size: int, shuffle=False, seed=0,
-                drop_last=True, loop=False) -> Iterator[dict]:
+                drop_last=True, loop=False, rank=0, world=1
+                ) -> Iterator[dict]:
         """Batches in order (or a permutation from ``seed`` per pass);
-        ``drop_last=False`` keeps a short tail; ``loop`` repeats."""
+        ``drop_last=False`` keeps a short tail; ``loop`` repeats.
+
+        With ``world`` > 1 each global batch of ``batch_size`` yields only
+        rank ``rank``'s stripe (rows [r*b, (r+1)*b), b = batch_size /
+        world), and only those frames are read: every rank permutes alike
+        and the stripes' union is the global batch, augmentation draws
+        included.  A short tail is padded to ``batch_size`` by repeating
+        its last frame first (the loop's eval masks the padding)."""
+        if batch_size % world:
+            raise ValueError(f"the global batch of {batch_size} does not "
+                             f"divide over {world} ranks")
+        b = batch_size // world
         rng = np.random.RandomState(seed)
         n = len(self)
         while True:
             order = rng.permutation(n) if shuffle else np.arange(n)
             end = n - batch_size + 1 if drop_last else n
             for s in range(0, end, batch_size):
-                yield self._fetch_batch(order[s:s + batch_size])
+                idx = order[s:s + batch_size]
+                if world > 1:
+                    idx = np.concatenate([idx, np.repeat(
+                        idx[-1:], batch_size - len(idx))])[rank * b:
+                                                           (rank + 1) * b]
+                yield self._fetch_batch(idx, (rank, world))
             if not loop:
                 return
 
@@ -266,13 +297,13 @@ class NYUDataset(BaseDataset):
         return readers.nyu_reader(os.path.join(
             self.data_path, f"depth_{self.view + 1}_{index + 1:07d}.png"))
 
-    def _fetch_batch(self, idx) -> dict:
+    def _fetch_batch(self, idx, stripe=(0, 1)) -> dict:
         idx = np.asarray(idx)
         cubes = (self.test_cubesize[idx] if self.phase == "test"
                  else np.tile(self.cube_size, (len(idx), 1))).astype(
                      np.float32)
         return self._fast_batch(idx, self.all_joints_xyz,
-                                self.center_xyz[idx], cubes)
+                                self.center_xyz[idx], cubes, stripe)
 
 
 class ICVLDataset(BaseDataset):
@@ -398,11 +429,11 @@ class ICVLDataset(BaseDataset):
         depth = readers.icvl_reader(self.img_names[index])
         return depth[:, ::-1].copy()                # left-right flip
 
-    def _fetch_batch(self, idx) -> dict:
+    def _fetch_batch(self, idx, stripe=(0, 1)) -> dict:
         idx = np.asarray(idx)
         cubes = np.tile(self.cube_size.astype(np.float32), (len(idx), 1))
         return self._fast_batch(idx, self.all_joints_xyz,
-                                self.center_xyz[idx], cubes)
+                                self.center_xyz[idx], cubes, stripe)
 
 
 class MSRADataset(BaseDataset):
@@ -494,11 +525,11 @@ class MSRADataset(BaseDataset):
     def _read_depth(self, index) -> np.ndarray:
         return readers.msra_reader(self.files[index], self.paras)[0]
 
-    def _fetch_batch(self, idx) -> dict:
+    def _fetch_batch(self, idx, stripe=(0, 1)) -> dict:
         idx = np.asarray(idx)
         cubes = np.repeat(self.cubes[idx][:, None], 3, axis=1)
         return self._fast_batch(idx, self.joints_xyz, self.center_xyz[idx],
-                                cubes)
+                                cubes, stripe)
 
 
 def _item_center_uvd(joints_xyz, paras, flip) -> np.ndarray:
@@ -565,7 +596,7 @@ class SHRECDataset(BaseDataset):
     def _read_depth(self, index) -> np.ndarray:
         return readers.shrec_reader(self.samples[index][0])
 
-    def _fetch_batch(self, idx) -> dict:
+    def _fetch_batch(self, idx, stripe=(0, 1)) -> dict:
         idx = np.asarray(idx)
         depths = self._depths(idx)
         coms = np.stack([
@@ -657,7 +688,7 @@ class DHGDataset(BaseDataset):
         depth = readers.shrec_reader(self.samples[index][0])
         return depth[:, ::-1].copy()                  # flip (ref :2988)
 
-    def _fetch_batch(self, idx) -> dict:
+    def _fetch_batch(self, idx, stripe=(0, 1)) -> dict:
         idx = np.asarray(idx)
         depths = self._depths(idx)
         joints = np.stack([self.samples[i][1] for i in idx])
@@ -667,7 +698,7 @@ class DHGDataset(BaseDataset):
             out = aug_batch.augment_fast_batch(
                 depths, joints, C.joint_img_to_3d(coms, self.paras, self.flip),
                 cubes, self.paras, self.flip, self.img_size,
-                aug_batch.draw_params(self.rng, len(idx), self.aug_para),
+                self._aug_draws(len(idx), stripe),
                 nthreads=self.NUM_WORKERS, coms=coms)
         else:
             out = aug_batch.unaugmented_batch(

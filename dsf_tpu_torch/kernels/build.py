@@ -18,6 +18,7 @@ wrapper turns into an exception.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -26,6 +27,8 @@ import subprocess
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -168,6 +171,21 @@ def check_tensors(specs) -> None:
             raise ValueError(f"{name}: need a {align}-byte aligned start")
         if t.device != dev:
             raise ValueError(f"{name}: on {t.device}, the others on {dev}")
+
+
+@contextlib.contextmanager
+def on_device(*tensors):
+    """Launch on the tensors' own card: enter their CUDA device (not the
+    caller's current one) and yield its current stream's handle.  Raises
+    ValueError when they are not all on one CUDA device (None entries,
+    absent optional inputs, are skipped)."""
+    ts = [t for t in tensors if t is not None]
+    dev = ts[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in ts):
+        raise ValueError("a kernel's tensors must be on one CUDA device, got "
+                         + ", ".join(sorted({str(t.device) for t in ts})))
+    with torch.cuda.device(dev):
+        yield torch.cuda.current_stream(dev).cuda_stream
 
 
 def check(err: int, what: str) -> None:

@@ -45,7 +45,14 @@ class ManoOCRStage(nn.Module):
     with bfloat16 the parameters and BatchNorm statistics stay float32,
     every layer computes in bfloat16 and both stages' outputs are bfloat16,
     as the JAX package's; the stage-2 render and its remap stay float32
-    (the remap is cast to bfloat16 for the fusion)."""
+    (the remap is cast to bfloat16 for the fusion).
+
+    ``sync`` (a ``parallel.mesh.Mesh``, set by the trainer of a world of
+    more than one rank) is handed to every BatchNorm for the length of a
+    forward: in train mode their statistics are then over every rank's
+    rows, group by group."""
+
+    sync = None
 
     def __init__(self, joint_num: int = 21, depth: int = 18,
                  refine: bool = True, dtype: torch.dtype = torch.float32):
@@ -110,9 +117,16 @@ class ManoOCRStage(nn.Module):
 
     def forward(self, img, render: rnd.Renderer = None, center=None,
                 cube=None, bn_groups: int = 1):
-        for m in self.modules():
-            if isinstance(m, BatchNorm2d):
-                m.groups = bn_groups
+        bns = [m for m in self.modules() if isinstance(m, BatchNorm2d)]
+        for m in bns:
+            m.groups, m.sync = bn_groups, self.sync
+        try:
+            return self._forward(img, render, center, cube)
+        finally:
+            for m in bns:
+                m.sync = None
+
+    def _forward(self, img, render, center, cube):
         c0 = self.pre(img)
         c4 = self._trunk(c0, "")
         img_result, mano_para, img_feature = self._heads(c4, "")

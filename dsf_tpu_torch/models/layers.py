@@ -112,13 +112,24 @@ class BatchNorm2d(nn.BatchNorm2d):
     ``groups`` 1 (train or eval) is ``F.batch_norm``'s float32 arithmetic
     rounded once to bfloat16, as Flax ``nn.BatchNorm``'s ``_normalize``;
     ``groups`` > 1 is ``_grouped_bf16``, the arithmetic of the JAX
-    package's ``_GroupedBN`` in bfloat16."""
+    package's ``_GroupedBN`` in bfloat16.
+
+    ``sync``, an active ``parallel.mesh.Mesh`` (more than one rank), makes the
+    train-mode statistics global, as the JAX package's are over a sharded
+    batch (``_GroupedBN``'s ``pmean``): each group's float32 count, sum and
+    sum of squares are summed over the ranks by an all-reduce that autograd
+    sees, so the backward sums the statistics' gradients over the ranks
+    too (``_sync_forward``).  ``ManoOCRStage`` sets it for the length of a
+    forward; None (world 1) keeps the paths above."""
 
     groups = 1
+    sync = None
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if self.sync is not None and self.sync.active:
+            return self._sync_forward(x)
         if self.groups == 1:
             return self._train_forward(x)
         if x.dtype == torch.bfloat16:
@@ -147,6 +158,42 @@ class BatchNorm2d(nn.BatchNorm2d):
         y = ((x.unflatten(0, (g, -1)) - mean.to(dt)[:, None, :, None, None])
              * mul.to(dt)[:, None, :, None, None]
              + self.bias.to(dt)[:, None, None])
+        return y.flatten(0, 1)
+
+    def _sync_forward(self, x):
+        """Train mode with statistics over every rank's rows: per group the
+        float32 (sum, sum of squares, count) all-reduced over
+        ``sync.group``, then the fast variance E[x^2] - E[x]^2 (Flax's),
+        Flax's EMA of the global biased variance, one update per group in
+        group order, and the normalization at the one-rank paths' rounding
+        points: float32 throughout for a float32 x; for a bfloat16 x with
+        one group float32 rounded once (Flax ``nn.BatchNorm``), with more
+        ``_grouped_bf16``'s bfloat16 arithmetic."""
+        from torch.distributed.nn.functional import all_reduce
+        g, dt, C = self.groups, x.dtype, x.shape[1]
+        xf = x.float().unflatten(0, (g, -1))                   # (g, b, C, H, W)
+        count = torch.full((g, 1), float(xf[0, :, 0].numel()),
+                           dtype=torch.float32, device=x.device)
+        sums = all_reduce(torch.cat([xf.sum((1, 3, 4)),
+                                     (xf * xf).sum((1, 3, 4)), count], 1),
+                          group=self.sync.group)
+        n = sums[:, 2 * C:]
+        mean = sums[:, :C] / n                                     # (g, C)
+        var = sums[:, C:2 * C] / n - mean * mean
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        with torch.no_grad():
+            m = self.momentum
+            for i in range(g):
+                self.running_mean.mul_(1.0 - m).add_(m * mean[i])
+                self.running_var.mul_(1.0 - m).add_(m * var[i])
+            self.num_batches_tracked.add_(g)
+        bc = lambda t: t[:, None, :, None, None]
+        if dt == torch.bfloat16 and g > 1:
+            y = ((x.unflatten(0, (g, -1)) - bc(mean.to(dt))) * bc(mul.to(dt))
+                 + self.bias.to(dt)[:, None, None])
+        else:
+            y = ((xf - bc(mean)) * bc(mul)
+                 + self.bias[:, None, None]).to(dt)
         return y.flatten(0, 1)
 
     def _train_forward(self, x):

@@ -70,10 +70,9 @@ def _same_device(*ts):
 
 def _launch(name, tensors, ints, floats):
     fn = _launcher(name)
-    with torch.cuda.device(tensors[0].device):
+    with build.on_device(*tensors) as stream:
         err = fn(*[t.data_ptr() for t in tensors], *ints,
-                 *[float(f) for f in floats],
-                 torch.cuda.current_stream().cuda_stream)
+                 *[float(f) for f in floats], stream)
     build.check(err, name)
 
 

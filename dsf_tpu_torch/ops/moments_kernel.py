@@ -80,9 +80,9 @@ def face_moments_cuda(idx, upd, num_faces):
     out = torch.empty((B, num_faces, 3), dtype=torch.float32,
                       device=idx.device)
     fn = _launcher()
-    with torch.cuda.device(idx.device):
+    with build.on_device(idx, upd, out) as stream:
         err = fn(idx.data_ptr(), upd.data_ptr(), out.data_ptr(), B, P,
-                 int(num_faces), torch.cuda.current_stream().cuda_stream)
+                 int(num_faces), stream)
     build.check(err, "raster_moments")
     LAUNCHES["raster_moments"] += 1
     return out

@@ -166,8 +166,7 @@ def argmin_setup_cuda(points, tris, part_mask=None, point_part=None,
     tiles = torch.empty((N, maxT, 4), **i32)
     tcount = torch.empty((N, 2), **i32)
     ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
+    with build.on_device(points, tris, mask, parts) as stream:
         if culled:
             fkey = torch.empty((T,), **i32)
             fperm = torch.empty((T,), **i32)
@@ -229,12 +228,13 @@ def argmin_faces_launch(points, tables):
     dmin = torch.empty((N, P), dtype=torch.float32, device=points.device)
     imin = torch.empty((N, P), dtype=torch.int32, device=points.device)
     fn = build.function("point_mesh", "dsf_point_mesh_argmin", 9, 4)
-    with torch.cuda.device(points.device):
+    with build.on_device(points, tables.rows, tables.lists, tables.lens,
+                         tables.perm, tables.tiles, tables.tcount) as stream:
         err = fn(points.data_ptr(), tables.rows.data_ptr(),
                  tables.lists.data_ptr(), tables.lens.data_ptr(),
                  tables.perm.data_ptr(), tables.tiles.data_ptr(),
                  tables.tcount.data_ptr(), dmin.data_ptr(), imin.data_ptr(),
-                 N, P, T, maxT, torch.cuda.current_stream().cuda_stream)
+                 N, P, T, maxT, stream)
     build.check(err, "point_mesh_argmin")
     LAUNCHES["point_mesh_argmin"] += 1
     return dmin, imin
@@ -268,13 +268,14 @@ def argmin_faces_culled_launch(points, tables):
     imin = torch.empty((N, P), dtype=torch.int32, device=points.device)
     fn = build.function("point_mesh_culled", "dsf_point_mesh_argmin_culled",
                         10, 4)
-    with torch.cuda.device(points.device):
+    with build.on_device(points, tables.rows, tables.lists, tables.choff,
+                         tables.fperm, tables.perm, tables.tiles,
+                         tables.tcount) as stream:
         err = fn(points.data_ptr(), tables.rows.data_ptr(),
                  tables.lists.data_ptr(), tables.choff.data_ptr(),
                  tables.fperm.data_ptr(), tables.perm.data_ptr(),
                  tables.tiles.data_ptr(), tables.tcount.data_ptr(),
-                 dmin.data_ptr(), imin.data_ptr(), N, P, T, maxT,
-                 torch.cuda.current_stream().cuda_stream)
+                 dmin.data_ptr(), imin.data_ptr(), N, P, T, maxT, stream)
     build.check(err, "icp_argmin_culled")
     LAUNCHES["icp_argmin_culled"] += 1
     return dmin, imin
@@ -329,12 +330,11 @@ def v2_setup_cuda(points, tris, part_mask=None, point_part=None):
     skip = torch.empty((N, -(-P // V2_TILE)), **i32)
     ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
     fn = build.function("point_mesh_v2", "dsf_point_mesh_v2_setup", 11, 4)
-    with torch.cuda.device(dev):
+    with build.on_device(points, tris, mask, parts) as stream:
         err = fn(tris.data_ptr(), ptr(mask), ptr(parts), rows.data_ptr(),
                  fword.data_ptr(), fkey.data_ptr(), fperm.data_ptr(),
                  words.data_ptr(), cor.data_ptr(), parts32.data_ptr(),
-                 skip.data_ptr(), N, P, T, K,
-                 torch.cuda.current_stream().cuda_stream)
+                 skip.data_ptr(), N, P, T, K, stream)
     build.check(err, "icp_argmin_v2 set-up")
     return V2Tables(fperm, rows, words, cor, parts32, skip)
 
@@ -364,12 +364,12 @@ def argmin_faces_v2_launch(points, tables):
     dmin = torch.empty((N, P), dtype=torch.float32, device=points.device)
     imin = torch.empty((N, P), dtype=i32, device=points.device)
     fn = build.function("point_mesh_v2", "dsf_point_mesh_argmin_v2", 8, 3)
-    with torch.cuda.device(points.device):
+    with build.on_device(points, tables.rows, tables.words, tables.parts,
+                         tables.skip, tables.fperm) as stream:
         err = fn(points.data_ptr(), tables.rows.data_ptr(),
                  tables.words.data_ptr(), tables.parts.data_ptr(),
                  tables.skip.data_ptr(), tables.fperm.data_ptr(),
-                 dmin.data_ptr(), imin.data_ptr(), N, P, T,
-                 torch.cuda.current_stream().cuda_stream)
+                 dmin.data_ptr(), imin.data_ptr(), N, P, T, stream)
     build.check(err, "icp_argmin_v2")
     LAUNCHES["icp_argmin_v2"] += 1
     return dmin, imin

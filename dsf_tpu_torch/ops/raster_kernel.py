@@ -80,10 +80,9 @@ def face_setup_cuda(proj, faces, lib="raster_skip"):
     cbox = torch.empty((B, -(-F // CHUNK), 4), dtype=torch.float32,
                        device=dev)
     fn = build.function(lib, f"dsf_{lib}_setup", 5, 3)
-    with torch.cuda.device(dev):
+    with build.on_device(proj, faces, rows) as stream:
         err = fn(proj.data_ptr(), faces.data_ptr(), rows.data_ptr(),
-                 boxes.data_ptr(), cbox.data_ptr(), B, V, F,
-                 torch.cuda.current_stream().cuda_stream)
+                 boxes.data_ptr(), cbox.data_ptr(), B, V, F, stream)
     build.check(err, f"{lib} set-up")
     return rows, boxes, cbox
 
@@ -111,8 +110,7 @@ def raster_skip_launch(rows, boxes, cbox, pix_uv, layout_hw):
     zbuf = torch.empty((B, H * W), dtype=torch.float32, device=rows.device)
     idx = torch.empty((B, H * W), dtype=torch.int32, device=rows.device)
     fn = build.function("raster_skip", "dsf_raster_skip", 6, 4)
-    with torch.cuda.device(rows.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with build.on_device(rows, boxes, cbox, pix_uv) as stream:
         err = fn(rows.data_ptr(), boxes.data_ptr(), cbox.data_ptr(),
                  pix_uv.data_ptr(), zbuf.data_ptr(), idx.data_ptr(), B, F, H,
                  W, stream)
@@ -142,8 +140,7 @@ def raster_dense_launch(rows, boxes, cbox, pix_uv):
     zbuf = torch.empty((B, P), dtype=torch.float32, device=rows.device)
     idx = torch.empty((B, P), dtype=torch.int32, device=rows.device)
     fn = build.function("raster_dense", "dsf_raster_dense", 6, 3)
-    with torch.cuda.device(rows.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    with build.on_device(rows, boxes, cbox, pix_uv) as stream:
         err = fn(rows.data_ptr(), boxes.data_ptr(), cbox.data_ptr(),
                  pix_uv.data_ptr(), zbuf.data_ptr(), idx.data_ptr(), B, F, P,
                  stream)
@@ -205,11 +202,11 @@ def binned_setup_cuda(proj, faces, pix_uv, tile_hw):
         torch.empty((B, G), dtype=torch.int32, device=dev),
         torch.empty(1, dtype=torch.int32, device=dev))
     fn = build.function("raster_binned", "dsf_raster_binned_setup", 10, 9)
-    with torch.cuda.device(dev):
+    with build.on_device(proj, faces, pix_uv) as stream:
         err = fn(proj.data_ptr(), faces.data_ptr(), pix_uv.data_ptr(),
                  *[t.data_ptr() for t in out],
                  int(faces.dtype == torch.int64), B, V, F, H, W, sb, sp,
-                 BIN_CAP, torch.cuda.current_stream().cuda_stream)
+                 BIN_CAP, stream)
     build.check(err, "raster_binned set-up")
     return out
 
@@ -233,12 +230,12 @@ def raster_binned_launch(rows, boxes, cbox, vbox, tbox, pix_uv, overflow,
     zbuf = torch.empty((B, H * W), dtype=torch.float32, device=rows.device)
     idx = torch.empty((B, H * W), dtype=torch.int32, device=rows.device)
     fn = build.function("raster_binned", "dsf_raster_binned", 9, 6)
-    with torch.cuda.device(rows.device):
+    with build.on_device(rows, boxes, cbox, vbox, tbox, pix_uv,
+                         overflow) as stream:
         err = fn(rows.data_ptr(), boxes.data_ptr(), cbox.data_ptr(),
                  vbox.data_ptr(), tbox.data_ptr(), pix_uv.data_ptr(),
                  overflow.data_ptr(), zbuf.data_ptr(), idx.data_ptr(), B, F,
-                 H, W, sb, sp,
-                 torch.cuda.current_stream().cuda_stream)
+                 H, W, sb, sp, stream)
     build.check(err, "raster_binned")
     LAUNCHES["raster_binned"] += 1
     return zbuf, idx

@@ -50,9 +50,9 @@ def tail_conv_cuda(x, w, b):
     symbol, count = VARIANTS[x.dtype]
     out = torch.empty((B, 1, H, W), dtype=x.dtype, device=x.device)
     fn = build.function("tail_conv", symbol, 4, 4)
-    with torch.cuda.device(x.device):
+    with build.on_device(x, w, b, out) as stream:
         err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
-                 B, C, H, W, torch.cuda.current_stream().cuda_stream)
+                 B, C, H, W, stream)
     build.check(err, count)
     LAUNCHES[count] += 1
     return out

@@ -1,4 +1,5 @@
-"""Production inference on one GPU (counterpart of dsf_tpu/serving.py).
+"""Production inference on one GPU or data-parallel over several
+(counterpart of dsf_tpu/serving.py).
 
 The engine serves the two-stage ManoOCRStage from pre-cropped normalized
 depth: requests of any size are padded up to the nearest batch bucket
@@ -14,6 +15,12 @@ stage.  Matmuls and convolutions run without TF32.  ``cfg.compute_dtype``
 the stage-2 render, the codec and MANO's LBS stay float32 (the decode
 reads the bfloat16 field in float32), and the ``mano_para_*`` outputs are
 bfloat16 tensors, float32 arrays with ``as_numpy``.
+
+With ``cfg.num_devices`` n above 1 the engine holds one replica of the
+net and the renderer on each of ``devices`` (``cuda:0`` ... ``cuda:n-1``
+by default): each bucket is split into n equal chunks, one a device, and
+the results are concatenated in request order on the first device; a
+bucket that does not divide by n raises, as the JAX engine's mesh does.
 
 Raw frames go through ``predict_from_depth`` (the host crop of
 ``data.crop``, centred on the given or the foreground's centre of mass),
@@ -41,7 +48,7 @@ import numpy as np
 import torch
 
 from dsf_tpu_torch import geometry as geo
-from dsf_tpu_torch.config import CAMERA, Config, check_one_device
+from dsf_tpu_torch.config import CAMERA, Config, check_devices
 from dsf_tpu_torch.device import (compute_dtype, exact_float32,
                                   resolve_device, widen)
 from dsf_tpu_torch.mano import model as mano_model
@@ -87,35 +94,55 @@ class InferenceEngine:
       mano_npz: the converted MANO asset (default ``cfg.mano_model_path``).
       buckets: allowed batch sizes, ascending; larger requests are chunked.
       device: ``cuda`` when None; raises if CUDA is missing.  ``"cpu"``
-        runs the plain versions of the kernels.  ``cfg.num_devices`` and
-        ``cfg.n_fsdp`` above 1 raise (``config.check_one_device``).
+        runs the plain versions of the kernels.
+      devices: with ``cfg.num_devices`` n above 1, the replicas' devices
+        (the first n; ``cuda:0`` ... ``cuda:n-1`` by default, or n times
+        ``device`` when that is the CPU).  n above the devices given or
+        visible raises (``config.check_devices``), and so does a bucket
+        that n does not divide, before any device or file is touched.
     """
 
     def __init__(self, cfg: Config, variables: Mapping,
                  mano_npz: Optional[str] = None,
-                 buckets: Sequence[int] = (1, 8, 32), device=None):
+                 buckets: Sequence[int] = (1, 8, 32), device=None,
+                 devices: Optional[Sequence] = None):
         if "ResNet" not in cfg.net:
             raise NotImplementedError(cfg.net)
-        check_one_device(cfg)
         dtype = compute_dtype(cfg)
-        self.device = resolve_device(device)
-        self.cfg = cfg
         self.buckets = tuple(sorted(buckets))
+        n = cfg.num_devices
+        if devices is None and n > 1:
+            cpu = device is not None and torch.device(device).type == "cpu"
+            devices = ([device] * n if cpu else
+                       [f"cuda:{i}" for i in range(torch.cuda.device_count())])
+        if devices is not None:
+            check_devices(cfg, len(devices))
+            bad = [b for b in self.buckets if b % n]
+            if bad:
+                raise ValueError(f"buckets {bad} not divisible by "
+                                 f"num_devices={n}")
+        self.devices = [resolve_device(d) for d in (devices or [device])[:n]]
+        self.device = self.devices[0]
+        self.cfg = cfg
         self.paras, self.img_size = CAMERA[cfg.dataset]
-        mano = mano_model.load_model(mano_npz or cfg.mano_model_path,
-                                     device=self.device)
-        self.renderer = rnd.Renderer.create(
-            mano, cfg.dataset, self.paras, self.img_size,
-            (cfg.input_size, cfg.input_size))
         self.transfer_map = np.asarray(transfer_for_dataset(cfg.dataset))
-        self._tm = torch.as_tensor(self.transfer_map, device=self.device)
-        depth = int(cfg.net.split("_")[-1])
-        self.net = ManoOCRStage(joint_num=21, depth=depth,
-                                refine=cfg.stage_num == 2, dtype=dtype)
         sd = (state_dict_from_jax(variables) if "params" in variables
               else variables)
-        load_into(self.net, sd)
-        self.net.to(self.device).eval()
+        depth = int(cfg.net.split("_")[-1])
+        # one (net, renderer, transfer map) a device
+        self.replicas = []
+        for dev in self.devices:
+            mano = mano_model.load_model(mano_npz or cfg.mano_model_path,
+                                         device=dev)
+            renderer = rnd.Renderer.create(
+                mano, cfg.dataset, self.paras, self.img_size,
+                (cfg.input_size, cfg.input_size))
+            net = ManoOCRStage(joint_num=21, depth=depth,
+                               refine=cfg.stage_num == 2, dtype=dtype)
+            load_into(net, sd)
+            self.replicas.append((net.to(dev).eval(), renderer, torch.as_tensor(
+                self.transfer_map, device=dev)))
+        self.net, self.renderer, _ = self.replicas[0]
 
     @classmethod
     def from_torch_checkpoint(cls, pth: str, dataset: str = "nyu",
@@ -149,11 +176,25 @@ class InferenceEngine:
 
     # ------------------------------------------------------------ predict
 
-    def _forward(self, img, center, M, cube) -> Dict[str, torch.Tensor]:
-        """One bucket: the predict body (dsf_tpu/serving.py:189-210)."""
+    def _bucket_forward(self, args) -> Dict[str, torch.Tensor]:
+        """One bucket on the replicas: equal chunks, one a device, the
+        results concatenated in order on the first device."""
+        if len(self.replicas) == 1:
+            return self._forward(*args)
+        n = len(self.replicas)
+        outs = [self._forward(*[a.to(dev) for a in chunk], replica=i)
+                for i, (dev, chunk) in enumerate(zip(
+                    self.devices, zip(*[a.chunk(n) for a in args])))]
+        return {k: torch.cat([o[k].to(self.device) for o in outs])
+                for k in outs[0]}
+
+    def _forward(self, img, center, M, cube, replica=0
+                 ) -> Dict[str, torch.Tensor]:
+        """One bucket (or a replica's chunk of one): the predict body
+        (dsf_tpu/serving.py:189-210)."""
         cfg = self.cfg
-        r = self.renderer
-        outputs = self.net(img, r, center, cube)
+        net, r, tm = self.replicas[replica]
+        outputs = net(img, r, center, cube)
         out = {}
         half = cube[:, None, 2:] / 2.0
         for idx, (pixel_pd, para_pd) in enumerate(outputs):
@@ -169,8 +210,8 @@ class InferenceEngine:
             out[f"joint_uvd_nl_{idx}"] = juvd
         last = len(outputs) - 1
         # canonical aliases: the final stage, dataset joint order
-        out["joint_xyz_mm"] = out[f"joint_xyz_mm_{last}"][:, self._tm]
-        out["mano_joint_xyz_mm"] = out[f"mano_joint_xyz_mm_{last}"][:, self._tm]
+        out["joint_xyz_mm"] = out[f"joint_xyz_mm_{last}"][:, tm]
+        out["mano_joint_xyz_mm"] = out[f"mano_joint_xyz_mm_{last}"][:, tm]
         return out
 
     def _bucket(self, n: int) -> int:
@@ -203,7 +244,7 @@ class InferenceEngine:
                 if pads:
                     part = [torch.cat([a, a[-1:].expand(pads, *a.shape[1:])])
                             for a in part]
-                res = self._forward(*part)
+                res = self._bucket_forward(part)
                 chunks.append({k: v[:take] for k, v in res.items()})
                 i += take
         out = (chunks[0] if len(chunks) == 1 else

@@ -10,11 +10,18 @@ evaluates.  ``--dataset`` is nyu (the default), icvl, msra (with
 ``--test_id``, the left-out subject 0-8) or shrec; the data sits under
 ``{root_dir}/{dataset}``.
 
+On N cards of one host: ``torchrun --nproc-per-node N -m
+dsf_tpu_torch.training --key value ...``: one process a card, NCCL
+between them, ``--batch_size`` the global batch (it must divide by N)
+and ``--n_fsdp`` the ranks that share one optimizer state (it must
+divide N); see ``training.loop``.  A bare launch is one process on one
+card (the JAX package's one process drives every local device instead).
+
 ``python -m dsf_tpu_torch.training cyclegan --key value ...`` trains the
 CycleGAN transfer net on the card (``pipelines.run_cyclegan``) and writes
 ``{save_dir}/{dataset}/cyclegan_{run_name}/transfer_G_A.npz``, which
 ``--transferNet_pth`` then names.  The ``ccssl`` subcommand is not ported
-yet (ROADMAP Queue 1, item 4).
+yet (ROADMAP Queue 1, item 3).
 """
 
 from __future__ import annotations

@@ -8,7 +8,9 @@ moment buffers and the guard's counters), ``step`` and ``epoch``.  A save
 copies the tensors to the host, then writes the file on a background
 thread, so the loop goes on while it serializes; ``wait_until_finished``
 drains it, and every restore waits first.  A restore onto the card keeps
-every tensor on the card.  The port does not read the JAX package's orbax
+every tensor on the card.  In a world of ranks every rank calls ``save``
+(the optimizer's state is gathered whole from its shards) and rank 0
+alone writes, so a checkpoint is world 1's; every rank restores.  The port does not read the JAX package's orbax
 checkpoints: a JAX run reaches the port through ``Trainer.init_state``'s
 ``variables``.
 """
@@ -49,13 +51,15 @@ def _host(x):
 
 def save(path: str, trainer, state, epoch: int) -> None:
     """Write ``state`` after ``epoch`` to the checkpoint directory
-    ``path`` (replacing it), in the background."""
+    ``path`` (replacing it), in the background; a collective in a world of
+    ranks, where rank 0 writes."""
     global _pending
-    del trainer
     wait_until_finished()                  # at most one save in flight
     ckpt = _host({"net": state.net.state_dict(),
                   "optimizer": state.optimizer.state_dict(),
                   "step": int(state.step), "epoch": int(epoch)})
+    if trainer.mesh.rank != 0:
+        return
 
     def write():
         global _error

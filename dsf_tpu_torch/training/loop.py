@@ -21,6 +21,15 @@ Each epoch's random streams (the shuffle, the augmentation draws, the
 synth parameters, the steps' draws) are seeded from (``cfg.seed``,
 epoch), so a run resumed from ``latest`` continues as the uninterrupted
 run would.
+
+Under ``torchrun --nproc-per-node N`` (``parallel.distributed.initialize``
+reads its environment) every rank runs this loop on its own card with
+the global ``cfg.batch_size``: each rank reads only its stripe of every
+train and test batch (the same permutation, disjoint rows), and the
+steps and the evaluation reduce over the ranks, so the run is world 1's.
+Rank 0 alone writes the run directory (``train.log``, ``config.json``,
+the snapshot, TensorBoard, the checkpoints and the exports, in dataset
+order); every rank restores a checkpoint.
 """
 
 from __future__ import annotations
@@ -34,8 +43,11 @@ import time
 import numpy as np
 import torch
 
-from dsf_tpu_torch.config import Config, check_one_device
-from dsf_tpu_torch.device import resolve_device
+import torch.distributed as dist
+
+from dsf_tpu_torch.config import Config, check_world
+from dsf_tpu_torch.parallel import distributed
+from dsf_tpu_torch.parallel.mesh import ONE, all_gather_rows
 
 SNAPSHOT = ("training/phases.py", "training/trainer.py", "config.py",
             "models/backbone.py", "render/renderer.py", "mano/model.py",
@@ -118,37 +130,60 @@ def _make_datasets(cfg: Config):
 
 def _to_device(device):
     """A prefetch transform: the batch's arrays as tensors on ``device``
-    (pinned and copied without waiting on a card)."""
+    (pinned and copied without waiting on a card; the prefetch thread
+    works on ``device``'s card, not the thread's default one)."""
     def transform(b):
-        out = {}
-        for k, v in b.items():
-            t = torch.from_numpy(np.ascontiguousarray(v))
-            if device.type == "cuda":
-                t = t.pin_memory().to(device, non_blocking=True)
-            out[k] = t
-        return out
+        if device.type != "cuda":
+            return {k: torch.from_numpy(np.ascontiguousarray(v))
+                    for k, v in b.items()}
+        with torch.cuda.device(device):
+            return {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
+                    .to(device, non_blocking=True) for k, v in b.items()}
     return transform
 
 
-def _real_iter(ds, cfg: Config, device, epoch: int):
+def _real_iter(ds, cfg: Config, device, epoch: int, mesh=ONE):
     """One shuffled pass over ``ds`` in full batches on ``device``, its
-    shuffle and augmentation seeded from (``cfg.seed``, epoch)."""
+    shuffle and augmentation seeded from (``cfg.seed``, epoch); this
+    rank's stripe of each global batch of ``mesh``."""
     ds.rng = np.random.RandomState(_epoch_seed(cfg, epoch, 1))
     return ds.prefetch_batches(cfg.batch_size, shuffle=True,
                                seed=_epoch_seed(cfg, epoch, 0),
-                               drop_last=True, transform=_to_device(device))
+                               drop_last=True, transform=_to_device(device),
+                               rank=mesh.rank, world=mesh.world)
+
+
+def _barrier() -> None:
+    if distributed.world() > 1:
+        dist.barrier()
 
 
 def run(cfg: Config, device=None) -> str:
-    """Train (and test) per ``cfg`` on ``device`` (``cuda`` when None;
-    raises without it, and for more than one device,
-    ``config.check_one_device``).  Returns the run directory,
-    ``{cfg.save_dir}/{cfg.dataset}/{cfg.run_name()}``, which gets
-    ``train.log`` and ``config.json``."""
+    """Train (and test) per ``cfg`` on ``device`` (``cuda`` when None:
+    this rank's card; raises without it).  Under ``torchrun`` it joins the
+    process group first (``distributed.initialize``: NCCL, or gloo with
+    ``device="cpu"``) and leaves it at the end; ``cfg.n_fsdp`` and the
+    global ``cfg.batch_size`` must divide over the ranks, which is checked
+    before anything is touched (``config.check_world``).  Returns the run
+    directory, ``{cfg.save_dir}/{cfg.dataset}/{cfg.run_name()}``, which
+    gets ``train.log`` and ``config.json``."""
     _check_dataset(cfg)
-    check_one_device(cfg)
-    device = resolve_device(device)
+    joined = dist.is_initialized()
+    check_world(cfg, distributed.world() if joined
+                else int(os.environ.get("WORLD_SIZE", "1")))
+    device = distributed.initialize(device)
+    try:
+        return _run_logged(cfg, device)
+    finally:
+        if not joined and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run_logged(cfg: Config, device) -> str:
     run_dir = os.path.join(cfg.save_dir, cfg.dataset, cfg.run_name())
+    if distributed.rank() != 0:
+        _run(cfg, run_dir, device)
+        return run_dir
     os.makedirs(run_dir, exist_ok=True)
     # a per-run file handler, detached when the run ends (basicConfig would
     # be a no-op once any handler exists)
@@ -196,9 +231,12 @@ def _run(cfg: Config, run_dir: str, device) -> None:
     from dsf_tpu_torch.training import checkpoints as ckpt
     from dsf_tpu_torch.training.trainer import Trainer
 
-    with open(os.path.join(run_dir, "config.json"), "w") as f:
-        json.dump({k: str(v) for k, v in vars(cfg).items()}, f, indent=2)
-    _snapshot_sources(run_dir)
+    lead = distributed.rank() == 0
+    if lead:
+        with open(os.path.join(run_dir, "config.json"), "w") as f:
+            json.dump({k: str(v) for k, v in vars(cfg).items()}, f, indent=2)
+        _snapshot_sources(run_dir)
+    _barrier()
 
     train_ds, synth_iter = _make_datasets(cfg)
     steps = (len(train_ds) // cfg.batch_size if train_ds is not None
@@ -217,7 +255,7 @@ def _run(cfg: Config, run_dir: str, device) -> None:
         _test_views(tr, state, cfg, run_dir)
         return
 
-    writer = _summary_writer(cfg, run_dir)
+    writer = _summary_writer(cfg, run_dir) if lead else None
     best = np.inf
     try:
         for epoch in range(start_epoch, cfg.max_epoch):
@@ -226,7 +264,7 @@ def _run(cfg: Config, run_dir: str, device) -> None:
                 int(np.random.SeedSequence(_epoch_seed(cfg, epoch, 2))
                     .generate_state(1)[0]))
             synth = synth_iter(_epoch_seed(cfg, epoch, 3))
-            real = (_real_iter(train_ds, cfg, tr.device, epoch)
+            real = (_real_iter(train_ds, cfg, tr.device, epoch, tr.mesh)
                     if tr.phase() != "Pretrain" else None)
             try:
                 state, metrics = tr.fit_epoch(
@@ -257,28 +295,34 @@ def _run(cfg: Config, run_dir: str, device) -> None:
             train_ds.close()
     ckpt.wait_until_finished()
     _test_views(tr, state, cfg, run_dir)
+    _barrier()
 
 
 def _test_views(tr, state, cfg: Config, run_dir: str) -> None:
     for view in range(3 if cfg.dataset == "nyu" else 1):
         errs = _test_view(tr, state, cfg, view, run_dir)
-        print(f"view {view}: " + " ".join(f"[{e:.2f}mm]" for e in errs))
+        if tr.mesh.rank == 0:
+            print(f"view {view}: " + " ".join(f"[{e:.2f}mm]" for e in errs))
 
 
 def _test_view(tr, state, cfg: Config, view: int, run_dir=None):
     """Evaluate every frame of one test view (NYU's ``view``, or the
     other datasets' one) -> the mean per-stage errors (2 * stages,); with
     ``run_dir``, also write its exports (ref: train_render.py:320-325,
-    383-398)."""
+    383-398).  In a world of ranks each reads and evaluates its stripe of
+    every batch (the tail padded first), and the errors, the outputs and
+    the crops' centres and cubes are gathered, so every rank holds the
+    global batch and rank 0 writes world 1's files."""
     from dsf_tpu_torch.data import crop as C
     from dsf_tpu_torch.device import widen
 
     ds = _test_dataset(cfg, view)
+    mesh = tr.mesh
     export = run_dir is not None and (cfg.save_result or cfg.save_mesh
                                       or cfg.save_obj)
     files = {}
     last = cfg.stage_num - 1
-    if export:
+    if export and mesh.rank == 0:
         # the reference's file set: result_{i}_{view} for i < 2S, of which
         # only 0 and 1 get rows (its save block sits after the stage loop
         # and writes the last stage's two branches), and the mesh / MANO /
@@ -301,19 +345,27 @@ def _test_view(tr, state, cfg: Config, view: int, run_dir=None):
     try:
         # drop_last=False, pad and mask: every frame counts (the NYU
         # protocol's 8,252 rows per view); the step runs at one batch size
-        for b in ds.prefetch_batches(cfg.batch_size, shuffle=False,
-                                     drop_last=False):
-            valid = len(b["img"])
-            if valid < cfg.batch_size:
+        for i, b in enumerate(ds.prefetch_batches(
+                cfg.batch_size, shuffle=False, drop_last=False,
+                rank=mesh.rank, world=mesh.world)):
+            valid = min(len(ds) - i * cfg.batch_size, len(b["img"])
+                        * mesh.world)
+            if len(b["img"]) < cfg.batch_size // mesh.world:
                 pad = cfg.batch_size - valid
                 b = {k: np.concatenate([v, np.repeat(v[-1:], pad, axis=0)])
                      for k, v in b.items()}
             errors, results = step(state, {k: b[k] for k in BATCH_KEYS})
+            if mesh.world > 1:
+                errors = all_gather_rows(errors.t(), mesh).t()
+                results = {k: all_gather_rows(v, mesh)
+                           for k, v in results.items()}
+                b = {k: all_gather_rows(torch.from_numpy(b[k]).to(
+                    tr.device), mesh).cpu().numpy() for k in ("center", "cube")}
             errors = errors.cpu().numpy()[:, :valid]
             totals = (errors.sum(-1) if totals is None
                       else totals + errors.sum(-1))
             n += valid
-            if not export:
+            if not export or mesh.rank != 0:
                 continue
             res = {k: widen(v).cpu().numpy()[:valid] for k, v in results.items()}
             center = b["center"][:valid, None]

@@ -40,6 +40,7 @@ import math
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from dsf_tpu_torch import geometry as geo
 from dsf_tpu_torch.device import widen
@@ -97,6 +98,15 @@ class PretrainDraws:
             self.shape.to(device), self.center.to(device),
             self.size.to(device), self.depth_z.to(device),
             None if self.mask is None else self.mask.to(device))
+
+    def stripe(self, mesh) -> "PretrainDraws":
+        """This rank's rows of a global batch's draws (``mesh.stripe``;
+        the mask's sphere count and joints are the batch's)."""
+        s, m = mesh.stripe, self.mask
+        return PretrainDraws(
+            s(self.shape), s(self.center), s(self.size), s(self.depth_z),
+            None if m is None else rnd.MaskDraws(
+                m.n_active, m.joint_ids, s(m.offs), s(m.radius)))
 
 
 def draw_pretrain(gen: torch.Generator, batch: int, depth_range,
@@ -201,6 +211,15 @@ class FinetuneStageDraws:
         return FinetuneStageDraws(self.synth.to(device), self.view.to(device),
                                   self.scores.to(device))
 
+    def stripe(self, mesh) -> "FinetuneStageDraws":
+        """This rank's rows of a global batch's draws: its rows of the view
+        and of each of the two clouds' scores."""
+        B = len(self.view)
+        return FinetuneStageDraws(
+            self.synth.stripe(mesh), mesh.stripe(self.view),
+            torch.cat([mesh.stripe(self.scores[:B]),
+                       mesh.stripe(self.scores[B:])]))
+
 
 def draw_finetune_stage(gen: torch.Generator, batch: int, depth_range,
                         crop_size: int, mask: bool = True
@@ -295,23 +314,33 @@ def _m2p_mask(crop_img, mano_img_crop, d2m_batch, pd2m_joint, thresh=0.99,
     return mano_mask[:, None] & joint_mask
 
 
-def _masked_select_sl1(a, b, mask_joint):
+def _masked_select_sl1(a, b, mask_joint, sync=None):
     """SmoothL1 over the masked joints only, with a fixed shape (the
     reference gathers them, train_render.py:795-801).  a, b (B, J, 3);
-    mask_joint (B, J) bool.  0 when no joint is masked."""
+    mask_joint (B, J) bool.  0 when no joint is masked.
+
+    Over the ranks of ``sync`` (a ``parallel.mesh.Mesh``) the count is the
+    global one, as the JAX package's over a sharded batch: each rank
+    returns world x its sum over the global count, so the ranks' mean (the
+    averaged gradient, the logged mean) is the global masked mean."""
     z = a - b
     az = torch.abs(z)
     val = torch.where(az < 0.01, 0.5 * z * z, 0.01 * (az - 0.005))
     per_joint = val.mean(-1)
     m = mask_joint.to(per_joint.dtype)
     n = m.sum()
+    total = (per_joint * m).sum()
+    if sync is not None and sync.active:
+        n = n.detach().clone()
+        dist.all_reduce(n, group=sync.group)
+        total = total * sync.world
     return torch.where(n == 0, torch.zeros_like(n),
-                       (per_joint * m).sum() / torch.clamp_min(n, 1.0))
+                       total / torch.clamp_min(n, 1.0))
 
 
 def finetune_loss(net, r: rnd.Renderer, sample: tuple, scores, img_r,
                   center_r, cube_r, M_r, xyz_gt_r, cfg,
-                  transfer: Optional[Callable] = None
+                  transfer: Optional[Callable] = None, sync=None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The one-stage Finetune phase's losses (ref: train_render.py:490-619)
     on the synth batch from ``finetune_stage_sample`` and a real batch, as
@@ -325,6 +354,8 @@ def finetune_loss(net, r: rnd.Renderer, sample: tuple, scores, img_r,
     loss render, the real-image prep, the crop of the rendered image with
     its own MANO joints, one ICP over the 2B clouds, P2M, M2P (gated on
     the uncropped render), m2d (unmasked numerator) and the collision.
+    ``sync`` is the trainer's mesh of ranks (None at world 1): the M2P
+    term's joint count is then global (``_masked_select_sl1``).
     Returns (loss, metrics)."""
     img, juvd_gt, _, jxyz_gt, vxyz_gt, center_s, cube_s, _ = sample
     B = img.shape[0]
@@ -373,8 +404,8 @@ def finetune_loss(net, r: rnd.Renderer, sample: tuple, scores, img_r,
     m2p_mask = _m2p_mask(crop_img, mano_img_r.detach(), d2m_b.detach(),
                          pd2m_joint.detach(), thresh=0.95,
                          union_denominator=False)
-    m2p = _masked_select_sl1(juvd_r, mano_juvd_r.detach(),
-                             m2p_mask) * cfg.coord_weight
+    m2p = _masked_select_sl1(juvd_r, mano_juvd_r.detach(), m2p_mask,
+                             sync) * cfg.coord_weight
 
     loss = loss + p2m
     loss = loss + m2d * 0.1 * cfg.model_weight
@@ -399,7 +430,7 @@ def finetune_loss(net, r: rnd.Renderer, sample: tuple, scores, img_r,
 
 def finetune_stage_loss(net, r: rnd.Renderer, sample: tuple, scores, img_r,
                         center_r, cube_r, M_r, xyz_gt_r, cfg,
-                        transfer: Optional[Callable] = None
+                        transfer: Optional[Callable] = None, sync=None
                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The FinetuneStage phase's losses (ref: train_render.py:622-823) on
     the synth batch from ``finetune_stage_sample`` and a real batch:
@@ -416,8 +447,9 @@ def finetune_stage_loss(net, r: rnd.Renderer, sample: tuple, scores, img_r,
     loss tensors are stacked stage-major along the batch, so the synth LBS,
     the loss render (``render_params`` at 2B) and the ICP's nearest-face
     pass (one argmin over 4B clouds) run once for both stages.  Stage 2 is
-    the detached teacher of stage 1 on the real batch.  Returns (loss,
-    metrics)."""
+    the detached teacher of stage 1 on the real batch.  ``sync`` is the
+    trainer's mesh of ranks (None at world 1): the M2P term's joint count
+    is then global (``_masked_select_sl1``).  Returns (loss, metrics)."""
     img, juvd_gt, _, jxyz_gt, vxyz_gt, center_s, cube_s, _ = sample
     B = img.shape[0]
     S = cfg.input_size
@@ -519,7 +551,7 @@ def finetune_stage_loss(net, r: rnd.Renderer, sample: tuple, scores, img_r,
                                  d2m_b2[sl].detach(),
                                  pd2m_joint2[sl].detach())
             m2p = _masked_select_sl1(juvd_r, mano_juvd_r.detach(),
-                                     m2p_mask) * cfg.coord_weight
+                                     m2p_mask, sync) * cfg.coord_weight
             loss = loss + m2p * cfg.M2P_weight
             metrics["M2P"] = m2p.detach()
         metrics[f"m2d_{idx}"] = m2d.detach()

@@ -6,7 +6,7 @@ dsf_tpu/training/pipelines.py).
   ``transfer_G_A.npz``, which ``Config(transferNet_pth=...)`` reads as the
   frozen transfer net of the training steps (``trainer.load_transfer_net``)
   and the JAX package reads with ``load_variables_npz``.
-* ``run_ccssl`` is not ported yet (ROADMAP Queue 1, item 4).
+* ``run_ccssl`` is not ported yet (ROADMAP Queue 1, item 3).
 
 Command line: ``python -m dsf_tpu_torch.training cyclegan --key value ...``.
 """
@@ -52,7 +52,7 @@ def save_variables_npz(path: str, variables: Mapping) -> str:
 
 def run_ccssl(cfg: Config, epochs=None, regenerate=True):
     raise NotImplementedError(
-        "the CCSSL pipeline is not ported yet (ROADMAP Queue 1, item 4)")
+        "the CCSSL pipeline is not ported yet (ROADMAP Queue 1, item 3)")
 
 
 # ---------------------------------------------------------------------------

@@ -59,10 +59,12 @@ from typing import Callable, Dict, Iterator, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.nn.functional as F
 from torch.profiler import record_function
 
 from dsf_tpu_torch import geometry as geo
-from dsf_tpu_torch.config import CAMERA, Config, check_one_device
+from dsf_tpu_torch.config import CAMERA, Config, check_world
 from dsf_tpu_torch.device import (compute_dtype, exact_float32,
                                   resolve_device, widen)
 from dsf_tpu_torch.mano import model as mano_model
@@ -75,6 +77,8 @@ from dsf_tpu_torch.models.weights import (load_generator_npz, load_into,
                                           random_reference_state_dict,
                                           state_dict_from_jax)
 from dsf_tpu_torch.ops.offset_codec import offset2joint_softmax
+from dsf_tpu_torch.parallel import distributed
+from dsf_tpu_torch.parallel.mesh import ONE, Mesh, make_mesh
 from dsf_tpu_torch.render import renderer as rnd
 from dsf_tpu_torch.training import phases
 
@@ -134,18 +138,31 @@ class GuardedOptimizer:
     correction's count), ``notfinite_count`` (non-finite gradients in a
     row), ``last_finite``, ``total_notfinite``.  Each update takes optax's
     operations in optax's order, so on the CPU it is optax's, bitwise.
+
+    Over a ``mesh`` of more than one rank the flat gradient is the ranks'
+    mean, so every rank takes the same decision and update.  With
+    ``mesh.n_fsdp`` 1 it is one all-reduce.  Above 1 the flat gradient is
+    reduce-scattered within the rank's fsdp group and all-reduced across
+    the data groups; the moments and the update live on the rank's shard
+    (``n_fsdp`` equal pieces of the flat buffer, zero-padded), the finite
+    flag is all-reduced (a non-finite element in any shard rejects on
+    every rank), and the updated parameters are all-gathered, so they
+    stay whole on every rank (the JAX package shards them too).
+    ``state_dict`` gathers whole buffers: a checkpoint is world 1's.
     """
 
     KINDS = ("adamw", "adam", "sgd")
 
-    def __init__(self, params, kind: str, schedule):
+    def __init__(self, params, kind: str, schedule, mesh: Mesh = ONE):
         if kind not in self.KINDS:
             raise ValueError(f"optimizer {kind!r}: one of {self.KINDS}")
         self.params = list(params)
         self.kind = kind
         self.schedule = schedule
+        self.mesh = mesh
         dev = self.params[0].device
-        n = sum(p.numel() for p in self.params)
+        self.numel = sum(p.numel() for p in self.params)
+        n = -(-self.numel // mesh.n_fsdp)              # this rank's shard
         zeros = lambda: torch.zeros(n, dtype=torch.float32, device=dev)
         self.buffers = ({"trace": zeros()} if kind == "sgd"
                         else {"mu": zeros(), "nu": zeros()})
@@ -163,11 +180,17 @@ class GuardedOptimizer:
         without one gets a zero gradient, as in the JAX step, so weight
         decay reaches it).  Returns whether it was accepted, a 0-d bool
         tensor on the device."""
-        params = self.params
+        params, mesh = self.params, self.mesh
         g = torch.cat([(p.grad if p.grad is not None
                         else torch.zeros_like(p)).reshape(-1) for p in params])
         w = torch.cat([p.reshape(-1) for p in params])
+        if mesh.active:
+            g, w = self._exchange(g, w)
         finite = torch.isfinite(g).all()
+        if mesh.n_fsdp > 1:
+            flag = finite.to(torch.int32)
+            dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=mesh.group)
+            finite = flag.bool()
         one = torch.ones((), dtype=torch.int32, device=g.device)
         notfinite = torch.where(finite, 0 * one, self.notfinite_count + one)
         accept = finite | (notfinite > MAX_CONSECUTIVE_ERRORS)
@@ -191,8 +214,11 @@ class GuardedOptimizer:
                 u = u + ADAMW_DECAY * w
             new = {"mu": mu, "nu": nu}
         u = torch.where(accept, (-lr) * u, torch.zeros_like(u))
-        torch._foreach_add_(params, [x.view_as(p) for x, p in zip(
-            u.split([p.numel() for p in params]), params)])
+        if mesh.n_fsdp > 1:
+            self._gather_params(w + u)
+        else:
+            torch._foreach_add_(params, [x.view_as(p) for x, p in zip(
+                u.split([p.numel() for p in params]), params)])
         for k, v in new.items():
             self.buffers[k] = torch.where(accept, v, self.buffers[k])
         self.count = torch.where(accept, count_inc, self.count)
@@ -201,6 +227,40 @@ class GuardedOptimizer:
         self.notfinite_count = notfinite
         self.last_finite = finite
         return accept
+
+    def _shard(self, flat: torch.Tensor) -> torch.Tensor:
+        """This rank's piece of a whole flat buffer (zero-padded)."""
+        n = self.buffers[next(iter(self.buffers))].numel()
+        flat = F.pad(flat, (0, n * self.mesh.n_fsdp - flat.numel()))
+        return flat[self.mesh.fsdp_rank * n:(self.mesh.fsdp_rank + 1) * n]
+
+    def _whole(self, shard: torch.Tensor) -> torch.Tensor:
+        """The whole flat buffer from every fsdp rank's piece."""
+        out = shard.new_empty(shard.numel() * self.mesh.n_fsdp)
+        dist.all_gather_into_tensor(out, shard.contiguous(), group=self.mesh.fsdp_group)
+        return out[:self.numel]
+
+    def _exchange(self, g, w):
+        """The ranks' mean gradient (and the weights) on this rank: whole
+        with one fsdp rank, else this rank's shard."""
+        mesh = self.mesh
+        if mesh.n_fsdp == 1:
+            dist.all_reduce(g, group=mesh.group)
+            return g / mesh.world, w
+        whole = F.pad(g, (0, -g.numel() % mesh.n_fsdp))
+        g = whole.new_empty(whole.numel() // mesh.n_fsdp)
+        dist.reduce_scatter_tensor(g, whole, group=mesh.fsdp_group)
+        if mesh.data_group is not None:
+            dist.all_reduce(g, group=mesh.data_group)
+        return g / mesh.world, self._shard(w)
+
+    @torch.no_grad()
+    def _gather_params(self, w_shard) -> None:
+        """Every parameter from the fsdp ranks' updated pieces."""
+        whole = self._whole(w_shard)
+        for p, x in zip(self.params, whole.split(
+                [p.numel() for p in self.params])):
+            p.copy_(x.view_as(p))
 
     @property
     def param_groups(self):
@@ -212,7 +272,11 @@ class GuardedOptimizer:
             p.grad = None
 
     def state_dict(self) -> Dict[str, torch.Tensor]:
-        return {"kind": self.kind, **self.buffers,
+        """The whole state (collective under ``n_fsdp`` above 1: every fsdp
+        rank must call it)."""
+        whole = (self._whole if self.mesh.n_fsdp > 1 else lambda t: t)
+        return {"kind": self.kind,
+                **{k: whole(v) for k, v in self.buffers.items()},
                 **{k: getattr(self, k) for k in self.COUNTERS}}
 
     def load_state_dict(self, sd: Mapping) -> None:
@@ -221,20 +285,23 @@ class GuardedOptimizer:
                              "optimizer")
         dev = self.count.device
         for k in self.buffers:
-            if sd[k].shape != self.buffers[k].shape:
+            if sd[k].shape != (self.numel,):
                 raise ValueError(f"{k}: {tuple(sd[k].shape)} for "
-                                 f"{tuple(self.buffers[k].shape)}")
-            self.buffers[k] = sd[k].to(dev, torch.float32).clone()
+                                 f"({self.numel},)")
+            v = sd[k].to(dev, torch.float32)
+            self.buffers[k] = (self._shard(v) if self.mesh.n_fsdp > 1
+                               else v).clone()
         for k in self.COUNTERS:
             setattr(self, k, sd[k].to(dev).clone())
 
 
-def make_optimizer(cfg: Config, params, steps_per_epoch: int = 1000
-                   ) -> GuardedOptimizer:
+def make_optimizer(cfg: Config, params, steps_per_epoch: int = 1000,
+                   mesh: Mesh = ONE) -> GuardedOptimizer:
     """``cfg.opt`` (adamw, adam or sgd) at ``lr_schedule``'s rate behind
-    the finite guard (ref: train_render.py:102-109, 148-153)."""
+    the finite guard (ref: train_render.py:102-109, 148-153), over the
+    ranks of ``mesh``."""
     return GuardedOptimizer(params, cfg.opt,
-                            lr_schedule(cfg, steps_per_epoch))
+                            lr_schedule(cfg, steps_per_epoch), mesh)
 
 
 @dataclasses.dataclass
@@ -308,24 +375,37 @@ class Trainer:
     Args:
       cfg: a ``Config``; ``cfg.net`` must be a ResNet and
         ``cfg.compute_dtype`` "float32" or "bfloat16" (the net's and the
-        generator's; ``device.compute_dtype``); ``num_devices`` and
-        ``n_fsdp`` above 1 raise (``config.check_one_device``).
-        ``cfg.transferNet_pth`` names the frozen CycleGAN generator
-        (``load_transfer_net``), or is empty.
+        generator's; ``device.compute_dtype``).  ``cfg.batch_size`` is the
+        global batch and ``cfg.n_fsdp`` the ranks sharing one optimizer
+        state; both must divide over the process group's ranks
+        (``config.check_world``).  ``cfg.transferNet_pth`` names the frozen
+        CycleGAN generator (``load_transfer_net``), or is empty.
       mano_npz: the converted MANO asset.
       steps_per_epoch: for the epoch-based learning-rate schedule.
-      device: ``cuda`` when None; raises if CUDA is missing.  ``"cpu"``
-        runs the plain versions of the kernels.
+      device: ``cuda`` (this rank's card) when None; raises if CUDA is
+        missing.  ``"cpu"`` runs the plain versions of the kernels.
+      mesh: the ranks' layout (``parallel.mesh``); by default that of the
+        current process group (``parallel.distributed.initialize``) with
+        ``cfg.n_fsdp``, world 1 outside one.
+
+    In a world of more than one rank every rank builds a trainer and runs
+    the same steps on its stripe of each global batch: ``draw`` takes the
+    global batch and returns this rank's rows of its draws, the net's
+    BatchNorm statistics, the M2P term's joint count, the gradient and the
+    finite guard are the global batch's (``GuardedOptimizer``), and a
+    step's metrics are this rank's (``global_metrics`` averages them).
     """
 
     def __init__(self, cfg: Config, mano_npz: str, steps_per_epoch: int = 1000,
-                 device=None):
+                 device=None, mesh: Optional[Mesh] = None):
         if "ResNet" not in cfg.net:
             raise NotImplementedError(cfg.net)
-        check_one_device(cfg)
+        check_world(cfg, mesh.world if mesh is not None
+                    else distributed.world())
         self.dtype = compute_dtype(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else make_mesh(cfg.n_fsdp)
         paras, img_size = CAMERA[cfg.dataset]
         self.renderer = rnd.Renderer.create(
             mano_model.load_model(mano_npz, device=self.device), cfg.dataset,
@@ -363,22 +443,46 @@ class Trainer:
             sd = state_dict_from_jax(variables)
         load_into(net, sd)
         net.to(self.device).train()
+        if self.mesh.active:
+            net.sync = self.mesh
         return TrainState(net=net,
                           optimizer=make_optimizer(cfg, net.parameters(),
-                                                   self.steps_per_epoch))
+                                                   self.steps_per_epoch,
+                                                   self.mesh))
+
+    @property
+    def sync(self) -> Optional[Mesh]:
+        """The mesh the losses reduce over, None at world 1."""
+        return self.mesh if self.mesh.active else None
 
     def draw(self, batch_size: int, phase_name: str = "Pretrain"):
         """The next step's random draws for a phase, from the trainer's
         generator (seeded with ``cfg.seed``); the sphere occlusion's with
         ``cfg.mask``.  Finetune takes FinetuneStage's draws (the JAX
-        phases split their keys alike)."""
+        phases split their keys alike).  ``batch_size`` is the global
+        batch: every rank draws all of it from the same stream and keeps
+        its stripe, so a world of N ranks draws world 1's numbers."""
         if phase_name in ("Finetune", "FinetuneStage"):
-            return phases.draw_finetune_stage(
+            draws = phases.draw_finetune_stage(
                 self.generator, batch_size, self.renderer.depth_range,
                 self.cfg.input_size, mask=self.cfg.mask)
-        return phases.draw_pretrain(self.generator, batch_size,
-                                    self.renderer.depth_range,
-                                    mask=self.cfg.mask)
+        else:
+            draws = phases.draw_pretrain(self.generator, batch_size,
+                                         self.renderer.depth_range,
+                                         mask=self.cfg.mask)
+        return draws if self.mesh.world == 1 else draws.stripe(self.mesh)
+
+    def global_metrics(self, metrics: Mapping[str, torch.Tensor]
+                       ) -> Dict[str, torch.Tensor]:
+        """A step's metrics averaged over the ranks (one all-reduce; the
+        step's own at world 1): every term is a mean over equal stripes,
+        so this is the global batch's value."""
+        if not self.mesh.active:
+            return dict(metrics)
+        keys = sorted(metrics)
+        v = torch.stack([metrics[k].float() for k in keys])
+        dist.all_reduce(v, group=self.mesh.group)
+        return dict(zip(keys, v / self.mesh.world))
 
     def train_step_fn(self, phase_name: str):
         """The train step of a phase: ``step(state, draws, batch) ->
@@ -443,7 +547,7 @@ class Trainer:
                                                   cube)
             loss, metrics = loss_fn(
                 net, self.renderer, sample, draws.scores, img_r, center_r,
-                cube_r, M_r, xyz_gt, self.cfg, self.transfer)
+                cube_r, M_r, xyz_gt, self.cfg, self.transfer, self.sync)
             self._update(state, loss)
         metrics: Dict[str, torch.Tensor] = dict(metrics, loss=loss.detach())
         return state, metrics
@@ -506,13 +610,19 @@ class Trainer:
 
     def evaluate(self, state: TrainState, batches: Iterator[Mapping]):
         """The mean per-stage errors (2 * stages,) over ``batches``, a
-        numpy array."""
+        numpy array; in a world of ranks each rank's ``batches`` are its
+        own rows, and the errors and counts are summed over the ranks
+        (every rank must take as many batches)."""
         totals, n = None, 0
         for batch in batches:
             errors, _ = self._eval_step(state, batch)
             s = errors.sum(-1)
             totals = s if totals is None else totals + s
             n += errors.shape[-1]
+        if self.mesh.active:
+            both = torch.cat([totals, totals.new_full((1,), float(n))])
+            dist.all_reduce(both, group=self.mesh.group)
+            totals, n = both[:-1], int(both[-1])
         return (totals / max(n, 1)).cpu().numpy()
 
     # -------------------------------------------------------------- fit
@@ -535,7 +645,11 @@ class Trainer:
         is queued), so the host does not stall the device.  With a
         TensorBoard ``writer`` every metric is logged per step (images
         are not ported: ``image_every`` > 0 logs one warning).  Returns
-        (state, the epoch-mean metrics as floats)."""
+        (state, the epoch-mean metrics as floats).
+
+        In a world of ranks ``synth_iter`` yields the global batch (each
+        rank keeps its stripe) and ``real_iter`` this rank's stripe of it
+        (``loop._real_iter``); the metrics are the ranks' means."""
         phase = self.phase()
         step = self.train_step_fn(phase)
         steps = num_steps or self.steps_per_epoch
@@ -548,10 +662,11 @@ class Trainer:
         pending = None
         for i in range(steps):
             model_para, cube_synth = next(synth_iter)
-            batch = {"model_para": model_para, "cube_synth": cube_synth}
+            B = len(model_para)
+            batch = {"model_para": self.mesh.stripe(model_para),
+                     "cube_synth": self.mesh.stripe(cube_synth)}
             if phase != "Pretrain":
                 batch.update(next(real_iter))
-            B = len(batch["model_para"])
             state, metrics = step(state, self.draw(B, phase), batch)
             if pending is not None:
                 self._log_step(writer, epoch, steps, *pending, sums)
@@ -561,7 +676,7 @@ class Trainer:
         return state, {k: v / steps for k, v in sums.items()}
 
     def _log_step(self, writer, epoch, steps, i, metrics, sums) -> None:
-        vals = {k: float(v) for k, v in metrics.items()}
+        vals = {k: float(v) for k, v in self.global_metrics(metrics).items()}
         for k, v in vals.items():
             sums[k] = sums.get(k, 0.0) + v
             if writer is not None:

@@ -377,12 +377,12 @@ def test_compute_dtype_and_state_checks(trainers):
     """A bfloat16 CycleGAN raises naming its ROADMAP item; so do an image
     shape the generators cannot take and CCSSL; a seeded init draws
     the JAX inits' shapes, and two draws from one seed agree."""
-    with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
+    with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
         CycleGANTrainer(compute_dtype=torch.bfloat16, device="cpu")
     tt = CycleGANTrainer(ngf=NGF, n_blocks=BLOCKS, device="cpu")
     with pytest.raises(ValueError, match="multiples of 4"):
         tt.init_state(img_shape=(1, 1, 66, 64))
-    with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
+    with pytest.raises(NotImplementedError, match="Queue 1, item 3"):
         TPipe.run_ccssl(Config())
     a, b = (tt.init_state(torch.Generator().manual_seed(3)) for _ in range(2))
     ref = W.discriminator_state_dict_from_jax(

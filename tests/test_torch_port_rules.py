@@ -154,7 +154,7 @@ def test_loop_entry_points_raise_without_cuda(tmp_path, monkeypatch):
     assert sorted(os.listdir(tmp_path)) == []
     with pytest.raises(ValueError, match="dataset 'hands'"):
         run(cfg.replace(dataset="hands"), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
+    with pytest.raises(NotImplementedError, match="Queue 1, item 3"):
         cli.main(["ccssl"])
     parsed = cli.parse_config(["--batch_size", "4", "--augment_para",
                                "5,0.1,90", "--test_during_train", "false",
@@ -191,23 +191,47 @@ def test_cyclegan_entry_points_raise_without_cuda(tmp_path, monkeypatch):
     assert sorted(os.listdir(tmp_path)) == []
 
 
-@pytest.mark.parametrize("field", ["num_devices", "n_fsdp"])
-def test_more_than_one_device_raises(tmp_path, field):
-    """The port runs on one card: ``loop.run``, ``Trainer`` and
-    ``InferenceEngine`` raise ValueError naming the multi-GPU item for
-    ``num_devices`` or ``n_fsdp`` above 1, before they touch a device or a
-    file; 1 passes the check."""
-    from dsf_tpu_torch.config import check_one_device
+@pytest.mark.parametrize("case", ["n_fsdp", "num_devices", "batch"])
+def test_parallel_layout_checks_raise_before_touching_anything(
+        tmp_path, monkeypatch, case):
+    """The multi-GPU layout is checked before any device or file is
+    touched, with CUDA missing (so any touch would raise otherwise):
+    ``n_fsdp`` must divide the world (``loop.run`` and ``Trainer``; a
+    world of 1 here), the engine's ``num_devices`` must not exceed the
+    devices given or visible, and the global batch must divide over the
+    world (``loop.run`` under ``torchrun``'s ``WORLD_SIZE=2``, and a
+    trainer on a two-rank mesh).  Each raises ValueError; 1 passes."""
+    from dsf_tpu_torch.config import check_devices, check_world
+    from dsf_tpu_torch.parallel.mesh import Mesh
     from dsf_tpu_torch.training.loop import run
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = Config(save_dir=str(tmp_path / "ckpt"), root_dir=str(tmp_path),
-                 mano_model_path=str(tmp_path / "none.npz"), **{field: 2})
-    for make in (lambda: run(cfg, device="cpu"),
-                 lambda: Trainer(cfg, cfg.mano_model_path, device="cpu"),
-                 lambda: InferenceEngine(cfg, {}, device="cpu")):
-        with pytest.raises(ValueError, match=f"{field}=2.*Queue 1, item 3"):
+                 mano_model_path=str(tmp_path / "none.npz"))
+    if case == "n_fsdp":
+        bad = cfg.replace(n_fsdp=2)
+        makes = (lambda: run(bad), lambda: Trainer(bad, bad.mano_model_path),
+                 lambda: Trainer(bad.replace(n_fsdp=3), bad.mano_model_path,
+                                 mesh=Mesh(world=2)))
+        match = "n_fsdp=[23] does not divide"
+        check_world(cfg.replace(n_fsdp=2), 2)
+    elif case == "num_devices":
+        bad = cfg.replace(num_devices=3)
+        makes = (lambda: InferenceEngine(bad, {}, buckets=(3,)),
+                 lambda: InferenceEngine(bad, {}, buckets=(3,),
+                                         devices=("cuda:0", "cuda:1")))
+        match = "num_devices=3"
+        check_devices(bad, 3)
+    else:
+        bad = cfg.replace(batch_size=3)
+        monkeypatch.setenv("WORLD_SIZE", "2")
+        makes = (lambda: run(bad),
+                 lambda: Trainer(bad, bad.mano_model_path, mesh=Mesh(world=2)))
+        match = "batch of 3 does not divide over 2"
+        check_world(cfg.replace(batch_size=4), 2)
+    for make in makes:
+        with pytest.raises(ValueError, match=match):
             make()
     assert sorted(os.listdir(tmp_path)) == []
-    check_one_device(cfg.replace(**{field: 1}))
 
 
 def test_host_library_build_flags():
