@@ -222,6 +222,27 @@ Phases, each printed on its own line(s); any failure exits non-zero:
    against the one-device engine by phase 3's tolerances.  (e) As (b)
    over NCCL on two cards where the machine has them, else one line.
 
+10. ccssl: the CCSSL pipeline (``python -m dsf_tpu_torch.training
+   ccssl``'s ``pipelines.run_ccssl``) at full width (two stages, 128^2,
+   B=32, float32) for one epoch on phase 6's fake NYU set: the labelling
+   pass (5 test-time passes a frame, K1 and K5 each pass, K4 a batch)
+   and each step's launch deltas (K1, K2, K5 x3 and its VJP, K4 x2 and
+   their VJPs), finite losses, the labelling frames/s, the median step
+   ms and the peak memory; the written labels inside the 640x480 frame
+   and their batches' uvd_gt within +-1.5; one bfloat16 CCSSL step,
+   finite.  Then at B=4 from the same seeded weights, card against CPU
+   and the CPU in float64: ``prediction_check``'s five warps bitwise but
+   at counted ties, its joints within the engine's 0.5 mm in the crop
+   frame and its confidences within 1e-5 (or 3x the CPU's distance from
+   float64); one CCSSL loss within 1e-4 relative and its gradients
+   within phase 5's float32 tolerances and witness rule (the stage-1
+   MANO head, reached only through the stage-2 render, as FinetuneStage's
+   with all its share through the trunk).  Last, the
+   hourglass PoseNet at full width (2 stacks, 21 joints, inp_dim 256,
+   B=32, 128^2) card against CPU in train mode (outputs, running
+   statistics) and eval mode within 1e-4 relative L2, and its forward
+   ms.  ``--phase10`` runs the build, the fake set and this phase alone.
+
 The last two lines are the kernels' JSON record and the device JSON.
 Without CUDA, or outside the repository, it exits non-zero and prints
 no result.
@@ -4580,6 +4601,373 @@ def run_parallel(mano_path, smi):
     return by_path
 
 
+# ---------------------------------------------------------------- phase 10
+
+CCSSL_PASSES = 5                # the labelling pass's test-time passes
+CCSSL_COMPARE_BATCH = 4
+# one CCSSL step: K1 renders the stage-2 input and K5 encodes its remap
+# (whose VJP is the only one needed), K5 encodes each stage's labels, K4
+# decodes each stage (both with VJPs), K2 is the remap render's backward
+CCSSL_STEP_LAUNCHES = launches(raster_skip=1, raster_moments=1,
+                               codec_encode=3, codec_encode_bwd=1,
+                               codec_decode=2, codec_decode_bwd=2)
+# ... and one batch of the labelling pass: each test-time pass is an
+# eval-mode forward (K1, K5), then one decode of the mean feature (K4)
+CCSSL_LABEL_LAUNCHES = launches(raster_skip=CCSSL_PASSES,
+                                codec_encode=CCSSL_PASSES, codec_decode=1)
+# the labels' frame: a batch's normalized joints of pseudo labels inside
+# this box are inside the crop, give or take a hand's reach
+CCSSL_UVD_BOUND = 1.5
+# the hourglass PoseNet at full width: card against CPU, relative L2
+HOURGLASS_TOL = 1e-4
+
+
+def ccssl_grad_tol(name):
+    """The CCSSL step's gradients card against CPU and float64: the
+    stage-2 offset head feeds the loss alone (1e-2, as ``grad_tol``);
+    the stage-1 MANO head is reached only through the stage-2 render and
+    the stage-2 trunk, so it takes phase 5's FinetuneStage rule with all
+    of its share through the trunk (1e-2 + 0.2); every other layer 0.2.
+    Its gradient follows the stage-2 render's silhouette: in this phase's
+    first run (H100 at 700 W, B=4) the CPU's float32 bias gradient lay
+    0.29 from float64 and the card's 0.31, so both comparisons also allow
+    twice the CPU's own distance from float64, phase 5's witness rule."""
+    if name.startswith("finals_s2"):
+        return 1e-2
+    return 1e-2 + 0.2 if name.startswith("mano_regress.") else 0.2
+
+
+@contextlib.contextmanager
+def watched_ccssl(rec):
+    """``pipelines.run_ccssl`` with the labelling pass's launch deltas
+    and wall time, and each step's launch deltas, host time to a
+    synchronized loss and loss, in ``rec``."""
+    from dsf_tpu_torch import kernels
+    from dsf_tpu_torch.training import ccssl_trainer as CC
+    from dsf_tpu_torch.training.trainer import Trainer
+    orig_label, orig_step = CC.generate_pseudo_labels, Trainer.ccssl_step_fn
+    rec.update(steps=[], ms=[], loss=[])
+
+    def label(*a, **k):
+        import torch
+        before = dict(kernels.LAUNCHES)
+        t0 = time.perf_counter()
+        out = orig_label(*a, **k)
+        torch.cuda.synchronize()
+        rec["label_s"] = time.perf_counter() - t0
+        rec["label"] = {n: kernels.LAUNCHES[n] - before[n] for n in before}
+        return out
+
+    def ccssl_step_fn(self):
+        step = orig_step(self)
+
+        def watched(state, batch):
+            before = dict(kernels.LAUNCHES)
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            rec["loss"].append(float(metrics["loss"]))
+            rec["ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["steps"].append({n: kernels.LAUNCHES[n] - before[n]
+                                 for n in before})
+            return state, metrics
+        return watched
+
+    CC.generate_pseudo_labels, Trainer.ccssl_step_fn = label, ccssl_step_fn
+    try:
+        yield rec
+    finally:
+        CC.generate_pseudo_labels = orig_label
+        Trainer.ccssl_step_fn = orig_step
+
+
+def ccssl_batch(root, n, pseudo_dir=None, seed=SEED + 101):
+    """``n`` unaugmented frames of the fake set's train split: NYUDataset's
+    batch, or NYUCCSSLDataset's on the labels of ``pseudo_dir``."""
+    from dsf_tpu_torch.data import datasets as D
+    nyu = os.path.join(root, "nyu")
+    ds = (D.NYUDataset(nyu, "train", img_size=INPUT_SIZE) if pseudo_dir is None
+          else D.NYUCCSSLDataset(nyu, "train", pseudo_dir,
+                                 img_size=INPUT_SIZE))
+    ds.augment = False
+    idx = np.sort(np.random.RandomState(seed).permutation(len(ds))[:n])
+    b = ds._fetch_batch(idx)
+    ds.close()
+    return b
+
+
+def compare_ccssl(mano_path, root, pseudo_dir):
+    """Card against CPU (the kernels' plain versions), and the CPU in
+    float64 as the witness, from the same seeded weights at B=4:
+    ``prediction_check``'s warps (bitwise but at counted ties), joints
+    and confidences; one CCSSL loss and its gradients."""
+    import copy
+    import torch
+    from dsf_tpu_torch.config import Config
+    from dsf_tpu_torch.device import exact_float32
+    from dsf_tpu_torch.ops.image import affine_grid, affine_warp, unnormalize
+    from dsf_tpu_torch.tools.ccssl import (_ref_theta, prediction_check,
+                                           ref_tta_draws)
+    from dsf_tpu_torch.training.ccssl_trainer import ccssl_loss
+    from dsf_tpu_torch.training.trainer import Trainer
+
+    B = CCSSL_COMPARE_BATCH
+    cfg = Config(dataset="nyu", batch_size=B, stage_num=2,
+                 input_size=INPUT_SIZE, seed=SEED + 100,
+                 mano_model_path=mano_path)
+    gpu, cpu = (Trainer(cfg, mano_path, device=d) for d in ("cuda", "cpu"))
+    sg, sc = gpu.init_state(), cpu.init_state()
+    net64 = copy.deepcopy(sc.net).double()
+    r64 = float64_renderer(cpu.renderer)
+    b = ccssl_batch(root, B, pseudo_dir)
+    t = {k: torch.from_numpy(b[k]) for k in ("img", "center", "cube",
+                                             "uvd_gt", "weight")}
+    runs = {"card": (sg.net, gpu.renderer, {k: v.cuda() for k, v in t.items()}),
+            "cpu": (sc.net, cpu.renderer, t),
+            "cpu64": (net64, r64, {k: v.double() for k, v in t.items()})}
+    s, rot = ref_tta_draws(torch.Generator().manual_seed(SEED + 102), B,
+                           CCSSL_PASSES)
+
+    # each pass's warp of the image on both devices, from one theta
+    img = t["img"]
+    differ, ties_all = 0, 0
+    for i in range(CCSSL_PASSES):
+        theta, _ = _ref_theta(s[i], rot[i])
+        a = (affine_warp(img.cuda() - 1.0, theta.cuda(), "nearest")
+             + 1.0).cpu()
+        c = affine_warp(img - 1.0, theta, "nearest") + 1.0
+        grid = affine_grid(theta.double(), INPUT_SIZE, INPUT_SIZE)
+        near = lambda x: ((x - torch.floor(x) - 0.5).abs() < 1e-4)
+        ties = (near(unnormalize(grid[..., 0], INPUT_SIZE))
+                | near(unnormalize(grid[..., 1], INPUT_SIZE)))
+        diff = (a != c)[:, 0]
+        need(not bool((diff & ~ties).any()), f"ccssl warp pass {i}: card and "
+             "CPU differ away from a tie")
+        differ += int(diff.sum())
+        ties_all += int(ties.sum())
+    say(f"ccssl compare B={B} {INPUT_SIZE}^2: {CCSSL_PASSES} test-time "
+        f"warps, card vs CPU: {differ} pixels differ, all at ties "
+        f"({ties_all} tie pixels of {CCSSL_PASSES * img.numel()})")
+
+    checks = {}
+    with torch.no_grad(), exact_float32():
+        for key, (net, r, bt) in runs.items():
+            net.eval()
+            fwd = (lambda im, net=net, r=r, bt=bt:
+                   net(im, r, bt["center"], bt["cube"])[-1][0])
+            j, c = prediction_check(fwd, bt["img"], (s, rot),
+                                    cfg.feature_para[0])
+            checks[key] = (j.double().cpu(), c.double().cpu())
+            net.train()
+    # the engine's stage-2 bound (0.5 mm) in the crop frame of the cube
+    tol_j = 0.5 / (float(b["cube"][0, 0]) / 2)
+    (jg, cg), (jc, cc), (j64, c64) = (checks[k] for k in ("card", "cpu",
+                                                          "cpu64"))
+    dj, dc = float((jg - jc).abs().max()), float((cg - cc).abs().max())
+    wj, wc = float((jc - j64).abs().max()), float((cc - c64).abs().max())
+    say(f"ccssl compare prediction_check: joints card vs CPU max {dj:.3g} "
+        f"(crop frame; bound {tol_j:.3g}, the engine's 0.5 mm), CPU vs "
+        f"float64 {wj:.3g}; confidences card vs CPU max {dc:.3g}, CPU vs "
+        f"float64 {wc:.3g}")
+    need(dj <= tol_j, f"ccssl prediction_check joints: card vs CPU {dj}")
+    need(dc <= max(1e-5, 3 * wc), f"ccssl prediction_check confidences: "
+         f"card vs CPU {dc}, CPU vs float64 {wc}")
+
+    loss, grads = {}, {}
+    with exact_float32():
+        for key, (net, r, bt) in runs.items():
+            net.zero_grad(set_to_none=True)
+            value, _ = ccssl_loss(net, r, bt, cfg)
+            value.backward()
+            loss[key] = value.item()
+            grads[key] = {n: p.grad.detach().cpu() for n, p in
+                          net.named_parameters() if p.grad is not None}
+    unread = sorted({n.split(".")[0] for n, p in sg.net.named_parameters()
+                     if n not in grads["card"]})
+    need(unread == ["mano_regress_s2"] and all(
+        set(grads[k]) == set(grads["card"]) for k in grads),
+        f"ccssl loss: parameters without a gradient {unread}")
+    rel_loss = abs(loss["card"] - loss["cpu"]) / abs(loss["cpu"])
+    g_c, g_64 = (rel_l2(grads["card"], grads[k]) for k in ("cpu", "cpu64"))
+    c_64 = rel_l2(grads["cpu"], grads["cpu64"])
+    say(f"ccssl compare loss card {loss['card']:.7g} CPU {loss['cpu']:.7g} "
+        f"CPU float64 {loss['cpu64']:.10g}; gradient relative L2 per "
+        f"parameter: card vs CPU {spread(g_c)}; card vs float64 "
+        f"{spread(g_64)}; CPU vs float64 {spread(c_64)}")
+    need(rel_loss <= 1e-4, f"ccssl loss: card {loss['card']} against CPU "
+         f"{loss['cpu']}")
+    for name, d in (("CPU", g_c), ("float64", g_64)):
+        bad = {k: v for k, v in d.items()
+               if not v <= max(ccssl_grad_tol(k), 2 * c_64[k])}
+        need(not bad, f"ccssl gradients, card vs {name}: {bad}")
+    ratio = (float(np.median(list(g_64.values())))
+             / float(np.median(list(c_64.values()))))
+    need(ratio <= MEDIAN_RATIO, f"ccssl gradients lie {ratio:.3g} times "
+         "further from float64 than the CPU's, in the median")
+
+
+def compare_hourglass(smi):
+    """The hourglass PoseNet at full width (two stacks, 21 joints,
+    inp_dim 256) on B=32 crops of 128^2 from seeded reference-layout
+    weights: card against CPU in train mode (outputs and running
+    statistics) and eval mode, within HOURGLASS_TOL relative L2; the
+    card's forward ms in each mode."""
+    import torch
+    from dsf_tpu_torch.device import exact_float32
+    from dsf_tpu_torch.models import weights as W
+    from dsf_tpu_torch.models.hourglass import PoseNet
+
+    sd = W.pose_net_from_reference(W.random_pose_net_state_dict(
+        np.random.RandomState(SEED + 103), nstack=2))
+    x = torch.from_numpy(np.random.RandomState(SEED + 104).rand(
+        TRAIN_BATCH, 1, INPUT_SIZE, INPUT_SIZE).astype(np.float32))
+    out, nets = {}, {}
+    with exact_float32():
+        for dev in ("cuda", "cpu"):
+            net = PoseNet(**W.pose_net_dims(sd))
+            W.load_into(net, sd)
+            nets[dev] = net.to(dev)
+            with torch.no_grad():
+                net.train()
+                p, hg = net(x.to(dev))
+                stats = {k: v.cpu() for k, v in net.state_dict().items()
+                         if "running" in k}
+                net.eval()
+                pe, hge = net(x.to(dev))
+            out[dev] = ([t.cpu() for t in (*p, hg)],
+                        [t.cpu() for t in (*pe, hge)], stats)
+        rel = lambda a, b: float((a.double() - b.double()).norm()
+                                 / b.double().norm())
+        worst = {}
+        for i, mode in enumerate(("train", "eval")):
+            worst[mode] = max(rel(a, b) for a, b in zip(out["cuda"][i],
+                                                        out["cpu"][i]))
+        worst["statistics"] = max(rel(out["cuda"][2][k], out["cpu"][2][k])
+                                  for k in out["cpu"][2])
+        net = nets["cuda"]
+        xg = x.cuda()
+        with torch.no_grad():
+            ms = {}
+            for mode in ("train", "eval"):
+                net.train(mode == "train")
+                ms[mode] = time_ms(lambda: net(xg), 5)
+    say(f"hourglass PoseNet (2 stacks, 21 joints, inp_dim 256, B="
+        f"{TRAIN_BATCH}, {INPUT_SIZE}^2, outputs {tuple(out['cuda'][0][0].shape)}"
+        f"), card vs CPU relative L2: " + json.dumps(
+            {k: float(f"{v:.3g}") for k, v in worst.items()})
+        + f"; card forward ms train {ms['train']:.3f}, eval "
+        f"{ms['eval']:.3f}; {smi}")
+    bad = {k: v for k, v in worst.items() if not v <= HOURGLASS_TOL}
+    need(not bad, f"hourglass PoseNet card vs CPU: {bad}")
+
+
+def run_ccssl_phase(mano_path, smi, root):
+    """Phase 10: ``pipelines.run_ccssl`` at full width on phase 6's fake
+    NYU set (B=32, 128^2, two stages, float32; one epoch): the labelling
+    pass's launches and frames/s, each step's launches, the median step
+    ms, the peak memory; the labels inside the frame and their batches
+    inside CCSSL_UVD_BOUND; one bfloat16 CCSSL step; then
+    ``compare_ccssl`` and ``compare_hourglass``.  Returns the launch
+    counts of the pipeline."""
+    import torch
+    from dsf_tpu_torch import kernels
+    from dsf_tpu_torch.config import Config
+    from dsf_tpu_torch.training import pipelines
+    from dsf_tpu_torch.training.trainer import Trainer
+
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = Config(dataset="nyu", batch_size=TRAIN_BATCH,
+                     input_size=INPUT_SIZE, stage_num=2, root_dir=root,
+                     seed=SEED, mano_model_path=mano_path,
+                     save_dir=os.path.join(tmp, "ckpt"))
+        rec = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        with watched_ccssl(rec):
+            t0 = time.perf_counter()
+            run_dir, state = pipelines.run_ccssl(cfg, epochs=1)
+            secs = time.perf_counter() - t0
+        counts["ccssl"] = dict(kernels.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        n_steps = FAKE_TRAIN // TRAIN_BATCH
+        n_batches = -(-FAKE_TRAIN // TRAIN_BATCH)
+        need(rec["label"] == {k: v * n_batches for k, v in
+                              CCSSL_LABEL_LAUNCHES.items()},
+             f"the labelling pass's launches {rec['label']}")
+        need(len(rec["steps"]) == n_steps == state.step,
+             f"run_ccssl ran {len(rec['steps'])} steps")
+        for i, d in enumerate(rec["steps"]):
+            need(d == CCSSL_STEP_LAUNCHES, f"ccssl step {i} did not launch "
+                 f"every kernel of the path as expected: {d} != "
+                 f"{CCSSL_STEP_LAUNCHES}")
+        need(all(np.isfinite(rec["loss"])), f"ccssl losses {rec['loss']}")
+        for k in ("raster_skip", "raster_moments", "codec_decode",
+                  "codec_decode_bwd", "codec_encode"):
+            need(counts["ccssl"][k] > 0, f"ccssl: {k} never launched")
+        med = float(np.median(rec["ms"]))
+        say(f"ccssl launches (labelling {FAKE_TRAIN} frames, then "
+            f"{n_steps} steps at B={TRAIN_BATCH}, {INPUT_SIZE}^2): "
+            f"{json.dumps(counts['ccssl'])}")
+        say(f"ccssl labelling: {FAKE_TRAIN} frames, {CCSSL_PASSES} "
+            f"test-time passes each, in {rec['label_s']:.3f} s, "
+            f"{FAKE_TRAIN / rec['label_s']:.1f} frames/s; losses "
+            + json.dumps([float(f"{x:.6g}") for x in rec["loss"]])
+            + "; step ms (host clock, to a synchronized loss) "
+            + json.dumps([round(x, 3) for x in rec["ms"]])
+            + f", median {med:.3f} ms, {TRAIN_BATCH * 1e3 / med:.1f} "
+            f"images/s; the run with its set-up {secs:.3f} s; peak device "
+            f"memory {peak:.1f} MiB; {smi}")
+
+        pseudo = os.path.join(run_dir, "pseudo")
+        uvd = np.loadtxt(os.path.join(pseudo, "joint_uvd.txt")).reshape(
+            FAKE_TRAIN, -1, 3)
+        inside = bool(((uvd[..., 0] >= 0) & (uvd[..., 0] < 640)
+                       & (uvd[..., 1] >= 0) & (uvd[..., 1] < 480)
+                       & (uvd[..., 2] > 0)).all())
+        b = ccssl_batch(root, FAKE_TRAIN, pseudo)
+        lo, hi = float(b["uvd_gt"].min()), float(b["uvd_gt"].max())
+        say(f"ccssl labels: image-frame u in [{uvd[..., 0].min():.1f}, "
+            f"{uvd[..., 0].max():.1f}], v in [{uvd[..., 1].min():.1f}, "
+            f"{uvd[..., 1].max():.1f}] px, d in [{uvd[..., 2].min():.1f}, "
+            f"{uvd[..., 2].max():.1f}] mm; their batches' uvd_gt in "
+            f"[{lo:.3f}, {hi:.3f}]")
+        need(inside, "ccssl labels outside the 640x480 frame")
+        need(-CCSSL_UVD_BOUND <= lo and hi <= CCSSL_UVD_BOUND,
+             f"ccssl labels' uvd_gt in [{lo}, {hi}]")
+
+        # one bfloat16 CCSSL step on those labels
+        tr = Trainer(cfg.replace(compute_dtype="bfloat16"), mano_path,
+                     device="cuda")
+        bb = ccssl_batch(root, TRAIN_BATCH, pseudo)
+        _, m = tr.ccssl_step_fn()(tr.init_state(), bb)
+        loss = float(m["loss"])
+        say(f"ccssl bfloat16 step (B={TRAIN_BATCH}): loss {loss:.6g}")
+        need(np.isfinite(loss), f"ccssl bfloat16 step: loss {loss}")
+        compare_ccssl(mano_path, root, pseudo)
+    compare_hourglass(smi)
+    return counts
+
+
+def phase10_alone():
+    """``--phase10``: the kernels' build, phase 6's fake NYU set (K6 on
+    the card), then phase 10 alone; prints no result line."""
+    from dsf_tpu_torch.data.fake import make_fake_nyu
+    from dsf_tpu_torch.kernels import build
+    from dsf_tpu_torch.mano import synthetic
+    smi = nvidia_smi_line()
+    build.build_all()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mano_synthetic.npz")
+        synthetic.save_synthetic_mano(path)
+        root = os.path.join(tmp, "fake_nyu")
+        make_fake_nyu(root, path, n_train=FAKE_TRAIN, n_test=FAKE_TEST,
+                      seed=SEED, batch_size=TRAIN_BATCH)
+        counts = run_ccssl_phase(path, smi, root)
+    say("phase 10 alone: " + json.dumps(counts))
+    return 0
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4598,6 +4986,8 @@ def main():
         return 1
     if sys.argv[1:2] == ["--phase9-rank"]:
         return parallel_rank(sys.argv[2])
+    if sys.argv[1:2] == ["--phase10"]:
+        return phase10_alone()
 
     smi = nvidia_smi_line()
     say(f"device: {smi}; torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -4665,6 +5055,7 @@ def main():
         by_path.update(run_datasets(path, smi))
         by_path.update(run_cyclegan_phase(path, smi, fake_nyu))
         by_path.update(run_parallel(path, smi))
+        by_path.update(run_ccssl_phase(path, smi, fake_nyu))
     need(sorted(r["name"] for r in record) == sorted(KERNELS),
          "the kernels' record does not list every kernel once")
     for rec in record:

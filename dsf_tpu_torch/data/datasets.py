@@ -2,7 +2,9 @@
 dsf_tpu/data/datasets.py's ``BaseDataset``, ``NYUDataset``,
 ``ICVLDataset``, ``MSRADataset``, ``SHRECDataset``,
 ``read_dhg_sequences`` and ``DHGDataset``; ref: render_loader.py
-:1803-3185).
+:1803-3185), and NYU's variants ``NYUCCSSLDataset`` (pseudo labels),
+``NYUSTDataset`` with ``ModelParaOnlyDataset``, ``ConcatDataset`` and
+``NYUTestAugDataset``, whose batches are NYU's batched path.
 
 Batches are (img, xyz_gt, uvd_gt, center, M, cube) dicts of numpy arrays
 (DHG's also carry ``gesture`` and ``label28``), made by batched paths:
@@ -304,6 +306,127 @@ class NYUDataset(BaseDataset):
                      np.float32)
         return self._fast_batch(idx, self.all_joints_xyz,
                                 self.center_xyz[idx], cubes, stripe)
+
+
+class NYUCCSSLDataset(NYUDataset):
+    """NYU with CCSSL pseudo labels and per-joint confidence weights
+    (ref: nyu_CCSSL_loader, render_loader.py:1700-1800):
+    ``{pseudo_dir}/joint_uvd.txt`` holds one frame a row, its joints'
+    image-frame uvd (pixels of the 640x480 frame and mm, as NYUDataset's
+    ``joint_uvd``; ``ccssl_trainer.generate_pseudo_labels`` writes it so),
+    which take the place of the ground truth; ``weight.txt`` a row of
+    weights a frame (all 1 when absent), each batch's ``weight``.  Any
+    joint count passes (the net's 21).  Batches are NYUDataset's: the
+    labels go through the same crop and augmentation."""
+
+    def __init__(self, root_dir, phase, pseudo_dir, **kw):
+        super().__init__(root_dir, phase, **kw)
+        uvd = np.loadtxt(os.path.join(pseudo_dir, "joint_uvd.txt"), ndmin=2)
+        self.pseudo_uvd = uvd.reshape(len(uvd), -1, 3).astype(np.float32)
+        wpath = os.path.join(pseudo_dir, "weight.txt")
+        if os.path.exists(wpath):
+            self.weights = np.loadtxt(wpath, ndmin=2).astype(np.float32)
+        else:
+            self.weights = np.ones(self.pseudo_uvd.shape[:2], np.float32)
+        self.all_joints_uvd = self.pseudo_uvd
+        self.all_joints_xyz = C.joint_img_to_3d(self.pseudo_uvd, self.paras,
+                                                self.flip)
+
+    def _fetch_batch(self, idx, stripe=(0, 1)) -> dict:
+        out = super()._fetch_batch(idx, stripe)
+        out["weight"] = self.weights[np.asarray(idx)]
+        return out
+
+
+class NYUSTDataset(NYUDataset):
+    """NYU's self-training variant (ref: nyu_ST_loader,
+    render_loader.py:1949-2052): view 0, each batch also carrying the
+    frames' MANO parameters (``model_para`` (B, 62), from
+    ``{root}/posePara_lm_collosion``), and a per-frame pseudo-label mask
+    (``mask``, zeros) for the self-training loop to update."""
+
+    def __init__(self, root_dir, phase, **kw):
+        super().__init__(root_dir, phase, view=0, **kw)
+        self.all_model_para = ModelParaOnlyDataset(root_dir, "nyu", phase,
+                                                   view=0).params
+        self.mask = np.zeros(len(self), np.float32)
+
+    def _fetch_batch(self, idx, stripe=(0, 1)) -> dict:
+        out = super()._fetch_batch(idx, stripe)
+        out["model_para"] = self.all_model_para[np.asarray(idx)]
+        return out
+
+
+class ModelParaOnlyDataset:
+    """Per-frame MANO parameters of a dataset (ref: nyu_modelPara_loader,
+    msra_modelPara_loader, render_loader.py:2054-2117, 2622-2703): 62-D
+    float32 rows (glb 3, pose 45, shape 10, scale 1, trans 3) from
+    ``{root}/posePara_lm_collosion/{dataset}-{phase}-{view}-*.txt``; an
+    item is (row, cube)."""
+
+    def __init__(self, root_dir, dataset_name, phase, view=0,
+                 cube_size=(250, 250, 250)):
+        d = os.path.join(root_dir, "posePara_lm_collosion")
+        load = lambda sfx, c: np.loadtxt(os.path.join(
+            d, f"{dataset_name}-{phase}-{view}-{sfx}.txt")).reshape(-1, c)
+        self.params = np.concatenate(
+            [load("glb", 3), load("pose", 45), load("shape", 10),
+             load("scale", 1), load("trans", 3)], axis=-1).astype(np.float32)
+        self.cube_size = np.asarray(cube_size, np.float32)
+
+    def __len__(self):
+        return len(self.params)
+
+    def __getitem__(self, i):
+        return self.params[i], self.cube_size
+
+
+class ConcatDataset(BaseDataset):
+    """Datasets of one batch layout end to end (ref: nyu_loader_train_test,
+    the 72757 train + 8252 test frames, render_loader.py:1584-1698).  A
+    batch's frames are fetched from each member as one batch of its own
+    (augmentation draws from that member's RandomState, in order of the
+    members), then put back in the batch's order."""
+
+    def __init__(self, datasets):
+        self.datasets = list(datasets)
+        self.paras = self.datasets[0].paras
+        self.ori_img_size = self.datasets[0].ori_img_size
+        self.flip = self.datasets[0].flip
+        self._offsets = np.cumsum([0] + [len(d) for d in self.datasets])
+
+    def __len__(self):
+        return int(self._offsets[-1])
+
+    def _fetch_batch(self, idx, stripe=(0, 1)) -> dict:
+        idx = np.asarray(idx)
+        member = np.searchsorted(self._offsets, idx, side="right") - 1
+        out = {}
+        for k in np.unique(member):
+            rows = np.flatnonzero(member == k)
+            part = self.datasets[k]._fetch_batch(idx[rows] - self._offsets[k],
+                                                 stripe)
+            for key, v in part.items():
+                if key not in out:
+                    out[key] = np.empty((len(idx),) + v.shape[1:], v.dtype)
+                out[key][rows] = v
+        return out
+
+    def close(self) -> None:
+        for d in self.datasets:
+            d.close()
+
+
+class NYUTestAugDataset(NYUDataset):
+    """NYU's test split with the training augmentation (ref:
+    nyu_loader_test, render_loader.py:1483-1583), for self-training on
+    the test distribution: the test paths and labels, the train-sized
+    cube for every frame (no 5/6 shrink), augmented batches."""
+
+    def __init__(self, root_dir, **kw):
+        super().__init__(root_dir, "test", **kw)
+        self.test_cubesize[:] = self.cube_size
+        self.augment = True
 
 
 class ICVLDataset(BaseDataset):

@@ -20,3 +20,18 @@ def smooth_l1(x, y):
     per = (torch.where(small, val, zero).mean(-1)
            + torch.where(small, zero, val).mean(-1))
     return per.mean()
+
+
+def weighted_smooth_l1(x, y, weight):
+    """The per-joint weighted SmoothL1 (ref: metric/losses.py:32-58): the
+    magnitude split is taken on the plain residual z, the terms on the
+    weighted one, z * weight (``weight`` has x's shape without its last
+    dimension); then ``smooth_l1``'s reduction."""
+    z = x - y
+    small = torch.abs(z) < 0.01
+    zw = z * weight[..., None]
+    val = torch.where(small, 0.5 * zw * zw, 0.01 * (torch.abs(zw) - 0.005))
+    zero = torch.zeros_like(val)
+    per = (torch.where(small, val, zero).mean(-1)
+           + torch.where(small, zero, val).mean(-1))
+    return per.mean()

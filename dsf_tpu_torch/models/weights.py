@@ -392,3 +392,150 @@ def random_discriminator_state_dict(rng: np.random.RandomState, ndf: int = 64,
             rng, (c_out, c_in, 4, 4), np.sqrt(1.0 / (c_in * 16)))
         sd[f"{name}.bias"] = np.zeros(c_out, np.float32)
     return sd
+
+
+# ---------------------------------------------------------------------------
+# The hourglass PoseNet (models/hourglass.py; ref model/hourglass.py)
+# ---------------------------------------------------------------------------
+
+def pose_net_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's hourglass ``PoseNet`` ``{"params",
+    "batch_stats"}`` tree (numpy or jax arrays) -> the port's ``PoseNet``
+    state dict: the inverse of its ``convert_pose_net``."""
+    P, S = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+
+    def bn(dst, p, s):
+        sd[f"{dst}.weight"] = _t(p["bn"]["scale"])
+        sd[f"{dst}.bias"] = _t(p["bn"]["bias"])
+        sd[f"{dst}.running_mean"] = _t(s["bn"]["mean"])
+        sd[f"{dst}.running_var"] = _t(s["bn"]["var"])
+        sd[f"{dst}.num_batches_tracked"] = torch.tensor(0)
+
+    def conv(dst, p):
+        sd[f"{dst}.weight"] = _kernel(p["conv"]["kernel"])
+        sd[f"{dst}.bias"] = _t(p["conv"]["bias"])
+
+    def hg_conv(dst, p, s=None):
+        conv(f"{dst}.conv", p)
+        if "bn" in p:
+            bn(f"{dst}.bn", p["bn"], s["bn"])
+
+    def residual(dst, p, s):
+        for i in (1, 2, 3):
+            bn(f"{dst}.bn{i}", p[f"bn{i}"], s[f"bn{i}"])
+            hg_conv(f"{dst}.conv{i}", p[f"c{i}"])
+        if "skip" in p:
+            hg_conv(f"{dst}.skip_layer", p["skip"])
+
+    def hourglass(dst, p, s):
+        for name in ("up1", "low1", "low3"):
+            residual(f"{dst}.{name}", p[name], s[name])
+        if "up1" in p["low2"]:
+            hourglass(f"{dst}.low2", p["low2"], s["low2"])
+        else:
+            residual(f"{dst}.low2", p["low2"], s["low2"])
+
+    hg_conv("pre.0", P["pre_conv"], S["pre_conv"])
+    for ours, theirs in (("pre.1", "pre_r1"), ("pre.3", "pre_r2"),
+                         ("pre.4", "pre_r3")):
+        residual(ours, P[theirs], S[theirs])
+    nstack = sum(1 for k in P if k.startswith("hg"))
+    for i in range(nstack):
+        hourglass(f"hgs.{i}", P[f"hg{i}"], S[f"hg{i}"])
+        residual(f"features.{i}.0", P[f"feat_r{i}"], S[f"feat_r{i}"])
+        hg_conv(f"features.{i}.1", P[f"feat_c{i}"], S[f"feat_c{i}"])
+        for j in (1, 2, 3):
+            conv(f"outs_{j}.{i}", P[f"out{j}_{i}"])
+        if i < nstack - 1:
+            hg_conv(f"merge_preds.{i}.conv", P[f"merge_pred{i}"])
+            hg_conv(f"merge_features.{i}.conv", P[f"merge_feat{i}"])
+    return sd
+
+
+def pose_net_dims(sd: Mapping) -> Dict[str, int]:
+    """``PoseNet``'s constructor arguments (nstack, joint_num, inp_dim,
+    in_ch) read from a reference-layout or port state dict."""
+    return {"nstack": sum(1 for k in sd if k.startswith("outs_1.")
+                          and k.endswith(".weight")),
+            "joint_num": int(sd["outs_2.0.weight"].shape[0]),
+            "inp_dim": int(sd["outs_1.0.weight"].shape[1]),
+            "in_ch": int(sd["pre.0.conv.weight"].shape[1])}
+
+
+def pose_net_from_reference(sd: Mapping) -> Dict[str, torch.Tensor]:
+    """A reference ``PoseNet`` state dict -> the port's: the names are
+    the reference's, but the reference builds every Residual's
+    ``skip_layer`` and runs it only where the channels change; the port
+    keeps it only there (the rule of the JAX package's
+    ``convert_pose_net``: in = ``bn1``'s channels, out = ``conv3``'s)."""
+    out: Dict[str, torch.Tensor] = {}
+    for k, v in sd.items():
+        if ".skip_layer." in k:
+            res = k[:k.index(".skip_layer.")]
+            if (sd[f"{res}.bn1.weight"].shape[0]
+                    == sd[f"{res}.conv3.conv.weight"].shape[0]):
+                continue
+        out[k] = torch.as_tensor(np.asarray(v)).clone()
+    return out
+
+
+def random_pose_net_state_dict(rng: np.random.RandomState, nstack: int = 1,
+                               joint_num: int = 21, inp_dim: int = 256,
+                               in_ch: int = 1) -> Dict[str, np.ndarray]:
+    """A seeded reference-layout ``PoseNet`` state dict (the JAX
+    package's channel plan: pre.3 to 256, pre.4 to ``inp_dim``) drawn
+    from numpy: He-scaled convs with small biases, 1e-3-scaled output
+    heads, random BatchNorm affine parameters and running statistics, and
+    a ``skip_layer`` in every Residual, as the reference builds them."""
+    sd: Dict[str, np.ndarray] = {}
+
+    def conv(name, out_c, in_c, k, std=None):
+        std = np.sqrt(2.0 / (k * k * in_c)) if std is None else std
+        sd[f"{name}.weight"] = (rng.randn(out_c, in_c, k, k) * std
+                                ).astype(np.float32)
+        sd[f"{name}.bias"] = (rng.randn(out_c) * 0.01).astype(np.float32)
+
+    def bn(name, c):
+        sd[f"{name}.weight"] = rng.uniform(0.8, 1.2, c).astype(np.float32)
+        sd[f"{name}.bias"] = (rng.randn(c) * 0.05).astype(np.float32)
+        sd[f"{name}.running_mean"] = (rng.randn(c) * 0.05).astype(np.float32)
+        sd[f"{name}.running_var"] = rng.uniform(0.8, 1.5, c).astype(np.float32)
+        sd[f"{name}.num_batches_tracked"] = np.asarray(100, np.int64)
+
+    def residual(name, i, o):
+        h = o // 2
+        bn(f"{name}.bn1", i)
+        conv(f"{name}.conv1.conv", h, i, 1)
+        bn(f"{name}.bn2", h)
+        conv(f"{name}.conv2.conv", h, h, 3)
+        bn(f"{name}.bn3", h)
+        # the last conv of a residual branch at half scale
+        conv(f"{name}.conv3.conv", o, h, 1, std=np.sqrt(0.5 / h))
+        conv(f"{name}.skip_layer.conv", o, i, 1)
+
+    def hourglass(name, n, f):
+        for part in ("up1", "low1", "low3"):
+            residual(f"{name}.{part}", f, f)
+        if n > 1:
+            hourglass(f"{name}.low2", n - 1, f)
+        else:
+            residual(f"{name}.low2", f, f)
+
+    conv("pre.0.conv", 64, in_ch, 7)
+    bn("pre.0.bn", 64)
+    residual("pre.1", 64, 128)
+    residual("pre.3", 128, 256)
+    residual("pre.4", 256, inp_dim)
+    for i in range(nstack):
+        hourglass(f"hgs.{i}", 4, inp_dim)
+        residual(f"features.{i}.0", inp_dim, inp_dim)
+        conv(f"features.{i}.1.conv", inp_dim, inp_dim, 1)
+        bn(f"features.{i}.1.bn", inp_dim)
+        for j, c in ((1, 3 * joint_num), (2, joint_num), (3, joint_num)):
+            conv(f"outs_{j}.{i}", c, inp_dim, 1, std=1e-3)
+        if i < nstack - 1:
+            conv(f"merge_preds.{i}.conv.conv", inp_dim, 5 * joint_num, 1)
+            conv(f"merge_features.{i}.conv.conv", inp_dim, inp_dim, 1,
+                 std=np.sqrt(0.5 / inp_dim))
+    return sd

@@ -1,5 +1,13 @@
-"""Image resampling ops (counterpart of dsf_tpu/ops/image.py).  Images
-are NCHW, as in the JAX package's public functions."""
+"""Image resampling ops (counterpart of dsf_tpu/ops/image.py): nearest
+resize, ``grid_sample`` and ``affine_warp``.  Images are NCHW, as in the
+JAX package's public functions.  These are PyTorch ops on both devices:
+the JAX package computes them outside any Pallas kernel.
+
+``grid_sample`` and ``affine_warp`` are the JAX package's own gathers,
+not ``F.grid_sample`` / ``F.affine_grid``: the sample coordinates are
+computed in its order, so that a nearest sample falls on the same pixel
+wherever a coordinate is not an exact tie at .5.
+"""
 
 from __future__ import annotations
 
@@ -19,3 +27,61 @@ def resize_nearest(img, out_hw):
     iw = torch.floor(torch.arange(ow, dtype=torch.float32, device=img.device)
                      * (W / ow)).long()
     return img[..., ih[:, None], iw[None, :]]
+
+
+def unnormalize(coord, size):
+    """[-1, 1] to pixel coordinates, align_corners=False."""
+    return ((coord + 1.0) * size - 1.0) / 2.0
+
+
+def grid_sample(img, grid, mode="nearest"):
+    """torch ``F.grid_sample(img, grid, mode, padding_mode="zeros",
+    align_corners=False)`` computed as the JAX package's ``grid_sample``.
+
+    img (B, C, H, W); grid (B, Ho, Wo, 2), x (width) first, in [-1, 1].
+    ``nearest`` rounds half to even; ``bilinear`` weights the four
+    neighbours; a sample outside the image reads 0."""
+    B, C, H, W = img.shape
+    x = unnormalize(grid[..., 0], W)
+    y = unnormalize(grid[..., 1], H)
+    b = torch.arange(B, device=img.device)[:, None, None]
+
+    def gather(ix, iy):
+        valid = (ix >= 0) & (ix < W) & (iy >= 0) & (iy < H)
+        out = img[b, :, iy.clamp(0, H - 1), ix.clamp(0, W - 1)]  # (B,Ho,Wo,C)
+        out = torch.where(valid[..., None], out, torch.zeros_like(out))
+        return out.permute(0, 3, 1, 2)
+
+    if mode == "nearest":
+        return gather(torch.round(x).long(), torch.round(y).long())
+    if mode != "bilinear":
+        raise ValueError(f"grid_sample mode {mode!r}: nearest or bilinear")
+    x0, y0 = torch.floor(x), torch.floor(y)
+    wx, wy = (x - x0)[:, None], (y - y0)[:, None]
+    x0, y0 = x0.long(), y0.long()
+    v00, v01 = gather(x0, y0), gather(x0 + 1, y0)
+    v10, v11 = gather(x0, y0 + 1), gather(x0 + 1, y0 + 1)
+    return (v00 * (1 - wx) * (1 - wy) + v01 * wx * (1 - wy)
+            + v10 * (1 - wx) * wy + v11 * wx * wy)
+
+
+def affine_grid(theta, H, W):
+    """The sample grid (B, H, W, 2) of ``theta`` (B, 2, 3), an
+    output -> input map in normalized coordinates, align_corners=False:
+    the pixel centres (x + 0.5) / W * 2 - 1, then theta . (x, y, 1), in
+    the JAX package's order (``F.affine_grid`` rounds otherwise)."""
+    dev, dt = theta.device, theta.dtype
+    ys = (torch.arange(H, device=dev, dtype=dt) + 0.5) / H * 2.0 - 1.0
+    xs = (torch.arange(W, device=dev, dtype=dt) + 0.5) / W * 2.0 - 1.0
+    gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+    t = theta[:, :, None, None, :]                   # (B, 2, 1, 1, 3)
+    grid = t[..., 0] * gx + t[..., 1] * gy + t[..., 2]
+    return grid.permute(0, 2, 3, 1)
+
+
+def affine_warp(img, theta, mode="bilinear"):
+    """``grid_sample(img, affine_grid(theta, H, W), mode)``: the cycle
+    augmentation's and the CCSSL test-time augmentation's warp
+    (ref: render_loader.py:1238-1241, CCSSL/consistency.py:97-107)."""
+    B, C, H, W = img.shape
+    return grid_sample(img, affine_grid(theta.to(img.dtype), H, W), mode)

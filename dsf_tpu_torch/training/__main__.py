@@ -20,8 +20,12 @@ card (the JAX package's one process drives every local device instead).
 ``python -m dsf_tpu_torch.training cyclegan --key value ...`` trains the
 CycleGAN transfer net on the card (``pipelines.run_cyclegan``) and writes
 ``{save_dir}/{dataset}/cyclegan_{run_name}/transfer_G_A.npz``, which
-``--transferNet_pth`` then names.  The ``ccssl`` subcommand is not ported
-yet (ROADMAP Queue 1, item 3).
+``--transferNet_pth`` then names.  ``python -m dsf_tpu_torch.training
+ccssl --key value ...`` runs the CCSSL pipeline on the card
+(``pipelines.run_ccssl``): pseudo labels for the NYU train split from
+the net of ``--load_model`` (or the seeded one), then ``max_epoch``
+epochs on them, into ``{save_dir}/{dataset}/ccssl_{run_name}``; it runs
+in one process.
 """
 
 from __future__ import annotations

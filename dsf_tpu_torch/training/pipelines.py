@@ -6,9 +6,12 @@ dsf_tpu/training/pipelines.py).
   ``transfer_G_A.npz``, which ``Config(transferNet_pth=...)`` reads as the
   frozen transfer net of the training steps (``trainer.load_transfer_net``)
   and the JAX package reads with ``load_variables_npz``.
-* ``run_ccssl`` is not ported yet (ROADMAP Queue 1, item 3).
+* ``run_ccssl`` labels the NYU train split with the current net by
+  test-time augmentation, then trains on those labels with
+  confidence-weighted losses (``training.ccssl_trainer``), on the card.
 
-Command line: ``python -m dsf_tpu_torch.training cyclegan --key value ...``.
+Command line: ``python -m dsf_tpu_torch.training cyclegan|ccssl --key
+value ...``.
 """
 
 from __future__ import annotations
@@ -50,9 +53,70 @@ def save_variables_npz(path: str, variables: Mapping) -> str:
 # CCSSL (ref pieces: CCSSL/consis.py, nyu_CCSSL_loader)
 # ---------------------------------------------------------------------------
 
-def run_ccssl(cfg: Config, epochs=None, regenerate=True):
-    raise NotImplementedError(
-        "the CCSSL pipeline is not ported yet (ROADMAP Queue 1, item 3)")
+def run_ccssl(cfg: Config, epochs=None, regenerate=True, device=None):
+    """The CCSSL pipeline on ``device`` (``cuda`` when None; raises
+    without it before it writes anything): the net of ``Trainer(cfg)``
+    (seeded from ``cfg.seed``, or restored from ``cfg.load_model``)
+    labels every frame of the NYU train split under
+    ``{root_dir}/{dataset}`` (unaugmented crops, 5 test-time passes,
+    ``ccssl_trainer.generate_pseudo_labels``) into
+    ``{save_dir}/{dataset}/ccssl_{run_name}/pseudo`` (kept when it exists
+    and ``regenerate`` is False), then trains ``epochs`` (``cfg.max_epoch``
+    when None) epochs of ``Trainer.ccssl_step_fn`` on
+    ``datasets.NYUCCSSLDataset`` (augmented, shuffled, full batches; each
+    epoch's streams seeded from (seed, epoch), as ``loop.run``'s) and
+    saves ``latest`` after each.  One process only: a world of more than
+    one rank raises ValueError first.  Returns (the run directory, the
+    final ``TrainState``)."""
+    from dsf_tpu_torch.data import datasets as D
+    from dsf_tpu_torch.parallel import distributed
+    from dsf_tpu_torch.training import checkpoints as ckpt
+    from dsf_tpu_torch.training.ccssl_trainer import generate_pseudo_labels
+    from dsf_tpu_torch.training.loop import _real_iter
+    from dsf_tpu_torch.training.trainer import Trainer
+
+    world = max(distributed.world(), int(os.environ.get("WORLD_SIZE", "1")))
+    if world > 1:
+        raise ValueError(f"the CCSSL pipeline runs in one process; this is "
+                         f"a world of {world}")
+    device = resolve_device(device)
+    root = os.path.join(cfg.root_dir, cfg.dataset)
+    run_dir = os.path.join(cfg.save_dir, cfg.dataset,
+                           "ccssl_" + cfg.run_name())
+    pseudo_dir = os.path.join(run_dir, "pseudo")
+    kw = dict(img_size=cfg.input_size, cube_size=cfg.cube_size,
+              center_type=cfg.center_type)
+    base = D.NYUDataset(root, "train", **kw)
+    tr = Trainer(cfg, cfg.mano_model_path,
+                 steps_per_epoch=max(len(base) // cfg.batch_size, 1),
+                 device=device)
+    state = tr.init_state()
+    if cfg.load_model:
+        state, _ = ckpt.restore(cfg.load_model, tr, state)
+    os.makedirs(pseudo_dir, exist_ok=True)
+    if regenerate or not os.path.exists(os.path.join(pseudo_dir,
+                                                     "joint_uvd.txt")):
+        logging.info("CCSSL: labelling %d frames", len(base))
+        base.augment = False
+        try:
+            generate_pseudo_labels(tr, state, base, pseudo_dir,
+                                   batch_size=cfg.batch_size, seed=cfg.seed)
+        finally:
+            base.close()
+    ds = D.NYUCCSSLDataset(root, "train", pseudo_dir, **kw)
+    step = tr.ccssl_step_fn()
+    try:
+        for epoch in range(epochs or cfg.max_epoch):
+            losses = [step(state, b)[1]["loss"]
+                      for b in _real_iter(ds, cfg, device, epoch)]
+            logging.info("CCSSL epoch#%d loss=%.4f (%d steps)", epoch,
+                         float(torch.stack(losses).mean()) if losses
+                         else float("nan"), len(losses))
+            ckpt.save(os.path.join(run_dir, "latest"), tr, state, epoch)
+        ckpt.wait_until_finished()
+    finally:
+        ds.close()
+    return run_dir, state
 
 
 # ---------------------------------------------------------------------------

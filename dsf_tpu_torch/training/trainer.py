@@ -24,8 +24,9 @@ float32).  "float32" runs everything in float32.
 Ported: Pretrain; Finetune (one stage, ``cfg.stage_num=1``) and
 FinetuneStage (two stages) on ``cfg.dataset``'s camera (NYU, ICVL, MSRA
 or SHREC), whose real batch is that dataset's, in both compute dtypes;
-the eval step (``eval_step_fn``, ``evaluate``) and one epoch of the
-configured phase (``fit_epoch``).
+the CCSSL step on pseudo labels (``ccssl_step_fn``); the eval step
+(``eval_step_fn``, ``evaluate``) and one epoch of the configured phase
+(``fit_epoch``).
 
 Example::
 
@@ -508,6 +509,31 @@ class Trainer:
         return functools.partial(self._self_supervised_step,
                                  phases.finetune_loss if stages == 1
                                  else phases.finetune_stage_loss)
+
+    def ccssl_step_fn(self):
+        """The CCSSL step on pseudo labels (the JAX package's
+        ``ccssl_step_fn``): ``step(state, batch) -> (state, metrics)``,
+        ``batch`` {"img" (B, 1, S, S), "center" (B, 3), "cube" (B, 3),
+        "uvd_gt" (B, J, 3), "weight" (B, J), optional} of arrays or tensors
+        (``datasets.NYUCCSSLDataset``'s).  The net runs in train mode (one
+        BatchNorm group) in the trainer's compute dtype,
+        ``ccssl_trainer.ccssl_loss`` is backpropagated and the guarded
+        optimizer takes the update.  Metrics are 0-d tensors on the device,
+        ``loss`` and each stage's term."""
+        return self._ccssl_step
+
+    def _ccssl_step(self, state: TrainState, batch: Mapping) -> tuple:
+        from dsf_tpu_torch.training.ccssl_trainer import ccssl_loss
+        dev = self.device
+        b = {k: _tensor(batch[k], dev) for k in ("img", "center", "cube",
+                                                 "uvd_gt", "weight")
+             if k in batch}
+        state.net.train()
+        state.optimizer.zero_grad()
+        with exact_float32():
+            loss, metrics = ccssl_loss(state.net, self.renderer, b, self.cfg)
+            self._update(state, loss)
+        return state, dict(metrics, loss=loss.detach())
 
     def _update(self, state: TrainState, loss) -> None:
         loss.backward()

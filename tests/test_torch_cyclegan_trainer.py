@@ -373,17 +373,25 @@ def test_export_round_trip(trainers, tmp_path):
         np.array_equal, ours, jv))
 
 
-def test_compute_dtype_and_state_checks(trainers):
-    """A bfloat16 CycleGAN raises naming its ROADMAP item; so do an image
-    shape the generators cannot take and CCSSL; a seeded init draws
-    the JAX inits' shapes, and two draws from one seed agree."""
+def test_compute_dtype_and_state_checks(trainers, fake_root, tmp_path):
+    """A bfloat16 CycleGAN raises naming its ROADMAP item; an image shape
+    the generators cannot take raises; the CCSSL pipeline, once a stub,
+    runs on the CPU (B=4, 64^2, one epoch of two steps: labels and a
+    checkpoint); a seeded init draws the JAX inits' shapes, and two
+    draws from one seed agree."""
     with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
         CycleGANTrainer(compute_dtype=torch.bfloat16, device="cpu")
     tt = CycleGANTrainer(ngf=NGF, n_blocks=BLOCKS, device="cpu")
     with pytest.raises(ValueError, match="multiples of 4"):
         tt.init_state(img_shape=(1, 1, 66, 64))
-    with pytest.raises(NotImplementedError, match="Queue 1, item 3"):
-        TPipe.run_ccssl(Config())
+    d, npz = fake_root
+    run_dir, st = TPipe.run_ccssl(
+        Config(dataset="nyu", batch_size=4, input_size=S,
+               root_dir=str(d / "data"), mano_model_path=npz,
+               save_dir=str(tmp_path / "ckpt")), epochs=1, device="cpu")
+    assert st.step == 2 and os.path.exists(
+        os.path.join(run_dir, "pseudo", "joint_uvd.txt"))
+    assert os.path.exists(os.path.join(run_dir, "latest", "state.pt"))
     a, b = (tt.init_state(torch.Generator().manual_seed(3)) for _ in range(2))
     ref = W.discriminator_state_dict_from_jax(
         {"params": trainers["v"]["d_params"]["D_A"]})

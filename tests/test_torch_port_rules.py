@@ -133,11 +133,12 @@ def test_default_device_is_cuda_and_raises_without_it(tmp_path, monkeypatch):
 def test_loop_entry_points_raise_without_cuda(tmp_path, monkeypatch):
     """The trainer's loop (on every dataset), its command line and the
     fake NYU set run on the card by default and raise without one before
-    they write anything; an unknown dataset raises ValueError, and
-    the ccssl subcommand, not ported, raises NotImplementedError naming
-    its ROADMAP item."""
+    they write anything, the ccssl subcommand (``pipelines.run_ccssl``)
+    too; an unknown dataset raises ValueError, and so does run_ccssl in
+    a world of more than one process, before it touches anything."""
     from dsf_tpu_torch.data.fake import make_fake_nyu
     from dsf_tpu_torch.training import __main__ as cli
+    from dsf_tpu_torch.training import pipelines
     from dsf_tpu_torch.training.loop import run
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = Config(save_dir=str(tmp_path / "ckpt"), root_dir=str(tmp_path))
@@ -154,8 +155,14 @@ def test_loop_entry_points_raise_without_cuda(tmp_path, monkeypatch):
     assert sorted(os.listdir(tmp_path)) == []
     with pytest.raises(ValueError, match="dataset 'hands'"):
         run(cfg.replace(dataset="hands"), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 3"):
-        cli.main(["ccssl"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["ccssl", "--save_dir", str(tmp_path / "ckpt"),
+                  "--root_dir", str(tmp_path), "--batch_size", "4"])
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(ValueError, match="one process"):
+        pipelines.run_ccssl(cfg, device="cpu")
+    monkeypatch.delenv("WORLD_SIZE")
+    assert sorted(os.listdir(tmp_path)) == []
     parsed = cli.parse_config(["--batch_size", "4", "--augment_para",
                                "5,0.1,90", "--test_during_train", "false",
                                "--opt", "sgd"])
