@@ -243,6 +243,25 @@ Phases, each printed on its own line(s); any failure exits non-zero:
    statistics) and eval mode within 1e-4 relative L2, and its forward
    ms.  ``--phase10`` runs the build, the fake set and this phase alone.
 
+11. export and fits: phase 3's engine exported (``InferenceEngine.export``)
+   at buckets 1, 8 and 32 in float32 and bfloat16, and at 32 with
+   ``USE_PALLAS_SKIP`` off, one child process an artifact
+   (``--phase11-export``), all at once; each loaded by a child process of
+   its own (``--phase11-load``) that imports ``dsf_tpu_torch.exported``
+   and no model code (checked), all at once but timed one at a time;
+   each artifact's call launches what live
+   ``predict`` launches (K1 or K10, K5, K4 x2: the kernels are inside the
+   artifact) and its outputs lie within phase 3's tolerances of live
+   ``predict`` on the same request; export s, load s, MB and the median
+   of 25 calls against live ``predict``'s.  Then ``tools/fit_mano.
+   fit_params`` at B=32, 128^2, 50 steps from the neutral init against
+   targets rendered near it (with their joints): K1 and K2 once a step,
+   ms a step, m2d at most half its start; one step at B=4 card against
+   CPU (the loss within 1e-4 relative once the render pixels the devices
+   decide otherwise are out; the gradient from float64 within twice the
+   CPU's); ``fit_params_world`` at B=32, finite and falling.
+   ``--phase11`` runs the build and this phase alone.
+
 The last two lines are the kernels' JSON record and the device JSON.
 Without CUDA, or outside the repository, it exits non-zero and prints
 no result.
@@ -4968,12 +4987,413 @@ def phase10_alone():
     return 0
 
 
+# ---------------------------------------------------------------- phase 11
+
+# an artifact's call launches what live predict launches on a bucket
+EXPORT_LAUNCHES = launches(raster_skip=1, codec_encode=1, codec_decode=2)
+EXPORT_BINNED_LAUNCHES = launches(raster_binned=1, codec_encode=1,
+                                  codec_decode=2)
+# fit_params at the default config's batch and crops: one step renders
+# the parameters once (K1) and takes the render's gradient once (K2)
+FIT_BATCH, FIT_STEPS = 32, 50
+FIT_STEP_LAUNCHES = launches(raster_skip=1, raster_moments=1)
+FIT_COMPARE_BATCH = 4
+# the fit's targets: hands within a fit's reach of the neutral init (the
+# depth term's gradient is the hard raster's, through the hit face's
+# depth plane only, so the silhouettes must overlap): pose coefficients
+# of 0.15 rad, scale within 5%, translations of 0.03 (4 mm at the 250 mm
+# cube), with their joints as labels
+FIT_POSE_SD = 0.15
+FIT_WORLD_STEPS = 20
+
+
+def fit_targets(renderer, B, rng):
+    """(target img, center, cube, target joints xyz) rendered on the
+    renderer's device from seeded parameters near the neutral pose."""
+    import torch
+    from dsf_tpu_torch.render import renderer as rnd
+    para = np.zeros((B, 62), np.float32)
+    para[:, :48] = rng.randn(B, 48) * FIT_POSE_SD
+    para[:, 58] = rng.uniform(0.95, 1.05, B)
+    para[:, 59:] = rng.randn(B, 3) * 0.03
+    center = rng.uniform([-40, -40, 650], [40, 40, 900], (B, 3))
+    dev = renderer.mano.device
+    para, center = (torch.from_numpy(x.astype(np.float32)).to(dev)
+                    for x in (para, center))
+    cube = torch.full((B, 3), 250.0, device=dev)
+    with torch.no_grad():
+        img, _, jxyz, _ = rnd.render_params(renderer, para, center, cube)
+    return img, center, cube, jxyz
+
+
+def median_call_ms(fn):
+    """The median host-clock ms of ``fn()`` (which ends on the host) over
+    LATENCY_CALLS calls after 3 warm ones."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(LATENCY_CALLS):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def model_code_imported():
+    """The modules of dsf_tpu_torch's model code (models, render, mano,
+    training), or of JAX, that this process has imported."""
+    return sorted(m for m in sys.modules if m.split(".")[:2] in (
+        ["dsf_tpu_torch", "models"], ["dsf_tpu_torch", "render"],
+        ["dsf_tpu_torch", "mano"], ["dsf_tpu_torch", "training"])
+        or m.split(".")[0] in ("jax", "dsf_tpu"))
+
+
+def export_artifact(job):
+    """``--phase11-export JOB``: a child process of phase 11 that builds
+    phase 3's engine (``demo.engine``, the same seed) in the job's dtype
+    and exports it at the job's bucket, with the skip raster on or off;
+    writes its export seconds beside the artifact."""
+    import torch
+    from dsf_tpu_torch import demo
+    from dsf_tpu_torch.ops import rasterize as ras
+    with open(job) as f:
+        job = json.load(f)
+    torch.set_num_threads(1)
+    eng = demo.engine(job["mano"], "cuda", INPUT_SIZE, BUCKETS, SEED,
+                      compute_dtype=job["dtype"])
+    ras.USE_PALLAS_SKIP = job["skip"]
+    t0 = time.perf_counter()
+    eng.export(job["path"], bucket=job["bucket"])
+    with open(job["path"] + ".json", "w") as f:
+        json.dump({"export_s": time.perf_counter() - t0}, f)
+    return 0
+
+
+def load_artifact(job):
+    """``--phase11-load JOB``: a child process of phase 11 that imports
+    ``dsf_tpu_torch.exported`` (and through it the op registry) and no
+    model code.  It loads the job's artifact (timed), calls it once on
+    the job's request with the launch counts of that call and saves the
+    outputs; when every job's process has got so far, it times
+    LATENCY_CALLS calls to numpy while holding the jobs' lock, so that
+    no two artifacts are timed at once; then it writes its report, with
+    the model code this process imported."""
+    import fcntl
+    import torch
+    from dsf_tpu_torch import kernels
+    from dsf_tpu_torch.exported import load_exported
+    with open(job) as f:
+        job = json.load(f)
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    call = load_exported(job["path"])
+    load_s = time.perf_counter() - t0
+    req = np.load(job["request"])
+    args = [req[k] for k in ("img", "center", "M", "cube")]
+    call(*args)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    out = call(*args)
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    np.savez(job["out"], **{k: v.float().cpu().numpy() for k, v in out.items()})
+    open(os.path.join(job["ready"], job["name"]), "w").close()
+    deadline = time.time() + 600
+    while len(os.listdir(job["ready"])) < job["jobs"]:
+        need(time.time() < deadline, "the other loaders never got ready")
+        time.sleep(0.1)
+    with open(job["lock"], "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        ms = median_call_ms(lambda: {k: v.cpu() for k, v in
+                                     call(*args).items()})
+        fcntl.flock(lock, fcntl.LOCK_UN)
+    with open(job["report"], "w") as f:
+        json.dump({"load_s": load_s, "launches": counts, "median_ms": ms,
+                   "dtypes": {k: str(v.dtype) for k, v in out.items()},
+                   "model_code": model_code_imported()}, f)
+    return 0
+
+
+def run_children(mode, jobs, what):
+    """Run one child process of this script a job, all at once, each with
+    ``mode`` and its job file; fail if any fails.  Returns the wall s."""
+    t0 = time.perf_counter()
+    procs = [(j, subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), mode, j],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for j in jobs]
+    try:
+        for j, proc in procs:
+            _, err = proc.communicate(timeout=600)
+            need(proc.returncode == 0, f"{what} ({j}) failed:\n{err[-3000:]}")
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return time.perf_counter() - t0
+
+
+def run_export(mano_path, smi):
+    """Phase 11 (a): phase 3's engine exported at each bucket in float32
+    and bfloat16, and at the top bucket with the skip raster off, one
+    child process an artifact (``export_artifact``), all at once; each
+    artifact loaded in a child process of its own that imports no model
+    code (``load_artifact``), and held against live ``predict`` on the
+    same request.  Returns the launch counts of each artifact's call, by
+    path name."""
+    import torch
+    from dsf_tpu_torch import demo, kernels
+    from dsf_tpu_torch.ops import rasterize as ras
+
+    engines = {dt: demo.engine(mano_path, "cuda", INPUT_SIZE, BUCKETS, SEED,
+                               compute_dtype=dt)
+               for dt in ("float32", "bfloat16")}
+    rng = np.random.RandomState(SEED + 110)
+    reqs = {b: demo.requests(engines["float32"].renderer, b, rng)
+            for b in BUCKETS}
+    # (path name, dtype, bucket, the skip raster on)
+    plan = ([(f"export_f32_b{b}", "float32", b, True) for b in BUCKETS]
+            + [(f"export_bf16_b{b}", "bfloat16", b, True) for b in BUCKETS]
+            + [(f"export_binned_b{BUCKETS[-1]}", "float32", BUCKETS[-1],
+                False)])
+    by_path, worst = {}, {1: 0.0, 2: 0.0}
+    skip = ras.USE_PALLAS_SKIP
+    with tempfile.TemporaryDirectory() as tmp:
+        ready = os.path.join(tmp, "ready")
+        os.makedirs(ready)
+        for b, r in reqs.items():
+            np.savez(os.path.join(tmp, f"req_{b}.npz"),
+                     **dict(zip(("img", "center", "M", "cube"), r)))
+        jobs = []
+        for name, dt, b, on in plan:
+            job = {"name": name, "mano": mano_path, "dtype": dt, "bucket": b,
+                   "skip": on, "path": os.path.join(tmp, name + ".pt2"),
+                   "request": os.path.join(tmp, f"req_{b}.npz"),
+                   "out": os.path.join(tmp, name + "_out.npz"),
+                   "report": os.path.join(tmp, name + "_report.json"),
+                   "ready": ready, "jobs": len(plan),
+                   "lock": os.path.join(tmp, "timing.lock")}
+            jobs.append(os.path.join(tmp, name + ".json"))
+            with open(jobs[-1], "w") as f:
+                json.dump(job, f)
+        export_wall = run_children("--phase11-export", jobs, "an export")
+        load_wall = run_children("--phase11-load", jobs, "a loader")
+        say(f"export: {len(plan)} artifacts exported by as many processes "
+            f"at once in {export_wall:.1f} s, loaded and called by as many "
+            f"more (each importing load_exported's module alone) in "
+            f"{load_wall:.1f} s")
+        for (name, dt, b, on), job in zip(plan, jobs):
+            with open(job) as f:
+                job = json.load(f)
+            with open(job["report"]) as f:
+                row = json.load(f)
+            with open(job["path"] + ".json") as f:
+                export_s = json.load(f)["export_s"]
+            need(not row["model_code"], f"{name}: loading the artifact "
+                 f"imported the model code: {row['model_code']}")
+            eng = engines[dt]
+            ras.USE_PALLAS_SKIP = on
+            try:
+                torch.cuda.synchronize()
+                kernels.reset_launch_counts()
+                live = eng.predict(*reqs[b])
+                torch.cuda.synchronize()
+                live_counts = dict(kernels.LAUNCHES)
+                live_ms = median_call_ms(lambda: eng.predict(*reqs[b]))
+            finally:
+                ras.USE_PALLAS_SKIP = skip
+            want = EXPORT_LAUNCHES if on else EXPORT_BINNED_LAUNCHES
+            need(row["launches"] == live_counts == want,
+                 f"{name}: the artifact's call launched {row['launches']}, "
+                 f"live predict {live_counts}, expected {want}")
+            by_path[name] = row["launches"]
+            out = np.load(job["out"])
+            diff = {k: float(np.abs(out[k] - live[k]).max()) for k in live}
+            for k, d in diff.items():
+                need(d <= atol_for(k), f"{name}: {k} differs from live "
+                     f"predict by {d} > {atol_for(k)}")
+                if "mm" in k:
+                    st = 1 if k.endswith("_0") else 2
+                    worst[st] = max(worst[st], d)
+            s1 = max(d for k, d in diff.items() if k.endswith("_0"))
+            s2 = max(d for k, d in diff.items() if not k.endswith("_0"))
+            say(f"{name}: export {export_s:.2f} s, "
+                f"{os.path.getsize(job['path']) / 2**20:.1f} MB, load "
+                f"{row['load_s']:.2f} s; launches a call "
+                f"{ {k: v for k, v in row['launches'].items() if v} }; "
+                f"against live predict max abs stage 1 {s1:.3g}, stage 2 "
+                f"{s2:.3g}; median ms to numpy ({LATENCY_CALLS} calls, "
+                f"host clock): artifact {row['median_ms']:.3f}, live "
+                f"{live_ms:.3f}; mano_para dtype {row['dtypes']['mano_para_0']}")
+    say(f"export: the artifacts' largest difference from live predict in "
+        f"mm, stage 1 {worst[1]:.3g}, stage 2 {worst[2]:.3g} (predicted "
+        f"under 1e-3 mm); {smi}")
+    return by_path
+
+
+def run_fit(mano_path, smi):
+    """Phase 11 (b): ``fit_mano.fit_params`` at B=32, 128^2, 50 steps from
+    the neutral init (K1 and K2 each step, m2d at most half its start),
+    the card against the CPU at B=4 (one step's loss and gradient, the
+    CPU in float64 the witness) and ``fit_params_world`` at B=32.
+    Returns the launch counts of the 50 steps."""
+    import torch
+    from dsf_tpu_torch import demo, kernels
+    from dsf_tpu_torch.mano import model as mano
+    from dsf_tpu_torch.render import renderer as rnd
+    from dsf_tpu_torch.tools import fit_mano
+
+    r = rnd.Renderer.create(mano.load_model(mano_path, device="cuda"), "nyu",
+                            demo.PARAS, (640, 480), (INPUT_SIZE, INPUT_SIZE))
+    img, center, cube, jxyz = fit_targets(r, FIT_BATCH,
+                                          np.random.RandomState(SEED + 120))
+    p0 = torch.zeros((FIT_BATCH, 62), device="cuda")
+    p0[:, 58] = 1.0
+    with torch.no_grad():
+        _, aux0 = fit_mano.fit_loss(r, p0, img, center, cube, jxyz)
+    m2d0 = float(aux0["m2d"])
+    fit_mano.fit_params(r, img, center, cube, jxyz, steps=2)    # warm
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, terms = fit_mano.fit_params(r, img, center, cube, jxyz,
+                                   steps=FIT_STEPS)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / FIT_STEPS
+    counts = dict(kernels.LAUNCHES)
+    per_step = {k: v / FIT_STEPS for k, v in counts.items() if v}
+    say(f"fit_params B={FIT_BATCH} {INPUT_SIZE}^2 {FIT_STEPS} steps: "
+        f"{step_ms:.3f} ms a step (host clock, the whole call over the "
+        f"steps); launches a step {per_step} (predicted K1 x1 forward, "
+        f"K2 x1 backward); m2d {m2d0:.4f} -> {terms['m2d']:.4f} "
+        f"({terms['m2d'] / m2d0:.3f} of its start), joint "
+        f"{float(aux0['joint']):.4f} -> {terms['joint']:.4f}; {smi}")
+    need(counts == {k: v * FIT_STEPS for k, v in FIT_STEP_LAUNCHES.items()},
+         f"fit_params launched {counts}, expected {FIT_STEP_LAUNCHES} a "
+         f"step")
+    need(all(np.isfinite(v) for v in terms.values()),
+         f"fit_params: a term is not finite: {terms}")
+    need(terms["m2d"] <= 0.5 * m2d0, f"fit_params: m2d {terms['m2d']} is "
+         f"more than half its start {m2d0}")
+
+    compare_fit(r, mano_path)
+
+    pcl_rng = np.random.RandomState(SEED + 121)
+    B = FIT_BATCH
+    quat = (pcl_rng.randn(B, 3) * 0.2).astype(np.float32)
+    theta = (pcl_rng.randn(B, 45) * 0.2).astype(np.float32)
+    cam = np.concatenate([np.ones((B, 1)), pcl_rng.randn(B, 3) * 20],
+                         axis=1).astype(np.float32)
+    with torch.no_grad():
+        vt, jt = mano.get_mano_vertices(
+            r.mano, *(torch.from_numpy(x).cuda() for x in
+                      (quat + 0.1, theta + 0.1)),
+            torch.zeros((B, 10), device="cuda"), torch.from_numpy(cam).cuda())
+    sel = torch.from_numpy(pcl_rng.choice(vt.shape[1], 256, replace=False))
+    pcl = vt[:, sel.cuda()] + torch.from_numpy(
+        pcl_rng.randn(B, 256, 3).astype(np.float32)).cuda()
+    t0 = time.perf_counter()
+    _, hist = fit_mano.fit_params_world(r.mano, pcl, jt, quat, theta, cam,
+                                        steps=FIT_WORLD_STEPS)
+    world_ms = (time.perf_counter() - t0) * 1e3 / FIT_WORLD_STEPS
+    say(f"fit_params_world B={B} (256 points, {FIT_WORLD_STEPS} steps): "
+        f"loss {hist[0]:.4f} -> {hist[-1]:.4f}, {world_ms:.3f} ms a step")
+    need(np.isfinite(hist).all() and hist[-1] < hist[0],
+         f"fit_params_world: the loss did not fall: {hist}")
+    return counts
+
+
+def compare_fit(r, mano_path):
+    """fit_params' first step at B=4, the card against the CPU from the
+    same targets (rendered on the CPU): the loss within 1e-4 relative once
+    the m2d share of the render's pixels that the two devices decide
+    otherwise is out, and the gradient no further from the CPU's float64
+    gradient than twice the CPU's float32 one (phase 5's witness rule)."""
+    import torch
+    from dsf_tpu_torch.device import exact_float32
+    from dsf_tpu_torch.losses.basic import masked_depth_loss
+    from dsf_tpu_torch.mano import model as mano
+    from dsf_tpu_torch.render import renderer as rnd
+    from dsf_tpu_torch.tools import fit_mano
+
+    cpu = dataclasses.replace(r, mano=mano.load_model(mano_path,
+                                                      device="cpu"))
+    B = FIT_COMPARE_BATCH
+    tgt = fit_targets(cpu, B, np.random.RandomState(SEED + 122))
+    p0 = torch.zeros((B, 62))
+    p0[:, 58] = 1.0
+
+    def loss_grad(rr, p, args):
+        p = p.clone().requires_grad_(True)
+        loss, aux = fit_mano.fit_loss(rr, p, *args)
+        (g,) = torch.autograd.grad(loss, p)
+        return float(loss.detach()), float(aux["m2d"]), g.cpu().double()
+
+    with exact_float32():
+        l_gpu, _, g_gpu = loss_grad(r, p0.cuda(), [t.cuda() for t in tgt])
+    l_cpu, m_cpu, g_cpu = loss_grad(cpu, p0, list(tgt))
+    l_64, _, g_64 = loss_grad(float64_renderer(cpu), p0.double(),
+                              [t.double() for t in tgt])
+    with torch.no_grad():
+        img_gpu = rnd.render_params(r, p0.cuda(), tgt[1].cuda(),
+                                    tgt[2].cuda())[0].cpu()
+        img_cpu = rnd.render_params(cpu, p0, tgt[1], tgt[2])[0]
+    flipped = (img_gpu - img_cpu).abs() > 1e-3
+    shift = float(masked_depth_loss(img_cpu, tgt[0]).mean()
+                  - masked_depth_loss(torch.where(flipped, img_gpu, img_cpu),
+                                      tgt[0]).mean())
+    d_loss = abs(l_gpu - (l_cpu - shift)) / abs(l_cpu)
+    d_gpu = float((g_gpu - g_64).norm() / g_64.norm())
+    d_cpu = float((g_cpu - g_64).norm() / g_64.norm())
+    say(f"fit_params B={B} card vs CPU, one step: loss {l_gpu:.7g} / "
+        f"{l_cpu:.7g} (float64 {l_64:.7g}), {int(flipped.sum())} render "
+        f"pixels decided otherwise (m2d share {shift:.3g}), relative "
+        f"{d_loss:.3g}; gradient from float64: card {d_gpu:.3g}, CPU "
+        f"{d_cpu:.3g}")
+    need(d_loss <= 1e-4, f"fit_params: the card's loss lies {d_loss} from "
+         f"the CPU's")
+    need(d_gpu <= 2.0 * d_cpu, f"fit_params: the card's gradient lies "
+         f"{d_gpu} from float64, more than twice the CPU's {d_cpu}")
+
+
+def run_export_phase(mano_path, smi):
+    """Phase 11: the serving export (``run_export``) and the offline MANO
+    fits (``run_fit``), timed.  Returns the launch counts by path."""
+    t0 = time.perf_counter()
+    by_path = run_export(mano_path, smi)
+    by_path["fit_mano"] = run_fit(mano_path, smi)
+    say(f"phase 11: {time.perf_counter() - t0:.1f} s")
+    return by_path
+
+
+def phase11_alone():
+    """``--phase11``: the kernels' build, then phase 11 alone; prints no
+    result line."""
+    from dsf_tpu_torch.kernels import build
+    from dsf_tpu_torch.mano import synthetic
+    smi = nvidia_smi_line()
+    build.build_all()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mano_synthetic.npz")
+        synthetic.save_synthetic_mano(path)
+        counts = run_export_phase(path, smi)
+    say("phase 11 alone: " + json.dumps(counts))
+    return 0
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this run "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--phase11-load"]:
+        # before any model code is imported: the child loads an artifact
+        # with load_exported's module alone
+        return load_artifact(sys.argv[2])
+    if sys.argv[1:2] == ["--phase11-export"]:
+        return export_artifact(sys.argv[2])
     try:
         from dsf_tpu_torch import demo
         from dsf_tpu_torch.device import exact_float32
@@ -4988,6 +5408,8 @@ def main():
         return parallel_rank(sys.argv[2])
     if sys.argv[1:2] == ["--phase10"]:
         return phase10_alone()
+    if sys.argv[1:2] == ["--phase11"]:
+        return phase11_alone()
 
     smi = nvidia_smi_line()
     say(f"device: {smi}; torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -5056,6 +5478,7 @@ def main():
         by_path.update(run_cyclegan_phase(path, smi, fake_nyu))
         by_path.update(run_parallel(path, smi))
         by_path.update(run_ccssl_phase(path, smi, fake_nyu))
+        by_path.update(run_export_phase(path, smi))
     need(sorted(r["name"] for r in record) == sorted(KERNELS),
          "the kernels' record does not list every kernel once")
     for rec in record:

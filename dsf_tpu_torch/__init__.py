@@ -26,9 +26,14 @@ Layer map:
   losses, training — SmoothL1; the Pretrain phase and its trainer
   data             — depth readers, the NYU, ICVL, MSRA, SHREC and DHG
                      loaders, MANO-parameter sources (numpy, host library)
-  tools            — offline pre-render, SHREC skeleton export
-  serving          — bucketed InferenceEngine
-  kernels, csrc    — CUDA sources and their build
+  tools            — offline pre-render, SHREC skeleton export, MANO
+                     fitting, self-intersection and hand-object volumes,
+                     the loader benchmark, the Kinect preview
+  serving          — bucketed InferenceEngine and its export
+  exported         — load_exported: an exported bucket, with the op
+                     registry and no model code
+  kernels, csrc    — CUDA sources, their build and the custom ops
+                     (torch.library, namespace dsf) of the serving path
 """
 
 __version__ = "0.1.0"

@@ -1,5 +1,5 @@
 """Elementwise losses (counterpart of dsf_tpu/losses/basic.py; ref:
-metric/losses.py)."""
+metric/losses.py) and the masked depth term."""
 
 from __future__ import annotations
 
@@ -35,3 +35,13 @@ def weighted_smooth_l1(x, y, weight):
     per = (torch.where(small, val, zero).mean(-1)
            + torch.where(small, zero, val).mean(-1))
     return per.mean()
+
+
+def masked_depth_loss(real, synth, thresh=0.99):
+    """Mean |real - synth| over the pixels where either is foreground, per
+    sample (the m2d term, ref: train_render.py:729-732): the sum of the
+    masked |diff| over the image over the mask's sum + 1e-8.  real, synth
+    (B, 1, H, W) normalized depth -> (B, 1); the caller means."""
+    mask = ((real < thresh) | (synth < thresh)).to(real.dtype)
+    diff = torch.abs(real - synth) * mask
+    return diff.sum((-1, -2)) / (mask.sum((-1, -2)) + 1e-8)

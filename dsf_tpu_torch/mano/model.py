@@ -6,9 +6,10 @@ product is float32 (the JAX package runs them at Precision.HIGHEST); on a
 GPU the caller keeps TF32 off (``device.exact_float32``), since LBS feeds
 millimetre-level outputs.
 
-Of the part-segmentation tables, the two the FinetuneStage losses read
-are ported: ``joint_face_mask`` (the joint ICP's admissible faces) and
-``vertex_joint_mask`` (the sphere radii's vertices).
+Of the part-segmentation tables, three are ported: ``joint_face_mask``
+(the joint ICP's admissible faces) and ``vertex_joint_mask`` (the sphere
+radii's vertices), which the FinetuneStage losses read, and
+``vertex_seg`` (each vertex's joint), which ``tools/eval_coll`` reads.
 """
 
 from __future__ import annotations
@@ -30,7 +31,9 @@ class ManoModel:
     fingertip rows], hands_comp (45, 45), hands_mean (45,), posedirs
     (135, 2334), weights (778, 16), faces (1554, 3) int64 [wrist-capped],
     joint_face_mask (1554, 15) bool [face t touches a vertex skinned > 0.1
-    to joint k + 1], vertex_joint_mask (778, 21) bool [J_regressor > 0]."""
+    to joint k + 1], vertex_joint_mask (778, 21) bool [J_regressor > 0],
+    vertex_seg (778,) int32 [the joint of each vertex's largest skinning
+    weight]."""
 
     v_template: torch.Tensor
     shapedirs: torch.Tensor
@@ -42,6 +45,7 @@ class ManoModel:
     faces: torch.Tensor
     joint_face_mask: torch.Tensor
     vertex_joint_mask: torch.Tensor
+    vertex_seg: torch.Tensor
     parents: tuple
     n_verts: int
 
@@ -103,6 +107,7 @@ def load_model(npz_path: str, device=None) -> ManoModel:
         faces=t(faces),
         joint_face_mask=t(_face_membership(faces, vertex_joint[1:])),
         vertex_joint_mask=t(J_regressor > 0),
+        vertex_seg=t(np.argmax(weights, axis=1).astype(np.int32)),
         parents=parents,
         n_verts=n_verts,
     )

@@ -3,9 +3,12 @@
 and ``_decode_fwd_call`` / ``_decode_bwd`` (K4).
 
 ``*_cuda`` launch or raise.  ``EncodeFn`` and ``DecodeFn`` are the
-``torch.autograd.Function``s the codec's CUDA path goes through: forward
-and backward are each one wrapper call, as ``encode_pallas`` /
-``decode_pallas`` are ``jax.custom_vjp``s over Pallas kernels.  K4's
+``torch.autograd.Function``s the codec's CUDA path goes through where a
+gradient is asked: forward and backward are each one wrapper call, as
+``encode_pallas`` / ``decode_pallas`` are ``jax.custom_vjp``s over Pallas
+kernels; their forwards call the custom ops ``dsf::encode`` /
+``dsf::decode`` (``kernels/custom_ops.py``), whose CUDA implementations
+are ``encode_cuda`` / ``decode_cuda``.  K4's
 forward also returns its softmax statistics, which its VJP takes with
 the joints instead of a second pass over the pixels (plain versions:
 ``offset_codec.decode_fwd_plain`` / ``decode_bwd_plain``).  The dispatch
@@ -193,13 +196,15 @@ def decode_bwd_cuda(offset, depth_s, g, y, stats, kernel_size, scale):
 
 
 class EncodeFn(torch.autograd.Function):
-    """K5: forward ``encode_cuda``, backward ``encode_bwd_cuda``."""
+    """K5: forward the op ``dsf::encode`` (``encode_cuda`` on the card),
+    backward ``encode_bwd_cuda``."""
 
     @staticmethod
     def forward(ctx, joint, img_s, kernel_size):
+        from dsf_tpu_torch.kernels import custom_ops
         ctx.save_for_backward(joint, img_s)
         ctx.kernel_size = kernel_size
-        return encode_cuda(joint, img_s, kernel_size)
+        return custom_ops.encode(joint, img_s, kernel_size)
 
     @staticmethod
     def backward(ctx, g):
@@ -210,12 +215,14 @@ class EncodeFn(torch.autograd.Function):
 
 
 class DecodeFn(torch.autograd.Function):
-    """K4: forward ``decode_cuda``, backward ``decode_bwd_cuda`` from the
-    forward's joints and statistics."""
+    """K4: forward the op ``dsf::decode`` (``decode_cuda`` on the card),
+    backward ``decode_bwd_cuda`` from the forward's joints and
+    statistics."""
 
     @staticmethod
     def forward(ctx, offset, depth_s, kernel_size, scale):
-        y, stats = decode_cuda(offset, depth_s, kernel_size, scale)
+        from dsf_tpu_torch.kernels import custom_ops
+        y, stats = custom_ops.decode(offset, depth_s, kernel_size, scale)
         ctx.save_for_backward(offset, depth_s, y, stats)
         ctx.kernel_size, ctx.scale = kernel_size, scale
         return y

@@ -11,10 +11,17 @@ Feature layout: (B, 4J, S, S) = [3J offset channels | J heatmap channels].
 with three-term sums written out left to right); on the CPU their
 gradients are plain autograd, the jnp paths' autodiff.  The public
 functions resize the image to the feature size (outside the kernels, as
-in the JAX package, so the resize's gather gradient is torch's), then
-take the plain version for CPU tensors and, for GPU tensors, the
-``autograd.Function`` whose forward and backward are the CUDA kernels
-(``codec_kernel.EncodeFn``: K5, ``DecodeFn``: K4).
+in the JAX package, so the resize's gather gradient is torch's), then,
+where no gradient is asked (serving, eval, an exported program), call
+the custom ops ``dsf::encode`` / ``dsf::decode`` (``kernels/custom_ops``:
+the plain versions on the CPU, K5 / K4 on the card); where one is asked,
+the plain version's autograd for CPU tensors and, for GPU tensors, the
+``autograd.Function`` whose forward (the op) and backward are the CUDA
+kernels (``codec_kernel.EncodeFn``: K5, ``DecodeFn``: K4).  The CPU decode
+without a gradient is ``decode_fwd_plain``'s, with a gradient
+``offset2joint_plain``'s: the two differ by float32 rounding alone (a
+division by the softmax's mass against ``torch.softmax``'s product with
+its inverse).
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from dsf_tpu_torch.device import widen
+from dsf_tpu_torch.kernels import custom_ops
 from dsf_tpu_torch.ops import codec_kernel
 from dsf_tpu_torch.ops.image import resize_nearest
 
@@ -120,17 +128,28 @@ def decode_bwd_plain(offset, depth_s, g, y, stats, kernel_size, scale=30.0):
             dd.reshape(B, 1, S, S))
 
 
+def _codec_device(t):
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no codec path for device {t.device}")
+    return t.device.type
+
+
+def _wants_grad(*ts):
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def joint2offset(joint, img, kernel_size, feature_size):
     """joints (B, J, 3) normalized uvd + img (B, 1, H, W) -> (B, 4J, S, S)
     (ref: GFM.joint2offset)."""
     img_s = resize_nearest(img, (feature_size, feature_size))
-    if joint.device.type == "cpu":
+    dev = _codec_device(joint)
+    if dev == "cuda":
+        joint, img_s = joint.float().contiguous(), img_s.float().contiguous()
+    if not _wants_grad(joint, img_s):
+        return custom_ops.encode(joint, img_s, kernel_size)
+    if dev == "cpu":
         return joint2offset_plain(joint, img_s, kernel_size)
-    if joint.device.type == "cuda":
-        return codec_kernel.EncodeFn.apply(joint.float().contiguous(),
-                                           img_s.float().contiguous(),
-                                           kernel_size)
-    raise ValueError(f"no codec path for device {joint.device}")
+    return codec_kernel.EncodeFn.apply(joint, img_s, kernel_size)
 
 
 def offset2joint_softmax(offset, depth, kernel_size, scale=30.0):
@@ -142,11 +161,13 @@ def offset2joint_softmax(offset, depth, kernel_size, scale=30.0):
     S = offset.shape[-1]
     if depth.shape[-1] != S:
         depth = resize_nearest(depth, (S, S))
-    if offset.device.type == "cpu":
-        return offset2joint_plain(widen(offset), widen(depth), kernel_size,
-                                  scale)
-    if offset.device.type == "cuda":
-        return codec_kernel.DecodeFn.apply(offset.float().contiguous(),
-                                           depth.float().contiguous(),
-                                           kernel_size, scale)
-    raise ValueError(f"no codec path for device {offset.device}")
+    dev = _codec_device(offset)
+    if dev == "cuda":
+        offset, depth = offset.float().contiguous(), depth.float().contiguous()
+    else:
+        offset, depth = widen(offset), widen(depth)
+    if not _wants_grad(offset, depth):
+        return custom_ops.decode(offset, depth, kernel_size, scale)[0]
+    if dev == "cpu":
+        return offset2joint_plain(offset, depth, kernel_size, scale)
+    return codec_kernel.DecodeFn.apply(offset, depth, kernel_size, scale)

@@ -43,7 +43,11 @@ bitwise-equal to its plain version on the same face rows.
 
 The route depends on the switches and the shapes alone; the device only
 picks the kernel (CUDA tensors) or its plain version (CPU tensors), so
-the CPU runs the plain version of the kernel the card would run.  (JAX's
+the CPU runs the plain version of the kernel the card would run.  The
+skip and binned routes, the serving path's, go through the custom ops
+``dsf::raster_skip`` and ``dsf::raster_binned`` (``kernels/custom_ops``),
+whose CUDA and CPU implementations are that pair, so that an exported
+program holds them.  (JAX's
 ``_skip_eligible`` also asks for a non-CPU backend; its dense route asks
 ``USE_PALLAS_RASTER`` whether to take its Pallas kernel or an XLA scan.
 The port's only other dense raster is the plain version, so on a card the
@@ -61,6 +65,7 @@ from __future__ import annotations
 import torch
 
 from dsf_tpu_torch import geometry as geo
+from dsf_tpu_torch.kernels import custom_ops
 from dsf_tpu_torch.ops import moments_kernel, raster_kernel
 
 INF = 1e10
@@ -477,58 +482,41 @@ class AttachRasterGrad(torch.autograd.Function):
         return dproj, None, None, None, None
 
 
-def _route_forward(name, proj, pix_uv, plain, kernel):
-    """The plain version for CPU tensors, the kernel for CUDA tensors."""
-    if proj.device.type == "cpu":
-        return plain()
-    if proj.device.type == "cuda":
-        return kernel()
-    raise ValueError(f"no {name} raster path for device {proj.device}")
-
-
-def _kernel_args(proj, pix_uv, faces):
-    """proj, faces and pix_uv as the K1 and K6 wrappers take them."""
-    return (proj.float().contiguous(), faces.to(torch.int32).contiguous(),
-            pix_uv.contiguous())
+def _raster_device(name, proj):
+    if proj.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no {name} raster path for device {proj.device}")
 
 
 def skip_forward(proj, pix_uv, faces, layout_hw):
-    """The skip route on detached inputs: ``raster_scan`` / K1 (its set-up
-    and raster)."""
-    return _route_forward(
-        "skip", proj, pix_uv, lambda: raster_scan(proj, pix_uv, faces),
-        lambda: raster_kernel.raster_skip_cuda(
-            *_kernel_args(proj, pix_uv, faces), layout_hw))
+    """The skip route on detached inputs: the op ``dsf::raster_skip``
+    (``raster_scan`` on the CPU, K1's set-up and raster on the card)."""
+    _raster_device("skip", proj)
+    return custom_ops.raster_skip(proj, pix_uv, faces, *layout_hw)
 
 
 def dense_forward(proj, pix_uv, faces):
     """The dense route on detached inputs: ``raster_scan`` / K6 (its set-up
     and raster)."""
-    return _route_forward(
-        "dense", proj, pix_uv, lambda: raster_scan(proj, pix_uv, faces),
-        lambda: raster_kernel.raster_dense_cuda(
-            *_kernel_args(proj, pix_uv, faces)))
+    _raster_device("dense", proj)
+    if proj.device.type == "cpu":
+        return raster_scan(proj, pix_uv, faces)
+    return raster_kernel.raster_dense_cuda(
+        proj.float().contiguous(), faces.to(torch.int32).contiguous(),
+        pix_uv.contiguous())
 
 
 def binned_forward(proj, pix_uv, faces, tile_hw):
     """The binned route on detached inputs (ref: _raster_binned): the
     dense route when the layout is not a multiple of ``BIN_TILE`` or the
-    mesh has at most ``BIN_CAP`` faces; else ``raster_binned_plain`` over
-    ``binned_tables`` / K10 (its set-up and raster, on the positions and
-    faces as they come: no copy, no cast)."""
+    mesh has at most ``BIN_CAP`` faces; else the op ``dsf::raster_binned``
+    (``raster_binned_plain`` over ``binned_tables`` on the CPU, K10's
+    set-up and raster on the card, on the positions and faces as they
+    come: no copy, no cast)."""
     H, W = tile_hw
     if H % BIN_TILE or W % BIN_TILE or faces.shape[0] <= BIN_CAP:
         return dense_forward(proj, pix_uv, faces)
-
-    def plain():
-        rows = face_rows(proj, faces)
-        return raster_binned_plain(
-            rows, pix_uv, tile_hw,
-            *binned_tables(proj, pix_uv, faces, tile_hw, rows))
-    return _route_forward(
-        "binned", proj, pix_uv, plain,
-        lambda: raster_kernel.raster_binned_cuda(proj, faces, pix_uv,
-                                                 tile_hw))
+    _raster_device("binned", proj)
+    return custom_ops.raster_binned(proj, pix_uv, faces, H, W)
 
 
 def _skip_eligible(layout_hw, faces):

@@ -25,6 +25,9 @@ bucket that does not divide by n raises, as the JAX engine's mesh does.
 Raw frames go through ``predict_from_depth`` (the host crop of
 ``data.crop``, centred on the given or the foreground's centre of mass),
 and a run directory of the port's loop loads through ``from_run_dir``.
+``export`` writes one bucket's predict body as a ``torch.export``
+program, which ``load_exported`` (``dsf_tpu_torch.exported``, re-exported
+here) loads without the model code.
 
 Example::
 
@@ -34,6 +37,9 @@ Example::
 
     eng = InferenceEngine.from_run_dir("checkpoint/nyu/<run>")
     out = eng.predict_from_depth(depth_frame)      # raw (480, 640) mm
+
+    eng.export("predict_b8.pt2", bucket=8)
+    call = load_exported("predict_b8.pt2")         # no model code needed
 """
 
 from __future__ import annotations
@@ -47,10 +53,12 @@ from typing import Dict, Mapping, Optional, Sequence
 import numpy as np
 import torch
 
+from dsf_tpu_torch import exported
 from dsf_tpu_torch import geometry as geo
 from dsf_tpu_torch.config import CAMERA, Config, check_devices
 from dsf_tpu_torch.device import (compute_dtype, exact_float32,
                                   resolve_device, widen)
+from dsf_tpu_torch.exported import load_exported  # noqa: F401 (re-export)
 from dsf_tpu_torch.mano import model as mano_model
 from dsf_tpu_torch.mano.constants import transfer_for_dataset
 from dsf_tpu_torch.models.backbone import ManoOCRStage
@@ -82,6 +90,54 @@ def _load_config(run_dir: str) -> Config:
         else:
             kwargs[fld.name] = s
     return Config(**kwargs)
+
+
+def _predict_body(cfg: Config, net, r: rnd.Renderer, tm, img, center, M,
+                  cube) -> Dict[str, torch.Tensor]:
+    """The predict body (dsf_tpu/serving.py:189-210): the net on one bucket,
+    each stage's decode and MANO mesh in world millimetres."""
+    outputs = net(img, r, center, cube)
+    out = {}
+    half = cube[:, None, 2:] / 2.0
+    for idx, (pixel_pd, para_pd) in enumerate(outputs):
+        juvd = offset2joint_softmax(pixel_pd, img, cfg.feature_para[0])
+        jxyz = geo.uvd_nl_to_xyz_nl(juvd, center, M, cube, r.paras,
+                                    cfg.input_size, r.flip)
+        mano_jxyz, mano_mesh = rnd.get_mesh_xyz(r, widen(para_pd))
+        out[f"joint_xyz_mm_{idx}"] = jxyz * half + center[:, None]
+        out[f"mano_joint_xyz_mm_{idx}"] = mano_jxyz * half + center[:, None]
+        out[f"mano_mesh_mm_{idx}"] = mano_mesh * half + center[:, None]
+        out[f"mano_para_{idx}"] = para_pd
+        out[f"joint_uvd_nl_{idx}"] = juvd
+    last = len(outputs) - 1
+    # canonical aliases: the final stage, dataset joint order
+    out["joint_xyz_mm"] = out[f"joint_xyz_mm_{last}"][:, tm]
+    out["mano_joint_xyz_mm"] = out[f"mano_joint_xyz_mm_{last}"][:, tm]
+    return out
+
+
+class PredictProgram(torch.nn.Module):
+    """One replica's predict body as a module, for ``torch.export``: the
+    net, the renderer's MANO constants as buffers (``ManoOCRStage.forward``
+    takes the ``Renderer`` as an argument, so the renderer is rebuilt from
+    them on each call) and the transfer map."""
+
+    def __init__(self, cfg: Config, net, r: rnd.Renderer, tm):
+        super().__init__()
+        self.cfg, self.net, self._renderer = cfg, net, r
+        self._mano_fields = [f.name for f in dataclasses.fields(r.mano)
+                             if isinstance(getattr(r.mano, f.name),
+                                           torch.Tensor)]
+        for name in self._mano_fields:
+            self.register_buffer(f"mano_{name}", getattr(r.mano, name))
+        self.register_buffer("transfer_map", tm)
+
+    def forward(self, img, center, M, cube) -> Dict[str, torch.Tensor]:
+        mano = dataclasses.replace(self._renderer.mano, **{
+            n: getattr(self, f"mano_{n}") for n in self._mano_fields})
+        r = dataclasses.replace(self._renderer, mano=mano)
+        return _predict_body(self.cfg, self.net, r, self.transfer_map, img,
+                             center, M, cube)
 
 
 class InferenceEngine:
@@ -190,29 +246,9 @@ class InferenceEngine:
 
     def _forward(self, img, center, M, cube, replica=0
                  ) -> Dict[str, torch.Tensor]:
-        """One bucket (or a replica's chunk of one): the predict body
-        (dsf_tpu/serving.py:189-210)."""
-        cfg = self.cfg
+        """One bucket (or a replica's chunk of one): the predict body."""
         net, r, tm = self.replicas[replica]
-        outputs = net(img, r, center, cube)
-        out = {}
-        half = cube[:, None, 2:] / 2.0
-        for idx, (pixel_pd, para_pd) in enumerate(outputs):
-            juvd = offset2joint_softmax(pixel_pd, img, cfg.feature_para[0])
-            jxyz = geo.uvd_nl_to_xyz_nl(juvd, center, M, cube, r.paras,
-                                        cfg.input_size, r.flip)
-            mano_jxyz, mano_mesh = rnd.get_mesh_xyz(r, widen(para_pd))
-            out[f"joint_xyz_mm_{idx}"] = jxyz * half + center[:, None]
-            out[f"mano_joint_xyz_mm_{idx}"] = (mano_jxyz * half
-                                               + center[:, None])
-            out[f"mano_mesh_mm_{idx}"] = mano_mesh * half + center[:, None]
-            out[f"mano_para_{idx}"] = para_pd
-            out[f"joint_uvd_nl_{idx}"] = juvd
-        last = len(outputs) - 1
-        # canonical aliases: the final stage, dataset joint order
-        out["joint_xyz_mm"] = out[f"joint_xyz_mm_{last}"][:, tm]
-        out["mano_joint_xyz_mm"] = out[f"mano_joint_xyz_mm_{last}"][:, tm]
-        return out
+        return _predict_body(self.cfg, net, r, tm, img, center, M, cube)
 
     def _bucket(self, n: int) -> int:
         for b in self.buckets:
@@ -300,6 +336,29 @@ class InferenceEngine:
         com_uvd = np.array([u.mean(), v.mean(), z.mean()], np.float32)
         return C.joint_img_to_3d(com_uvd, self.paras,
                                  self.renderer.flip).astype(np.float32)
+
+    def export(self, path: str, bucket: Optional[int] = None) -> str:
+        """Write one bucket's predict body (``bucket``, default the largest)
+        as a ``torch.export`` program with the weights baked in, one
+        ``.pt2`` file, at that bucket's fixed shapes, the engine's compute
+        dtype and on its first device; the raster route is the one
+        ``rasterize.USE_PALLAS_SKIP`` picks now.  ``load_exported`` loads
+        it with the port's op registry and no model code, checkpoint or
+        ``Config`` (ref: dsf_tpu/serving.py:325-350).  Returns ``path``."""
+        b = bucket or self.buckets[-1]
+        S = self.cfg.input_size
+        net, r, tm = self.replicas[0]
+        prog = PredictProgram(self.cfg, net, r, tm).eval()
+        f32 = dict(dtype=torch.float32, device=self.device)
+        args = (torch.zeros((b, 1, S, S), **f32), torch.zeros((b, 3), **f32),
+                torch.eye(3, **f32).expand(b, 3, 3).contiguous(),
+                torch.ones((b, 3), **f32))
+        with torch.no_grad():
+            ep = torch.export.export(prog, args)
+        exported.save(ep, path, bucket=b, input_size=S,
+                      device=self.device.type, device_name=str(self.device),
+                      compute_dtype=self.cfg.compute_dtype)
+        return path
 
     def warmup(self, buckets: Optional[Sequence[int]] = None) -> None:
         """Run each bucket once before taking traffic (builds the kernels,

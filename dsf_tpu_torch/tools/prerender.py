@@ -8,7 +8,8 @@ images (mm) and written as 16-bit grayscale PNGs, the ``synthdepth_*`` /
 (no pixel layout): K6 on a card, once per batch.
 
 The PNGs are written with the standard library (``zlib``, ``struct``):
-16-bit big-endian grayscale, the pixels ``cv2.imwrite`` stores for a
+16-bit big-endian grayscale (``write_png16``; ``write_png8`` writes 8-bit
+ones, for ``tools/kinect_preview``), the pixels ``cv2.imwrite`` stores for a
 ``uint16`` array, so the files read back the same with OpenCV or PIL.
 ``read_png16`` reads such a file back without either, whatever its row
 filters (``readers.read_gray_png``).
@@ -30,20 +31,34 @@ from dsf_tpu_torch.mano import model as mano_model
 from dsf_tpu_torch.ops import rasterize as ras
 
 
-def write_png16(path: str, img: np.ndarray) -> None:
-    """Write a (H, W) uint16 array as a 16-bit grayscale PNG (every row
-    with filter 0)."""
-    if img.dtype != np.uint16 or img.ndim != 2:
-        raise ValueError(f"need a (H, W) uint16 array, got {img.dtype} "
-                         f"{img.shape}")
+def _write_gray_png(path: str, img: np.ndarray, dtype) -> None:
+    """Write a (H, W) array of ``dtype`` (uint8 or uint16) as a grayscale
+    PNG of its bits (every row with filter 0, samples big-endian)."""
+    if img.dtype != dtype or img.ndim != 2:
+        raise ValueError(f"need a (H, W) {np.dtype(dtype)} array, got "
+                         f"{img.dtype} {img.shape}")
     H, W = img.shape
-    rows = np.zeros((H, 1 + 2 * W), np.uint8)
-    rows[:, 1:] = img.astype(">u2").view(np.uint8).reshape(H, 2 * W)
-    ihdr = struct.pack(">IIBBBBB", W, H, 16, 0, 0, 0, 0)
+    nb = img.dtype.itemsize
+    rows = np.zeros((H, 1 + nb * W), np.uint8)
+    rows[:, 1:] = img.astype(img.dtype.newbyteorder(">")).view(
+        np.uint8).reshape(H, nb * W)
+    ihdr = struct.pack(">IIBBBBB", W, H, 8 * nb, 0, 0, 0, 0)
     with open(path, "wb") as f:
         f.write(PNG_SIGNATURE + png_chunk(b"IHDR", ihdr)
                 + png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
                 + png_chunk(b"IEND", b""))
+
+
+def write_png16(path: str, img: np.ndarray) -> None:
+    """Write a (H, W) uint16 array as a 16-bit grayscale PNG (every row
+    with filter 0)."""
+    _write_gray_png(path, img, np.uint16)
+
+
+def write_png8(path: str, img: np.ndarray) -> None:
+    """Write a (H, W) uint8 array as an 8-bit grayscale PNG (every row
+    with filter 0)."""
+    _write_gray_png(path, img, np.uint8)
 
 
 def read_png16(path: str) -> np.ndarray:

@@ -271,6 +271,16 @@ def test_test_view_exports_match_jax(setup, tmp_path):
         np.testing.assert_allclose(got[..., 2], ref[..., 2], atol=0.1 + 1e-3)
     for name in ("mesh_result_3_0.txt", "MANO_result_3_0.txt"):
         assert np.loadtxt(tdir / name).shape == np.loadtxt(jdir / name).shape
+    # the port's tools/eval_coll reads the mesh file the port's loop wrote
+    # (779 vertices x 3 a row), as the JAX package's tool reads it; at a
+    # 50 mm pitch, which keeps its voxel arrays small
+    from dsf_tpu.tools import eval_coll as JE
+    from dsf_tpu_torch.tools import eval_coll as TE
+    mesh_file = str(tdir / "mesh_result_3_0.txt")
+    assert np.loadtxt(mesh_file).shape == (N_TEST, 779 * 3)
+    np.testing.assert_array_equal(
+        TE.evaluate_meshes(mesh_file, setup["mano"], 50.0, 50.0, limit=2),
+        JE.evaluate_meshes(mesh_file, setup["mano"], 50.0, 50.0, limit=2))
 
 
 def test_predict_from_depth_matches_jax(setup):

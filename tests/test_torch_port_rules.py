@@ -26,7 +26,7 @@ torch.set_num_threads(2)
 
 PKG = os.path.dirname(dsf_tpu_torch.__file__)
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "dsf_tpu", "cv2",
-             "PIL", "tensorboardX")
+             "PIL", "tensorboardX", "matplotlib")
 
 
 def _py_files():
@@ -128,6 +128,48 @@ def test_default_device_is_cuda_and_raises_without_it(tmp_path, monkeypatch):
         prerender_dataset(str(tmp_path / "none.npz"),
                           np.zeros((1, 62), np.float32), str(tmp_path / "out"))
     assert not (tmp_path / "out").exists()
+
+
+def test_custom_ops_have_a_cpu_and_a_cuda_implementation_only():
+    """Every op of the namespace ``dsf`` (``kernels/custom_ops``) has
+    exactly two implementations, CPU (the plain version) and CUDA (the
+    kernel), and no default one that would take a CUDA tensor to the plain
+    version; its fake implementation serves export and compile."""
+    from dsf_tpu_torch.kernels import custom_ops
+    names = sorted(n for n in torch._C._dispatch_get_all_op_names()
+                   if n.startswith("dsf::"))
+    assert names == sorted(f"dsf::{op}" for op in custom_ops.OPS)
+    for name in names:
+        has = {k: torch._C._dispatch_has_kernel_for_dispatch_key(name, k)
+               for k in ("CPU", "CUDA", "Meta", "CompositeExplicitAutograd",
+                         "CompositeImplicitAutograd",
+                         "CompositeExplicitAutogradNonFunctional")}
+        assert has == {"CPU": True, "CUDA": True, "Meta": True,
+                       "CompositeExplicitAutograd": False,
+                       "CompositeImplicitAutograd": False,
+                       "CompositeExplicitAutogradNonFunctional": False}, \
+            (name, has)
+        # the dispatcher's own table: CPU, CUDA, the fake (Meta) and the
+        # generated autograd entry, nothing else
+        kernels = {line.split(":")[0] for line in
+                   torch._C._dispatch_dump(name).splitlines()
+                   if "registered at" in line} - {"debug"}
+        assert kernels == {"CPU", "CUDA", "Meta", "Autograd[alias]"}, kernels
+
+
+def test_tool_entry_points_raise_without_cuda(tmp_path, monkeypatch):
+    """The MANO fits and ``load_exported`` run on the card by default and
+    raise without one, before they read anything."""
+    from dsf_tpu_torch.exported import load_exported
+    from dsf_tpu_torch.tools.fit_mano import fit_params, fit_params_world
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    z = np.zeros((1, 3), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fit_params(None, np.zeros((1, 1, 8, 8), np.float32), z, z)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fit_params_world(None, z[None], z[None], z, np.zeros((1, 45)), z)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_exported(str(tmp_path / "none.pt2"))
 
 
 def test_loop_entry_points_raise_without_cuda(tmp_path, monkeypatch):
