@@ -262,6 +262,26 @@ Phases, each printed on its own line(s); any failure exits non-zero:
    CPU's); ``fit_params_world`` at B=32, finite and falling.
    ``--phase11`` runs the build and this phase alone.
 
+12. library: the rest of the library surface at full width (B=32, 128^2
+   crops on the NYU camera, the 1554-face MANO, 2048-point clouds), each
+   function once on the card with the launch counts read around it:
+   ``normal_render``, ``m_render`` (with occlusion draws), ``mesh_to_img``
+   (K1 each, and K10 once with ``USE_PALLAS_SKIP`` off), ``get_depth``
+   with a view rotation, its image sum differentiated (K1, K2), the three
+   ICP losses forward and backward (K3 each: no part table, the 15-column
+   joint table, the 5-column finger table), ``joint2feature`` and
+   ``feature2joint`` (K5, K4), and the kernel-free rest (the labelers,
+   ``pcl_to_img``, ``splat_points_min``, ``img_to_pcl``'s fixed scores,
+   ``surface_loss``, ``depth_loss_select``, ``synth2real``,
+   ``patch_gaussian``, ``mass_center``, ``warp_perspective``,
+   ``roi_align``, the sphere part labels and distances, ``pcl_utils``).
+   Each held against the CPU on the same inputs (the first 2 rows where
+   the CPU's raster or argmin would take long), at the tolerance printed
+   beside it, and timed (ms a call, CUDA events); then, outside the
+   counted run, the three ICP losses under ``USE_V2_KERNEL`` (K7) and
+   ``USE_CULLED_KERNEL`` (K8) on one cloud, card against CPU.
+   ``--phase12`` runs the build and this phase alone.
+
 The last two lines are the kernels' JSON record and the device JSON.
 Without CUDA, or outside the repository, it exits non-zero and prints
 no result.
@@ -5382,6 +5402,513 @@ def phase11_alone():
     return 0
 
 
+# ---------------------------------------------------------------- phase 12
+
+LIB_BATCH = 32
+# rows of the card's batch the CPU recomputes where its raster or argmin
+# at the full batch would take tens of seconds (4 rows: 34.7 s)
+LIB_COMPARE = 2
+LIB_INTERVAL = 4                # the labelers' interpolation (JAX's tests')
+LIB_ITERS = 5                   # calls timed per function
+LIB_SWITCH_ROWS = 1             # clouds of the ICP switches' card-vs-CPU check
+# the four renders K1 once each, mesh_to_img with the skip raster off K10
+# once, get_depth's backward K2 once; each ICP loss one nearest-face pass
+# (K3); joint2feature K5 once and feature2joint K4 once, no VJP
+LIBRARY_STEPS = {
+    "normal_render": launches(raster_skip=1),
+    "m_render": launches(raster_skip=1),
+    "mesh_to_img": launches(raster_skip=1),
+    "mesh_to_img_binned": launches(raster_binned=1),
+    "get_depth_grad": launches(raster_skip=1, raster_moments=1),
+    "icp_loss": launches(point_mesh_argmin=1),
+    "joint_icp_loss": launches(point_mesh_argmin=1),
+    "finger_icp_loss": launches(point_mesh_argmin=1),
+    "joint2feature": launches(codec_encode=1),
+    "feature2joint": launches(codec_decode=1),
+}
+LIBRARY_LAUNCHES = {k: sum(v[k] for v in LIBRARY_STEPS.values())
+                    for k in KERNELS}
+
+
+def library_inputs(r, rng, gen):
+    """Phase 12's inputs on the CPU, from the seeds: crop centres, cubes
+    and matrices; raw-unit parameters (mm, at the crop centres) with their
+    world vertices and joints, and a view rotation; normalized parameters
+    for normal_render with their MANO joints and mesh, the pixel branch's
+    joints moved a little, a 2048-point cloud near each mesh and its
+    15-part and finger labels; the occlusion, cloud-score and noise
+    draws; a full frame for the warps."""
+    import torch
+    from dsf_tpu_torch import geometry as geo
+    from dsf_tpu_torch.mano import model as mano, spheres
+    from dsf_tpu_torch.ops import cloud
+    from dsf_tpu_torch.render import renderer as rnd
+    B, S = LIB_BATCH, INPUT_SIZE
+
+    def t(x):
+        return torch.from_numpy(np.asarray(x, np.float32))
+
+    center = t(rng.uniform([-30, -30, 650], [30, 30, 850], (B, 3)))
+    cube = torch.full((B, 3), 250.0)
+    com = geo.xyz_to_uvd(center[:, None], r.paras, r.flip)[:, 0]
+    M = geo.crop_matrix(com, cube, r.paras, r.crop_size)
+    raw = np.zeros((B, 62), np.float32)
+    raw[:, :48] = rng.randn(B, 48) * 0.3
+    raw[:, 58] = 1.0
+    raw[:, 59:] = center.numpy()
+    norm = np.zeros((B, 62), np.float32)
+    norm[:, :48] = rng.randn(B, 48) * 0.3
+    norm[:, 58] = 1.0
+    norm[:, 59:] = rng.randn(B, 3) * 0.05 - 0.8
+    raw, norm = t(raw), t(norm)
+    with torch.no_grad():
+        verts, joints = mano.get_mano_vertices(r.mano,
+                                               *mano.split_params(raw))
+        jn, mesh = rnd.get_mesh_xyz(r, norm)
+    jxyz = jn + t(rng.randn(B, 21, 3) * 0.02)
+    idx = torch.from_numpy(rng.randint(0, 778, (B, ICP_POINTS)))
+    pcl = (torch.gather(mesh, 1, idx[..., None].expand(-1, -1, 3))
+           + t(rng.randn(B, ICP_POINTS, 3) * 0.02))
+    with torch.no_grad():
+        seg = spheres.seg_pcl(r.mano, jxyz, jn, mesh, pcl)
+        segf = spheres.seg_pcl_finger(r.mano, jxyz, jn, mesh, pcl)
+    return dict(
+        center=center, cube=cube, M=M, raw=raw, norm=norm, verts=verts,
+        joints=joints, rot=t(rng.randn(B, 3) * 0.3), jn=jn, mesh=mesh,
+        jxyz=jxyz, pcl=pcl, seg=seg, segf=segf,
+        mask=rnd.draw_mask(gen, B, 21),
+        scores=cloud.draw_scores(gen, B, S),
+        normal=rnd.draw_synth2real(gen, (B, 1, S, S)),
+        uniform=rnd.draw_patch_gaussian(gen, (B, 1, S, S)),
+        frame=t(rng.uniform(0, 1, (B, 1, 480, 640))),
+        uvd=t(np.concatenate([rng.uniform(-2, S + 2, (B, ICP_POINTS, 2)),
+                              rng.uniform(100, 900, (B, ICP_POINTS, 1))],
+                             -1)))
+
+
+def library_calls(r, x, renders_only=False):
+    """Phase 12's functions on ``r``'s device, each a thunk of its inputs
+    ``x`` (already on that device): name -> callable returning its outputs
+    as a list of tensors (detached; gradients appended where a backward
+    runs)."""
+    import torch
+    from dsf_tpu_torch import geometry as geo
+    from dsf_tpu_torch.losses import basic as lb, icp
+    from dsf_tpu_torch.mano import spheres
+    from dsf_tpu_torch.ops import (cloud, image, offset_codec as oc,
+                                   rasterize as ras)
+    from dsf_tpu_torch.render import renderer as rnd
+    m, S = r.mano, INPUT_SIZE
+    c, cu, M = x["center"], x["cube"], x["M"]
+
+    def nograd(fn):
+        def run():
+            with torch.no_grad():
+                out = fn()
+            return list(out) if isinstance(out, (tuple, list)) else [out]
+        return run
+
+    def binned():
+        ras.USE_PALLAS_SKIP = False
+        try:
+            return rnd.mesh_to_img(r, x["verts"], c, cu)
+        finally:
+            ras.USE_PALLAS_SKIP = True
+
+    def get_depth_grad():
+        v = x["verts"].clone().requires_grad_(True)
+        img, juvd = rnd.get_depth(r, v, x["joints"], c, cu, M, x["rot"])
+        img.sum().backward()
+        return [img.detach(), juvd.detach(), v.grad]
+
+    def icp_fn(name):
+        tables = {"icp_loss": (),
+                  "joint_icp_loss": (m.joint_face_mask, x["seg"]),
+                  "finger_icp_loss": (m.finger_face_mask, x["segf"])}[name]
+
+        def run():
+            mesh = x["mesh"].clone().requires_grad_(True)
+            pcl = x["pcl"].clone().requires_grad_(True)
+            loss = getattr(icp, name)(mesh, pcl, m.faces, *tables)
+            loss.sum().backward()
+            return [loss.detach(), mesh.grad, pcl.grad]
+        return run
+
+    calls = {
+        "normal_render": nograd(lambda: rnd.normal_render(r, x["norm"], c,
+                                                          cu)),
+        "m_render": nograd(lambda: rnd.m_render(r, x["raw"], c, cu, M,
+                                                x["mask"])),
+        "mesh_to_img": nograd(lambda: rnd.mesh_to_img(r, x["verts"], c, cu)),
+        "mesh_to_img_binned": nograd(binned),
+        "get_depth_grad": get_depth_grad,
+    }
+    if renders_only:
+        return calls
+    for name in ("icp_loss", "joint_icp_loss", "finger_icp_loss"):
+        calls[name] = icp_fn(name)
+    img, juvd, hand, jnl = x["img"], x["juvd"], x["synth"], x["jnl"]
+    calls.update({
+        "joint2feature": nograd(lambda: oc.joint2feature(juvd, img, (0.8,),
+                                                         S // 2)),
+        "feature2joint": nograd(lambda: oc.feature2joint(img, x["feature"])),
+        "xyz_nl_to_uvd_nl": nograd(lambda: geo.xyz_nl_to_uvd_nl(
+            x["pcl"], c, M, cu, r.paras, S)),
+        "joint_to_bk_seg": nograd(lambda: cloud.joint_to_bk_seg(
+            hand, jnl, c, M, cu, r.paras, S)),
+        "joint_to_finger_seg": nograd(lambda: cloud.joint_to_finger_seg(
+            hand, jnl, c, M, cu, r.paras, S, LIB_INTERVAL, x["bk"])),
+        "joint_to_joint_seg": nograd(lambda: cloud.joint_to_joint_seg(
+            hand, jnl, c, M, cu, r.paras, S, LIB_INTERVAL, x["bk"])),
+        "pcl_to_joint_seg": nograd(lambda: cloud.pcl_to_joint_seg(
+            x["pcl"], x["jxyz"], LIB_INTERVAL, (x["seg"] > 0).int())),
+        "pcl_to_img": nograd(lambda: cloud.pcl_to_img(
+            x["pcl"], S // 2, c, M, cu, r.paras, S)),
+        "splat_points_min": nograd(lambda: ras.splat_points_min(x["uvd"],
+                                                                S)),
+        "img_to_pcl_fixed": nograd(lambda: cloud.img_to_pcl(
+            None, img, c, M, cu, r.paras, S, feature_size=S)),
+        "surface_loss": nograd(lambda: lb.surface_loss(
+            x["scores"], img, x["mesh"], c, M, cu, r.paras, S)),
+        "depth_loss_select": nograd(lambda: lb.depth_loss_select(img, hand)),
+        "synth2real": nograd(lambda: rnd.synth2real(x["normal"], img)),
+        "patch_gaussian": nograd(lambda: rnd.patch_gaussian(x["uniform"],
+                                                            img)),
+        "mass_center": nograd(lambda: rnd.mass_center(x["depth_mm"])),
+        "warp_nearest": nograd(lambda: image.warp_perspective(
+            x["frame"], M, (S, S))),
+        "warp_bilinear": nograd(lambda: image.warp_perspective(
+            x["frame"], M, (S, S), "bilinear")),
+        "roi_align": nograd(lambda: image.roi_align(img, x["rois"], (32, 32),
+                                                    1.0, 2)),
+        "seg_pcl_21": nograd(lambda: spheres.seg_pcl_21(
+            m, x["jxyz"], x["jn"], x["mesh"], x["pcl"])),
+        "seg_pcl_finger": nograd(lambda: spheres.seg_pcl_finger(
+            m, x["jxyz"], x["jn"], x["mesh"], x["pcl"])),
+        "point2mesh_part_distance": nograd(
+            lambda: spheres.point2mesh_part_distance(m, x["mesh"], x["pcl"],
+                                                     x["seg"])),
+        "point2sphere_distance": nograd(
+            lambda: spheres.point2sphere_distance(
+                m, x["jxyz"], x["mesh"], x["pcl"], x["seg"])),
+        "point2sphere_distance_21": nograd(
+            lambda: spheres.point2sphere_distance_21(
+                m, x["jxyz"], x["mesh"], x["pcl"], x["seg21"])),
+        "point2sphere_distance_finger": nograd(
+            lambda: spheres.point2sphere_distance_finger(
+                m, x["jxyz"], x["mesh"], x["pcl"], x["segf"])),
+    })
+    return calls
+
+
+# how each card output is held against the CPU's: "exact" bitwise,
+# ("abs", t) within t, ("rel", t) within t of the CPU's largest entry;
+# renders and gradients have their own rules (hold_library)
+LIB_TOL = {
+    "icp_loss": ("rel", 1e-5), "joint_icp_loss": ("rel", 1e-5),
+    "finger_icp_loss": ("rel", 1e-5),
+    "joint2feature": ("abs", 1e-5), "feature2joint": ("abs", 1e-5),
+    "xyz_nl_to_uvd_nl": ("abs", 1e-6),
+    "joint_to_bk_seg": "exact", "joint_to_finger_seg": "exact",
+    "joint_to_joint_seg": "exact", "pcl_to_joint_seg": "exact",
+    "pcl_to_img": "exact", "splat_points_min": "exact",
+    "img_to_pcl_fixed": ("abs", 1e-6), "surface_loss": ("rel", 1e-5),
+    "depth_loss_select": ("rel", 1e-5), "synth2real": ("abs", 1e-6),
+    "patch_gaussian": "exact", "mass_center": ("rel", 1e-5),
+    "warp_nearest": "exact", "warp_bilinear": ("abs", 1e-6),
+    "roi_align": ("abs", 1e-6), "seg_pcl_21": "exact",
+    "seg_pcl_finger": "exact", "point2mesh_part_distance": ("rel", 1e-5),
+    "point2sphere_distance": ("rel", 1e-5),
+    "point2sphere_distance_21": ("rel", 1e-5),
+    "point2sphere_distance_finger": ("rel", 1e-5),
+}
+# the renders whose vertices both devices take as the same input (no LBS
+# or rotation on either), so that the raster's depths are bitwise once
+# the pixels decided otherwise are out (hold_render)
+LIB_SAME_VERTS = ("mesh_to_img", "mesh_to_img_binned")
+
+
+def hold_render(name, got, ref, ref64=None):
+    """A render card against CPU: the pixels beyond 1e-3 of the CPU's (the
+    raster decides them otherwise) at most 1 in 4096 and removed; the rest
+    bitwise where both devices take the same world vertices
+    (LIB_SAME_VERTS).  Where each device poses or turns the hand itself,
+    a vertex's rounding tilts the depth plane of a face seen nearly
+    edge-on, so the rest is held to the CPU's own float64 render
+    ``ref64``: the card no further from it than 3x the CPU's float32
+    (phase 5's witness rule), + 1e-6.  Returns the reading."""
+    d = (got - ref).abs()
+    flipped = d > 1e-3
+    rest = d[~flipped]
+    unequal = int((rest > 0).sum())
+    reading = (f"{int(flipped.sum())} of {d.numel()} px decided otherwise, "
+               f"rest max {float(rest.max()):.3g}, {unequal} not bitwise")
+    ok = unequal == 0
+    if ref64 is not None:
+        keep = ~flipped & ((ref.double() - ref64).abs() <= 1e-3)
+        e_card = float((got.double() - ref64)[keep].abs().max())
+        e_cpu = float((ref.double() - ref64)[keep].abs().max())
+        reading += (f"; from float64 card {e_card:.3g}, CPU {e_cpu:.3g} "
+                    f"(allowed 3x + 1e-6)")
+        ok = e_card <= 3 * e_cpu + 1e-6
+    need(float(flipped.float().mean()) <= 1 / 4096,
+         f"{name}: too many pixels decided otherwise on the card: {reading}")
+    need(ok, f"{name}: the card's pixels differ from the CPU's: {reading}")
+    need(float((ref < FG).float().mean()) > 0.02, f"{name}: no hand")
+    return reading
+
+
+def hold_library(name, got, ref, ref64=None):
+    """One function's card outputs against the CPU's, by LIB_TOL or the
+    render and gradient rules (``ref64``: the CPU's float64 outputs, the
+    witness of the renders that pose or turn the hand).  Returns the
+    reading."""
+    import torch
+    got = [g.detach().cpu() for g in got]
+    if name in LIBRARY_STEPS and name not in LIB_TOL:       # the renders
+        reading = hold_render(name, got[0], ref[0],
+                              None if ref64 is None else ref64[0])
+        labels = 2 if name == "get_depth_grad" else len(got)
+        for g, c in zip(got[1:labels], ref[1:labels]):
+            e = float((g - c).abs().max())
+            need(e <= 1e-4, f"{name}: labels lie {e} from the CPU's")
+            reading += f"; labels {e:.3g} (allowed 1e-4)"
+        if name == "get_depth_grad":
+            # the hard raster gradient is ill-conditioned in float32 at
+            # faces seen nearly edge-on (tests/test_torch_library_render_icp)
+            g, c = got[2].double(), ref[2].double()
+            far = float(((g - c).abs() > 1e-3 * c.abs().max()).float().mean())
+            rel = float((g - c).norm() / c.norm())
+            need(far <= 0.01 and rel <= 0.1, f"{name}: the vertex gradient "
+                 f"lies {rel} relative from the CPU's, {far} of it beyond "
+                 f"1e-3 of the largest")
+            g64 = ref64[2]
+            reading += (f"; vertex gradient {rel:.3g} relative L2, {far:.3g} "
+                        f"beyond 1e-3 of the largest (allowed 0.1, 0.01); "
+                        f"from float64 card "
+                        f"{float((g - g64).norm() / g64.norm()):.3g}, CPU "
+                        f"{float((c - g64).norm() / g64.norm()):.3g}")
+        return reading
+    kind = LIB_TOL[name]
+    out = []
+    for i, (g, c) in enumerate(zip(got, ref)):
+        need(g.shape == c.shape and g.dtype == c.dtype,
+             f"{name}: output {i} is {g.dtype}{tuple(g.shape)} on the card, "
+             f"{c.dtype}{tuple(c.shape)} on the CPU")
+        if name in ("icp_loss", "joint_icp_loss", "finger_icp_loss") and i:
+            rel = float((g.double() - c.double()).norm()
+                        / c.double().norm())
+            need(rel <= 1e-2, f"{name}: gradient {i} lies {rel} from the "
+                 f"CPU's")
+            out.append(f"grad {rel:.3g} rel L2 (allowed 1e-2)")
+            continue
+        if kind == "exact":
+            need(torch.equal(g, c), f"{name}: {int((g != c).sum())} entries "
+                 f"differ from the CPU's")
+            out.append("bitwise")
+            continue
+        fin = torch.isfinite(c)
+        need(torch.equal(fin, torch.isfinite(g)),
+             f"{name}: non-finite entries differ from the CPU's")
+        e = float((g - c)[fin].abs().max()) if bool(fin.any()) else 0.0
+        lim = kind[1] * (float(c[fin].abs().max()) if kind[0] == "rel"
+                         else 1.0)
+        need(e <= lim, f"{name}: lies {e} from the CPU's (allowed {lim})")
+        out.append(f"{e:.3g} (allowed {lim:.3g})")
+    return ", ".join(out)
+
+
+def check_library_switches(gpu, cpu, xg, x):
+    """The three ICP losses, forward and backward, under USE_V2_KERNEL (K7)
+    and USE_CULLED_KERNEL (K8), which build their tables from no part
+    table, the 15-column joint table and the 5-column finger table: the
+    card against the CPU (the kernels' plain versions) on the first
+    LIB_SWITCH_ROWS clouds, as ``hold_library`` holds them.  Outside the
+    counted run: these launches compare kernels with their plain
+    versions."""
+    import torch
+    from dsf_tpu_torch.ops import point_mesh as pm
+    R = LIB_SWITCH_ROWS
+
+    def rows(d):
+        return {k: (v[:R] if torch.is_tensor(v) else v) for k, v in d.items()}
+
+    xg, x = rows(xg), rows(x)
+    for switch, flag in (("v2", "USE_V2_KERNEL"),
+                         ("culled", "USE_CULLED_KERNEL")):
+        setattr(pm, flag, True)
+        try:
+            card, ref = library_calls(gpu, xg), library_calls(cpu, x)
+            for name in ("icp_loss", "joint_icp_loss", "finger_icp_loss"):
+                say(f"  {name} under {flag} ({R} cloud): "
+                    f"{hold_library(name, card[name](), ref[name]())}")
+        finally:
+            setattr(pm, flag, False)
+
+
+def run_library(mano_path, smi, device="cuda"):
+    """Phase 12: the library surface at full width (``library_calls``),
+    once with the launch counts read around each call (LIBRARY_STEPS),
+    then card against CPU (``hold_library``; the first LIB_COMPARE rows
+    for the renders, the ICP losses and point2mesh_part_distance), then
+    timed.  Returns the launch counts of the counted run.  ``device``
+    "cpu" rehearses the phase without a card (no kernel launches: its
+    launch checks fail)."""
+    import torch
+    from dsf_tpu_torch import demo, kernels
+    from dsf_tpu_torch.data import pcl_utils
+    from dsf_tpu_torch.mano import model as mano, spheres
+    from dsf_tpu_torch.ops import cloud, image, offset_codec as oc
+    from dsf_tpu_torch.render import renderer as rnd
+
+    t0 = time.perf_counter()
+    S, C = INPUT_SIZE, LIB_COMPARE
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    cpu = rnd.Renderer.create(mano.load_model(mano_path, device="cpu"), "nyu",
+                              demo.PARAS, (640, 480), (S, S))
+    gpu = dataclasses.replace(cpu, mano=mano.load_model(mano_path,
+                                                        device=device))
+    x = library_inputs(cpu, np.random.RandomState(SEED + 130),
+                       torch.Generator().manual_seed(SEED + 130))
+    inputs_s = time.perf_counter() - t0
+
+    xg = {k: v.to(device) for k, v in x.items()}
+    # the card's renders first: their images and joints feed the rest
+    kernels.reset_launch_counts()
+    got, steps = {}, {}
+    for name, fn in library_calls(gpu, xg, renders_only=True).items():
+        before = dict(kernels.LAUNCHES)
+        got[name] = fn()
+        sync()
+        steps[name] = {k: kernels.LAUNCHES[k] - before[k] for k in KERNELS}
+    # the rest reads the card's renders (the CPU the same values): the
+    # rotated hand of get_depth and its joints (the codec, the cloud, the
+    # losses), the hand of mesh_to_img with its joints in normalized units
+    # (the labelers), its foreground depth in mm (mass_center); the feature
+    # decoded
+    # is the plain encoding of get_depth's joints, so that both devices
+    # decode one input
+    img, juvd = got["get_depth_grad"][0], got["get_depth_grad"][1]
+    hand = got["mesh_to_img"][0]
+    B = img.shape[0]
+    box = torch.tensor([20.5, 20.5, 100.25, 100.25], device=device)
+    extra = {"img": img, "juvd": juvd, "synth": hand,
+             "jnl": (xg["joints"] - xg["center"][:, None])
+             / (xg["cube"][:, None] / 2.0),
+             "depth_mm": torch.where(
+                 hand < FG, hand * 125.0 + xg["center"][:, 2, None, None, None],
+                 torch.zeros_like(hand)),
+             "rois": torch.cat([torch.arange(B, device=device)[:, None]
+                                .float(), box.expand(B, 4)], 1)}
+    with torch.no_grad():
+        extra["feature"] = oc.joint2offset_plain(
+            juvd, image.resize_nearest(img, (S // 2, S // 2)), 0.8)
+    xg.update(extra)
+    x.update({k: v.cpu() for k, v in extra.items()})
+    with torch.no_grad():
+        for d, r in ((x, cpu), (xg, gpu)):
+            d["seg21"] = spheres.seg_pcl_21(r.mano, d["jxyz"], d["jn"],
+                                            d["mesh"], d["pcl"])
+            d["bk"] = cloud.joint_to_bk_seg(d["synth"], d["jnl"],
+                                            d["center"], d["M"], d["cube"],
+                                            r.paras, S)
+    for name, fn in library_calls(gpu, xg).items():
+        if name in got:
+            continue
+        before = dict(kernels.LAUNCHES)
+        got[name] = fn()
+        sync()
+        steps[name] = {k: kernels.LAUNCHES[k] - before[k] for k in KERNELS}
+    counts = dict(kernels.LAUNCHES)
+    main_s = time.perf_counter() - t0
+    for name, step in steps.items():
+        want = LIBRARY_STEPS.get(name, launches())
+        need(step == want, f"{name} launched {step}, expected {want}")
+    need(counts == LIBRARY_LAUNCHES, f"phase 12 launched {counts}, expected "
+         f"{LIBRARY_LAUNCHES}")
+
+    # the CPU: the renders, the ICP losses and the part distance to every
+    # vertex on the first C rows, the rest on the whole batch
+    heavy = ("normal_render", "m_render", "mesh_to_img", "mesh_to_img_binned",
+             "get_depth_grad", "icp_loss", "joint_icp_loss",
+             "finger_icp_loss", "point2mesh_part_distance")
+    xc = {k: (v[:C] if torch.is_tensor(v) else v) for k, v in x.items()}
+    xc["mask"] = rnd.MaskDraws(x["mask"].n_active, x["mask"].joint_ids,
+                               x["mask"].offs[:C], x["mask"].radius[:C])
+    x_calls = library_calls(cpu, x)
+    c_calls = library_calls(cpu, xc)
+    xc64 = {k: (v.double() if torch.is_tensor(v) and v.is_floating_point()
+                else v) for k, v in xc.items()}
+    xc64["mask"] = rnd.MaskDraws(xc["mask"].n_active, xc["mask"].joint_ids,
+                                 xc["mask"].offs.double(),
+                                 xc["mask"].radius.double())
+    c64_calls = library_calls(float64_renderer(cpu), xc64, renders_only=True)
+    witness = ("normal_render", "m_render", "get_depth_grad")
+    refs = {}
+    say(f"library B={B} {S}^2, {ICP_POINTS}-point clouds: launches "
+        f"{ {k: v for k, v in counts.items() if v} } (predicted K1 x4, K10 "
+        f"x1, K2 x1, K3 x3, K5 x1, K4 x1); card against CPU (first {C} rows "
+        f"for the renders, the ICP losses and point2mesh_part_distance):")
+    for name in got:
+        t1 = time.perf_counter()
+        ref64 = c64_calls[name]() if name in witness else None
+        if name == "mesh_to_img_binned":
+            # the CPU's routes give one image (tests/test_torch_raster*)
+            ref = refs["mesh_to_img"]
+        elif name in heavy:
+            ref = c_calls[name]()
+        else:
+            ref = x_calls[name]()
+        refs[name] = ref
+        card = got[name]
+        if name in heavy:
+            card = [g[:C] if g.dim() and g.shape[0] == B else g for g in card]
+        say(f"  {name}: {hold_library(name, card, ref, ref64)} (CPU "
+            f"{time.perf_counter() - t1:.2f} s)")
+    check_library_switches(gpu, cpu, xg, x)
+    # pcl_utils, the host's numpy tools, on a card render
+    cloud_np = pcl_utils.get_pcl(x["synth"][0, 0].double().numpy(),
+                                 x["center"][0].double().numpy(),
+                                 x["cube"][0].double().numpy(),
+                                 x["M"][0].double().numpy(), cpu.paras)
+    need(cloud_np.shape[0] > 100 and np.isfinite(cloud_np).all(),
+         "pcl_utils.get_pcl: no finite cloud from the card's render")
+    sampled = pcl_utils.pca_point(cloud_np, x["jnl"][0].double().numpy(),
+                                  512)[0]
+    need(sampled.shape == (512, 3) and np.isfinite(sampled).all(),
+         "pcl_utils.pca_point: no finite 512-point cloud")
+    say(f"  pcl_utils: get_pcl of the card's first render "
+        f"{cloud_np.shape[0]} points, pca_point 512, finite")
+    compare_s = time.perf_counter() - t0 - main_s
+
+    ms = {}
+    for name, fn in library_calls(gpu, xg).items():
+        ms[name] = round(time_ms(fn, LIB_ITERS, warmup=1), 4)
+    say(f"library ms a call (CUDA events, {LIB_ITERS} calls each; the ICP "
+        f"losses and get_depth_grad forward and backward): {json.dumps(ms)}; "
+        f"{smi}")
+    say(f"phase 12: {time.perf_counter() - t0:.1f} s (inputs on the CPU "
+        f"{inputs_s:.1f} s, card run {main_s - inputs_s:.1f} s, CPU "
+        f"comparison {compare_s:.1f} s)")
+    return counts
+
+
+def phase12_alone():
+    """``--phase12``: the kernels' build, then phase 12 alone; prints no
+    result line."""
+    from dsf_tpu_torch.device import exact_float32
+    from dsf_tpu_torch.kernels import build
+    from dsf_tpu_torch.mano import synthetic
+    smi = nvidia_smi_line()
+    build.build_all()
+    with tempfile.TemporaryDirectory() as tmp, exact_float32():
+        path = os.path.join(tmp, "mano_synthetic.npz")
+        synthetic.save_synthetic_mano(path)
+        counts = run_library(path, smi)
+    say("phase 12 alone: " + json.dumps(counts))
+    return 0
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5410,6 +5937,8 @@ def main():
         return phase10_alone()
     if sys.argv[1:2] == ["--phase11"]:
         return phase11_alone()
+    if sys.argv[1:2] == ["--phase12"]:
+        return phase12_alone()
 
     smi = nvidia_smi_line()
     say(f"device: {smi}; torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -5479,6 +6008,7 @@ def main():
         by_path.update(run_parallel(path, smi))
         by_path.update(run_ccssl_phase(path, smi, fake_nyu))
         by_path.update(run_export_phase(path, smi))
+        by_path["library"] = run_library(path, smi)
     need(sorted(r["name"] for r in record) == sorted(KERNELS),
          "the kernels' record does not list every kernel once")
     for rec in record:

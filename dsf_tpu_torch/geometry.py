@@ -158,6 +158,17 @@ def uvd_nl_to_xyz_nl(uvd_nl, center, M, cube, paras, img_size, flip=1.0):
     return (xyz - center[..., None, :]) / (cube[..., None, :] / 2.0)
 
 
+def xyz_nl_to_uvd_nl(xyz_nl, center, M, cube, paras, img_size, flip=1.0):
+    """Normalized camera xyz -> normalized crop uvd (ref:
+    xyz_nl2uvdnl_tensor)."""
+    xyz = xyz_nl * (cube[..., None, :] / 2.0) + center[..., None, :]
+    uvd = xyz_to_uvd(xyz, paras, flip)
+    uvd_c = transform_points_2d(uvd, M)
+    uv_nl = uvd_c[..., 0:2] / img_size * 2.0 - 1.0
+    d_nl = (uvd_c[..., 2:3] - center[..., None, 2:3]) / (cube[..., None, 2:3] / 2.0)
+    return torch.cat([uv_nl, d_nl], dim=-1)
+
+
 def joint_trans(joint_xyz, M, com_uvd, cube, paras, crop_size, flip=1.0):
     """World xyz (mm) -> normalized crop uvd (ref: Render.JointTrans)."""
     uvd = xyz_to_uvd(joint_xyz, paras, flip)
@@ -165,6 +176,28 @@ def joint_trans(joint_xyz, M, com_uvd, cube, paras, crop_size, flip=1.0):
     uv_nl = uvd_c[..., 0:2] / crop_size * 2.0 - 1.0
     d_nl = (uvd[..., 2:3] - com_uvd[..., None, 2:3]) / (cube[..., None, 2:3] / 2.0)
     return torch.cat([uv_nl, d_nl], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# pixel grids
+# ---------------------------------------------------------------------------
+
+def norm_grid_center(n, dtype=torch.float32, device=None):
+    """Pixel-centre normalized grid: (i + 0.5) / n * 2 - 1, as the offset
+    codec reads it (ref: generateFeature.py:22-23).  Returns (xx, yy), each
+    (n, n), xx varying along axis 1 (u)."""
+    r = (torch.arange(n, dtype=dtype, device=device) + 0.5) / n * 2.0 - 1.0
+    yy, xx = torch.meshgrid(r, r, indexing="ij")
+    return xx, yy
+
+
+def norm_grid_corner(n, dtype=torch.float32, device=None):
+    """Corner-anchored normalized grid: i / (n - 1) * 2 - 1, as Img2pcl and
+    uvdImg2xyzImg read it (ref: render_loader.py:1126-1127).  Returns (xx,
+    yy), each (n, n), xx varying along axis 1 (u)."""
+    r = torch.arange(n, dtype=dtype, device=device) / (n - 1.0) * 2.0 - 1.0
+    yy, xx = torch.meshgrid(r, r, indexing="ij")
+    return xx, yy
 
 
 # ---------------------------------------------------------------------------

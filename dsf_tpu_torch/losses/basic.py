@@ -1,9 +1,12 @@
 """Elementwise losses (counterpart of dsf_tpu/losses/basic.py; ref:
-metric/losses.py) and the masked depth term."""
+metric/losses.py), the depth terms and the surface loss."""
 
 from __future__ import annotations
 
 import torch
+
+from dsf_tpu_torch.losses.icp import chamfer_distance
+from dsf_tpu_torch.ops.cloud import img_to_pcl
 
 
 def smooth_l1(x, y):
@@ -45,3 +48,29 @@ def masked_depth_loss(real, synth, thresh=0.99):
     mask = ((real < thresh) | (synth < thresh)).to(real.dtype)
     diff = torch.abs(real - synth) * mask
     return diff.sum((-1, -2)) / (mask.sum((-1, -2)) + 1e-8)
+
+
+def depth_loss_select(real, synth, thresh=0.99):
+    """The standalone depth_loss module's term (ref:
+    render_model/render_loss.py:9-21): the mean |real - synth| over the
+    pixels where both are foreground, across the whole batch (0 where
+    there are none)."""
+    mask = (real < thresh) & (synth < thresh)
+    diff = torch.abs(real - synth)
+    denom = torch.clamp_min(mask.sum(), 1)
+    return torch.where(mask, diff, torch.zeros_like(diff)).sum() / denom
+
+
+def surface_loss(score, real_img, verts_nl, center, M, cube, paras, img_size,
+                 sample_num=1024, flip=1.0):
+    """The batch mean of the chamfer distance between the depth image's
+    cloud (``img_to_pcl`` at the image's size, ``sample_num`` points) and
+    the mesh vertices verts_nl (B, V, 3) (ref: surface_loss,
+    render_model/render_loss.py:37-117, built but unused by the reference
+    trainer).  ``score`` (B, img_size^2) is the cloud's sampling draw
+    (``cloud.draw_scores``), or None for img_to_pcl's fixed scores; the
+    JAX package draws it from ``PRNGKey(0)`` when given no key, which
+    the port cannot draw, so it has no default."""
+    pcl = img_to_pcl(score, real_img, center, M, cube, paras, img_size,
+                     sample_num, img_size, flip)
+    return chamfer_distance(pcl, verts_nl).mean()

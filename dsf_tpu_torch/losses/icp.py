@@ -3,8 +3,13 @@
 
 Where the reference replicates the cloud per part and builds 15 ragged
 part meshes (JointICPLoss), one distance pass with a per-point
-admissible-face mask gives the same result.  Ported: the fused
-``icp_and_joint_icp`` the FinetuneStage step runs.
+admissible-face mask gives the same result.  Every loss here runs one
+``point_face_distance`` pass, so K3 on the card (K7 or K8 under their
+switches): ``icp_loss`` with no part table, ``joint_icp_loss`` with the
+15-column joint table, ``finger_icp_loss`` with the 5-column finger
+table, and the fused ``icp_and_joint_icp`` the FinetuneStage step runs
+with both in one pass.  ``chamfer_distance`` is plain PyTorch, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -12,6 +17,13 @@ from __future__ import annotations
 import torch
 
 from dsf_tpu_torch.ops.point_mesh import point_face_distance
+
+
+def icp_loss(mesh, pcl, faces):
+    """(B,) mean per-point squared distance from the cloud pcl (B, P, 3) to
+    the whole mesh (B, V, 3) (ref: ICPLoss, meshLoss.py:347-353: the
+    reference's point_mesh_face_distance returns squared distances)."""
+    return point_face_distance(pcl, mesh, faces).mean(-1)
 
 
 def _part_reduce(d, pcl_seg, n_parts):
@@ -25,6 +37,42 @@ def _part_reduce(d, pcl_seg, n_parts):
         loss = dis.sum(-1) / (valid + 1e-8)
         losses.append(torch.where(valid == 0, torch.zeros_like(loss), loss))
     return torch.stack(losses, dim=-1)
+
+
+def _masked_part_loss(mesh, pcl, faces, part_face_mask, pcl_seg, n_parts):
+    """(B, n_parts): per part 1..n_parts, the mean distance of that part's
+    points to that part's faces (``part_face_mask`` (T, n_parts) column
+    part - 1); empty parts give 0.  The mask goes to the argmin factorized,
+    a table and each point's part (seg outside 1..n_parts admits no face),
+    never as a (P x T) tensor."""
+    point_part = torch.where((pcl_seg >= 1) & (pcl_seg <= n_parts),
+                             pcl_seg - 1, torch.full_like(pcl_seg, -1))
+    d = point_face_distance(pcl, mesh, faces, part_mask=part_face_mask,
+                            point_part=point_part)
+    return _part_reduce(d, pcl_seg, n_parts)
+
+
+def joint_icp_loss(mesh, pcl, faces, joint_face_mask, pcl_seg):
+    """(B, 15) per-bone-part masked mean squared distance (ref:
+    JointICPLoss, meshLoss.py:377-395; part p takes the faces touching
+    vertices skinned > 0.1 to joint p)."""
+    return _masked_part_loss(mesh, pcl, faces, joint_face_mask, pcl_seg, 15)
+
+
+def finger_icp_loss(mesh, pcl, faces, finger_face_mask, pcl_seg):
+    """(B, 5) the per-finger variant (ref: FingerICPLoss,
+    meshLoss.py:356-374), with ``ManoModel.finger_face_mask``."""
+    return _masked_part_loss(mesh, pcl, faces, finger_face_mask, pcl_seg, 5)
+
+
+def chamfer_distance(x, y):
+    """(B,) symmetric mean squared chamfer distance between the clouds x
+    (B, N, 3) and y (B, M, 3) (parity for render_loss.py:4,50's
+    surface_loss)."""
+    diff = x[:, :, None] - y[:, None]
+    sq = diff * diff
+    d = sq[..., 0] + sq[..., 1] + sq[..., 2]                  # (B, N, M)
+    return d.min(-1).values.mean(-1) + d.min(-2).values.mean(-1)
 
 
 def icp_and_joint_icp(mesh, pcl, joint_pcl, faces, joint_face_mask, pcl_seg):

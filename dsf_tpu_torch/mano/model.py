@@ -6,10 +6,12 @@ product is float32 (the JAX package runs them at Precision.HIGHEST); on a
 GPU the caller keeps TF32 off (``device.exact_float32``), since LBS feeds
 millimetre-level outputs.
 
-Of the part-segmentation tables, three are ported: ``joint_face_mask``
-(the joint ICP's admissible faces) and ``vertex_joint_mask`` (the sphere
-radii's vertices), which the FinetuneStage losses read, and
-``vertex_seg`` (each vertex's joint), which ``tools/eval_coll`` reads.
+The part-segmentation tables are the JAX package's five:
+``joint_face_mask`` (the joint ICP's admissible faces) and
+``vertex_joint_mask`` (the sphere radii's vertices), which the
+FinetuneStage losses read, ``vertex_seg`` (each vertex's joint), which
+``tools/eval_coll`` reads, and ``finger_seg`` and ``finger_face_mask``
+(each vertex's finger, the finger ICP's admissible faces).
 """
 
 from __future__ import annotations
@@ -33,7 +35,9 @@ class ManoModel:
     joint_face_mask (1554, 15) bool [face t touches a vertex skinned > 0.1
     to joint k + 1], vertex_joint_mask (778, 21) bool [J_regressor > 0],
     vertex_seg (778,) int32 [the joint of each vertex's largest skinning
-    weight]."""
+    weight], finger_seg (778,) int32 [its finger: 0 palm, 1..5],
+    finger_face_mask (1554, 5) bool [face t touches a vertex skinned > 0.1
+    to a joint of finger k + 1]."""
 
     v_template: torch.Tensor
     shapedirs: torch.Tensor
@@ -46,6 +50,8 @@ class ManoModel:
     joint_face_mask: torch.Tensor
     vertex_joint_mask: torch.Tensor
     vertex_seg: torch.Tensor
+    finger_seg: torch.Tensor
+    finger_face_mask: torch.Tensor
     parents: tuple
     n_verts: int
 
@@ -92,6 +98,10 @@ def load_model(npz_path: str, device=None) -> ManoModel:
                             C.WRIST_FACES.astype(np.int64)], axis=0)
     weights = raw["weights"].astype(np.float32)                 # (778, 16)
     vertex_joint = [np.nonzero(weights[:, j] > 0.1)[0] for j in range(16)]
+    vertex_seg = np.argmax(weights, axis=1).astype(np.int32)
+    finger_sets = [np.concatenate([vertex_joint[3 * i + 1],
+                                   vertex_joint[3 * i + 2],
+                                   vertex_joint[3 * i + 3]]) for i in range(5)]
 
     def t(x):
         return torch.as_tensor(np.ascontiguousarray(x), device=device)
@@ -107,7 +117,9 @@ def load_model(npz_path: str, device=None) -> ManoModel:
         faces=t(faces),
         joint_face_mask=t(_face_membership(faces, vertex_joint[1:])),
         vertex_joint_mask=t(J_regressor > 0),
-        vertex_seg=t(np.argmax(weights, axis=1).astype(np.int32)),
+        vertex_seg=t(vertex_seg),
+        finger_seg=t(C.JOINT2FINGER[vertex_seg].astype(np.int32)),
+        finger_face_mask=t(_face_membership(faces, finger_sets)),
         parents=parents,
         n_verts=n_verts,
     )

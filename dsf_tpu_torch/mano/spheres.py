@@ -8,8 +8,11 @@ The pairwise collision mask is static, built once in numpy with the
 reference's exclusions (same-bone, adjacent-bone, finger-root-to-palm,
 thumb-root-to-palm) and asymmetries.
 
-Ported: what the FinetuneStage step runs — ``collision_loss`` and
-``seg_pcl`` with the sphere centres and radii they share.
+The FinetuneStage step runs ``collision_loss`` and ``seg_pcl``; beside
+them are the reference's other part labellings of a cloud (``seg_pcl_21``,
+``seg_pcl_finger``) and its point-to-part distances (to the part's mesh
+vertices, ``point2mesh_part_distance``, or to its sphere surfaces,
+``point2sphere_distance*``), alternatives to the face-based ICP losses.
 """
 
 from __future__ import annotations
@@ -137,12 +140,10 @@ def collision_loss(model, joints, mesh):
     return (err * gate).sum(-1).mean(-1)
 
 
-def seg_pcl(model, joints, joints_mano, mesh, pcl):
-    """Assign each point of pcl (B, P, 3) to a bone part 0..15 (0 = palm)
-    -> (B, P) int64.  Centres come from ``joints`` (the pixel branch),
-    radii from ``joints_mano`` (the MANO branch) (ref: seg_pcl,
-    mano_layer.py:404-426).  Ties in either argmin go to the first
-    sphere, as in the JAX package."""
+def _seg_nearest(model, joints, joints_mano, mesh, pcl):
+    """Whether each point of pcl (B, P, 3) lies nearer a palm sphere's
+    surface than a finger sphere's, and its first nearest finger sphere
+    (0..44): centres from ``joints``, radii from ``joints_mano``."""
     c = sphere_centers(joints)
     r = sphere_radii(model, joints_mano, mesh)
     fc, fr = c[:, PALM_N:], r[:, PALM_N:]
@@ -151,9 +152,143 @@ def seg_pcl(model, joints, joints_mano, mesh, pcl):
     fd = torch.sqrt(((pcl[:, :, None] - fc[:, None]) ** 2).sum(-1) + 1e-8)
     fd = torch.abs(fd - fr[:, None])
     f_min = fd.min(-1).values
-    f_id = torch.argmin(fd, -1) // INTERVAL + 1
 
     pd = torch.sqrt(((pcl[:, :, None] - pc[:, None]) ** 2).sum(-1) + 1e-8)
     pd = torch.abs(pd - pr[:, None])
     p_min = pd.min(-1).values
-    return torch.where(p_min < f_min, torch.zeros_like(f_id), f_id)
+    return p_min < f_min, torch.argmin(fd, -1)
+
+
+def seg_pcl(model, joints, joints_mano, mesh, pcl):
+    """Assign each point of pcl (B, P, 3) to a bone part 0..15 (0 = palm)
+    -> (B, P) int64.  Centres come from ``joints`` (the pixel branch),
+    radii from ``joints_mano`` (the MANO branch) (ref: seg_pcl,
+    mano_layer.py:404-426).  Ties in either argmin go to the first
+    sphere, as in the JAX package."""
+    palm, arg = _seg_nearest(model, joints, joints_mano, mesh, pcl)
+    f_id = arg // INTERVAL + 1
+    return torch.where(palm, torch.zeros_like(f_id), f_id)
+
+
+_SEG21_MAP = np.array(
+    [1, 1, 2, 2, 2, 3, 3, 3, 16, 4, 4, 5, 5, 5, 6, 6, 6, 17, 7, 7, 8, 8, 8,
+     9, 9, 9, 18, 10, 10, 11, 11, 11, 12, 12, 12, 19, 13, 13, 14, 14, 14, 15,
+     15, 15, 20], dtype=np.int32)
+
+_SEGFINGER_MAP = np.repeat(np.arange(1, 6, dtype=np.int32), 9)
+
+
+def _seg_with_map(model, joints, joints_mano, mesh, pcl, id_map):
+    """``seg_pcl`` with the finger sphere -> part map ``id_map`` (45,):
+    (B, P) int32, 0 for the palm."""
+    palm, arg = _seg_nearest(model, joints, joints_mano, mesh, pcl)
+    f_id = torch.as_tensor(id_map, device=pcl.device)[arg]
+    return torch.where(palm, torch.zeros_like(f_id), f_id)
+
+
+def seg_pcl_21(model, joints, joints_mano, mesh, pcl):
+    """The 21-part variant: 0 palm, 1..15 finger segments, 16..20 tips
+    (ref: seg_pcl_21, mano_layer.py:468-491)."""
+    return _seg_with_map(model, joints, joints_mano, mesh, pcl, _SEG21_MAP)
+
+
+def seg_pcl_finger(model, joints, joints_mano, mesh, pcl):
+    """The 5-finger variant: 0 palm, 1..5 fingers (ref: seg_pcl_finger,
+    mano_layer.py:523-546)."""
+    return _seg_with_map(model, joints, joints_mano, mesh, pcl,
+                         _SEGFINGER_MAP)
+
+
+# ---------------------------------------------------------------------------
+# point -> sphere / per-part mesh distance variants
+# (ref: mano_layer.py:429-567 — alternatives to the face-based ICP losses)
+# ---------------------------------------------------------------------------
+
+def point2mesh_part_distance(model, mesh, pcl, pcl_seg):
+    """(B, 15): per part, the mean over all points of the least squared
+    distance to the vertices argmax-skinned to that part's joint (ref:
+    calculate_point2mesh_distance, mano_layer.py:429-441).
+
+    The reference's semantics are kept: the loop is 0-based (part 0 pairs
+    the palm points, seg 0, with the wrist's vertices; parts 1..14 pair
+    bone seg k with joint k's vertices; bone 15 is never evaluated, unlike
+    the 1-based ``point2sphere_distance``), and the mean runs over every
+    point, a point of another part counting 1e5."""
+    mesh778 = mesh[:, : model.n_verts]
+    d = ((pcl[:, :, None] - mesh778[:, None]) ** 2).sum(-1)     # (B, P, V)
+    far = torch.full_like(d, 1e5)
+    losses = []
+    for part in range(15):
+        vert_ok = model.vertex_seg == part
+        dmin = torch.where(vert_ok[None, None], d, far).min(-1).values
+        dmin = torch.where(pcl_seg == part, dmin, torch.full_like(dmin, 1e5))
+        losses.append(dmin.mean(-1))
+    return torch.stack(losses, -1)
+
+
+def _point2sphere_part(model, joint, mesh, pcl, pcl_seg, groups, n_parts):
+    """Per part 1..n_parts, the mean |distance to the nearest sphere
+    surface of the part's group| over the part's points, where a point at
+    distance 0 does not count; a part with none gives 0 (ref:
+    calculate_point2shpere_distance*, mano_layer.py:444-567).  groups
+    (n_parts, 45) bool: each part's finger spheres."""
+    c = sphere_centers(joint)
+    r = sphere_radii(model, joint, mesh)
+    fc, fr = c[:, PALM_N:], r[:, PALM_N:]
+    d = torch.sqrt(((pcl[:, :, None] - fc[:, None]) ** 2).sum(-1) + 1e-8)
+    d = torch.abs(d - fr[:, None])                               # (B, P, 45)
+    inf = torch.full_like(d, float("inf"))
+    groups = torch.as_tensor(groups, device=pcl.device)
+    losses = []
+    for part in range(n_parts):
+        dmin = torch.where(groups[part][None, None], d, inf).min(-1).values
+        dsel = torch.where(pcl_seg == part + 1, dmin, torch.zeros_like(dmin))
+        valid = (dsel > 0).sum(-1)
+        loss = dsel.sum(-1) / (valid + 1e-8)
+        losses.append(torch.where(valid == 0, torch.zeros_like(loss), loss))
+    return torch.stack(losses, -1)
+
+
+def _bone_groups():
+    g = np.zeros((15, FINGER_N), bool)
+    for i in range(15):
+        g[i, i * INTERVAL:(i + 1) * INTERVAL] = True
+    return g
+
+
+def _joint21_groups():
+    id_list = [[0, 1], [2, 3, 4], [5, 6, 7], [9, 10], [11, 12, 13],
+               [14, 15, 16], [18, 19], [20, 21, 22], [23, 24, 25],
+               [27, 28], [29, 30, 31], [32, 33, 34], [36, 37],
+               [38, 39, 40], [41, 42, 43], [8], [17], [26], [35], [44]]
+    g = np.zeros((20, FINGER_N), bool)
+    for i, ids in enumerate(id_list):
+        g[i, ids] = True
+    return g
+
+
+def _finger_groups():
+    g = np.zeros((5, FINGER_N), bool)
+    for i in range(5):
+        g[i, i * 3 * INTERVAL:(i + 1) * 3 * INTERVAL] = True
+    return g
+
+
+def point2sphere_distance(model, joint, mesh, pcl, pcl_seg):
+    """(B, 15) the per-bone variant (ref: calculate_point2shpere_distance)."""
+    return _point2sphere_part(model, joint, mesh, pcl, pcl_seg,
+                              _bone_groups(), 15)
+
+
+def point2sphere_distance_21(model, joint, mesh, pcl, pcl_seg):
+    """(B, 20) the per-joint variant (ref:
+    calculate_point2shpere_distance_21, id groups mano_layer.py:501-506)."""
+    return _point2sphere_part(model, joint, mesh, pcl, pcl_seg,
+                              _joint21_groups(), 20)
+
+
+def point2sphere_distance_finger(model, joint, mesh, pcl, pcl_seg):
+    """(B, 5) the per-finger variant (ref:
+    calculate_point2shpere_distance_finger)."""
+    return _point2sphere_part(model, joint, mesh, pcl, pcl_seg,
+                              _finger_groups(), 5)

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import torch
 
+from dsf_tpu_torch import geometry as geo
 from dsf_tpu_torch.device import widen
 from dsf_tpu_torch.kernels import custom_ops
 from dsf_tpu_torch.ops import codec_kernel
@@ -37,9 +38,7 @@ from dsf_tpu_torch.ops.image import resize_nearest
 def _coords(depth, feature_size):
     """(B, 3, S, S): normalized pixel-centre u, v grids + depth channel."""
     B = depth.shape[0]
-    r = ((torch.arange(feature_size, dtype=depth.dtype, device=depth.device)
-          + 0.5) / feature_size * 2.0 - 1.0)
-    v, u = torch.meshgrid(r, r, indexing="ij")
+    u, v = geo.norm_grid_center(feature_size, depth.dtype, depth.device)
     uu = u.expand(B, 1, feature_size, feature_size)
     vv = v.expand(B, 1, feature_size, feature_size)
     return torch.cat([uu, vv, depth], dim=1)
@@ -171,3 +170,26 @@ def offset2joint_softmax(offset, depth, kernel_size, scale=30.0):
     if dev == "cpu":
         return offset2joint_plain(offset, depth, kernel_size, scale)
     return codec_kernel.DecodeFn.apply(offset, depth, kernel_size, scale)
+
+
+def joint2feature(joint, img, feature_paras, feature_size,
+                  feature_types=("offset",)):
+    """The reference API's encoder dispatch (generateFeature.py:68-74): the
+    last ``"offset"`` entry of ``feature_types`` encodes with its kernel
+    size from ``feature_paras``; None when there is none."""
+    feature = None
+    for i, ft in enumerate(feature_types):
+        if ft == "offset":
+            feature = joint2offset(joint, img, feature_paras[i], feature_size)
+    return feature
+
+
+def feature2joint(img, pixel_pd, feature_types=("offset",),
+                  feature_paras=(0.8,)):
+    """The reference API's decoder dispatch (generateFeature.py:61-66), as
+    ``joint2feature``'s, over ``offset2joint_softmax``."""
+    joint = None
+    for i, ft in enumerate(feature_types):
+        if ft == "offset":
+            joint = offset2joint_softmax(pixel_pd, img, feature_paras[i])
+    return joint

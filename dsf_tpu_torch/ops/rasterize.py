@@ -590,3 +590,26 @@ def rasterize_depth(verts, faces, pix_uv, paras, flip=1.0, return_idx=False,
             return dense_forward(p, pix_uv, faces)
         zbuf, idx = _raster_forward(tile_hw, p, pix_uv, faces, layout_hw)
     return _with_grad(proj, pix_uv, faces, zbuf, idx)
+
+
+# ---------------------------------------------------------------------------
+# point splatting (scatter-min depth), ref: PCLToDepth / pcl2Img
+# (render_loader.py:1015-1033, 1158-1171)
+# ---------------------------------------------------------------------------
+
+def splat_points_min(uvd, img_size, background=0.0):
+    """Scatter points into an (img_size, img_size) depth image keeping the
+    nearest depth per pixel, ``background`` where no point lands.  uvd
+    (B, N, 3) in pixel coordinates, clamped to the image -> (B, img_size,
+    img_size).  A minimum does not depend on the order of the writes, so
+    ``scatter_reduce_`` gives one answer on every device (the JAX package
+    computes this outside any Pallas kernel)."""
+    B = uvd.shape[0]
+    u = torch.clamp(uvd[..., 0], 0, img_size - 0.5)
+    v = torch.clamp(uvd[..., 1], 0, img_size - 0.5)
+    lin = (torch.floor(v) * img_size + torch.floor(u)).long()
+    img = torch.full((B, img_size * img_size), INF, dtype=uvd.dtype,
+                     device=uvd.device)
+    img.scatter_reduce_(1, lin, uvd[..., 2], "amin")
+    img = torch.where(img >= INF, torch.full_like(img, background), img)
+    return img.reshape(B, img_size, img_size)

@@ -6,12 +6,17 @@ ops/rasterize.py); labels (joint_trans) use the same projection and
 matrix, so image/label alignment is exact by construction.  The serving
 path needs ``render_params`` (the stage-2 re-render inside the net) and
 ``get_mesh_xyz``; the Pretrain step adds the synth-sample factory
-``synth_sample`` and its sphere occlusion ``mask_img``.
+``synth_sample`` and its sphere occlusion ``mask_img``.  The reference's
+other renders (``normal_render``, ``m_render`` through a given crop
+matrix, ``mesh_to_img``, ``get_depth`` with a view rotation) go through
+the same crop raster; the image augmentations ``synth2real`` and
+``patch_gaussian`` and ``mass_center`` are plain PyTorch, as the JAX
+package computes them outside any Pallas kernel.
 
-Random draws come in as tensors (``MaskDraws``, the depth placement):
-``draw_mask`` makes them from an explicit ``torch.Generator`` with the
-JAX package's distributions, and tests hand in the values ``jax.random``
-drew.
+Random draws come in as tensors (``MaskDraws``, the depth placement, the
+noise of ``synth2real`` and ``patch_gaussian``): ``draw_*`` makes each
+from an explicit ``torch.Generator`` with the JAX package's
+distributions, and tests hand in the values ``jax.random`` drew.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from dsf_tpu_torch import geometry as geo
 from dsf_tpu_torch.mano import model as mano
@@ -148,6 +154,67 @@ def render_params(r: Renderer, model_para, center3d, cube, img_stride=1):
     return img, joint_uvd, joint_xyz, mesh_xyz
 
 
+def normal_render(r: Renderer, model_para, center3d, cube):
+    """The variant that places the normalized mesh at (v + 1) / 2 * cube +
+    center (ref: Render.normal_render, mano_layer.py:1042-1068).  Returns
+    (img, joint_uvd, joint_xyz, verts_xyz)."""
+    rot, theta, beta, cam = mano.split_params(model_para)
+    verts, joints = mano.get_mano_vertices(r.mano, rot, theta, beta, cam,
+                                           global_scale=1.0 / 125.0)
+    verts = (verts + 1.0) / 2.0 * cube[:, None] + center3d[:, None]
+    joints = (joints + 1.0) / 2.0 * cube[:, None] + center3d[:, None]
+    com_uvd = geo.xyz_to_uvd(center3d[:, None], r.paras, r.flip)[:, 0]
+    M = geo.crop_matrix(com_uvd, cube, r.paras, r.crop_size)
+    depth = _raster_crop(r, verts, M)
+    img = _normalize(r, depth, com_uvd, cube)
+    joint_uvd = geo.joint_trans(joints, M, com_uvd, cube, r.paras,
+                                r.crop_size[0], r.flip)
+    joint_xyz = (joints - center3d[:, None]) / cube[:, None] * 2.0
+    verts_xyz = (verts - center3d[:, None]) / cube[:, None] * 2.0
+    return img, joint_uvd, joint_xyz, verts_xyz
+
+
+def m_render(r: Renderer, model_para, center3d, cube, M,
+             mask: Optional[MaskDraws]):
+    """Render raw-unit (mm) params through the given crop matrix M (ref:
+    Render.M_render, mano_layer.py:1100-1131), occluded by ``mask``'s
+    draws, or not when it is None.  Returns the image only."""
+    rot, theta, beta, cam = mano.split_params(model_para)
+    verts, joints = mano.get_mano_vertices(r.mano, rot, theta, beta, cam)
+    com_uvd = geo.xyz_to_uvd(center3d[:, None], r.paras, r.flip)[:, 0]
+    depth = _raster_crop(r, verts, M)
+    img = _normalize(r, depth, com_uvd, cube)
+    if mask is not None:
+        joint_uvd = geo.joint_trans(joints, M, com_uvd, cube, r.paras,
+                                    r.crop_size[0], r.flip)
+        img = mask_img(img, joint_uvd, mask)
+    return img
+
+
+def mesh_to_img(r: Renderer, hand_mesh, center3d, cube):
+    """World-mm mesh (B, V, 3) -> normalized crop depth (B, 1, H, W) (ref:
+    Render.mesh2img, mano_layer.py:1190-1202)."""
+    com_uvd = geo.xyz_to_uvd(center3d[:, None], r.paras, r.flip)[:, 0]
+    M = geo.crop_matrix(com_uvd, cube, r.paras, r.crop_size)
+    depth = _raster_crop(r, hand_mesh, M)
+    return _normalize(r, depth, com_uvd, cube)
+
+
+def get_depth(r: Renderer, verts, joints, center3d, cube, M, rot=None):
+    """Render world verts through the given M, turned first by the
+    axis-angle ``rot`` (B, 3) about center3d when given (ref:
+    Render.getDepth, mano_layer.py:1204-1218).  Returns (img, joint_uvd)."""
+    com_uvd = geo.xyz_to_uvd(center3d[:, None], r.paras, r.flip)[:, 0]
+    if rot is not None:
+        verts = geo.rotate_points_about(verts, center3d, rot)
+        joints = geo.rotate_points_about(joints, center3d, rot)
+    depth = _raster_crop(r, verts, M)
+    img = _normalize(r, depth, com_uvd, cube)
+    joint_uvd = geo.joint_trans(joints, M, com_uvd, cube, r.paras,
+                                r.crop_size[0], r.flip)
+    return img, joint_uvd
+
+
 def get_mesh_xyz(r: Renderer, model_para):
     """Params -> (joints, mesh) in normalized units (ref: get_mesh_xyz)."""
     rot, theta, beta, cam = mano.split_params(model_para)
@@ -218,3 +285,71 @@ def mask_img(img, img_joint, draws: MaskDraws):
     dist = torch.sqrt(sq[..., 0] + sq[..., 1] + sq[..., 2])
     hit = (dist < radius[:, :, None]).any(dim=1)
     return torch.where(hit.reshape(B, 1, H, W), torch.ones_like(img), img)
+
+
+def _gaussian_kernel(size=5, sigma=1.7, dtype=torch.float32, device=None):
+    x = torch.arange(size, dtype=dtype, device=device) - (size - 1) / 2.0
+    g = torch.exp(-(x / sigma) ** 2 / 2.0)
+    k = g[:, None] * g[None, :]
+    return k / k.sum()
+
+
+def draw_synth2real(gen: torch.Generator, shape, noise_patch=2):
+    """``synth2real``'s draw on the CPU from ``gen``: standard normal
+    noise (B, C, H // noise_patch, W // noise_patch) for an image of
+    ``shape`` (B, C, H, W)."""
+    B, C, H, W = shape
+    return torch.randn(B, C, H // noise_patch, W // noise_patch,
+                       generator=gen)
+
+
+def synth2real(normal, img, noise=0.1, noise_patch=2, sigma=1.7,
+               bk_value=0.95):
+    """Synth depth -> pseudo-real (ref: Render.synth2real,
+    mano_layer.py:1222-1231): the standard normal draw ``normal`` (B, C,
+    H / noise_patch, W / noise_patch) times ``noise``, held over
+    noise_patch^2 pixels, added to the foreground (img < bk_value), then a
+    5x5 Gaussian of ``sigma`` (0: none) over the image padded by
+    reflection.  One channel, as the JAX package's convolution takes."""
+    n = normal * noise
+    n = n.repeat_interleave(noise_patch, -1).repeat_interleave(noise_patch,
+                                                               -2)
+    img = img + n * (img < bk_value).to(img.dtype)
+    if sigma != 0:
+        x = F.pad(img, (2, 2, 2, 2), mode="reflect")
+        k = _gaussian_kernel(5, sigma, img.dtype, img.device)[None, None]
+        img = F.conv2d(x, k)
+    return img
+
+
+def draw_patch_gaussian(gen: torch.Generator, shape, patch_scale=0.125):
+    """``patch_gaussian``'s draw on the CPU from ``gen``: uniform in [0, 1),
+    (B, C, ps, ps) with ps = int(H * patch_scale), for an image of
+    ``shape`` (B, C, H, W)."""
+    B, C, H, W = shape
+    ps = int(H * patch_scale)
+    return torch.rand(B, C, ps, ps, generator=gen)
+
+
+def patch_gaussian(uniform, img, patch_scale=0.125):
+    """Patchy uniform noise on the foreground (ref: PatchGaussian,
+    mano_layer.py:1349-1355): (uniform - 0.5) * 0.1, each draw held over
+    a 1 / patch_scale square of pixels."""
+    n = (uniform - 0.5) * 0.1
+    up = int(1 / patch_scale)
+    n = n.repeat_interleave(up, -1).repeat_interleave(up, -2)
+    return img + (img < 0.99).to(img.dtype) * n
+
+
+def mass_center(img):
+    """(B, 3) centre of mass (u, v, d) of the foreground (> 0) pixels of img
+    (B, 1, H, W) (ref: Render.massCenter, mano_layer.py:1275-1286); NaN for
+    an image with none."""
+    B, C, H, W = img.shape
+    xv, yv = torch.meshgrid(
+        torch.arange(H, dtype=img.dtype, device=img.device),
+        torch.arange(W, dtype=img.dtype, device=img.device), indexing="ij")
+    stacked = torch.cat([yv.expand(B, 1, H, W), xv.expand(B, 1, H, W), img],
+                        dim=1)
+    fg = (img > 0).to(img.dtype)
+    return (stacked * fg).mean((-1, -2)) / fg.mean((-1, -2))

@@ -106,6 +106,36 @@ def test_chip_smoke_imports_no_jax(script):
     assert not bad, bad
 
 
+def _reexports(path):
+    """The names a package __init__ imports from its modules (its AST)."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    return {a.asname or a.name for node in ast.walk(tree)
+            if isinstance(node, ast.ImportFrom) for a in node.names}
+
+
+# re-exports of the JAX package that place arrays on a jax.sharding mesh;
+# the port's ranks take their rows with parallel.mesh.Mesh.stripe
+NO_COUNTERPART = {"parallel": {"shard_batch", "replicate"}}
+
+
+def test_packages_reexport_the_jax_packages_names():
+    """Every name a dsf_tpu package __init__ re-exports is re-exported by
+    the port's package of the same name, read from both files' text, so
+    that neither package is imported here."""
+    jax_pkg = os.path.join(os.path.dirname(PKG), "dsf_tpu")
+    checked = 0
+    for name in sorted(os.listdir(jax_pkg)):
+        init = os.path.join(jax_pkg, name, "__init__.py")
+        if not os.path.isfile(init):
+            continue
+        want = _reexports(init) - NO_COUNTERPART.get(name, set())
+        have = _reexports(os.path.join(PKG, name, "__init__.py"))
+        assert want <= have, (name, sorted(want - have))
+        checked += len(want)
+    assert checked >= 25
+
+
 def test_default_device_is_cuda_and_raises_without_it(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
