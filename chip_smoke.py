@@ -221,6 +221,11 @@ Phases, each printed on its own line(s); any failure exits non-zero:
    ``num_devices=2`` on devices (cuda:0, cuda:0), buckets 8 and 32,
    against the one-device engine by phase 3's tolerances.  (e) As (b)
    over NCCL on two cards where the machine has them, else one line.
+   The steps whose records are compared run under deterministic
+   algorithms (``deterministic_algorithms``): with the defaults the
+   state a first step leaves differs from run to run, and a second
+   step's comparison with it.  ``--phase9`` runs the build and this
+   phase alone.
 
 10. ccssl: the CCSSL pipeline (``python -m dsf_tpu_torch.training
    ccssl``'s ``pipelines.run_ccssl``) at full width (two stages, 128^2,
@@ -281,6 +286,30 @@ Phases, each printed on its own line(s); any failure exits non-zero:
    counted run, the three ICP losses under ``USE_V2_KERNEL`` (K7) and
    ``USE_CULLED_KERNEL`` (K8) on one cloud, card against CPU.
    ``--phase12`` runs the build and this phase alone.
+
+13. deep: the ResNet-50, -101 and -152 trunks (``--net
+   ResNet_stage_{50,101,152}``) and ``DSF_REMAT``, at full width from
+   the damped seeded weights.  The engine at depths 50, 101 and 152 in
+   float32 and at 50 in bfloat16, buckets 1, 8 and 32: requests of 1 and
+   5 crops launch depth 18's kernels once a call (K1, K5, K4 x2), card
+   against the CPU engine at phase 3's tolerances (bfloat16 by its
+   witness rule), the median latency per bucket and images/s at 32.  The
+   depth-50 engine exported at bucket 32 by a child process while the
+   card serves and trains, loaded by another that imports no model code:
+   artifact against live at phase 11's tolerances, its MB, export s and
+   load s.  Pretrain, FinetuneStage and Finetune at depth 50, B=32,
+   float32 and bfloat16, 5 steps each: depth 18's launches a step, the
+   median step ms and peak memory; then card against CPU at B=4 with
+   phase 5's tolerances and float64 witness (``compare_*(net=...)``).
+   FinetuneStage at depth 152 with ``DSF_REMAT`` 0 and 1: the batch from
+   two measured peaks (B=32 where it fits), one step of each from one
+   state bitwise under deterministic algorithms (with the defaults the
+   control, a second run without remat, and remat printed), then 5 timed
+   steps of each with peak memory.  The command line's main with ``--net
+   ResNet_stage_50`` on phase 6's set: one epoch of four FinetuneStage
+   steps of B=64 with its eval, a resume (restored bitwise on the card),
+   and a depth-18 checkpoint refused before any step.  ``--phase13`` runs
+   the build, phase 6's fake set and this phase alone.
 
 The last two lines are the kernels' JSON record and the device JSON.
 Without CUDA, or outside the repository, it exits non-zero and prints
@@ -394,6 +423,26 @@ FG = 0.99
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """cuDNN's and PyTorch's deterministic algorithms for the duration
+    (``warn_only``: an op without one warns and runs), the caller's
+    settings restored after.  With the defaults the card's training steps
+    do not repeat bitwise: two runs of one step from one state differ
+    (phase 13 prints the control)."""
+    import torch
+    saved = (torch.backends.cudnn.deterministic,
+             torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved[0]
+        torch.use_deterministic_algorithms(saved[1], warn_only=saved[2])
 
 
 def need(cond, msg):
@@ -2087,9 +2136,9 @@ def check_raw_frame(eng, cpu, rng):
                                       for k, v in worst.items()}))
 
 
-def predict_latency(eng, rng):
+def predict_latency(eng, rng, calls=LATENCY_CALLS):
     """The median host-clock latency of ``eng.predict`` per bucket, to
-    numpy, over LATENCY_CALLS calls after 3 warm ones."""
+    numpy, over ``calls`` calls after 3 warm ones."""
     from dsf_tpu_torch import demo
     lat = {}
     for b in BUCKETS:
@@ -2097,7 +2146,7 @@ def predict_latency(eng, rng):
         for _ in range(3):
             eng.predict(*r)
         times = []
-        for _ in range(LATENCY_CALLS):
+        for _ in range(calls):
             t0 = time.perf_counter()
             eng.predict(*r)
             times.append((time.perf_counter() - t0) * 1e3)
@@ -2232,27 +2281,35 @@ def run_slice_bf16(mano_path, f32):
 
 # ----------------------------------------------------------------- phase 4
 
-def train_config(mano_path, stage_num, seed, dtype="float32"):
+def train_config(mano_path, stage_num, seed, dtype="float32",
+                 net="ResNet_stage_18"):
     """The training phases' full-width config, with the stand-in
-    generator, in the compute dtype ``dtype``."""
+    generator, in the compute dtype ``dtype``, with the trunks of
+    ``net``."""
     from dsf_tpu_torch.config import Config
     return Config(dataset="nyu", batch_size=TRAIN_BATCH, stage_num=stage_num,
                   input_size=INPUT_SIZE, seed=seed, mano_model_path=mano_path,
-                  transferNet_pth=STAND_IN, compute_dtype=dtype)
+                  transferNet_pth=STAND_IN, compute_dtype=dtype, net=net)
 
 
-def run_training(mano_path, dtype="float32"):
+def net_tag(net):
+    """"" for ResNet-18 (the earlier phases' tags), else "_r<depth>"."""
+    depth = net.split("_")[-1]
+    return "" if depth == "18" else f"_r{depth}"
+
+
+def run_training(mano_path, dtype="float32", net="ResNet_stage_18"):
     """TRAIN_STEPS Pretrain steps at full width in the compute dtype
-    ``dtype``; returns the launch counts."""
+    ``dtype`` with the trunks of ``net``; returns the launch counts."""
     import torch
     from dsf_tpu_torch import kernels
     from dsf_tpu_torch.data.synth_params import random_param_source
     from dsf_tpu_torch.training.trainer import Trainer
 
-    tag = "train" if dtype == "float32" else "train_bf16"
+    tag = ("train" if dtype == "float32" else "train_bf16") + net_tag(net)
     expected = (STEP_LAUNCHES if dtype == "float32"
                 else bf16_launches(STEP_LAUNCHES))
-    tr = Trainer(train_config(mano_path, 2, SEED, dtype), mano_path,
+    tr = Trainer(train_config(mano_path, 2, SEED, dtype, net), mano_path,
                  device="cuda")
     need(tr.transfer_net is not None, "no transfer net")
     say(f"{tag}: transferNet_pth {STAND_IN!r} names no file: the trainer "
@@ -2290,6 +2347,7 @@ def run_training(mano_path, dtype="float32"):
         + json.dumps([round(t, 3) for t in times])
         + f"; median {float(np.median(times)):.3f} ms, "
         f"{TRAIN_BATCH * 1e3 / float(np.median(times)):.1f} images/s")
+    STEP_MEDIAN_MS[tag] = float(np.median(times))
     say(f"{tag} peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
     return counts
@@ -2315,15 +2373,17 @@ def icp_switch(icp):
             setattr(pm, k, v)
 
 
-def run_self_supervised(mano_path, phase, icp=None, dtype="float32"):
+def run_self_supervised(mano_path, phase, icp=None, dtype="float32",
+                        net="ResNet_stage_18"):
     """TRAIN_STEPS Finetune (one stage) or FinetuneStage (two stages) steps
-    at full width in the compute dtype ``dtype``, the ICP's argmin by
-    ``icp`` (``icp_switch``); returns the launch counts."""
+    at full width in the compute dtype ``dtype`` with the trunks of
+    ``net``, the ICP's argmin by ``icp`` (``icp_switch``); returns the
+    launch counts."""
     with icp_switch(icp):
-        return _run_self_supervised(mano_path, phase, icp, dtype)
+        return _run_self_supervised(mano_path, phase, icp, dtype, net)
 
 
-def _run_self_supervised(mano_path, phase, icp, dtype):
+def _run_self_supervised(mano_path, phase, icp, dtype, net):
     import torch
     from dsf_tpu_torch import demo, kernels
     from dsf_tpu_torch.data.synth_params import random_param_source
@@ -2339,7 +2399,8 @@ def _run_self_supervised(mano_path, phase, icp, dtype):
     if dtype != "float32":
         expected = bf16_launches(expected)
         tag += "_bf16"
-    tr = Trainer(train_config(mano_path, stages, SEED, dtype), mano_path,
+    tag += net_tag(net)
+    tr = Trainer(train_config(mano_path, stages, SEED, dtype, net), mano_path,
                  device="cuda")
     state = tr.init_state()
     src = random_param_source(TRAIN_BATCH, seed=SEED + 5)
@@ -2380,7 +2441,7 @@ def _run_self_supervised(mano_path, phase, icp, dtype):
     say(f"{tag} launches over {TRAIN_STEPS} {phase} steps "
         f"(B={TRAIN_BATCH} synth + {TRAIN_BATCH} real, {INPUT_SIZE}^2, "
         f"stand-in generator, ICP argmin {ICP_SWITCHES[icp][0]}, compute "
-        f"dtype {dtype}): "
+        f"dtype {dtype}, {net}): "
         f"{json.dumps(counts)}")
     say(f"{tag} losses: "
         + json.dumps([float(f"{x:.6g}") for x in losses])
@@ -2393,8 +2454,8 @@ def _run_self_supervised(mano_path, phase, icp, dtype):
         + json.dumps([round(t, 3) for t in times])
         + f"; median {med:.3f} ms, {2 * TRAIN_BATCH * 1e3 / med:.1f} images/s "
         f"(B synth + B real images a step)")
-    say(f"{tag} peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    PEAK_BYTES[tag] = torch.cuda.max_memory_allocated()
+    say(f"{tag} peak device memory {PEAK_BYTES[tag] / 2**20:.1f} MiB")
     need(state.updates == TRAIN_STEPS and moved >= 0.95 * len(before_params),
          f"{phase} updates were not applied")
     need(gen_moved == 0, f"{phase} moved the frozen generator")
@@ -2691,11 +2752,12 @@ def compare_bf16_layers(rng):
              f"leaves other running statistics than the CPU: {r}")
 
 
-def compare_step(mano_path):
+def compare_step(mano_path, net="ResNet_stage_18", bf16=True):
     """One Pretrain loss and its gradients on the card and on the CPU, from
     the same weights, on the card's synth batch; and the same loss on the
     CPU in float64, the witness that says how far float32 rounding alone
-    moves each gradient."""
+    moves each gradient.  ``net`` names the trunks; ``bf16`` adds the
+    bfloat16 runs."""
     import copy
     import torch
     from dsf_tpu_torch.config import Config
@@ -2708,7 +2770,7 @@ def compare_step(mano_path):
     B = COMPARE_BATCH
     cfg = Config(dataset="nyu", batch_size=B, stage_num=2,
                  input_size=INPUT_SIZE, seed=SEED + 2,
-                 mano_model_path=mano_path)
+                 mano_model_path=mano_path, net=net)
     gpu = Trainer(cfg, mano_path, device="cuda")
     cpu = Trainer(cfg, mano_path, device="cpu")
     sg, sc = gpu.init_state(), cpu.init_state()
@@ -2744,8 +2806,9 @@ def compare_step(mano_path):
                 sil[key] = (img2 < FG).cpu()
 
         # the bfloat16 compute dtype on both devices, the same weights
-        runs["gpu_bf16"] = (bf16_copy(sg.net), gpu.renderer, sample_g)
-        runs["cpu_bf16"] = (bf16_copy(sc.net), cpu.renderer, on_cpu)
+        if bf16:
+            runs["gpu_bf16"] = (bf16_copy(sg.net), gpu.renderer, sample_g)
+            runs["cpu_bf16"] = (bf16_copy(sc.net), cpu.renderer, on_cpu)
         loss, grads = {}, {}
         for key, (net, r, smp) in runs.items():
             net.zero_grad(set_to_none=True)
@@ -2756,7 +2819,7 @@ def compare_step(mano_path):
                           for n, p in net.named_parameters()}
     flips = {k: int((sil[k] != sil["cpu"]).sum()) for k in ("gpu", "cpu64")}
     gpu_gpu = rel_l2(grads["gpu_again"], grads["gpu"])
-    say(f"compare B={B} {INPUT_SIZE}^2: synth batch GPU vs CPU: {synth_flips} "
+    say(f"compare {cfg.net} B={B} {INPUT_SIZE}^2: synth batch GPU vs CPU: {synth_flips} "
         f"silhouette flips and {synth_far} pixels beyond 1e-3 of {img_c.numel()}; "
         f"stage-2 render silhouette flips against the CPU's: GPU {flips['gpu']}, "
         f"CPU float64 {flips['cpu64']} of {sil['cpu'].numel()}")
@@ -2779,7 +2842,8 @@ def compare_step(mano_path):
              / float(np.median(list(cpu_64.values()))))
     need(ratio <= MEDIAN_RATIO, f"GPU gradients lie {ratio:.3g} times further "
          "from float64 than the CPU's, in the median over parameters")
-    check_bf16_runs("Pretrain", loss, grads)
+    if bf16:
+        check_bf16_runs("Pretrain", loss, grads)
 
 
 @contextlib.contextmanager
@@ -2806,7 +2870,8 @@ FS_METRICS = ("d2m_0", "d2m_1", "pd2m_0", "pd2m_1", "m2d_0", "m2d_1",
               "coll_0", "coll_1", "P2M", "M2P")
 
 
-def compare_finetune_stage(mano_path, dataset="nyu"):
+def compare_finetune_stage(mano_path, dataset="nyu", net="ResNet_stage_18",
+                           bf16=True):
     """One FinetuneStage loss and its gradients on the card and on the CPU,
     from the same weights, on the card's synth batch and one real batch
     (the same cloud-sampling scores) on ``dataset``'s camera (NYU's, and
@@ -2818,7 +2883,8 @@ def compare_finetune_stage(mano_path, dataset="nyu"):
     tolerance, the rest at the heads'.  On the card (H100 80GB HBM3 at
     700 W) the GPU lay a median 0.0496 (max 0.0696) from the CPU in the
     trunks and 0.00398 in that head; the CPU lay a median 0.0908 from
-    float64, and 0.0709 in that head."""
+    float64, and 0.0709 in that head.  ``net`` names the trunks; ``bf16``
+    adds the bfloat16 runs."""
     import copy
     import torch
     from dsf_tpu_torch import demo
@@ -2830,10 +2896,12 @@ def compare_finetune_stage(mano_path, dataset="nyu"):
     from dsf_tpu_torch.training.trainer import Trainer
 
     B = COMPARE_BATCH
-    name = "FinetuneStage" + ("" if dataset == "nyu" else f" on {dataset}")
+    name = ("FinetuneStage" + ("" if dataset == "nyu" else f" on {dataset}")
+            + ("" if net == "ResNet_stage_18" else f" {net}"))
+    bf16 = bf16 and dataset == "nyu"
     cfg = Config(dataset=dataset, batch_size=B, stage_num=2,
                  input_size=INPUT_SIZE, seed=SEED + 7,
-                 mano_model_path=mano_path)
+                 mano_model_path=mano_path, net=net)
     gpu = Trainer(cfg, mano_path, device="cuda")
     cpu = Trainer(cfg, mano_path, device="cpu")
     sg, sc = gpu.init_state(), cpu.init_state()
@@ -2857,7 +2925,7 @@ def compare_finetune_stage(mano_path, dataset="nyu"):
                           [real[k].double() for k in keys],
                           draws.scores.double())}
         runs["gpu_again"] = runs["gpu"]
-        if dataset == "nyu":
+        if bf16:
             runs["gpu_bf16"] = (bf16_copy(sg.net),) + runs["gpu"][1:]
             runs["cpu_bf16"] = (bf16_copy(sc.net),) + runs["cpu"][1:]
         loss, grads, mets, rec = {}, {}, {}, {}
@@ -2952,7 +3020,7 @@ def compare_finetune_stage(mano_path, dataset="nyu"):
              / float(np.median(list(cpu_64.values()))))
     need(ratio <= MEDIAN_RATIO, f"{name} GPU gradients lie {ratio:.3g} "
          "times further from float64 than the CPU's, in the median")
-    if dataset == "nyu":
+    if bf16:
         check_bf16_runs("FinetuneStage", loss, grads)
 
 
@@ -2960,7 +3028,7 @@ def compare_finetune_stage(mano_path, dataset="nyu"):
 F_METRICS = ("d2m", "pd2m", "m2d", "coll", "P2M", "M2P")
 
 
-def compare_finetune(mano_path):
+def compare_finetune(mano_path, net="ResNet_stage_18"):
     """One Finetune loss with the stand-in generator and its gradients on
     the card and on the CPU, from the same weights (net and generator), on
     the card's synth batch and one real batch (the same cloud-sampling
@@ -2972,7 +3040,7 @@ def compare_finetune(mano_path):
     output.  The one-stage heads feed the losses only, so they are held
     at grad_tol's 1e-2 and every trunk layer at 0.2, against float64 also
     twice the CPU's own distance where that is larger, as FinetuneStage's;
-    the metrics as FinetuneStage's."""
+    the metrics as FinetuneStage's.  ``net`` names the trunks."""
     import copy
     import torch
     from dsf_tpu_torch import demo
@@ -2982,8 +3050,8 @@ def compare_finetune(mano_path):
     from dsf_tpu_torch.training.trainer import Trainer
 
     B = COMPARE_BATCH
-    cfg = dataclasses.replace(train_config(mano_path, 1, SEED + 10),
-                              batch_size=B)
+    cfg = dataclasses.replace(train_config(mano_path, 1, SEED + 10,
+                                           net=net), batch_size=B)
     gpu = Trainer(cfg, mano_path, device="cuda")
     cpu = Trainer(cfg, mano_path, device="cpu")
     sg, sc = gpu.init_state(), cpu.init_state()
@@ -3038,7 +3106,7 @@ def compare_finetune(mano_path):
     gpu_64 = rel_l2(grads["gpu"], grads["cpu64"])
     cpu_64 = rel_l2(grads["cpu"], grads["cpu64"])
     gpu_gpu = rel_l2(grads["gpu_again"], grads["gpu"])
-    say(f"compare Finetune B={B} {INPUT_SIZE}^2 with the generator: loss GPU "
+    say(f"compare Finetune {cfg.net} B={B} {INPUT_SIZE}^2 with the generator: loss GPU "
         f"{loss['gpu']:.7g} CPU {loss['cpu']:.7g} CPU float64 "
         f"{loss['cpu64']:.10g}; gradient relative L2 per parameter: GPU vs "
         f"CPU {spread(gpu_cpu)}; GPU vs float64 {spread(gpu_64)}; CPU vs "
@@ -4074,7 +4142,7 @@ def par_split(flat, names):
 
 def par_steps(mano_path, mesh, dtype, phase, steps, device, out_dir=None,
               carry=None, local_bn=False, cudnn=True, witness=False,
-              render_parts=1):
+              render_parts=1, deterministic=True):
     """``steps`` steps of ``phase`` (Pretrain or FinetuneStage) at the
     global B=TRAIN_BATCH from the seeded weights, draws and batches, on
     this process's stripe (``mesh``); per step the global loss, the flat
@@ -4087,7 +4155,11 @@ def par_steps(mano_path, mesh, dtype, phase, steps, device, out_dir=None,
     outside cuDNN; ``witness``: the first step's record also holds the
     synth batch's render and joints, rendered apart from the step;
     ``render_parts``: the synth batch rendered in that many row stripes
-    (``par_split_render``)."""
+    (``par_split_render``).  ``deterministic``: the steps run under
+    ``deterministic_algorithms`` (the second step of a run is compared
+    with another side's second step, each started from the state the
+    ranks' first step left: with the defaults that state, and so the
+    comparison, differs from run to run)."""
     import torch
     from dsf_tpu_torch.data.synth_params import random_param_source
     from dsf_tpu_torch.training.trainer import Trainer
@@ -4105,7 +4177,9 @@ def par_steps(mano_path, mesh, dtype, phase, steps, device, out_dir=None,
     was = torch.backends.cudnn.enabled
     torch.backends.cudnn.enabled = cudnn
     try:
-        with par_split_render(render_parts):
+        with par_split_render(render_parts), (
+                deterministic_algorithms() if deterministic
+                else contextlib.nullcontext()):
             for k in range(steps):
                 state, rec = _par_step(tr, state, step, phase, src, rng, k,
                                        carry, witness and k == 0)
@@ -4320,9 +4394,11 @@ def parallel_rank(out_dir):
                                           PAR_STEPS, device, out_dir=out_dir,
                                           witness=True)
             out[f"{phase} local_bn"], _ = par_steps(
-                path, mesh, "float32", phase, 1, device, local_bn=True)
+                path, mesh, "float32", phase, 1, device, local_bn=True,
+                deterministic=False)
             out[f"{phase} no_cudnn"], _ = par_steps(
-                path, mesh, "float32", phase, 1, device, cudnn=False)
+                path, mesh, "float32", phase, 1, device, cudnn=False,
+                deterministic=False)
         out["bn"] = par_bn_stack(mesh, device)
         n = sum(k for _, k in names)
         out["allreduce_ms"] = par_allreduce_ms(n, mesh.group, device)
@@ -4562,7 +4638,7 @@ def run_parallel(mano_path, smi):
                         plain[phase] = p_recs
                         plain[f"{phase} no_cudnn"], _ = par_steps(
                             mano_path, None, dtype, phase, 1, "cuda",
-                            cudnn=False)
+                            cudnn=False, deterministic=False)
                         plain[f"{phase} split_render"], _ = par_steps(
                             mano_path, None, dtype, phase, PAR_STEPS, "cuda",
                             carry=carry, witness=True,
@@ -4988,6 +5064,24 @@ def run_ccssl_phase(mano_path, smi, root):
     return counts
 
 
+def phase9_alone():
+    """``--phase9``: the kernels' build, then phase 9 alone; prints no
+    result line."""
+    from dsf_tpu_torch.device import exact_float32
+    from dsf_tpu_torch.kernels import build
+    from dsf_tpu_torch.mano import synthetic
+    smi = nvidia_smi_line()
+    build.build_all()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, exact_float32():
+        path = os.path.join(tmp, "mano_synthetic.npz")
+        synthetic.save_synthetic_mano(path)
+        counts = run_parallel(path, smi)
+    say(f"phase 9 alone: {time.perf_counter() - t0:.1f} s; "
+        + json.dumps(counts))
+    return 0
+
+
 def phase10_alone():
     """``--phase10``: the kernels' build, phase 6's fake NYU set (K6 on
     the card), then phase 10 alone; prints no result line."""
@@ -5080,7 +5174,8 @@ def export_artifact(job):
         job = json.load(f)
     torch.set_num_threads(1)
     eng = demo.engine(job["mano"], "cuda", INPUT_SIZE, BUCKETS, SEED,
-                      compute_dtype=job["dtype"])
+                      compute_dtype=job["dtype"],
+                      net=job.get("net", "ResNet_stage_18"))
     ras.USE_PALLAS_SKIP = job["skip"]
     t0 = time.perf_counter()
     eng.export(job["path"], bucket=job["bucket"])
@@ -5090,11 +5185,12 @@ def export_artifact(job):
 
 
 def load_artifact(job):
-    """``--phase11-load JOB``: a child process of phase 11 that imports
-    ``dsf_tpu_torch.exported`` (and through it the op registry) and no
-    model code.  It loads the job's artifact (timed), calls it once on
-    the job's request with the launch counts of that call and saves the
-    outputs; when every job's process has got so far, it times
+    """``--phase11-load JOB``: a child process of phase 11 (or 13) that
+    imports ``dsf_tpu_torch.exported`` (and through it the op registry)
+    and no model code.  It loads the job's artifact (timed), calls it once
+    on the job's request with the launch counts of that call and saves the
+    outputs (and, for a job with ``timed`` false, writes its report and
+    stops there); when every job's process has got so far, it times
     LATENCY_CALLS calls to numpy while holding the jobs' lock, so that
     no two artifacts are timed at once; then it writes its report, with
     the model code this process imported."""
@@ -5117,6 +5213,12 @@ def load_artifact(job):
     torch.cuda.synchronize()
     counts = dict(kernels.LAUNCHES)
     np.savez(job["out"], **{k: v.float().cpu().numpy() for k, v in out.items()})
+    if not job.get("timed", True):
+        with open(job["report"], "w") as f:
+            json.dump({"load_s": load_s, "launches": counts,
+                       "dtypes": {k: str(v.dtype) for k, v in out.items()},
+                       "model_code": model_code_imported()}, f)
+        return 0
     open(os.path.join(job["ready"], job["name"]), "w").close()
     deadline = time.time() + 600
     while len(os.listdir(job["ready"])) < job["jobs"]:
@@ -5909,6 +6011,569 @@ def phase12_alone():
     return 0
 
 
+# ----------------------------------------------------------------- phase 13
+
+DEEP_NETS = ("ResNet_stage_50", "ResNet_stage_101", "ResNet_stage_152")
+R50 = DEEP_NETS[0]
+DEEP_REQUESTS = (1, 5)          # card against CPU: buckets 1 and 8
+DEEP_LATENCY_CALLS = 10
+REMAT_NET = DEEP_NETS[-1]
+REMAT_BATCH = 32
+REMAT_PROBES = (4, 8)           # batches whose peaks size the runs without remat
+MEMORY_SHARE = 0.85             # of the card's memory a batch may plan on
+DEEP_EXPORT_BUCKET = 32
+CLI_BATCH = 64                  # four steps an epoch on phase 6's 256 frames
+PEAK_BYTES = {}                 # peak device memory by path tag
+
+
+@contextlib.contextmanager
+def drawn_once():
+    """``random_reference_state_dict`` memoized for the duration, by the
+    generator's state, ``refine`` and ``depth``, in ``demo`` and the
+    trainer: the engines and trainers of one depth share a draw (a
+    152-layer draw takes seconds on the host).  The state dicts are only
+    read (``load_into`` copies them)."""
+    from dsf_tpu_torch import demo
+    from dsf_tpu_torch.models import weights
+    from dsf_tpu_torch.training import trainer as T
+    memo = {}
+
+    def draw(rng, refine=True, depth=18):
+        st = rng.get_state()
+        key = (st[1].tobytes(), st[2], refine, depth)
+        if key not in memo:
+            memo[key] = weights.random_reference_state_dict(rng, refine, depth)
+        return memo[key]
+
+    saved = demo.random_reference_state_dict, T.random_reference_state_dict
+    demo.random_reference_state_dict = T.random_reference_state_dict = draw
+    try:
+        yield
+    finally:
+        demo.random_reference_state_dict, T.random_reference_state_dict = saved
+
+
+def start_deep_export(mano_path, tmp, rng):
+    """Phase 13's export: the depth-50 engine (``demo.engine``, the same
+    seed) exported at bucket DEEP_EXPORT_BUCKET by a child process
+    (``--phase11-export``) started now, so that it traces while the card
+    serves and trains.  Returns (the process, the job file, the request)."""
+    from dsf_tpu_torch import demo
+    from dsf_tpu_torch.config import CAMERA
+    from dsf_tpu_torch.mano import model as mano
+    from dsf_tpu_torch.render import renderer as rnd
+    r = rnd.Renderer.create(mano.load_model(mano_path, device="cuda"), "nyu",
+                            CAMERA["nyu"][0], (640, 480),
+                            (INPUT_SIZE, INPUT_SIZE))
+    req = demo.requests(r, DEEP_EXPORT_BUCKET, rng)
+    name = f"export_r50_f32_b{DEEP_EXPORT_BUCKET}"
+    np.savez(os.path.join(tmp, "req_r50.npz"),
+             **dict(zip(("img", "center", "M", "cube"), req)))
+    job = {"name": name, "mano": mano_path, "dtype": "float32",
+           "bucket": DEEP_EXPORT_BUCKET, "skip": True, "net": R50,
+           "timed": False, "path": os.path.join(tmp, name + ".pt2"),
+           "request": os.path.join(tmp, "req_r50.npz"),
+           "out": os.path.join(tmp, name + "_out.npz"),
+           "report": os.path.join(tmp, name + "_report.json"),
+           "ready": tmp, "jobs": 1, "lock": os.path.join(tmp, "lock")}
+    path = os.path.join(tmp, name + ".json")
+    with open(path, "w") as f:
+        json.dump(job, f)
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--phase11-export", path],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, path, req
+
+
+def load_deep_export(proc, job_path, t_start):
+    """Wait for the export child, then start the loader child (an untimed
+    ``--phase11-load``: no model code, one call with its launches).
+    Returns (the loader process, the s waited since the export began)."""
+    _, err = proc.communicate(timeout=900)
+    need(proc.returncode == 0, f"the depth-50 export failed:\n{err[-3000:]}")
+    wait_s = time.perf_counter() - t_start
+    loader = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--phase11-load",
+         job_path], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return loader, wait_s
+
+
+def check_deep_export(loader, job_path, live, wait_s, smi):
+    """The loader child's report: no model code imported, depth 18's
+    launches a call, and its outputs against live ``predict`` (``live``)
+    at phase 11's tolerances.  Returns the call's launch counts."""
+    _, err = loader.communicate(timeout=600)
+    need(loader.returncode == 0, f"loading the depth-50 export failed:\n"
+         f"{err[-3000:]}")
+    with open(job_path) as f:
+        job = json.load(f)
+    with open(job["report"]) as f:
+        row = json.load(f)
+    with open(job["path"] + ".json") as f:
+        export_s = json.load(f)["export_s"]
+    need(not row["model_code"], f"loading the depth-50 artifact imported "
+         f"the model code: {row['model_code']}")
+    need(row["launches"] == EXPORT_LAUNCHES, f"the depth-50 artifact's call "
+         f"launched {row['launches']}, not {EXPORT_LAUNCHES}")
+    out = np.load(job["out"])
+    diff = {k: float(np.abs(out[k] - live[k]).max()) for k in live}
+    for k, d in diff.items():
+        need(d <= atol_for(k), f"the depth-50 artifact: {k} differs from "
+             f"live predict by {d} > {atol_for(k)}")
+    s1 = max(d for k, d in diff.items() if k.endswith("_0"))
+    s2 = max(d for k, d in diff.items() if not k.endswith("_0"))
+    say(f"{job['name']}: export {export_s:.2f} s (in a child process while "
+        f"the card served and trained; done {wait_s:.1f} s after its "
+        f"start), {os.path.getsize(job['path']) / 2**20:.1f} MB, load "
+        f"{row['load_s']:.2f} s (in a child process while the card ran "
+        f"the remat steps); launches a call "
+        f"{ {k: v for k, v in row['launches'].items() if v} }; against live "
+        f"predict max abs stage 1 {s1:.3g}, stage 2 {s2:.3g} (allowed "
+        f"{atol_for('x_mm_0')} / {atol_for('x_mm_1')} mm); {smi}")
+    return row["launches"]
+
+
+def deep_serving(mano_path, net, rng, smi, dtype="float32", f32=None):
+    """The two-stage engine with the trunks of ``net`` on the card in
+    ``dtype``: requests of DEEP_REQUESTS crops, each one bucket call
+    launching what depth 18's does (K1, K5, K4 x2), outputs finite, the
+    stage-2 render of the largest request covering > 2%; the card against
+    the CPU engine (``atol_for``; in bfloat16 the witness rule of phase 3
+    against ``f32``, the float32 engines' requests and outputs); the
+    median latency per bucket.  Returns (launch counts, the card engine,
+    {"reqs", "gpu", "cpu"})."""
+    import torch
+    from dsf_tpu_torch import demo, kernels
+    from dsf_tpu_torch.render import renderer as rnd
+
+    tag = f"serve{'' if dtype == 'float32' else '_bf16'}{net_tag(net)}"
+    eng = demo.engine(mano_path, "cuda", INPUT_SIZE, BUCKETS, SEED,
+                      compute_dtype=dtype, net=net)
+    cpu = demo.engine(mano_path, "cpu", INPUT_SIZE, BUCKETS, SEED,
+                      compute_dtype=dtype, net=net)
+    reqs = (f32["reqs"] if f32 else
+            [demo.requests(eng.renderer, n, rng) for n in DEEP_REQUESTS])
+    eng.warmup()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    outs = [eng.predict(*r) for r in reqs]
+    torch.cuda.synchronize()
+    counts = dict(kernels.LAUNCHES)
+    calls = len(reqs)
+    need(counts == launches(raster_skip=calls, codec_encode=calls,
+                            codec_decode=2 * calls),
+         f"{tag}: predict did not launch depth 18's kernels once a call: "
+         f"{counts}")
+    for r, out in zip(reqs, outs):
+        for k, v in out.items():
+            need(v.shape[0] == len(r[0]) and np.isfinite(v).all(),
+                 f"{tag}: {k} not finite or of shape {v.shape}")
+    r = reqs[-1]
+    with torch.inference_mode():
+        img2, _, _, _ = rnd.render_params(
+            eng.renderer, torch.from_numpy(outs[-1]["mano_para_0"]).cuda(),
+            torch.from_numpy(r[1]).cuda(), torch.from_numpy(r[3]).cuda(),
+            img_stride=2)
+    cover = float((img2 < FG).float().mean())
+    need(cover > 0.02, f"{tag}: the stage-2 render covers {cover} <= 2%")
+    t0 = time.perf_counter()
+    refs = [cpu.predict(*r) for r in reqs]
+    cpu_s = time.perf_counter() - t0
+    worst = {}
+    for out, ref in zip(outs, refs):
+        for k in out:
+            worst[k] = max(worst.get(k, 0.0),
+                           float(np.abs(out[k] - ref[k]).max()))
+    fmt = lambda d: json.dumps({k: float(f"{v:.3g}") for k, v in d.items()
+                                if "mm" in k})
+    if f32 is None:
+        for k, d in worst.items():
+            need(d <= atol_for(k), f"{tag}: {k} differs from the CPU engine "
+                 f"by {d} > {atol_for(k)}")
+        say(f"{tag} launches over requests {DEEP_REQUESTS}: "
+            f"{json.dumps({k: v for k, v in counts.items() if v})} (depth "
+            f"18's per call); stage-2 render coverage {cover:.4f}; card vs "
+            f"CPU engine max abs (mm keys; CPU {cpu_s:.1f} s): {fmt(worst)}")
+    else:
+        witness, gpu_f32 = {}, {}
+        for out, ref, c32, g32 in zip(outs, refs, f32["cpu"], f32["gpu"]):
+            for k in out:
+                witness[k] = max(witness.get(k, 0.0),
+                                 float(np.abs(ref[k] - c32[k]).max()))
+                gpu_f32[k] = max(gpu_f32.get(k, 0.0),
+                                 float(np.abs(out[k] - g32[k]).max()))
+        for k in witness:
+            tol = BF16_SERVE_RATIO * witness[k] + atol_for(k)
+            need(worst[k] <= tol and gpu_f32[k] <= tol, f"{tag} {k}: the "
+                 f"card's engine lies {worst[k]} from the CPU's and "
+                 f"{gpu_f32[k]} from its float32 one (allowed {tol})")
+            need(gpu_f32[k] >= witness[k] / BF16_SERVE_RATIO, f"{tag} {k}: "
+                 f"the card's engine lies only {gpu_f32[k]} from its float32 "
+                 f"one against the CPU's {witness[k]}: not bfloat16")
+        say(f"{tag} launches {json.dumps({k: v for k, v in counts.items() if v})}; "
+            f"coverage {cover:.4f}; max abs (mm keys) card vs CPU "
+            f"{fmt(worst)}, CPU bf16 vs CPU f32 (the witness) "
+            f"{fmt(witness)}, card bf16 vs card f32 {fmt(gpu_f32)}")
+    lat = predict_latency(eng, rng, DEEP_LATENCY_CALLS)
+    top = BUCKETS[-1]
+    say(f"{tag} median predict latency ms per bucket ({DEEP_LATENCY_CALLS} "
+        "calls, host clock, to numpy): " + json.dumps(lat)
+        + f"; bucket {top} throughput {top * 1e3 / lat[top]:.1f} images/s; "
+        f"{smi}")
+    return counts, eng, {"reqs": reqs, "gpu": outs, "cpu": refs}
+
+
+def remat_step(tr, state, batch, draws, remat):
+    """One FinetuneStage step with DSF_REMAT set to ``remat``: (loss,
+    gradients, running statistics, ms to a synchronized loss, peak
+    memory since the step began)."""
+    import torch
+    os.environ["DSF_REMAT"] = "1" if remat else "0"
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, m = tr.train_step_fn("FinetuneStage")(state, draws, batch)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        os.environ.pop("DSF_REMAT", None)
+    net = state.net
+    return (loss, {n: p.grad for n, p in net.named_parameters()},
+            {n: b for n, b in net.named_buffers() if "running" in n}, ms,
+            torch.cuda.max_memory_allocated())
+
+
+def run_remat(mano_path, smi):
+    """FinetuneStage at depth 152 with DSF_REMAT=0 and 1.  The batch comes
+    from a measurement: one step without remat at each of REMAT_PROBES
+    gives its peak memory, extrapolated linearly in B; the runs without
+    remat take B=32 where that stays within MEMORY_SHARE of the card,
+    else the largest multiple of 4 that does, and remat also runs alone
+    at B=32.  At the compared batch one step from the same state and
+    batch with each setting, under cuDNN's and PyTorch's deterministic
+    algorithms: loss, gradients and running statistics bitwise.  With
+    the default algorithms the card's own steps do not repeat bitwise
+    (nor does a train-mode forward's BatchNorm statistics): a second
+    step without remat, the control, and the remat step are printed
+    against the first.  Then TRAIN_STEPS steps of each setting (default
+    algorithms), median ms and peak memory.  Returns the launch counts of
+    the remat run at B=32 (depth 18's per step)."""
+    import torch
+    from dsf_tpu_torch import demo, kernels
+    from dsf_tpu_torch.data.synth_params import random_param_source
+    from dsf_tpu_torch.training.trainer import Trainer
+
+    need(not torch.backends.cudnn.benchmark, "cuDNN's benchmark is on")
+    tr = Trainer(train_config(mano_path, 2, SEED, net=REMAT_NET), mano_path,
+                 device="cuda")
+    state = tr.init_state()
+    host = lambda d: {k: v.detach().cpu().clone() if torch.is_tensor(v)
+                      else v for k, v in d.items()}
+    snap = {"net": host(state.net.state_dict()),
+            "optimizer": host(state.optimizer.state_dict())}
+    para, cube = next(random_param_source(REMAT_BATCH, seed=SEED + 140))
+    real = demo.real_batch(tr.renderer, REMAT_BATCH,
+                           np.random.RandomState(SEED + 141))
+
+    def batch(B):
+        return dict({k: v[:B] for k, v in real.items()},
+                    model_para=para[:B], cube_synth=cube[:B])
+
+    def reset():
+        state.net.load_state_dict(snap["net"])
+        state.optimizer.load_state_dict(snap["optimizer"])
+
+    peaks = {}
+    for B in REMAT_PROBES:
+        reset()
+        peaks[B] = remat_step(tr, state, batch(B),
+                              tr.draw(B, "FinetuneStage"), False)[4]
+    total = torch.cuda.get_device_properties(0).total_memory
+    b0, b1 = REMAT_PROBES
+    fit = lambda B: peaks[b0] + (peaks[b1] - peaks[b0]) / (b1 - b0) * (B - b0)
+    B_plain = max(B for B in range(4, REMAT_BATCH + 1, 4)
+                  if B == 4 or fit(B) <= MEMORY_SHARE * total)
+    say(f"remat {REMAT_NET} FinetuneStage: peak memory without remat at B="
+        f"{REMAT_PROBES} {[round(peaks[b] / 2**30, 3) for b in REMAT_PROBES]}"
+        f" GiB, extrapolated to B={REMAT_BATCH} {fit(REMAT_BATCH) / 2**30:.2f}"
+        f" GiB of {total / 2**30:.1f} (planned within {MEMORY_SHARE}): the "
+        f"runs without remat take B={B_plain}")
+
+    def distance(a, b):
+        """(losses equal, gradients not bitwise, their largest relative
+        L2, statistics not bitwise, their largest share of the tensor's
+        largest entry) of step b from step a."""
+        g_off = [k for k in a[1] if not torch.equal(a[1][k], b[1][k])]
+        s_off = [k for k in a[2] if not torch.equal(a[2][k], b[2][k])]
+        g = max((float((b[1][k] - a[1][k]).norm()
+                       / a[1][k].norm().clamp_min(1e-30)) for k in g_off),
+                default=0.0)
+        st = max((float((b[2][k] - a[2][k]).abs().max()
+                        / a[2][k].abs().max()) for k in s_off), default=0.0)
+        return a[0] == b[0], len(g_off), g, len(s_off), st
+
+    draws = tr.draw(B_plain, "FinetuneStage")
+    got = {}
+    for det, runs in ((True, ("plain", "remat")),
+                      (False, ("plain", "again", "remat"))):
+        with (deterministic_algorithms() if det
+              else contextlib.nullcontext()):
+            for run in runs:
+                reset()
+                loss, grads, stats, _, _ = remat_step(
+                    tr, state, batch(B_plain), draws, run == "remat")
+                got[det, run] = (
+                    loss, {k: v.detach().cpu() for k, v in grads.items()},
+                    {k: v.detach().cpu() for k, v in stats.items()})
+    det = distance(got[True, "plain"], got[True, "remat"])
+    fmt = lambda d: (f"loss equal {d[0]}, gradients not bitwise {d[1]} of "
+                     f"{len(got[True, 'plain'][1])} (largest relative L2 "
+                     f"{d[2]:.3g}), running statistics not bitwise {d[3]} "
+                     f"of {len(got[True, 'plain'][2])} (largest {d[4]:.3g} "
+                     f"of the tensor's scale)")
+    say(f"remat {REMAT_NET} FinetuneStage B={B_plain}, one step from the "
+        f"same state, deterministic algorithms, DSF_REMAT=1 against 0: "
+        f"{fmt(det)}")
+    say(f"remat {REMAT_NET} FinetuneStage B={B_plain}, default algorithms: "
+        f"DSF_REMAT=0 again against 0 (the control): "
+        f"{fmt(distance(got[False, 'plain'], got[False, 'again']))}; "
+        f"DSF_REMAT=1 against 0: "
+        f"{fmt(distance(got[False, 'plain'], got[False, 'remat']))}")
+    need(det[0] and not det[1] and not det[3], "DSF_REMAT=1 is not bitwise "
+         "DSF_REMAT=0 on the card under deterministic algorithms")
+
+    # TRAIN_STEPS steps of each, timed
+    runs = [(False, B_plain), (True, B_plain)]
+    if B_plain != REMAT_BATCH:
+        runs.append((True, REMAT_BATCH))
+    counts = None
+    for remat, B in runs:
+        reset()
+        draws = [tr.draw(B, "FinetuneStage") for _ in range(TRAIN_STEPS)]
+        kernels.reset_launch_counts()
+        ms, peak = [], 0
+        for d in draws:
+            before = dict(kernels.LAUNCHES)
+            loss, _, _, t, p = remat_step(tr, state, batch(B), d, remat)
+            delta = {k: kernels.LAUNCHES[k] - before[k]
+                     for k in kernels.LAUNCHES}
+            need(delta == FS_STEP_LAUNCHES and np.isfinite(loss),
+                 f"remat={remat} B={B}: launches {delta}, loss {loss}")
+            ms.append(t)
+            peak = max(peak, p)
+        if remat and B == REMAT_BATCH:
+            counts = dict(kernels.LAUNCHES)
+        say(f"remat {REMAT_NET} FinetuneStage B={B} DSF_REMAT="
+            f"{int(remat)}: step ms {[round(t, 2) for t in ms]}, median "
+            f"{float(np.median(ms)):.2f} ms ({2 * B * 1e3 / float(np.median(ms)):.1f}"
+            f" images/s); peak memory {peak / 2**30:.3f} GiB; {smi}")
+    return counts
+
+
+def run_deep_cli(mano_path, smi, root):
+    """``python -m dsf_tpu_torch.training --net ResNet_stage_50``'s main on
+    phase 6's fake NYU set (``root``), in this process so that the epoch
+    count can be set: one epoch of FinetuneStage at B=CLI_BATCH (four
+    steps; B=32, eight steps, where twice the B=32 step's measured peak
+    would not stay within MEMORY_SHARE of the card) with its per-epoch
+    test, latest and best, and the 3-view evaluation; each step's and eval
+    batch's launches depth 18's; then a run resumed from it (one more
+    epoch), and its checkpoint restored on the card bitwise; then a
+    depth-18 checkpoint given to the depth-50 command line, which must
+    raise, naming the keys, before any step.  Returns the launch counts
+    of the first run."""
+    import torch
+    from dsf_tpu_torch import kernels
+    from dsf_tpu_torch.training import __main__ as cli
+    from dsf_tpu_torch.training import checkpoints as ck
+    from dsf_tpu_torch.training.trainer import Trainer
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    batch = (CLI_BATCH if 2 * PEAK_BYTES["finetune_stage_r50"]
+             <= MEMORY_SHARE * total else TRAIN_BATCH)
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--net", R50, "--root_dir", root, "--mano_model_path",
+                mano_path, "--save_dir", os.path.join(tmp, "ckpt"),
+                "--transferNet_pth", STAND_IN, "--batch_size", str(batch),
+                "--image_every", "0"]
+        rec = {}
+        t0 = time.perf_counter()
+        with max_epochs(1), watched_loop(rec):
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            cli.main(argv + ["--add_info", "r50"])
+            torch.cuda.synchronize()
+            counts = dict(kernels.LAUNCHES)
+        secs = time.perf_counter() - t0
+        cfg = cli.parse_config(argv + ["--add_info", "r50"])
+        run_dir = os.path.join(cfg.save_dir, "nyu", cfg.run_name())
+        steps = FAKE_TRAIN // batch
+        evals = 4 * -(-FAKE_TEST // batch)
+        need(len(rec["steps"]) == steps and len(rec["evals"]) == evals,
+             f"the depth-50 CLI ran {len(rec['steps'])} steps and "
+             f"{len(rec['evals'])} eval batches, not {steps} and {evals}")
+        need(all(d == FS_STEP_LAUNCHES for d in rec["steps"])
+             and all(d == EVAL_LAUNCHES for d in rec["evals"]),
+             f"the depth-50 CLI's launches: {rec['steps']} {rec['evals']}")
+        losses = [float(m["loss"]) for m in rec["metrics"]]
+        errs = torch.stack(rec["errors"]).cpu().numpy()
+        need(np.isfinite(losses).all() and np.isfinite(errs).all(),
+             "the depth-50 CLI: a non-finite loss or eval error")
+        for name in ("latest", "best"):
+            need(os.path.exists(os.path.join(run_dir, name, ck.FILE)),
+                 f"the depth-50 CLI wrote no {name}")
+        for view in range(3):
+            rows = np.loadtxt(os.path.join(run_dir, f"result_1_{view}.txt"))
+            need(rows.shape == (FAKE_TEST, 63) and np.isfinite(rows).all(),
+                 f"the depth-50 CLI's result_1_{view}: {rows.shape}")
+        say(f"cli {R50}: {steps} FinetuneStage steps of B={batch} and "
+            f"{evals} eval batches in {secs:.1f} s (the process's whole "
+            f"run: trainer, loader, epoch, checkpoints, 3-view evaluation); "
+            f"losses {[float(f'{x:.6g}') for x in losses]}; epoch "
+            f"{rec['epochs'][0]:.2f} s; 3-view evaluation "
+            f"{rec['views_s'][-1]:.2f} s; eval errors mm (mean per row) "
+            f"{np.round(errs.mean(axis=(0, 2)), 3).tolist()}; {smi}")
+
+        rec2 = {}
+        with max_epochs(2), watched_loop(rec2):
+            cli.main(argv + ["--add_info", "r50_resume", "--load_model",
+                             run_dir, "--test_during_train", "false"])
+        state, epoch = rec2["restored"][0]
+        need(epoch == 1 and len(rec2["steps"]) == steps
+             and all(np.isfinite(float(m["loss"])) for m in rec2["metrics"])
+             and int(state.updates) == 2 * steps,
+             f"the depth-50 resume: epoch {epoch}, {len(rec2['steps'])} "
+             f"steps, updates {int(state.updates)}")
+        need(all(d == FS_STEP_LAUNCHES for d in rec2["steps"]),
+             f"the depth-50 resume's launches: {rec2['steps']}")
+        # the restore itself: the saved net and AdamW moments, on the card
+        tr = Trainer(cfg, mano_path, device="cuda")
+        state, _ = ck.restore(run_dir, tr, tr.init_state())
+        saved = torch.load(os.path.join(run_dir, "latest", ck.FILE),
+                           map_location="cpu", weights_only=True)
+        pairs = list(state.net.state_dict().items()) + [
+            (f"optimizer.{k}", v) for k, v in state.optimizer.buffers.items()]
+        ref = dict(saved["net"], **{f"optimizer.{k}": v
+                                    for k, v in saved["optimizer"].items()})
+        off = [k for k, v in pairs if v.device.type != "cuda"
+               or not torch.equal(v.cpu(), ref[k])]
+        need(not off, f"the depth-50 restore: tensors off the card or not "
+             f"bitwise the saved ones: {off[:5]}")
+        say(f"cli {R50} resume: epoch {epoch}, {len(rec2['steps'])} more "
+            f"steps, updates {int(rec2['restored'][0][0].updates)}; the "
+            f"checkpoint's {len(pairs)} tensors restored on the card "
+            f"bitwise")
+
+        # a depth-18 checkpoint into the depth-50 command line
+        cfg18 = cfg.replace(net="ResNet_stage_18", transferNet_pth="")
+        tr18 = Trainer(cfg18, mano_path, device="cuda")
+        path18 = os.path.join(tmp, "r18")
+        ck.save(path18, tr18, tr18.init_state(), 0)
+        ck.wait_until_finished()
+        rec3 = {}
+        with max_epochs(1), watched_loop(rec3):
+            try:
+                cli.main(argv + ["--add_info", "r50_from18", "--load_model",
+                                 path18])
+                refused = None
+            except RuntimeError as e:
+                refused = str(e)
+        need(refused is not None and "layer1.0.conv3.weight" in refused
+             and not rec3["steps"], f"the depth-18 checkpoint was not "
+             f"refused before any step: {refused!r}, {len(rec3['steps'])} "
+             "steps")
+        say(f"cli {R50} from a depth-18 checkpoint: refused before any "
+            f"step: {refused[:160]}...")
+    return counts
+
+
+def run_deep(mano_path, smi, root):
+    """Phase 13: the ResNet-50/101/152 trunks on every entry point, and
+    DSF_REMAT.  Returns the launch counts by path."""
+    import torch
+    t0 = time.perf_counter()
+    by_path = {}
+    rng = np.random.RandomState(SEED + 130)
+    with tempfile.TemporaryDirectory() as tmp, drawn_once():
+        export = start_deep_export(mano_path, tmp, rng)
+        f32 = None
+        for net in DEEP_NETS:
+            counts, eng, outs = deep_serving(mano_path, net, rng, smi)
+            by_path[f"serve{net_tag(net)}"] = counts
+            if net == R50:
+                f32, live_eng = outs, eng
+        by_path["serve_bf16_r50"], _, _ = deep_serving(
+            mano_path, R50, rng, smi, "bfloat16", f32)
+        req = export[2]
+        live = live_eng.predict(*req)
+        serve_s = time.perf_counter() - t0
+
+        t1 = time.perf_counter()
+        for dtype, bf in (("float32", ""), ("bfloat16", "_bf16")):
+            by_path[f"train{bf}_r50"] = run_training(mano_path, dtype, R50)
+            by_path[f"finetune_stage{bf}_r50"] = run_self_supervised(
+                mano_path, "FinetuneStage", dtype=dtype, net=R50)
+            by_path[f"finetune{bf}_r50"] = run_self_supervised(
+                mano_path, "Finetune", dtype=dtype, net=R50)
+        for tag in ("train", "finetune_stage", "finetune"):
+            for bf in ("", "_bf16"):
+                if f"{tag}{bf}" in STEP_MEDIAN_MS:
+                    say(f"{tag}{bf}: median step {STEP_MEDIAN_MS[tag + bf]:.2f}"
+                        f" ms at depth 18 (phase 4), "
+                        f"{STEP_MEDIAN_MS[tag + bf + '_r50']:.2f} ms at 50")
+        steps_s = time.perf_counter() - t1
+
+        loader, wait_s = load_deep_export(export[0], export[1], t0)
+        t1 = time.perf_counter()
+        by_path["finetune_stage_remat_r152"] = run_remat(mano_path, smi)
+        remat_s = time.perf_counter() - t1
+        by_path[f"export_r50_f32_b{DEEP_EXPORT_BUCKET}"] = check_deep_export(
+            loader, export[1], live, wait_s, smi)
+        export_s = time.perf_counter() - t1 - remat_s
+        compare_s = []
+        for compare in (compare_step, compare_finetune_stage,
+                        compare_finetune):
+            t1 = time.perf_counter()
+            compare(mano_path, net=R50, **({} if compare is compare_finetune
+                                           else {"bf16": False}))
+            compare_s.append(round(time.perf_counter() - t1, 1))
+        del live_eng
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        by_path["cli_r50"] = run_deep_cli(mano_path, smi, root)
+        cli_s = time.perf_counter() - t1
+    say(f"phase 13: {time.perf_counter() - t0:.1f} s (serving "
+        f"{serve_s:.1f}, steps {steps_s:.1f}, remat {remat_s:.1f}, the "
+        f"export's load after them {export_s:.1f}, card vs CPU "
+        f"{sum(compare_s):.1f} (Pretrain, FinetuneStage, Finetune "
+        f"{compare_s}), CLI {cli_s:.1f})")
+    return by_path
+
+
+def phase13_alone():
+    """``--phase13``: the kernels' build, phase 6's fake NYU set (K6), then
+    phase 13 alone; prints no result line."""
+    import torch
+    from dsf_tpu_torch.data.fake import make_fake_nyu
+    from dsf_tpu_torch.device import exact_float32
+    from dsf_tpu_torch.kernels import build
+    from dsf_tpu_torch.mano import synthetic
+    smi = nvidia_smi_line()
+    build.build_all()
+    with tempfile.TemporaryDirectory() as tmp, exact_float32():
+        path = os.path.join(tmp, "mano_synthetic.npz")
+        synthetic.save_synthetic_mano(path)
+        root = os.path.join(tmp, "fake_nyu")
+        make_fake_nyu(root, path, n_train=FAKE_TRAIN, n_test=FAKE_TEST,
+                      seed=SEED, batch_size=TRAIN_BATCH)
+        torch.cuda.synchronize()
+        by_path = run_deep(path, smi, root)
+    say("phase 13 alone: " + json.dumps(by_path))
+    return 0
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5933,12 +6598,16 @@ def main():
         return 1
     if sys.argv[1:2] == ["--phase9-rank"]:
         return parallel_rank(sys.argv[2])
+    if sys.argv[1:2] == ["--phase9"]:
+        return phase9_alone()
     if sys.argv[1:2] == ["--phase10"]:
         return phase10_alone()
     if sys.argv[1:2] == ["--phase11"]:
         return phase11_alone()
     if sys.argv[1:2] == ["--phase12"]:
         return phase12_alone()
+    if sys.argv[1:2] == ["--phase13"]:
+        return phase13_alone()
 
     smi = nvidia_smi_line()
     say(f"device: {smi}; torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -5953,6 +6622,7 @@ def main():
                 say(f"  ptxas {name}: {line.strip()}")
 
     record = []
+    marks = [("build", time.perf_counter())]
     with tempfile.TemporaryDirectory() as tmp, exact_float32():
         path = os.path.join(tmp, "mano_synthetic.npz")
         synthetic.save_synthetic_mano(path)
@@ -5978,10 +6648,12 @@ def main():
             record.append(check_raster_dense(renderer, PRERENDER_BATCH, rng))
             check_raster_binned(renderer, KERNEL_BATCH, 2, rng)
             check_raster_binned(renderer, KERNEL_BATCH, 1, rng)
+        marks.append(("kernels", time.perf_counter()))
         by_path = {}
         by_path["serve"], by_path["serve_binned"], k10, f32 = run_slice(path)
         record.append(k10)
         by_path["serve_bf16"] = run_slice_bf16(path, f32)
+        marks.append(("slice", time.perf_counter()))
         by_path["train"] = run_training(path)
         by_path["finetune_stage"] = run_self_supervised(path, "FinetuneStage")
         by_path["finetune_stage_v2"] = run_self_supervised(
@@ -5995,20 +6667,29 @@ def main():
         by_path["finetune_bf16"] = run_self_supervised(path, "Finetune",
                                                        dtype="bfloat16")
         by_path["prerender"] = run_prerender(path)
+        marks.append(("training", time.perf_counter()))
         compare_bf16_layers(np.random.RandomState(SEED + 40))
         compare_step(path)
         compare_finetune_stage(path)
         compare_finetune_stage(path, "icvl")
         compare_finetune(path)
         compare_m2p(path)
+        marks.append(("GPU = CPU", time.perf_counter()))
         fake_nyu = os.path.join(tmp, "fake_nyu")
-        by_path.update(run_loop(path, smi, fake_nyu))
-        by_path.update(run_datasets(path, smi))
-        by_path.update(run_cyclegan_phase(path, smi, fake_nyu))
-        by_path.update(run_parallel(path, smi))
-        by_path.update(run_ccssl_phase(path, smi, fake_nyu))
-        by_path.update(run_export_phase(path, smi))
-        by_path["library"] = run_library(path, smi)
+        for name, phase in (
+                ("loop", lambda: run_loop(path, smi, fake_nyu)),
+                ("datasets", lambda: run_datasets(path, smi)),
+                ("cyclegan", lambda: run_cyclegan_phase(path, smi, fake_nyu)),
+                ("parallel", lambda: run_parallel(path, smi)),
+                ("ccssl", lambda: run_ccssl_phase(path, smi, fake_nyu)),
+                ("export", lambda: run_export_phase(path, smi)),
+                ("library", lambda: {"library": run_library(path, smi)}),
+                ("deep", lambda: run_deep(path, smi, fake_nyu))):
+            by_path.update(phase())
+            marks.append((name, time.perf_counter()))
+    say("phase seconds: " + json.dumps(
+        {name: round(t - t_prev, 1) for (_, t_prev), (name, t)
+         in zip(marks, marks[1:])}))
     need(sorted(r["name"] for r in record) == sorted(KERNELS),
          "the kernels' record does not list every kernel once")
     for rec in record:

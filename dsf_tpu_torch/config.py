@@ -147,3 +147,18 @@ def check_devices(cfg: Config, available: int) -> None:
     if cfg.num_devices < 1 or cfg.num_devices > available:
         raise ValueError(f"num_devices={cfg.num_devices}: {available} "
                          "device(s) given or visible")
+
+
+def net_depth(cfg: Config) -> int:
+    """The ResNet depth that ``cfg.net`` names (``ResNet_stage_50`` -> 50);
+    raises NotImplementedError for another net and ValueError for a depth
+    without a trunk (``models.resnet.RESNET_SPECS``: 18, 50, 101, 152),
+    touching no device and no file."""
+    from dsf_tpu_torch.models.resnet import RESNET_SPECS
+    if "ResNet" not in cfg.net:
+        raise NotImplementedError(cfg.net)
+    depth = int(cfg.net.split("_")[-1])
+    if depth not in RESNET_SPECS:
+        raise ValueError(f"net {cfg.net!r}: ResNet depths "
+                         f"{sorted(RESNET_SPECS)}")
+    return depth

@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from dsf_tpu_torch import geometry as geo
-from dsf_tpu_torch.config import CAMERA, CUBE, JOINT, Config
+from dsf_tpu_torch.config import CAMERA, CUBE, JOINT, Config, net_depth
 from dsf_tpu_torch.mano.constants import transfer_for_dataset
 from dsf_tpu_torch.models.weights import random_reference_state_dict
 from dsf_tpu_torch.render import renderer as rnd
@@ -76,12 +76,15 @@ def real_batch(renderer, B: int, rng: np.random.RandomState,
 
 def engine(mano_path: str, device, input_size: int = 128,
            buckets=(1, 8, 32), seed: int = 0,
-           compute_dtype: str = "float32"):
-    """The two-stage ManoOCRStage InferenceEngine at ResNet-18 width with
-    seeded random weights (a visible stage-1 hand, see
-    random_reference_state_dict), computing in ``compute_dtype``."""
+           compute_dtype: str = "float32", net: str = "ResNet_stage_18"):
+    """The two-stage ManoOCRStage InferenceEngine of ``net`` (ResNet trunks
+    of depth 18, 50, 101 or 152) with seeded random weights (a visible
+    stage-1 hand, see random_reference_state_dict), computing in
+    ``compute_dtype``."""
     from dsf_tpu_torch.serving import InferenceEngine
     cfg = Config(dataset="nyu", stage_num=2, input_size=input_size,
-                 mano_model_path=mano_path, compute_dtype=compute_dtype)
-    sd = random_reference_state_dict(np.random.RandomState(seed))
+                 mano_model_path=mano_path, compute_dtype=compute_dtype,
+                 net=net)
+    sd = random_reference_state_dict(np.random.RandomState(seed),
+                                     depth=net_depth(cfg))
     return InferenceEngine(cfg, sd, buckets=buckets, device=device)

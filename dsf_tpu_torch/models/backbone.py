@@ -1,9 +1,10 @@
 """Dual-branch pose networks (counterpart of dsf_tpu/models/backbone.py;
 ref: model/backbone.py:94-343).
 
-``ManoOCRStage`` is the default net: a ResNet-18 trunk with two heads per
-stage — a MANO parameter regressor (62-D) and a 3-deconv dense decoder
-emitting a 4J-channel offset feature at input/2.  With ``refine=True``
+``ManoOCRStage`` is the default net: a ResNet trunk (depth 18, 50, 101 or
+152, ``RESNET_SPECS``) with two heads per stage — a MANO parameter
+regressor (62-D) and a 3-deconv dense decoder emitting a 4J-channel
+offset feature at input/2.  With ``refine=True``
 stage 2 re-renders the stage-1 MANO prediction inside the forward,
 re-encodes it with the offset codec, fuses it with stage-1 features and
 runs a second trunk and heads.
@@ -12,12 +13,23 @@ Submodules carry the reference MANO_OCR_stage state-dict names (pre.{0,1},
 layer{1..4}[_s2], mano_regress[_s2].2, deconv_layer{4,3,2}[_s2].{0,1},
 finals[_s2].{0,1}, fusion.{0,1}), so a reference ``.pth`` loads with
 ``load_state_dict`` as it is.  Activations are NCHW.
+
+``DSF_REMAT=1`` in the environment (the JAX package's switch, read at each
+forward as its ``_maybe_remat`` reads it) rematerializes each stage's
+trunk and heads: while autograd records, they run under
+``torch.utils.checkpoint`` and their activations are recomputed in the
+backward pass instead of kept.  Outputs, running statistics and gradients
+are those of ``DSF_REMAT=0`` bitwise (``_replay``).
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from dsf_tpu_torch.device import widen
 from dsf_tpu_torch.models.layers import (BatchNorm2d, ConvBNRelu,
@@ -29,6 +41,44 @@ from dsf_tpu_torch.ops.offset_codec import joint2offset
 from dsf_tpu_torch.render import renderer as rnd
 
 MANO_PARAM_DIM = 3 + 45 + 10 + 4
+
+# the backend switches that change float results, kept by a forward for its
+# recompute
+_FLOAT_FLAGS = ((torch.backends.cudnn, "allow_tf32"),
+                (torch.backends.cudnn, "benchmark"),
+                (torch.backends.cudnn, "deterministic"),
+                (torch.backends.cuda.matmul, "allow_tf32"),
+                (torch.backends.cuda.matmul,
+                 "allow_bf16_reduced_precision_reduction"))
+
+
+def remat_enabled() -> bool:
+    """``DSF_REMAT=1``: rematerialize the trunks and heads."""
+    return os.environ.get("DSF_REMAT", "0") == "1"
+
+
+@contextlib.contextmanager
+def _replay(bns, groups, sync, flags):
+    """The recompute of a checkpointed part in the backward pass, as its
+    forward ran: every BatchNorm with the forward's ``groups`` and ``sync``
+    (the net's forward has cleared ``sync`` by then, and a later forward
+    may have changed ``groups``) and ``replay`` set, so its train-mode
+    statistics are not taken into the running ones a second time; the
+    backend switches that change float results as the forward had them.
+    Everything is put back after."""
+    saved = [(m.groups, m.sync, m.replay) for m in bns]
+    saved_flags = [getattr(mod, name) for mod, name in _FLOAT_FLAGS]
+    for m in bns:
+        m.groups, m.sync, m.replay = groups, sync, True
+    for (mod, name), v in zip(_FLOAT_FLAGS, flags):
+        setattr(mod, name, v)
+    try:
+        yield
+    finally:
+        for m, (g, s, r) in zip(bns, saved):
+            m.groups, m.sync, m.replay = g, s, r
+        for (mod, name), v in zip(_FLOAT_FLAGS, saved_flags):
+            setattr(mod, name, v)
 
 
 class ManoOCRStage(nn.Module):
@@ -50,9 +100,14 @@ class ManoOCRStage(nn.Module):
     ``sync`` (a ``parallel.mesh.Mesh``, set by the trainer of a world of
     more than one rank) is handed to every BatchNorm for the length of a
     forward: in train mode their statistics are then over every rank's
-    rows, group by group."""
+    rows, group by group.
+
+    With ``DSF_REMAT=1`` each stage's trunk and (``remat_heads``) heads
+    are checkpointed while autograd records; the stage-2 render and the
+    fusion are not, as in the JAX package."""
 
     sync = None
+    remat_heads = True
 
     def __init__(self, joint_num: int = 21, depth: int = 18,
                  refine: bool = True, dtype: torch.dtype = torch.float32):
@@ -102,9 +157,13 @@ class ManoOCRStage(nn.Module):
             conv(256, J, 1, 1, 0, bias=True)]))
 
     def _trunk(self, x, suffix):
+        """Flax ``_Trunk``: the stem (stage 1) and layer1..4 -> (c0, c4)."""
+        if suffix == "":
+            x = self.pre(x)
+        c0 = x
         for i in range(1, 5):
             x = getattr(self, f"layer{i}{suffix}")(x)
-        return x
+        return c0, x
 
     def _heads(self, c4, suffix):
         mano_para = getattr(self, f"mano_regress{suffix}")(c4)
@@ -120,16 +179,30 @@ class ManoOCRStage(nn.Module):
         bns = [m for m in self.modules() if isinstance(m, BatchNorm2d)]
         for m in bns:
             m.groups, m.sync = bn_groups, self.sync
+        remat = None
+        if remat_enabled() and torch.is_grad_enabled():
+            flags = [getattr(mod, name) for mod, name in _FLOAT_FLAGS]
+            remat = lambda: (contextlib.nullcontext(),
+                             _replay(bns, bn_groups, self.sync, flags))
         try:
-            return self._forward(img, render, center, cube)
+            return self._forward(img, render, center, cube, remat)
         finally:
             for m in bns:
                 m.sync = None
 
-    def _forward(self, img, render, center, cube):
-        c0 = self.pre(img)
-        c4 = self._trunk(c0, "")
-        img_result, mano_para, img_feature = self._heads(c4, "")
+    @staticmethod
+    def _part(remat, fn, *args):
+        """``fn(*args)``, checkpointed when ``remat`` (the recompute's
+        context function) is given."""
+        if remat is None:
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=remat)
+
+    def _forward(self, img, render, center, cube, remat=None):
+        heads_remat = remat if self.remat_heads else None
+        c0, c4 = self._part(remat, self._trunk, img, "")
+        img_result, mano_para, img_feature = self._part(
+            heads_remat, self._heads, c4, "")
         if not self.refine:
             return [[img_result, mano_para]]
 
@@ -143,13 +216,17 @@ class ManoOCRStage(nn.Module):
         fusion = torch.cat([c0, img_feature, img_result,
                             remap.to(img_result.dtype)], dim=1)
         x = self.fusion(fusion)
-        c4_s2 = self._trunk(x, "_s2")
-        img_result_s2, mano_para_s2, _ = self._heads(c4_s2, "_s2")
+        _, c4_s2 = self._part(remat, self._trunk, x, "_s2")
+        img_result_s2, mano_para_s2, _ = self._part(
+            heads_remat, self._heads, c4_s2, "_s2")
         return [[img_result, mano_para], [img_result_s2, mano_para_s2]]
 
 
 class ManoOCR(ManoOCRStage):
-    """Single-stage variant (ref: MANO_OCR, backbone.py:94-185)."""
+    """Single-stage variant (ref: MANO_OCR, backbone.py:94-185); its heads
+    are not rematerialized, as in the JAX package."""
+
+    remat_heads = False
 
     def __init__(self, joint_num: int = 21, depth: int = 18,
                  dtype: torch.dtype = torch.float32):

@@ -120,10 +120,16 @@ class BatchNorm2d(nn.BatchNorm2d):
     sum of squares are summed over the ranks by an all-reduce that autograd
     sees, so the backward sums the statistics' gradients over the ranks
     too (``_sync_forward``).  ``ManoOCRStage`` sets it for the length of a
-    forward; None (world 1) keeps the paths above."""
+    forward; None (world 1) keeps the paths above.
+
+    ``replay`` (set by ``ManoOCRStage`` while ``DSF_REMAT`` recomputes a
+    checkpointed part in the backward pass) runs the train-mode forward
+    with the same arithmetic but leaves the running statistics and the
+    counter alone: the forward being replayed has updated them once."""
 
     groups = 1
     sync = None
+    replay = False
 
     def forward(self, x):
         if not self.training:
@@ -149,12 +155,7 @@ class BatchNorm2d(nn.BatchNorm2d):
         mean = xf.mean((1, 3, 4))                                  # (g, C)
         var = (xf * xf).mean((1, 3, 4)) - mean * mean
         mul = torch.rsqrt(var + self.eps) * self.weight
-        with torch.no_grad():
-            m = self.momentum
-            for i in range(g):
-                self.running_mean.mul_(1.0 - m).add_(m * mean[i])
-                self.running_var.mul_(1.0 - m).add_(m * var[i])
-            self.num_batches_tracked.add_(g)
+        self._update_stats(mean, var)
         y = ((x.unflatten(0, (g, -1)) - mean.to(dt)[:, None, :, None, None])
              * mul.to(dt)[:, None, :, None, None]
              + self.bias.to(dt)[:, None, None])
@@ -181,12 +182,7 @@ class BatchNorm2d(nn.BatchNorm2d):
         mean = sums[:, :C] / n                                     # (g, C)
         var = sums[:, C:2 * C] / n - mean * mean
         mul = torch.rsqrt(var + self.eps) * self.weight
-        with torch.no_grad():
-            m = self.momentum
-            for i in range(g):
-                self.running_mean.mul_(1.0 - m).add_(m * mean[i])
-                self.running_var.mul_(1.0 - m).add_(m * var[i])
-            self.num_batches_tracked.add_(g)
+        self._update_stats(mean, var)
         bc = lambda t: t[:, None, :, None, None]
         if dt == torch.bfloat16 and g > 1:
             y = ((x.unflatten(0, (g, -1)) - bc(mean.to(dt))) * bc(mul.to(dt))
@@ -196,12 +192,28 @@ class BatchNorm2d(nn.BatchNorm2d):
                  + self.bias[:, None, None]).to(dt)
         return y.flatten(0, 1)
 
+    def _update_stats(self, mean, var):
+        """Flax's EMA of each group's (g, C) mean and biased variance, one
+        update per group in group order; nothing in a replay."""
+        if self.replay:
+            return
+        with torch.no_grad():
+            m = self.momentum
+            for i in range(mean.shape[0]):
+                self.running_mean.mul_(1.0 - m).add_(m * mean[i])
+                self.running_var.mul_(1.0 - m).add_(m * var[i])
+            self.num_batches_tracked.add_(mean.shape[0])
+
     def _train_forward(self, x):
         # torch's EMA of the variance goes into a copy: the CPU backward
         # keeps the running variance it was given
         ema = self.running_var.clone()
-        y = F.batch_norm(x, self.running_mean, ema, self.weight, self.bias,
+        # a replay updates copies of both (the same kernel runs)
+        mean = self.running_mean.clone() if self.replay else self.running_mean
+        y = F.batch_norm(x, mean, ema, self.weight, self.bias,
                          training=True, momentum=self.momentum, eps=self.eps)
+        if self.replay:
+            return y
         n = x.numel() // x.shape[1]
         with torch.no_grad():
             self.running_var.copy_(

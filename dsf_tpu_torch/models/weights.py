@@ -59,10 +59,13 @@ def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
             for bi in range(len(lp)):
                 bp, bs = lp[f"block{bi}"], ls[f"block{bi}"]
                 pre = f"layer{li}{suffix}.{bi}"
-                for ci in (1, 2):
+                # conv1-2 in a BasicBlock, conv1-3 in a Bottleneck
+                ci = 1
+                while f"conv{ci}" in bp:
                     sd[f"{pre}.conv{ci}.weight"] = _kernel(
                         bp[f"conv{ci}"]["conv"]["kernel"])
                     bn(f"{pre}.bn{ci}", bp[f"bn{ci}"], bs[f"bn{ci}"])
+                    ci += 1
                 if "down_conv" in bp:
                     sd[f"{pre}.downsample.0.weight"] = _kernel(
                         bp["down_conv"]["conv"]["kernel"])
@@ -102,6 +105,23 @@ def load_reference_state_dict(path: str) -> Dict[str, torch.Tensor]:
             if isinstance(v, (torch.Tensor, np.ndarray))}
 
 
+def reference_depth(sd: Mapping) -> int:
+    """The ResNet depth of a reference-layout state dict: its blocks'
+    type (``conv3`` in a Bottleneck) and block counts per layer, as
+    ``models.resnet.RESNET_SPECS`` lists them; raises KeyError for
+    another layout."""
+    from dsf_tpu_torch.models.resnet import RESNET_SPECS, Bottleneck
+    counts = [len({k.split(".")[1] for k in sd
+                   if k.startswith(f"layer{i}.") and k.endswith("conv1.weight")})
+              for i in range(1, 5)]
+    bottleneck = "layer1.0.conv3.weight" in sd
+    for depth, (block, blocks) in RESNET_SPECS.items():
+        if list(blocks) == counts and (block is Bottleneck) == bottleneck:
+            return depth
+    raise KeyError(f"no ResNet depth has blocks {counts} "
+                   f"({'Bottleneck' if bottleneck else 'BasicBlock'})")
+
+
 def load_into(net: torch.nn.Module, sd: Mapping) -> None:
     """``net.load_state_dict(sd)`` for tensors or numpy arrays, strict
     except that BatchNorm's ``num_batches_tracked`` counters may be absent
@@ -117,13 +137,25 @@ def load_into(net: torch.nn.Module, sd: Mapping) -> None:
 
 
 def random_reference_state_dict(rng: np.random.RandomState,
-                                refine: bool = True) -> Dict[str, np.ndarray]:
-    """A reference-layout MANO_OCR_stage state dict (21 joints) drawn from
-    numpy: He-scaled convs (activations stay O(1) through the trunk),
-    1e-3-scaled heads as the reference initializes them, random BatchNorm
-    affine parameters and running statistics, and a ``mano_regress`` bias
-    that puts a visible hand in the crop (cam scale 1 at index 58, the rest
-    0)."""
+                                refine: bool = True,
+                                depth: int = 18) -> Dict[str, np.ndarray]:
+    """A reference-layout MANO_OCR_stage state dict (21 joints, ResNet
+    trunks of ``depth``: 18, 50, 101 or 152) drawn from numpy: He-scaled
+    convs (activations stay O(1) through the trunk), 1e-3-scaled heads as
+    the reference initializes them, random BatchNorm affine parameters and
+    running statistics, and a ``mano_regress`` bias that puts a visible
+    hand in the crop (cam scale 1 at index 58, the rest 0).
+
+    A Bottleneck's residual branch is damped: its ``bn3`` scale is divided
+    by the square root of the trunk's block count, so the residual stream
+    grows by a bounded factor over the 16 to 50 blocks in eval and train
+    mode alike (undamped, the eval-mode stream of a 152-layer trunk grows
+    without bound and the stage-2 render sees no hand).  Depth 18 draws
+    what it always has, in the same order."""
+    from dsf_tpu_torch.models.resnet import RESNET_SPECS, BasicBlock
+    block, blocks = RESNET_SPECS[depth]
+    exp = block.expansion
+    damp = 1.0 / np.sqrt(sum(blocks))
     sd = {}
     J = 21
 
@@ -131,14 +163,16 @@ def random_reference_state_dict(rng: np.random.RandomState,
         std = np.sqrt(2.0 / (k * k * in_c)) if std is None else std
         sd[f"{name}.weight"] = (rng.randn(out_c, in_c, k, k) * std).astype(np.float32)
 
-    def bn(name, c):
-        sd[f"{name}.weight"] = rng.uniform(0.8, 1.2, c).astype(np.float32)
+    def bn(name, c, scale=None):
+        w = rng.uniform(0.8, 1.2, c).astype(np.float32)
+        sd[f"{name}.weight"] = w if scale is None else (w * scale).astype(np.float32)
         sd[f"{name}.bias"] = (rng.randn(c) * 0.05).astype(np.float32)
         sd[f"{name}.running_mean"] = (rng.randn(c) * 0.05).astype(np.float32)
         sd[f"{name}.running_var"] = rng.uniform(0.8, 1.5, c).astype(np.float32)
         sd[f"{name}.num_batches_tracked"] = np.asarray(100, np.int64)
 
-    def basic_block(prefix, in_c, out_c, stride):
+    def basic_block(prefix, in_c, planes, stride):
+        out_c = planes
         conv(f"{prefix}.conv1", out_c, in_c, 3)
         bn(f"{prefix}.bn1", out_c)
         conv(f"{prefix}.conv2", out_c, out_c, 3, std=np.sqrt(1.0 / (9 * out_c)))
@@ -147,19 +181,34 @@ def random_reference_state_dict(rng: np.random.RandomState,
             conv(f"{prefix}.downsample.0", out_c, in_c, 1)
             bn(f"{prefix}.downsample.1", out_c)
 
+    def bottleneck(prefix, in_c, planes, stride):
+        out_c = planes * exp
+        conv(f"{prefix}.conv1", planes, in_c, 1)
+        bn(f"{prefix}.bn1", planes)
+        conv(f"{prefix}.conv2", planes, planes, 3)
+        bn(f"{prefix}.bn2", planes)
+        conv(f"{prefix}.conv3", out_c, planes, 1, std=np.sqrt(1.0 / planes))
+        bn(f"{prefix}.bn3", out_c, scale=damp)
+        if stride != 1 or in_c != out_c:
+            conv(f"{prefix}.downsample.0", out_c, in_c, 1)
+            bn(f"{prefix}.downsample.1", out_c)
+
+    draw_block = basic_block if block is BasicBlock else bottleneck
+
     def res_layers(suffix, in0):
         in_c = in0
         for li, (c, s) in enumerate([(64, 1), (128, 2), (256, 2), (512, 2)], 1):
-            basic_block(f"layer{li}{suffix}.0", in_c, c, s)
-            basic_block(f"layer{li}{suffix}.1", c, c, 1)
-            in_c = c
+            for bi in range(blocks[li - 1]):
+                draw_block(f"layer{li}{suffix}.{bi}", in_c, c, s if bi == 0 else 1)
+                in_c = c * exp
 
     def heads(suffix):
-        sd[f"mano_regress{suffix}.2.weight"] = (rng.randn(62, 512) * 1e-3).astype(np.float32)
+        feat = 512 * exp
+        sd[f"mano_regress{suffix}.2.weight"] = (rng.randn(62, feat) * 1e-3).astype(np.float32)
         bias = np.zeros(62, np.float32)
         bias[58] = 1.0
         sd[f"mano_regress{suffix}.2.bias"] = bias
-        ins = 512
+        ins = feat
         for li in (4, 3, 2):
             sd[f"deconv_layer{li}{suffix}.0.weight"] = (
                 rng.randn(ins, 256, 4, 4) * np.sqrt(2.0 / (4 * ins))).astype(np.float32)

@@ -55,7 +55,7 @@ import torch
 
 from dsf_tpu_torch import exported
 from dsf_tpu_torch import geometry as geo
-from dsf_tpu_torch.config import CAMERA, Config, check_devices
+from dsf_tpu_torch.config import CAMERA, Config, check_devices, net_depth
 from dsf_tpu_torch.device import (compute_dtype, exact_float32,
                                   resolve_device, widen)
 from dsf_tpu_torch.exported import load_exported  # noqa: F401 (re-export)
@@ -63,6 +63,7 @@ from dsf_tpu_torch.mano import model as mano_model
 from dsf_tpu_torch.mano.constants import transfer_for_dataset
 from dsf_tpu_torch.models.backbone import ManoOCRStage
 from dsf_tpu_torch.models.weights import (load_into, load_reference_state_dict,
+                                          reference_depth,
                                           state_dict_from_jax)
 from dsf_tpu_torch.ops.offset_codec import offset2joint_softmax
 from dsf_tpu_torch.render import renderer as rnd
@@ -162,8 +163,7 @@ class InferenceEngine:
                  mano_npz: Optional[str] = None,
                  buckets: Sequence[int] = (1, 8, 32), device=None,
                  devices: Optional[Sequence] = None):
-        if "ResNet" not in cfg.net:
-            raise NotImplementedError(cfg.net)
+        depth = net_depth(cfg)
         dtype = compute_dtype(cfg)
         self.buckets = tuple(sorted(buckets))
         n = cfg.num_devices
@@ -184,7 +184,6 @@ class InferenceEngine:
         self.transfer_map = np.asarray(transfer_for_dataset(cfg.dataset))
         sd = (state_dict_from_jax(variables) if "params" in variables
               else variables)
-        depth = int(cfg.net.split("_")[-1])
         # one (net, renderer, transfer map) a device
         self.replicas = []
         for dev in self.devices:
@@ -206,11 +205,13 @@ class InferenceEngine:
                               mano_npz: str = "./MANO/mano_right.npz",
                               buckets: Sequence[int] = (1, 8, 32),
                               device=None):
-        """Serve a reference MANO_OCR_stage ``.pth`` directly."""
+        """Serve a reference MANO_OCR_stage ``.pth`` directly, at the
+        trunks' depth its keys hold (``weights.reference_depth``)."""
+        sd = load_reference_state_dict(pth)
         cfg = Config(dataset=dataset, stage_num=stage_num, phase="test",
-                     mano_model_path=mano_npz)
-        return cls(cfg, load_reference_state_dict(pth), buckets=buckets,
-                   device=device)
+                     mano_model_path=mano_npz,
+                     net=f"ResNet_stage_{reference_depth(sd)}")
+        return cls(cfg, sd, buckets=buckets, device=device)
 
     @classmethod
     def from_run_dir(cls, run_dir: str, which: str = "best",

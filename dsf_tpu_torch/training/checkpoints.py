@@ -98,12 +98,34 @@ def restore_variables(path: str, device="cpu") -> Dict[str, torch.Tensor]:
     return _load(path, device)["net"]
 
 
+def check_net(path: str, net, sd) -> None:
+    """Raise RuntimeError, naming the keys, unless the state dict ``sd``
+    (read from ``path``) has every key of ``net``'s state dict at its
+    shape and no other: a checkpoint of another net (a ResNet trunk of
+    another depth, one stage for two) is refused before any tensor
+    loads."""
+    own = net.state_dict()
+    missing = sorted(set(own) - set(sd))
+    unexpected = sorted(set(sd) - set(own))
+    shapes = [f"{k} {tuple(sd[k].shape)} for {tuple(v.shape)}"
+              for k, v in own.items() if k in sd and sd[k].shape != v.shape]
+    if missing or unexpected or shapes:
+        raise RuntimeError(
+            f"checkpoint {path} does not fit the net: {len(missing)} keys "
+            f"missing {missing[:6]}, {len(unexpected)} unexpected "
+            f"{unexpected[:6]}, {len(shapes)} of another shape {shapes[:6]}")
+
+
 def restore(path: str, trainer, state, weights_only: bool = False):
     """Restore into ``state`` (in place) -> (state, the epoch to start
     at).  With ``weights_only`` (the reference's finetune_dir warm start,
     train_render.py:138-145) only the net loads; the optimizer and the
-    step restart."""
+    step restart.  A checkpoint that does not fit the net or the
+    optimizer raises before anything loads (``check_net``)."""
     ckpt = _load(path, trainer.device)
+    check_net(path, state.net, ckpt["net"])
+    if not weights_only:
+        state.optimizer.check_state_dict(ckpt["optimizer"])
     state.net.load_state_dict(ckpt["net"])
     if weights_only:
         return state, 0

@@ -65,7 +65,7 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from dsf_tpu_torch import geometry as geo
-from dsf_tpu_torch.config import CAMERA, Config, check_world
+from dsf_tpu_torch.config import CAMERA, Config, check_world, net_depth
 from dsf_tpu_torch.device import (compute_dtype, exact_float32,
                                   resolve_device, widen)
 from dsf_tpu_torch.mano import model as mano_model
@@ -280,15 +280,21 @@ class GuardedOptimizer:
                 **{k: whole(v) for k, v in self.buffers.items()},
                 **{k: getattr(self, k) for k in self.COUNTERS}}
 
-    def load_state_dict(self, sd: Mapping) -> None:
+    def check_state_dict(self, sd: Mapping) -> None:
+        """Raise ValueError unless ``sd`` is a state of this optimizer's
+        kind and size; nothing is loaded."""
         if sd["kind"] != self.kind:
             raise ValueError(f"a {sd['kind']} state for a {self.kind} "
                              "optimizer")
-        dev = self.count.device
         for k in self.buffers:
             if sd[k].shape != (self.numel,):
                 raise ValueError(f"{k}: {tuple(sd[k].shape)} for "
                                  f"({self.numel},)")
+
+    def load_state_dict(self, sd: Mapping) -> None:
+        self.check_state_dict(sd)
+        dev = self.count.device
+        for k in self.buffers:
             v = sd[k].to(dev, torch.float32)
             self.buffers[k] = (self._shard(v) if self.mesh.n_fsdp > 1
                                else v).clone()
@@ -374,7 +380,8 @@ class Trainer:
     """The port's trainer.
 
     Args:
-      cfg: a ``Config``; ``cfg.net`` must be a ResNet and
+      cfg: a ``Config``; ``cfg.net`` must be a ResNet of depth 18, 50,
+        101 or 152 (``config.net_depth``) and
         ``cfg.compute_dtype`` "float32" or "bfloat16" (the net's and the
         generator's; ``device.compute_dtype``).  ``cfg.batch_size`` is the
         global batch and ``cfg.n_fsdp`` the ranks sharing one optimizer
@@ -399,8 +406,7 @@ class Trainer:
 
     def __init__(self, cfg: Config, mano_npz: str, steps_per_epoch: int = 1000,
                  device=None, mesh: Optional[Mesh] = None):
-        if "ResNet" not in cfg.net:
-            raise NotImplementedError(cfg.net)
+        net_depth(cfg)
         check_world(cfg, mesh.world if mesh is not None
                     else distributed.world())
         self.dtype = compute_dtype(cfg)
@@ -435,11 +441,13 @@ class Trainer:
         with ``cfg.seed`` (``random_reference_state_dict``); AdamW moments
         at zero."""
         cfg = self.cfg
-        net = ManoOCRStage(joint_num=21, depth=int(cfg.net.split("_")[-1]),
+        depth = net_depth(cfg)
+        net = ManoOCRStage(joint_num=21, depth=depth,
                            refine=cfg.stage_num == 2, dtype=self.dtype)
         if variables is None:
             sd = random_reference_state_dict(np.random.RandomState(cfg.seed),
-                                             refine=cfg.stage_num == 2)
+                                             refine=cfg.stage_num == 2,
+                                             depth=depth)
         else:
             sd = state_dict_from_jax(variables)
         load_into(net, sd)

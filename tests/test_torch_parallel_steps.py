@@ -42,7 +42,7 @@ def mano(tmp_path_factory):
 def steps(mano, tmp_path_factory):
     runs = [(p, p, kw, False) for p, kw in PHASES]
     two = W.run_world("steps", 2, dict(mano=mano, runs=runs + [LOCAL_BN],
-                                       fsdp=BASE),
+                                       fsdp=BASE, remat=("FinetuneStage",)),
                       str(tmp_path_factory.mktemp("w")), timeout=900)
     return W.steps(dict(mano=mano, runs=runs)), two
 
@@ -114,6 +114,22 @@ def test_rank_local_batch_norm_is_caught(steps):
     loss, metric, grad, st1, st2 = _compare(
         steps[0]["Pretrain"], [r["local"] for r in steps[1]])
     assert loss > 1e-3 and grad > 0.1 and st1 > 1e-2, (loss, grad, st1)
+
+
+def test_remat_over_two_ranks_is_bitwise(steps):
+    """DSF_REMAT=1 on two ranks: the FinetuneStage step (two BatchNorm
+    groups, statistics over both ranks' rows) gives each rank the metrics,
+    gradient, running statistics and parameters of DSF_REMAT=0 bitwise.
+    The recompute in the backward pass runs each BatchNorm with its
+    forward's groups and global statistics (an all-reduce on both ranks)
+    and takes no second update of the running statistics."""
+    for r in steps[1]:
+        a, b = r["FinetuneStage"], r["FinetuneStage_remat"]
+        assert a["metrics"] == b["metrics"]
+        for k in ("grad", "params"):
+            assert np.array_equal(a[k], b[k]), k
+        for name, v in a["stats"].items():
+            assert np.array_equal(v, b["stats"][name]), name
 
 
 def test_fsdp_two_equals_data_parallel(steps):

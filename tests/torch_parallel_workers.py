@@ -219,12 +219,18 @@ def steps(case):
     the trainers' seeded weights and draws: the step's metrics averaged
     over the ranks, this rank's flat gradient (the ranks' mean is the
     global one), the running statistics and the parameters after the
-    update.  Then two Pretrain steps of ``n_fsdp`` 1 and 2
+    update.  The labels in ``case["remat"]`` run again with DSF_REMAT=1
+    (``{label}_remat``).  Then two Pretrain steps of ``n_fsdp`` 1 and 2
     (``case["fsdp"]``): their parameters."""
     from dsf_tpu_torch import demo
     from dsf_tpu_torch.data.synth_params import random_param_source
     out = {}
-    for label, phase, kw, local_bn in case["runs"]:
+    runs = list(case["runs"])
+    runs += [(f"{label}_remat", phase, kw, local_bn)
+             for label, phase, kw, local_bn in case["runs"]
+             if label in case.get("remat", ())]
+    for label, phase, kw, local_bn in runs:
+        os.environ["DSF_REMAT"] = "1" if label.endswith("_remat") else "0"
         tr = _trainer(kw, case["mano"])
         B = kw["batch_size"]
         state = tr.init_state()
@@ -247,6 +253,7 @@ def steps(case):
             stats={n: _np(b) for n, b in net.named_buffers()
                    if "running" in n},
             params=np.concatenate([_np(p).ravel() for p in net.parameters()]))
+    os.environ.pop("DSF_REMAT", None)
     if case.get("fsdp"):
         kw = case["fsdp"]
         for n_fsdp in (1, 2):

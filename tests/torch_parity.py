@@ -62,6 +62,59 @@ def jax_finetune_stage_draws(key, batch, depth_range, crop_size, mask=True):
     return TP.FinetuneStageDraws(synth, _t(view), _t(scores))
 
 
+def _deep_draw(path, shape, rng, damp):
+    """One leaf of the JAX tree, drawn by its name (Flax layouts: conv
+    kernels (kh, kw, in, out), transposed ones (kh, kw, out, in), dense
+    (in, out))."""
+    names = [str(getattr(k, "key", k)) for k in path]
+    leaf, owner = names[-1], names[-2]
+    if names[0] == "batch_stats":
+        return (rng.randn(*shape) * 0.05 if leaf == "mean"
+                else rng.uniform(0.8, 1.5, shape))
+    if leaf == "scale":
+        return rng.uniform(0.8, 1.2, shape) * (damp if "bn3" in names else 1.0)
+    if "mano_regress" in names:
+        if leaf == "kernel":
+            return rng.randn(*shape) * 1e-3
+        bias = np.zeros(shape)
+        bias[58] = 1.0
+        return bias
+    if "final_offset" in names or "final_heat" in names:
+        return rng.randn(*shape) * 1e-3
+    if leaf == "bias":
+        return rng.randn(*shape) * 0.05
+    if owner == "deconv":
+        return rng.randn(*shape) * np.sqrt(2.0 / (4 * shape[3]))
+    kh, kw, cin, _ = shape
+    if "conv3" in names:
+        return rng.randn(*shape) * np.sqrt(1.0 / cin)
+    return rng.randn(*shape) * np.sqrt(2.0 / (kh * kw * cin))
+
+
+def jax_deep_variables(depth, jr, size, refine=True, seed=0):
+    """Numpy-drawn variables of the JAX ManoOCRStage at ``depth`` (crops
+    of ``size``), in the tree ``jax.eval_shape`` of its ``init`` gives: a
+    jitted Flax ``init`` at depth 50 or more takes tens of seconds on the
+    CPU, and the JAX package converts ResNet-18 weights alone.  Each leaf
+    is drawn by its name as ``random_reference_state_dict`` draws the
+    port's layout (every Bottleneck's ``bn3`` scale damped by the square
+    root of the trunk's block count)."""
+    from dsf_tpu.models.backbone import ManoOCRStage as JManoOCRStage
+    from dsf_tpu.models.resnet import RESNET_SPECS as J_SPECS
+    net = JManoOCRStage(joint_num=21, depth=depth, refine=refine)
+    x = jnp.zeros((1, 1, size, size), jnp.float32)
+    c = jnp.array([[0.0, 0.0, 700.0]], jnp.float32)
+    cube = jnp.full((1, 3), 250.0, jnp.float32)
+    tree = jax.eval_shape(lambda: net.init(jax.random.PRNGKey(0), x, jr, c,
+                                           cube, train=False))
+    rng = np.random.RandomState(seed)
+    damp = 1.0 / np.sqrt(sum(J_SPECS[depth][1]))
+    leaves, treedef = jax.tree_util.tree_flatten_with_path(tree)
+    return jax.tree_util.tree_unflatten(treedef, [
+        _deep_draw(p, leaf.shape, rng, damp).astype(np.float32)
+        for p, leaf in leaves])
+
+
 def gradient_spread(seed=0, batch=2, size=64):
     """The conditioning numbers test_torch_train_step.py states: on its
     inputs (seeded weights, batch and key), the relative L2 distance per
