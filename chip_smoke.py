@@ -214,10 +214,16 @@ Phases, each printed on its own line(s); any failure exits non-zero:
    PAR_CAUGHT; a conv+BN stack against
    world 1 within 1e-5; each rank's step ms and the flat gradient's
    all-reduce ms (gloo, staged through the host: not NCCL's time).
-   (c) The same ranks with ``n_fsdp=2``: the guarded AdamW fed (b)'s
-   gradients bitwise data parallelism's, and two FinetuneStage steps
-   (the second from (b)'s state) within PAR_SAME_SPLIT of (b)'s, the
-   ranks' gathered parameters equal.  (d) The engine with
+   (c) The same ranks with ``n_fsdp=2`` (ZeRO-3: the parameters sharded
+   too, each unit gathered for its forward and backward): the guarded
+   AdamW fed (b)'s gradients bitwise data parallelism's; two
+   FinetuneStage steps from (b)'s seeded weights and inputs, under
+   deterministic algorithms as (b)'s, bitwise (b)'s (losses, parameters,
+   gathered moments, statistics), the mean gradient within
+   PAR_SAME_SPLIT of (b)'s ranks' mean, phase 4's launches, half the
+   parameter and optimizer bytes at rest; then a world of its own
+   (``par_memory``) at depth 152, n_fsdp 1 and 2: each rank's parameter
+   and optimizer bytes at rest, peak memory and step ms.  (d) The engine with
    ``num_devices=2`` on devices (cuda:0, cuda:0), buckets 8 and 32,
    against the one-device engine by phase 3's tolerances.  (e) As (b)
    over NCCL on two cards where the machine has them, else one line.
@@ -237,7 +243,8 @@ Phases, each printed on its own line(s); any failure exits non-zero:
    and their batches' uvd_gt within +-1.5; one bfloat16 CCSSL step,
    finite.  Then at B=4 from the same seeded weights, card against CPU
    and the CPU in float64: ``prediction_check``'s five warps bitwise but
-   at counted ties, its joints within the engine's 0.5 mm in the crop
+   at counted ties (at 128^2 and on a 96^2 crop, where 1 / size is
+   inexact), its joints within the engine's 0.5 mm in the crop
    frame and its confidences within 1e-5 (or 3x the CPU's distance from
    float64); one CCSSL loss within 1e-4 relative and its gradients
    within phase 5's float32 tolerances and witness rule (the stage-1
@@ -4142,7 +4149,7 @@ def par_split(flat, names):
 
 def par_steps(mano_path, mesh, dtype, phase, steps, device, out_dir=None,
               carry=None, local_bn=False, cudnn=True, witness=False,
-              render_parts=1, deterministic=True):
+              render_parts=1, deterministic=True, moments=False):
     """``steps`` steps of ``phase`` (Pretrain or FinetuneStage) at the
     global B=TRAIN_BATCH from the seeded weights, draws and batches, on
     this process's stripe (``mesh``); per step the global loss, the flat
@@ -4159,9 +4166,14 @@ def par_steps(mano_path, mesh, dtype, phase, steps, device, out_dir=None,
     ``deterministic_algorithms`` (the second step of a run is compared
     with another side's second step, each started from the state the
     ranks' first step left: with the defaults that state, and so the
-    comparison, differs from run to run)."""
+    comparison, differs from run to run).  ``moments``: each record also
+    holds the digests of the gathered AdamW moments after its step.
+    Under ``n_fsdp`` 2 (ZeRO-3) a record's gradient is the ranks' mean
+    the optimizer read, and every record holds this rank's parameter
+    bytes (``fsdp.param_bytes``) and optimizer bytes after its step."""
     import torch
     from dsf_tpu_torch.data.synth_params import random_param_source
+    from dsf_tpu_torch.parallel import fsdp
     from dsf_tpu_torch.training.trainer import Trainer
     B = TRAIN_BATCH
     stages = 2
@@ -4182,15 +4194,16 @@ def par_steps(mano_path, mesh, dtype, phase, steps, device, out_dir=None,
                 else contextlib.nullcontext()):
             for k in range(steps):
                 state, rec = _par_step(tr, state, step, phase, src, rng, k,
-                                       carry, witness and k == 0)
+                                       carry, witness and k == 0, moments)
                 recs.append(rec)
                 if out_dir is None or k + 1 == steps:
                     continue
-                sd = state.optimizer.state_dict()  # a collective (n_fsdp)
+                # collectives under n_fsdp 2: every rank takes them
+                sd = {"net": fsdp.state_dict(state.net),
+                      "optimizer": state.optimizer.state_dict()}
                 if tr.mesh.rank == 0:
-                    torch.save({"net": state.net.state_dict(),
-                                "optimizer": sd},
-                               os.path.join(out_dir, f"{phase}_{k + 1}.pt"))
+                    torch.save(sd, os.path.join(out_dir,
+                                                f"{phase}_{k + 1}.pt"))
     finally:
         torch.backends.cudnn.enabled = was
     return recs, par_names(state.net)
@@ -4224,11 +4237,13 @@ def par_split_render(parts):
         phases.pretrain_sample, phases.finetune_stage_sample = saved
 
 
-def _par_step(tr, state, step, phase, src, rng, k, carry, witness):
+def _par_step(tr, state, step, phase, src, rng, k, carry, witness,
+              moments=False):
     """Step k of ``par_steps`` -> (state, its record)."""
     import torch
     from dsf_tpu_torch import demo, kernels
     from dsf_tpu_torch.device import exact_float32
+    from dsf_tpu_torch.parallel import fsdp
     from dsf_tpu_torch.training import phases
     B = TRAIN_BATCH
     batch = dict(zip(("model_para", "cube_synth"), next(src)))
@@ -4239,7 +4254,7 @@ def _par_step(tr, state, step, phase, src, rng, k, carry, witness):
     if carry is not None and k > 0:
         saved = torch.load(carry(k), map_location=tr.device,
                            weights_only=True)
-        state.net.load_state_dict(saved["net"])
+        fsdp.load_state_dict(state.net, saved["net"])
         state.optimizer.load_state_dict(saved["optimizer"])
     seen = {}
     if witness:
@@ -4258,15 +4273,35 @@ def _par_step(tr, state, step, phase, src, rng, k, carry, witness):
     loss = float(tr.global_metrics(m)["loss"])
     torch.cuda.synchronize(tr.device)
     ms = (time.perf_counter() - t0) * 1e3
-    return state, dict(
-        seen, loss=loss, ms=ms,
-        launches={n: kernels.LAUNCHES[n] - before[n] for n in KERNELS},
-        grad=torch.cat([p.grad.reshape(-1) for p in
-                        state.net.parameters()]).float().cpu(),
+    launched = {n: kernels.LAUNCHES[n] - before[n] for n in KERNELS}
+    net, opt = state.net, state.optimizer
+    sharded = fsdp.sharded(net)
+    if sharded is None:
+        grad = torch.cat([p.grad.reshape(-1) for p in net.parameters()])
+    else:
+        grad = sharded.whole_flat(sharded.grad)
+    sd = fsdp.state_dict(net)
+    rec = dict(
+        seen, loss=loss, ms=ms, launches=launched, grad=grad.float().cpu(),
         stats={n: b.detach().cpu().clone()
-               for n, b in state.net.named_buffers() if "running" in n},
-        params=torch.cat([p.detach().reshape(-1) for p in
-                          state.net.parameters()]).cpu())
+               for n, b in net.named_buffers() if "running" in n},
+        params=torch.cat([sd[n].reshape(-1)
+                          for n, _ in net.named_parameters()]),
+        param_bytes=fsdp.param_bytes(net),
+        opt_bytes=sum(b.untyped_storage().nbytes()
+                      for b in opt.buffers.values()))
+    if moments:
+        rec["moments"] = {k: digest(v) for k, v in opt.state_dict().items()
+                          if torch.is_tensor(v) and v.dim() == 1}
+    return state, rec
+
+
+def digest(t):
+    """A tensor's shape and bytes, hashed (bitwise equality of the
+    gathered moments without carrying them)."""
+    import hashlib
+    a = t.detach().cpu().contiguous().numpy()
+    return f"{a.shape}:{hashlib.sha1(a.tobytes()).hexdigest()}"
 
 
 def par_expected(phase, dtype):
@@ -4349,21 +4384,25 @@ def par_fsdp_same_grads(dp, fsdp, names, grads, device):
     them)."""
     import torch
     from dsf_tpu_torch.config import Config
+    from dsf_tpu_torch.parallel import fsdp as Z
     from dsf_tpu_torch.training.trainer import make_optimizer
     gen = torch.Generator().manual_seed(SEED + 80)
     w = [torch.randn(k, generator=gen) for _, k in names]
     sides = []
     for mesh in (dp, fsdp):
-        params = [torch.nn.Parameter(t.to(device)) for t in w]
-        sides.append((params, make_optimizer(Config(), params, 1000, mesh)))
+        module = torch.nn.ParameterList([torch.nn.Parameter(t) for t in w])
+        # n_fsdp 2: the parameters sharded too, the list one unit
+        held = (Z.shard(module, mesh, device) if mesh.n_fsdp > 1
+                else list(module.to(device)))
+        sides.append((module, make_optimizer(Config(), held, 1000, mesh)))
     same = []
     for g in grads:
-        for params, opt in sides:
-            for p, x in zip(params, g.split([k for _, k in names])):
+        for module, opt in sides:
+            for p, x in zip(module, g.split([k for _, k in names])):
                 p.grad = x.to(device)
             opt.step()
-        same.append(all(torch.equal(a, b) for a, b in zip(sides[0][0],
-                                                            sides[1][0])))
+        a, b = (Z.state_dict(module) for module, _ in sides)
+        same.append(all(torch.equal(a[k], b[k]) for k in a))
     sd = [opt.state_dict() for _, opt in sides]
     same.append(all(torch.equal(sd[0][k], sd[1][k]) for k in ("mu", "nu")))
     return same
@@ -4375,8 +4414,9 @@ def parallel_rank(out_dir):
     gloo puts every rank on cuda:0, nccl rank r on cuda:r): PAR_STEPS
     FinetuneStage and Pretrain steps with data parallelism, one step of
     each with rank-local BatchNorm (the control) and one with cuDNN off
-    (the witness), then the FinetuneStage steps again with ``n_fsdp=2``,
-    each from (b)'s state after the step before; its records go to
+    (the witness), then the FinetuneStage steps again with ``n_fsdp=2``
+    (ZeRO-3) from the same seeded weights and inputs; with ``PAR_MODE``
+    "memory" ``par_memory`` alone.  Its records go to
     ``out_dir/rank{r}.pt``."""
     import torch
     from dsf_tpu_torch.device import exact_float32
@@ -4387,12 +4427,17 @@ def parallel_rank(out_dir):
     device = distributed.initialize(f"cuda:{local}", backend=backend)
     path = os.environ["PAR_MANO"]
     out = {"device": str(device), "backend": backend}
+    if os.environ.get("PAR_MODE") == "memory":
+        with exact_float32():
+            out["memory"] = par_memory(path, device)
+        return _par_rank_done(out, out_dir)
     with exact_float32():
         mesh = make_mesh()
         for phase in PAR_PHASES:
-            out[phase], names = par_steps(path, mesh, "float32", phase,
-                                          PAR_STEPS, device, out_dir=out_dir,
-                                          witness=True)
+            out[phase], names = par_steps(
+                path, mesh, "float32", phase, PAR_STEPS, device,
+                out_dir=out_dir, witness=True,
+                moments=phase == "FinetuneStage")
             out[f"{phase} local_bn"], _ = par_steps(
                 path, mesh, "float32", phase, 1, device, local_bn=True,
                 deterministic=False)
@@ -4407,20 +4452,80 @@ def parallel_rank(out_dir):
         out["fsdp_same"] = par_fsdp_same_grads(
             mesh, fsdp, names, [r["grad"] for r in out["FinetuneStage"]],
             device)
-        out["fsdp"], _ = par_steps(
-            path, fsdp, "float32", "FinetuneStage", PAR_STEPS, device,
-            carry=lambda k: os.path.join(out_dir, f"FinetuneStage_{k}.pt"))
-    r = distributed.rank()
-    torch.save(out, os.path.join(out_dir, f"rank{r}.pt"))
+        out["fsdp"], _ = par_steps(path, fsdp, "float32", "FinetuneStage",
+                                   PAR_STEPS, device, moments=True)
+    return _par_rank_done(out, out_dir)
+
+
+def _par_rank_done(out, out_dir):
+    import torch
+    from dsf_tpu_torch.parallel import distributed
+    torch.save(out, os.path.join(out_dir, f"rank{distributed.rank()}.pt"))
     torch.distributed.barrier()
     torch.distributed.destroy_process_group()
     return 0
 
 
-def par_world(backend, mano_path, out_dir):
-    """Start PAR_RANKS ranks of this script (``parallel_rank``) and return
-    their records; a rank that fails or passes PAR_TIMEOUT fails the
-    phase (every rank is killed first)."""
+PAR_MEMORY_NET = "ResNet_stage_152"
+PAR_MEMORY_STEPS = 2
+
+
+def par_memory(mano_path, device):
+    """ZeRO-3's memory at depth 152 (139.0 M parameters): one float32
+    FinetuneStage run of PAR_MEMORY_STEPS steps at the global B=32 (16
+    rows this rank) with ``n_fsdp`` 1 and then 2, with the card's default
+    algorithms.  Per run: this rank's parameter and optimizer bytes after
+    init_state and after each step, ``max_memory_allocated`` over the
+    steps (the peak reset after init_state), and each step's ms (host
+    clock to a synchronized loss; the first step chooses cuDNN's
+    algorithms)."""
+    import torch
+    from dsf_tpu_torch import demo
+    from dsf_tpu_torch.data.synth_params import random_param_source
+    from dsf_tpu_torch.parallel import fsdp
+    from dsf_tpu_torch.parallel.mesh import make_mesh
+    from dsf_tpu_torch.training.trainer import Trainer
+    out = {}
+    for n_fsdp in (1, 2):
+        mesh = make_mesh(n_fsdp)
+        tr = Trainer(train_config(mano_path, 2, SEED, "float32",
+                                  PAR_MEMORY_NET), mano_path, device=device,
+                     mesh=mesh)
+        state = tr.init_state()
+        opt = state.optimizer
+        resident = lambda: (fsdp.param_bytes(state.net), sum(
+            b.untyped_storage().nbytes() for b in opt.buffers.values()))
+        rec = dict(rest=[resident()], ms=[], loss=[])
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        src = random_param_source(TRAIN_BATCH, seed=SEED + 5)
+        rng = np.random.RandomState(SEED + 6)
+        step = tr.train_step_fn("FinetuneStage")
+        for _ in range(PAR_MEMORY_STEPS):
+            batch = dict(zip(("model_para", "cube_synth"), next(src)))
+            batch.update(demo.real_batch(tr.renderer, TRAIN_BATCH, rng))
+            batch = {k: mesh.stripe(v) for k, v in batch.items()}
+            draws = tr.draw(TRAIN_BATCH, "FinetuneStage")
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            state, m = step(state, draws, batch)
+            rec["loss"].append(float(tr.global_metrics(m)["loss"]))
+            torch.cuda.synchronize(device)
+            rec["ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["rest"].append(resident())
+        rec["peak"] = torch.cuda.max_memory_allocated(device)
+        rec["numel"] = opt.numel
+        out[n_fsdp] = rec
+        del tr, state, opt, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def par_world(backend, mano_path, out_dir, mode="steps"):
+    """Start PAR_RANKS ranks of this script (``parallel_rank``; ``mode``
+    "memory": ``par_memory`` alone) and return their records; a rank that
+    fails or passes PAR_TIMEOUT fails the phase (every rank is killed
+    first)."""
     import torch
     port = free_port()
     procs = []
@@ -4428,7 +4533,7 @@ def par_world(backend, mano_path, out_dir):
         env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r),
                    WORLD_SIZE=str(PAR_RANKS), MASTER_ADDR="localhost",
                    MASTER_PORT=str(port), PAR_BACKEND=backend,
-                   PAR_MANO=mano_path)
+                   PAR_MANO=mano_path, PAR_MODE=mode)
         procs.append(subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--phase9-rank",
              out_dir], env=env, stdout=subprocess.PIPE,
@@ -4584,6 +4689,97 @@ def par_check_world(tag, ranks, plain, names):
              f"{tag}: the synchronized BatchNorm differs from world 1's")
 
 
+def check_zero3(gloo, names, smi):
+    """Phase 9 (c): the guarded AdamW fed (b)'s gradients, and PAR_STEPS
+    FinetuneStage steps under ZeRO-3 against (b)'s from the same seeded
+    weights and inputs (both under deterministic algorithms): each rank's
+    losses, parameters, gathered moments and running statistics bitwise,
+    its launches phase 4's, its parameter and optimizer bytes at rest
+    the pieces'; the mean gradient within PAR_SAME_SPLIT of (b)'s ranks'
+    mean (and whether bitwise)."""
+    import torch
+    want = par_expected("FinetuneStage", "float32")
+    for r, rk in enumerate(gloo):
+        say(f"parallel (c) n_fsdp=2 rank {r}, the guarded AdamW fed "
+            f"(b)'s gradients: parameters after each of {PAR_STEPS} "
+            "updates, then the gathered moments, bitwise data "
+            f"parallelism's: {rk['fsdp_same']}")
+        need(all(rk["fsdp_same"]), "n_fsdp=2's update differs from "
+             "data parallelism's on the same gradients")
+        need(all(s["launches"] == want for s in rk["fsdp"]),
+             f"n_fsdp=2 rank {r}: launches "
+             f"{[s['launches'] for s in rk['fsdp']]}")
+        for k, (z, d) in enumerate(zip(rk["fsdp"], rk["FinetuneStage"])):
+            same = dict(
+                loss=z["loss"] == d["loss"],
+                params=torch.equal(z["params"], d["params"]),
+                moments=z["moments"] == d["moments"],
+                stats=all(torch.equal(v, d["stats"][n])
+                          for n, v in z["stats"].items()),
+                mean_grad=torch.equal(z["grad"], par_mean(
+                    gloo, "FinetuneStage", k)["grad"]))
+            say(f"parallel (c) rank {r} step {k}: ZeRO-3 against data "
+                f"parallelism, bitwise by reading: {json.dumps(same)}; "
+                f"loss {z['loss']:.9g} vs {d['loss']:.9g}; parameter bytes "
+                f"{z['param_bytes']} vs {d['param_bytes']}, optimizer bytes "
+                f"{z['opt_bytes']} vs {d['opt_bytes']} (this rank, at rest "
+                f"after the step); step ms {z['ms']:.3f} vs {d['ms']:.3f}; "
+                f"{smi}")
+            need(all(v for key, v in same.items() if key != "mean_grad"),
+                 f"n_fsdp=2 rank {r} step {k} differs from data "
+                 f"parallelism: {same}")
+            need(2 * z["param_bytes"] < d["param_bytes"] + 4 * 1024 ** 2
+                 and 2 * z["opt_bytes"] < d["opt_bytes"] + 8 * 1024 ** 2,
+                 f"n_fsdp=2 rank {r}: {z['param_bytes']} parameter and "
+                 f"{z['opt_bytes']} optimizer bytes at rest, not half of "
+                 f"{d['param_bytes']} and {d['opt_bytes']}")
+    for k in range(PAR_STEPS):
+        par_hold(f"parallel (c) n_fsdp=2 FinetuneStage step {k}, the mean "
+                 "gradient against (b)'s ranks' mean", gloo[0]["fsdp"][k],
+                 par_mean(gloo, "FinetuneStage", k), names, PAR_SAME_SPLIT)
+    need(torch.equal(gloo[0]["fsdp"][-1]["params"],
+                     gloo[1]["fsdp"][-1]["params"]),
+         "n_fsdp=2: the ranks' gathered parameters differ")
+
+
+def report_par_memory(mem, smi):
+    """Phase 9 (c) at depth 152: each rank's parameter and optimizer bytes
+    at rest, peak memory and step ms under ``n_fsdp`` 1 and 2; the
+    parameter and optimizer bytes at rest must stay the same after each
+    step, and halve (to within the units' padding) under ``n_fsdp=2``;
+    the losses must be finite."""
+    mib = lambda b: b / 2 ** 20
+    for r, rk in enumerate(mem):
+        m = rk["memory"]
+        for n in (1, 2):
+            rec = m[n]
+            say(f"parallel (c) memory {PAR_MEMORY_NET} ({rec['numel']} "
+                f"parameters) FinetuneStage float32, 16 rows a rank, "
+                f"n_fsdp={n} rank {r}: parameter bytes at rest "
+                f"{rec['rest'][0][0]} ({mib(rec['rest'][0][0]):.1f} MiB), "
+                f"optimizer bytes {rec['rest'][0][1]} "
+                f"({mib(rec['rest'][0][1]):.1f} MiB), after each step "
+                + json.dumps(rec["rest"][1:])
+                + f"; max_memory_allocated {rec['peak']} "
+                f"({rec['peak'] / 2 ** 30:.3f} GiB); step ms "
+                + json.dumps([round(t, 3) for t in rec["ms"]])
+                + f"; losses {rec['loss']}; {smi}")
+            need(all(x == rec["rest"][0] for x in rec["rest"]),
+                 f"memory n_fsdp={n} rank {r}: the bytes at rest moved "
+                 f"{rec['rest']}")
+            need(all(np.isfinite(rec["loss"])),
+                 f"memory n_fsdp={n} rank {r}: losses {rec['loss']}")
+        (p1, o1), (p2, o2) = m[1]["rest"][0], m[2]["rest"][0]
+        need(p1 == 4 * m[1]["numel"] and 2 * p2 < p1 + 4 * 2 ** 20
+             and 2 * o2 < o1 + 8 * 2 ** 20,
+             f"memory rank {r}: n_fsdp=2 holds {p2} parameter and {o2} "
+             f"optimizer bytes for n_fsdp=1's {p1} and {o1}")
+        say(f"parallel (c) memory rank {r}: n_fsdp=2 against n_fsdp=1, "
+            f"parameters {mib(p1 - p2):.1f} MiB fewer at rest, peak "
+            f"{(m[1]['peak'] - m[2]['peak']) / 2 ** 30:.3f} GiB lower, "
+            f"second step {m[2]['ms'][-1] / m[1]['ms'][-1] - 1:+.1%} ms")
+
+
 def run_parallel(mano_path, smi):
     """Phase 9: the multi-GPU path.  Returns the launch counts by path."""
     import torch
@@ -4658,27 +4854,11 @@ def run_parallel(mano_path, smi):
             + json.dumps([round(rk["allreduce_ms"], 3) for rk in gloo])
             + f" ms by rank; {smi}")
 
-        # (c) n_fsdp=2 on the same two ranks
-        for r, rk in enumerate(gloo):
-            say(f"parallel (c) n_fsdp=2 rank {r}, the guarded AdamW fed "
-                f"(b)'s gradients: parameters after each of {PAR_STEPS} "
-                "updates, then the gathered moments, bitwise data "
-                f"parallelism's: {rk['fsdp_same']}")
-            need(all(rk["fsdp_same"]), "n_fsdp=2's update differs from "
-                 "data parallelism's on the same gradients")
-            need(all(s["launches"] == par_expected("FinetuneStage", "float32")
-                     for s in rk["fsdp"]),
-                 f"n_fsdp=2 rank {r}: launches "
-                 f"{[s['launches'] for s in rk['fsdp']]}")
-        for k in range(PAR_STEPS):
-            par_hold(f"parallel (c) n_fsdp=2 FinetuneStage step {k} against "
-                     "(b)'s (step 1 from (b)'s state after step 0)",
-                     par_mean(gloo, "fsdp", k),
-                     par_mean(gloo, "FinetuneStage", k), names,
-                     PAR_SAME_SPLIT)
-        need(torch.equal(gloo[0]["fsdp"][-1]["params"],
-                         gloo[1]["fsdp"][-1]["params"]),
-             "n_fsdp=2: the ranks' gathered parameters differ")
+        # (c) n_fsdp=2 (ZeRO-3) on the same two ranks
+        check_zero3(gloo, names, smi)
+        with tempfile.TemporaryDirectory() as tmp_mem:
+            mem = par_world("gloo", mano_path, tmp_mem, mode="memory")
+        report_par_memory(mem, smi)
 
         # (d) the engine on two replicas of this card
         sd = random_reference_state_dict(np.random.RandomState(SEED))
@@ -4720,6 +4900,7 @@ def run_parallel(mano_path, smi):
 
 CCSSL_PASSES = 5                # the labelling pass's test-time passes
 CCSSL_COMPARE_BATCH = 4
+CCSSL_ODD_SIZE = 96             # the warps again at a size not a power of 2
 # one CCSSL step: K1 renders the stage-2 input and K5 encodes its remap
 # (whose VJP is the only one needed), K5 encodes each stage's labels, K4
 # decodes each stage (both with VJPs), K2 is the remap render's backward
@@ -4842,26 +5023,33 @@ def compare_ccssl(mano_path, root, pseudo_dir):
     s, rot = ref_tta_draws(torch.Generator().manual_seed(SEED + 102), B,
                            CCSSL_PASSES)
 
-    # each pass's warp of the image on both devices, from one theta
-    img = t["img"]
-    differ, ties_all = 0, 0
-    for i in range(CCSSL_PASSES):
-        theta, _ = _ref_theta(s[i], rot[i])
-        a = (affine_warp(img.cuda() - 1.0, theta.cuda(), "nearest")
-             + 1.0).cpu()
-        c = affine_warp(img - 1.0, theta, "nearest") + 1.0
-        grid = affine_grid(theta.double(), INPUT_SIZE, INPUT_SIZE)
-        near = lambda x: ((x - torch.floor(x) - 0.5).abs() < 1e-4)
-        ties = (near(unnormalize(grid[..., 0], INPUT_SIZE))
-                | near(unnormalize(grid[..., 1], INPUT_SIZE)))
-        diff = (a != c)[:, 0]
-        need(not bool((diff & ~ties).any()), f"ccssl warp pass {i}: card and "
-             "CPU differ away from a tie")
-        differ += int(diff.sum())
-        ties_all += int(ties.sum())
-    say(f"ccssl compare B={B} {INPUT_SIZE}^2: {CCSSL_PASSES} test-time "
-        f"warps, card vs CPU: {differ} pixels differ, all at ties "
-        f"({ties_all} tie pixels of {CCSSL_PASSES * img.numel()})")
+    # each pass's warp of the image on both devices, from one theta; then
+    # of its centre crop at CCSSL_ODD_SIZE, where 1 / size is inexact
+    # (the grid divides on the device: the card's product with a rounded
+    # reciprocal would move samples away from ties)
+    odd = (INPUT_SIZE - CCSSL_ODD_SIZE) // 2
+    for img in (t["img"], t["img"][..., odd:odd + CCSSL_ODD_SIZE,
+                                   odd:odd + CCSSL_ODD_SIZE].contiguous()):
+        size = img.shape[-1]
+        differ, ties_all = 0, 0
+        for i in range(CCSSL_PASSES):
+            theta, _ = _ref_theta(s[i], rot[i])
+            a = (affine_warp(img.cuda() - 1.0, theta.cuda(), "nearest")
+                 + 1.0).cpu()
+            c = affine_warp(img - 1.0, theta, "nearest") + 1.0
+            grid = affine_grid(theta.double(), size, size)
+            near = lambda x: ((x - torch.floor(x) - 0.5).abs() < 1e-4)
+            ties = (near(unnormalize(grid[..., 0], size))
+                    | near(unnormalize(grid[..., 1], size)))
+            diff = (a != c)[:, 0]
+            need(not bool((diff & ~ties).any()), f"ccssl warp {size}^2 pass "
+                 f"{i}: card and CPU differ away from a tie "
+                 f"({int((diff & ~ties).sum())} pixels)")
+            differ += int(diff.sum())
+            ties_all += int(ties.sum())
+        say(f"ccssl compare B={B} {size}^2: {CCSSL_PASSES} test-time "
+            f"warps, card vs CPU: {differ} pixels differ, all at ties "
+            f"({ties_all} tie pixels of {CCSSL_PASSES * img.numel()})")
 
     checks = {}
     with torch.no_grad(), exact_float32():

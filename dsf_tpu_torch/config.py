@@ -2,8 +2,9 @@
 field surface as a frozen dataclass) with the per-dataset ``CAMERA`` table
 moved in from dsf_tpu/training/trainer.py, so the port imports nothing of
 dsf_tpu.  ``batch_size`` is the global batch, split over the ranks of a
-``torchrun`` world; ``n_fsdp`` shards the optimizer state over that many
-ranks (it must divide the world: ``check_world``); ``num_devices`` is the
+``torchrun`` world; ``n_fsdp`` shards the parameters and the optimizer
+state over that many ranks (ZeRO-3, ``parallel.fsdp``; it must divide the
+world: ``check_world``); ``num_devices`` is the
 serving engine's replicas (``check_devices``).  ``cache_depths`` is read
 by the loop (``training/loop.py``: the loader's decode-once depth cache).
 """
@@ -90,7 +91,8 @@ class Config:
 
     # accelerator knobs (compute_dtype: the net's and the generator's type,
     # float32 or bfloat16, device.compute_dtype; num_devices: the engine's
-    # replicas; n_fsdp: the ranks that share one optimizer state)
+    # replicas; n_fsdp: the ranks that share one copy of the parameters
+    # and the optimizer state, ZeRO-3)
     num_devices: int = 1
     n_fsdp: int = 1
     compute_dtype: str = "float32"        # 'float32' | 'bfloat16'

@@ -13,6 +13,14 @@ from __future__ import annotations
 import torch
 
 
+def div(x, c):
+    """``x / c`` for a float32 or float64 ``x`` and a Python number ``c``,
+    divided on ``x``'s device as the CPU divides: CUDA takes a Python
+    divisor as a product with its rounded reciprocal, which moves the
+    floor, nearest sample or tie that follows off the CPU's (and JAX's)."""
+    return x / torch.full((), float(c), dtype=x.dtype, device=x.device)
+
+
 # ---------------------------------------------------------------------------
 # camera projection
 # ---------------------------------------------------------------------------
@@ -20,8 +28,8 @@ import torch
 def uvd_to_xyz(uvd, paras, flip=1.0):
     """Image coords -> camera-space mm (ref: jointImgTo3D)."""
     fx, fy, fu, fv = paras
-    x = (uvd[..., 0] - fu) * uvd[..., 2] / fx
-    y = flip * (uvd[..., 1] - fv) * uvd[..., 2] / fy
+    x = div((uvd[..., 0] - fu) * uvd[..., 2], fx)
+    y = div(flip * (uvd[..., 1] - fv) * uvd[..., 2], fy)
     return torch.stack([x, y, uvd[..., 2]], dim=-1)
 
 
@@ -47,10 +55,10 @@ def com_to_bounds(com, size, paras):
     sx, sy, sz = size[..., 0], size[..., 1], size[..., 2]
     zstart = cz - sz / 2.0
     zend = cz + sz / 2.0
-    xstart = torch.floor((cx * cz / fx - sx / 2.0) / cz * fx + 0.5)
-    xend = torch.floor((cx * cz / fx + sx / 2.0) / cz * fx + 0.5)
-    ystart = torch.floor((cy * cz / fy - sy / 2.0) / cz * fy + 0.5)
-    yend = torch.floor((cy * cz / fy + sy / 2.0) / cz * fy + 0.5)
+    xstart = torch.floor((div(cx * cz, fx) - sx / 2.0) / cz * fx + 0.5)
+    xend = torch.floor((div(cx * cz, fx) + sx / 2.0) / cz * fx + 0.5)
+    ystart = torch.floor((div(cy * cz, fy) - sy / 2.0) / cz * fy + 0.5)
+    yend = torch.floor((div(cy * cz, fy) + sy / 2.0) / cz * fy + 0.5)
     return xstart, xend, ystart, yend, zstart, zend
 
 
@@ -164,7 +172,7 @@ def xyz_nl_to_uvd_nl(xyz_nl, center, M, cube, paras, img_size, flip=1.0):
     xyz = xyz_nl * (cube[..., None, :] / 2.0) + center[..., None, :]
     uvd = xyz_to_uvd(xyz, paras, flip)
     uvd_c = transform_points_2d(uvd, M)
-    uv_nl = uvd_c[..., 0:2] / img_size * 2.0 - 1.0
+    uv_nl = div(uvd_c[..., 0:2], img_size) * 2.0 - 1.0
     d_nl = (uvd_c[..., 2:3] - center[..., None, 2:3]) / (cube[..., None, 2:3] / 2.0)
     return torch.cat([uv_nl, d_nl], dim=-1)
 
@@ -173,7 +181,7 @@ def joint_trans(joint_xyz, M, com_uvd, cube, paras, crop_size, flip=1.0):
     """World xyz (mm) -> normalized crop uvd (ref: Render.JointTrans)."""
     uvd = xyz_to_uvd(joint_xyz, paras, flip)
     uvd_c = transform_points_2d(uvd, M)
-    uv_nl = uvd_c[..., 0:2] / crop_size * 2.0 - 1.0
+    uv_nl = div(uvd_c[..., 0:2], crop_size) * 2.0 - 1.0
     d_nl = (uvd[..., 2:3] - com_uvd[..., None, 2:3]) / (cube[..., None, 2:3] / 2.0)
     return torch.cat([uv_nl, d_nl], dim=-1)
 
@@ -186,7 +194,7 @@ def norm_grid_center(n, dtype=torch.float32, device=None):
     """Pixel-centre normalized grid: (i + 0.5) / n * 2 - 1, as the offset
     codec reads it (ref: generateFeature.py:22-23).  Returns (xx, yy), each
     (n, n), xx varying along axis 1 (u)."""
-    r = (torch.arange(n, dtype=dtype, device=device) + 0.5) / n * 2.0 - 1.0
+    r = div(torch.arange(n, dtype=dtype, device=device) + 0.5, n) * 2.0 - 1.0
     yy, xx = torch.meshgrid(r, r, indexing="ij")
     return xx, yy
 
@@ -195,7 +203,7 @@ def norm_grid_corner(n, dtype=torch.float32, device=None):
     """Corner-anchored normalized grid: i / (n - 1) * 2 - 1, as Img2pcl and
     uvdImg2xyzImg read it (ref: render_loader.py:1126-1127).  Returns (xx,
     yy), each (n, n), xx varying along axis 1 (u)."""
-    r = torch.arange(n, dtype=dtype, device=device) / (n - 1.0) * 2.0 - 1.0
+    r = div(torch.arange(n, dtype=dtype, device=device), n - 1.0) * 2.0 - 1.0
     yy, xx = torch.meshgrid(r, r, indexing="ij")
     return xx, yy
 

@@ -20,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from dsf_tpu_torch import geometry as geo
 from dsf_tpu_torch.mano.constants import BONE_CHILD
 
 PALM_N = 21          # 1 + 5 * 4
@@ -95,7 +96,7 @@ def _mean_smallest_k(d, k):
     acc = vals[..., 0]
     for i in range(1, k):
         acc = acc + vals[..., i]
-    return acc / k
+    return geo.div(acc, k)
 
 
 def sphere_radii(model, joints, mesh):
@@ -107,7 +108,8 @@ def sphere_radii(model, joints, mesh):
     assigned = model.vertex_joint_mask.T[None]          # (1, 21, 778)
     d = torch.where(assigned, d, torch.full_like(d, 100.0))
     nearest = _mean_smallest_k(d, 10)
-    joint_r = torch.cat([nearest[:, :16], nearest[:, [3, 6, 9, 12, 15]] / 1.5],
+    joint_r = torch.cat([nearest[:, :16],
+                         geo.div(nearest[:, [3, 6, 9, 12, 15]], 1.5)],
                         dim=-1)
 
     palm_child = joint_r[:, _PALM_CHILD]

@@ -20,6 +20,10 @@ trunk and heads: while autograd records, they run under
 ``torch.utils.checkpoint`` and their activations are recomputed in the
 backward pass instead of kept.  Outputs, running statistics and gradients
 are those of ``DSF_REMAT=0`` bitwise (``_replay``).
+
+Under ``n_fsdp`` > 1 the trainer shards the parameters over
+``fsdp_units`` (``parallel.fsdp``): each unit is gathered whole for its
+forward and again for its backward, its recompute included.
 """
 
 from __future__ import annotations
@@ -155,6 +159,18 @@ class ManoOCRStage(nn.Module):
         setattr(self, f"finals{suffix}", nn.ModuleList([
             conv(256, 3 * J, 1, 1, 0, bias=True),
             conv(256, J, 1, 1, 0, bias=True)]))
+
+    def fsdp_units(self):
+        """The units ZeRO-3 gathers one at a time (``parallel.fsdp``), in
+        the parameters' order: the stem, each ResNet block, each head
+        (``mano_regress``, each deconv, each final conv), the fusion."""
+        units = []
+        for name, m in self.named_children():
+            if name.startswith(("layer", "finals")):
+                units += list(m.children())
+            else:
+                units.append(m)
+        return units
 
     def _trunk(self, x, suffix):
         """Flax ``_Trunk``: the stem (stage 1) and layer1..4 -> (c0, c4)."""

@@ -94,10 +94,12 @@ def affine_grid(theta, H, W):
     """The sample grid (B, H, W, 2) of ``theta`` (B, 2, 3), an
     output -> input map in normalized coordinates, align_corners=False:
     the pixel centres (x + 0.5) / W * 2 - 1, then theta . (x, y, 1), in
-    the JAX package's order (``F.affine_grid`` rounds otherwise)."""
+    the JAX package's order (``F.affine_grid`` rounds otherwise); the
+    divisions on the device (``geometry.div``), since the nearest warps
+    sample through this grid."""
     dev, dt = theta.device, theta.dtype
-    ys = (torch.arange(H, device=dev, dtype=dt) + 0.5) / H * 2.0 - 1.0
-    xs = (torch.arange(W, device=dev, dtype=dt) + 0.5) / W * 2.0 - 1.0
+    ys = geo.div(torch.arange(H, device=dev, dtype=dt) + 0.5, H) * 2.0 - 1.0
+    xs = geo.div(torch.arange(W, device=dev, dtype=dt) + 0.5, W) * 2.0 - 1.0
     gy, gx = torch.meshgrid(ys, xs, indexing="ij")
     t = theta[:, :, None, None, :]                   # (B, 2, 1, 1, 3)
     grid = t[..., 0] * gx + t[..., 1] * gy + t[..., 2]

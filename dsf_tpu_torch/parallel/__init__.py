@@ -1,5 +1,6 @@
-"""Multi-GPU: process start-up (``distributed``) and the (data x fsdp)
-layout of the ranks (``mesh``); counterpart of dsf_tpu/parallel/.  Of the
+"""Multi-GPU: process start-up (``distributed``), the (data x fsdp)
+layout of the ranks (``mesh``) and ZeRO-3 over the fsdp ranks
+(``fsdp``); counterpart of dsf_tpu/parallel/.  Of the
 JAX package's re-exports, ``shard_batch`` and ``replicate`` place arrays
 on a ``jax.sharding`` mesh and have no counterpart: each rank takes its
 rows with ``mesh.Mesh.stripe``."""

@@ -5,12 +5,12 @@ The JAX package lays its devices out as a ``('data',)`` mesh, or a
 ``('data', 'fsdp')`` mesh of shape (n_data // n_fsdp, n_fsdp) whose batch
 is split over both axes.  Here the ranks take that layout in row-major
 order (rank = row * n_fsdp + column): every rank holds a stripe of the
-global batch, ``fsdp_group`` (a row) shares one copy of the optimizer's
-state in ``n_fsdp`` shards, and ``data_group`` (a column) holds the same
-shard.  A world of 1 has no groups, and every caller takes its
-one-device path, unless the mesh asks for ``collectives`` (a world of
-one process over a process group of one: the multi-GPU code path, its
-collectives included, on one card).
+global batch, ``fsdp_group`` (a row) shares one copy of the parameters
+and the optimizer's state in ``n_fsdp`` shards (``parallel.fsdp``), and
+``data_group`` (a column) holds the same shard.  A world of 1 has no
+groups, and every caller takes its one-device path, unless the mesh asks
+for ``collectives`` (a world of one process over a process group of one:
+the multi-GPU code path, its collectives included, on one card).
 """
 
 from __future__ import annotations

@@ -275,8 +275,7 @@ def mask_img(img, img_joint, draws: MaskDraws):
     radius = torch.where(active[None], draws.radius,
                          torch.full_like(draws.radius, -1.0))
 
-    r = (torch.arange(W, dtype=img.dtype, device=img.device) + 0.5) / W * 2.0 - 1.0
-    vv, uu = torch.meshgrid(r, r, indexing="ij")
+    uu, vv = geo.norm_grid_center(W, img.dtype, img.device)
     pix = torch.stack([uu, vv], -1).reshape(1, 1, H * W, 2)
     pix_d = img.reshape(B, 1, H * W, 1)
     pix_uvd = torch.cat([pix.expand(B, 1, H * W, 2), pix_d], dim=-1)

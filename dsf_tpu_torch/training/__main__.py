@@ -13,8 +13,9 @@ evaluates.  ``--dataset`` is nyu (the default), icvl, msra (with
 On N cards of one host: ``torchrun --nproc-per-node N -m
 dsf_tpu_torch.training --key value ...``: one process a card, NCCL
 between them, ``--batch_size`` the global batch (it must divide by N)
-and ``--n_fsdp`` the ranks that share one optimizer state (it must
-divide N); see ``training.loop``.  A bare launch is one process on one
+and ``--n_fsdp`` the ranks that share one copy of the parameters and
+the optimizer state (ZeRO-3, ``parallel.fsdp``; it must divide N); see
+``training.loop``.  A bare launch is one process on one
 card (the JAX package's one process drives every local device instead).
 
 ``python -m dsf_tpu_torch.training cyclegan --key value ...`` trains the

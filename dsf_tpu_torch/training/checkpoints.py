@@ -9,8 +9,10 @@ copies the tensors to the host, then writes the file on a background
 thread, so the loop goes on while it serializes; ``wait_until_finished``
 drains it, and every restore waits first.  A restore onto the card keeps
 every tensor on the card.  In a world of ranks every rank calls ``save``
-(the optimizer's state is gathered whole from its shards) and rank 0
-alone writes, so a checkpoint is world 1's; every rank restores.  The port does not read the JAX package's orbax
+(the optimizer's state, and under ``n_fsdp`` > 1 the parameters, are
+gathered whole from their pieces) and rank 0 alone writes, so a
+checkpoint is world 1's; every rank restores (a sharded net cuts its
+pieces from the host's copy).  The port does not read the JAX package's orbax
 checkpoints: a JAX run reaches the port through ``Trainer.init_state``'s
 ``variables``.
 """
@@ -22,6 +24,8 @@ import threading
 from typing import Dict, Optional
 
 import torch
+
+from dsf_tpu_torch.parallel import fsdp
 
 FILE = "state.pt"
 _pending: Optional[threading.Thread] = None
@@ -55,9 +59,9 @@ def save(path: str, trainer, state, epoch: int) -> None:
     ranks, where rank 0 writes."""
     global _pending
     wait_until_finished()                  # at most one save in flight
-    ckpt = _host({"net": state.net.state_dict(),
-                  "optimizer": state.optimizer.state_dict(),
-                  "step": int(state.step), "epoch": int(epoch)})
+    ckpt = {"net": fsdp.state_dict(state.net),
+            **_host({"optimizer": state.optimizer.state_dict(),
+                     "step": int(state.step), "epoch": int(epoch)})}
     if trainer.mesh.rank != 0:
         return
 
@@ -104,11 +108,11 @@ def check_net(path: str, net, sd) -> None:
     shape and no other: a checkpoint of another net (a ResNet trunk of
     another depth, one stage for two) is refused before any tensor
     loads."""
-    own = net.state_dict()
+    own = fsdp.shapes(net)
     missing = sorted(set(own) - set(sd))
     unexpected = sorted(set(sd) - set(own))
-    shapes = [f"{k} {tuple(sd[k].shape)} for {tuple(v.shape)}"
-              for k, v in own.items() if k in sd and sd[k].shape != v.shape]
+    shapes = [f"{k} {tuple(sd[k].shape)} for {tuple(v)}"
+              for k, v in own.items() if k in sd and sd[k].shape != v]
     if missing or unexpected or shapes:
         raise RuntimeError(
             f"checkpoint {path} does not fit the net: {len(missing)} keys "
@@ -122,11 +126,13 @@ def restore(path: str, trainer, state, weights_only: bool = False):
     train_render.py:138-145) only the net loads; the optimizer and the
     step restart.  A checkpoint that does not fit the net or the
     optimizer raises before anything loads (``check_net``)."""
-    ckpt = _load(path, trainer.device)
+    # a sharded net takes its pieces from the host's whole tensors
+    sharded = fsdp.sharded(state.net) is not None
+    ckpt = _load(path, "cpu" if sharded else trainer.device)
     check_net(path, state.net, ckpt["net"])
     if not weights_only:
         state.optimizer.check_state_dict(ckpt["optimizer"])
-    state.net.load_state_dict(ckpt["net"])
+    fsdp.load_state_dict(state.net, ckpt["net"])
     if weights_only:
         return state, 0
     state.optimizer.load_state_dict(ckpt["optimizer"])

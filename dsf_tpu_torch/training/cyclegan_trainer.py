@@ -79,7 +79,7 @@ class CycleGANTrainer:
     """The JAX trainer's fields and defaults; ``device`` is ``cuda`` when
     None (raises without it), ``"cpu"`` runs the plain versions of the
     kernels.  ``compute_dtype`` None or float32: other types raise
-    (ROADMAP Queue 1, item 8)."""
+    (ROADMAP Queue 1, item 1)."""
     lr: float = 2e-4
     lambda_cycle: float = 10.0
     lambda_identity: float = 5.0
@@ -94,7 +94,7 @@ class CycleGANTrainer:
             raise NotImplementedError(
                 f"compute_dtype {self.compute_dtype!r}: the port's CycleGAN "
                 "trainer computes in float32 (a bfloat16 CycleGAN is "
-                "ROADMAP Queue 1, item 8)")
+                "ROADMAP Queue 1, item 1)")
         self.device = resolve_device(self.device)
 
     def init_state(self, gen: Optional[torch.Generator] = None,

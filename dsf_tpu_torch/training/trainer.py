@@ -61,7 +61,6 @@ from typing import Callable, Dict, Iterator, Mapping, Optional
 import numpy as np
 import torch
 import torch.distributed as dist
-import torch.nn.functional as F
 from torch.profiler import record_function
 
 from dsf_tpu_torch import geometry as geo
@@ -78,7 +77,7 @@ from dsf_tpu_torch.models.weights import (load_generator_npz, load_into,
                                           random_reference_state_dict,
                                           state_dict_from_jax)
 from dsf_tpu_torch.ops.offset_codec import offset2joint_softmax
-from dsf_tpu_torch.parallel import distributed
+from dsf_tpu_torch.parallel import distributed, fsdp
 from dsf_tpu_torch.parallel.mesh import ONE, Mesh, make_mesh
 from dsf_tpu_torch.render import renderer as rnd
 from dsf_tpu_torch.training import phases
@@ -142,13 +141,13 @@ class GuardedOptimizer:
 
     Over a ``mesh`` of more than one rank the flat gradient is the ranks'
     mean, so every rank takes the same decision and update.  With
-    ``mesh.n_fsdp`` 1 it is one all-reduce.  Above 1 the flat gradient is
-    reduce-scattered within the rank's fsdp group and all-reduced across
-    the data groups; the moments and the update live on the rank's shard
-    (``n_fsdp`` equal pieces of the flat buffer, zero-padded), the finite
-    flag is all-reduced (a non-finite element in any shard rejects on
-    every rank), and the updated parameters are all-gathered, so they
-    stay whole on every rank (the JAX package shards them too).
+    ``mesh.n_fsdp`` 1 it is one all-reduce.  Above 1 the parameters are
+    sharded (ZeRO-3): ``params`` is the net's ``parallel.fsdp.Sharded``,
+    whose units reduce-scatter their gradients during the backward pass.
+    The update reads this rank's gradient pieces and changes its
+    parameter pieces in place; the moments live on the same pieces, the
+    finite flag is all-reduced (a non-finite element in any piece rejects
+    on every rank), and nothing is gathered: the next forward gathers.
     ``state_dict`` gathers whole buffers: a checkpoint is world 1's.
     """
 
@@ -157,13 +156,21 @@ class GuardedOptimizer:
     def __init__(self, params, kind: str, schedule, mesh: Mesh = ONE):
         if kind not in self.KINDS:
             raise ValueError(f"optimizer {kind!r}: one of {self.KINDS}")
-        self.params = list(params)
+        self.sharded = params if isinstance(params, fsdp.Sharded) else None
+        if mesh.n_fsdp > 1 and self.sharded is None:
+            raise ValueError(f"n_fsdp={mesh.n_fsdp} shards the parameters: "
+                             "pass parallel.fsdp.shard(net, mesh, device)")
+        self.params = (self.sharded.params if self.sharded is not None
+                       else list(params))
         self.kind = kind
         self.schedule = schedule
         self.mesh = mesh
-        dev = self.params[0].device
+        if self.sharded is not None:
+            dev, n = self.sharded.piece.device, self.sharded.piece.numel()
+        else:
+            dev = self.params[0].device
+            n = sum(p.numel() for p in self.params)
         self.numel = sum(p.numel() for p in self.params)
-        n = -(-self.numel // mesh.n_fsdp)              # this rank's shard
         zeros = lambda: torch.zeros(n, dtype=torch.float32, device=dev)
         self.buffers = ({"trace": zeros()} if kind == "sgd"
                         else {"mu": zeros(), "nu": zeros()})
@@ -182,11 +189,16 @@ class GuardedOptimizer:
         decay reaches it).  Returns whether it was accepted, a 0-d bool
         tensor on the device."""
         params, mesh = self.params, self.mesh
-        g = torch.cat([(p.grad if p.grad is not None
-                        else torch.zeros_like(p)).reshape(-1) for p in params])
-        w = torch.cat([p.reshape(-1) for p in params])
-        if mesh.active:
-            g, w = self._exchange(g, w)
+        if self.sharded is not None:
+            g, w = self.sharded.finish()
+        else:
+            g = torch.cat([(p.grad if p.grad is not None
+                            else torch.zeros_like(p)).reshape(-1)
+                           for p in params])
+            w = torch.cat([p.reshape(-1) for p in params])
+            if mesh.active:
+                dist.all_reduce(g, group=mesh.group)
+                g = g / mesh.world
         finite = torch.isfinite(g).all()
         if mesh.n_fsdp > 1:
             flag = finite.to(torch.int32)
@@ -215,8 +227,8 @@ class GuardedOptimizer:
                 u = u + ADAMW_DECAY * w
             new = {"mu": mu, "nu": nu}
         u = torch.where(accept, (-lr) * u, torch.zeros_like(u))
-        if mesh.n_fsdp > 1:
-            self._gather_params(w + u)
+        if self.sharded is not None:
+            w.add_(u)
         else:
             torch._foreach_add_(params, [x.view_as(p) for x, p in zip(
                 u.split([p.numel() for p in params]), params)])
@@ -229,40 +241,6 @@ class GuardedOptimizer:
         self.last_finite = finite
         return accept
 
-    def _shard(self, flat: torch.Tensor) -> torch.Tensor:
-        """This rank's piece of a whole flat buffer (zero-padded)."""
-        n = self.buffers[next(iter(self.buffers))].numel()
-        flat = F.pad(flat, (0, n * self.mesh.n_fsdp - flat.numel()))
-        return flat[self.mesh.fsdp_rank * n:(self.mesh.fsdp_rank + 1) * n]
-
-    def _whole(self, shard: torch.Tensor) -> torch.Tensor:
-        """The whole flat buffer from every fsdp rank's piece."""
-        out = shard.new_empty(shard.numel() * self.mesh.n_fsdp)
-        dist.all_gather_into_tensor(out, shard.contiguous(), group=self.mesh.fsdp_group)
-        return out[:self.numel]
-
-    def _exchange(self, g, w):
-        """The ranks' mean gradient (and the weights) on this rank: whole
-        with one fsdp rank, else this rank's shard."""
-        mesh = self.mesh
-        if mesh.n_fsdp == 1:
-            dist.all_reduce(g, group=mesh.group)
-            return g / mesh.world, w
-        whole = F.pad(g, (0, -g.numel() % mesh.n_fsdp))
-        g = whole.new_empty(whole.numel() // mesh.n_fsdp)
-        dist.reduce_scatter_tensor(g, whole, group=mesh.fsdp_group)
-        if mesh.data_group is not None:
-            dist.all_reduce(g, group=mesh.data_group)
-        return g / mesh.world, self._shard(w)
-
-    @torch.no_grad()
-    def _gather_params(self, w_shard) -> None:
-        """Every parameter from the fsdp ranks' updated pieces."""
-        whole = self._whole(w_shard)
-        for p, x in zip(self.params, whole.split(
-                [p.numel() for p in self.params])):
-            p.copy_(x.view_as(p))
-
     @property
     def param_groups(self):
         """torch.optim's view of the parameters: one group."""
@@ -271,11 +249,14 @@ class GuardedOptimizer:
     def zero_grad(self) -> None:
         for p in self.params:
             p.grad = None
+        if self.sharded is not None:
+            self.sharded.zero_grad()
 
     def state_dict(self) -> Dict[str, torch.Tensor]:
         """The whole state (collective under ``n_fsdp`` above 1: every fsdp
         rank must call it)."""
-        whole = (self._whole if self.mesh.n_fsdp > 1 else lambda t: t)
+        whole = (self.sharded.whole_flat if self.sharded is not None
+                 else lambda t: t)
         return {"kind": self.kind,
                 **{k: whole(v) for k, v in self.buffers.items()},
                 **{k: getattr(self, k) for k in self.COUNTERS}}
@@ -296,8 +277,8 @@ class GuardedOptimizer:
         dev = self.count.device
         for k in self.buffers:
             v = sd[k].to(dev, torch.float32)
-            self.buffers[k] = (self._shard(v) if self.mesh.n_fsdp > 1
-                               else v).clone()
+            self.buffers[k] = (self.sharded.shard_flat(v)
+                               if self.sharded is not None else v.clone())
         for k in self.COUNTERS:
             setattr(self, k, sd[k].to(dev).clone())
 
@@ -384,8 +365,9 @@ class Trainer:
         101 or 152 (``config.net_depth``) and
         ``cfg.compute_dtype`` "float32" or "bfloat16" (the net's and the
         generator's; ``device.compute_dtype``).  ``cfg.batch_size`` is the
-        global batch and ``cfg.n_fsdp`` the ranks sharing one optimizer
-        state; both must divide over the process group's ranks
+        global batch and ``cfg.n_fsdp`` the ranks sharing one copy of the
+        parameters and the optimizer state (ZeRO-3); both must divide
+        over the process group's ranks
         (``config.check_world``).  ``cfg.transferNet_pth`` names the frozen
         CycleGAN generator (``load_transfer_net``), or is empty.
       mano_npz: the converted MANO asset.
@@ -439,7 +421,9 @@ class Trainer:
         """A fresh state: the net from ``variables`` (the JAX package's
         ``{"params", "batch_stats"}`` tree), or from numpy weights seeded
         with ``cfg.seed`` (``random_reference_state_dict``); AdamW moments
-        at zero."""
+        at zero.  Under ``cfg.n_fsdp`` > 1 the net is built on the host and
+        sharded onto the device (``parallel.fsdp.shard``): only this rank's
+        pieces of its parameters reach the device."""
         cfg = self.cfg
         depth = net_depth(cfg)
         net = ManoOCRStage(joint_num=21, depth=depth,
@@ -451,11 +435,15 @@ class Trainer:
         else:
             sd = state_dict_from_jax(variables)
         load_into(net, sd)
-        net.to(self.device).train()
+        if self.mesh.n_fsdp > 1:
+            params = fsdp.shard(net, self.mesh, self.device)
+        else:
+            params = net.to(self.device).parameters()
+        net.train()
         if self.mesh.active:
             net.sync = self.mesh
         return TrainState(net=net,
-                          optimizer=make_optimizer(cfg, net.parameters(),
+                          optimizer=make_optimizer(cfg, params,
                                                    self.steps_per_epoch,
                                                    self.mesh))
 

@@ -379,7 +379,7 @@ def test_compute_dtype_and_state_checks(trainers, fake_root, tmp_path):
     runs on the CPU (B=4, 64^2, one epoch of two steps: labels and a
     checkpoint); a seeded init draws the JAX inits' shapes, and two
     draws from one seed agree."""
-    with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
+    with pytest.raises(NotImplementedError, match="Queue 1, item 1"):
         CycleGANTrainer(compute_dtype=torch.bfloat16, device="cpu")
     tt = CycleGANTrainer(ngf=NGF, n_blocks=BLOCKS, device="cpu")
     with pytest.raises(ValueError, match="multiples of 4"):

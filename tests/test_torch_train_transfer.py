@@ -77,31 +77,39 @@ def losses(tmp_path_factory):
     jnet = JManoOCRStage(joint_num=21, depth=18, refine=True)
     fixed = tuple(jnp.asarray(x.numpy()) for x in synth)
 
-    def transfer_fn(img):
-        return jax.lax.stop_gradient(jgen.apply(gen_vars, img))
-
     def apply_fn(v, img, rend, center, cube_, train, mutable=False):
         return jnet.apply(v, img, rend, center, cube_, train=train,
                           mutable=mutable)
 
-    def loss_fn(params, batch_stats):
-        return JP.pretrain_loss(
-            apply_fn, {"params": params, "batch_stats": batch_stats}, key,
-            jnp.asarray(para), jnp.asarray(cube), r=jr,
-            transfer_fn=transfer_fn, cfg=jcfg, stage_num=2)
+    def loss_fn(params, batch_stats, gen_vars, sample):
+        # the generator's weights and the synth sample are arguments: as
+        # constants XLA would fold the generator's forward at compile time
+        def transfer_fn(img):
+            return jax.lax.stop_gradient(jgen.apply(gen_vars, img))
+
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(JR, "synth_sample", lambda *a, **k: sample)
+            return JP.pretrain_loss(
+                apply_fn, {"params": params, "batch_stats": batch_stats},
+                key, jnp.asarray(para), jnp.asarray(cube), r=jr,
+                transfer_fn=transfer_fn, cfg=jcfg, stage_num=2)
 
     tx = JT.make_optimizer(jcfg, 10)
     params, stats = variables["params"], variables["batch_stats"]
     opt, ref = tx.init(params), []
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(JR, "synth_sample", lambda *a, **k: fixed)
-        value_and_grad = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
-        for _ in range(STEPS):
-            (loss, (new_state, _)), grads = value_and_grad(params, stats)
-            ref.append(float(loss))
-            updates, opt = tx.update(grads, opt, params)
-            params = optax.apply_updates(params, updates)
-            stats = new_state["batch_stats"]
+    value_and_grad = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
+
+    @jax.jit
+    def update(grads, opt, params):
+        updates, opt = tx.update(grads, opt, params)
+        return optax.apply_updates(params, updates), opt
+
+    for _ in range(STEPS):
+        (loss, (new_state, _)), grads = value_and_grad(params, stats,
+                                                       gen_vars, fixed)
+        ref.append(float(loss))
+        params, opt = update(grads, opt, params)
+        stats = new_state["batch_stats"]
     return port, ref
 
 

@@ -3,13 +3,16 @@
 
 ``run_world(name, world, args, out_dir, timeout)`` starts ``world``
 processes (``python -m torch_parallel_workers``), each with the
-environment ``torchrun`` would set, a free port and two threads; each
-joins the group through ``parallel.distributed.initialize("cpu")`` and
-runs the worker ``name`` of this module on ``args``.  Every rank's return
-value comes back in rank order.  The world has a time limit of its own
-(there is no pytest-timeout): past it every rank is killed and the call
-raises.  A worker called in the test's own process (no environment) is
-world 1 and joins nothing.
+environment ``torchrun`` would set, a free port and two threads that
+sleep when idle (``OMP_WAIT_POLICY=PASSIVE``: spinning ranks starve the
+other test workers); each joins the group through
+``parallel.distributed.initialize("cpu")`` and runs the worker ``name``
+of this module on ``args``.  Every rank's return value comes back in
+rank order.  The world has a time limit of its own (there is no
+pytest-timeout): past it every rank is killed and the call raises; a
+rank that fails kills the others at once.  ``World(...)`` starts the
+same world and returns (``.wait()`` for the values).  A worker called in
+the test's own process (no environment) is world 1 and joins nothing.
 
 This module imports torch, numpy and the port only: the ranks start
 without JAX.
@@ -18,12 +21,14 @@ without JAX.
 from __future__ import annotations
 
 import builtins
+import hashlib
 import os
 import pickle
 import shutil
 import socket
 import subprocess
 import sys
+import time
 import traceback
 
 import numpy as np
@@ -43,38 +48,72 @@ def free_port() -> int:
 
 def run_world(name, world, args, out_dir, timeout=240):
     """Rank r's return value of worker ``name`` for r < ``world``."""
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "args.pkl"), "wb") as f:
-        pickle.dump(args, f)
-    port = free_port()
-    procs = []
-    for r in range(world):
-        env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r),
-                   WORLD_SIZE=str(world), MASTER_ADDR="localhost",
-                   MASTER_PORT=str(port), OMP_NUM_THREADS="2",
-                   PYTHONPATH=os.pathsep.join([REPO, HERE]))
-        procs.append(subprocess.Popen(
-            [sys.executable, "-m", "torch_parallel_workers", name, out_dir],
-            cwd=HERE, env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT))
-    try:
-        logs = [p.communicate(timeout=timeout)[0].decode(errors="replace")
-                for p in procs]
-    except subprocess.TimeoutExpired:
-        for p in procs:
-            p.kill()
+    return World(name, world, args, out_dir, timeout).wait()
+
+
+class World:
+    """``run_world`` started: the ranks run while the caller works;
+    ``wait()`` returns their values.  Each rank's output goes to
+    ``out_dir/rank{r}.log`` (a pipe left unread would stall a rank that
+    writes more than its buffer).  The world has one deadline,
+    ``timeout`` seconds from its start, and a rank that fails ends the
+    world at once (the others would wait in a collective)."""
+
+    def __init__(self, name, world, args, out_dir, timeout=240):
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "args.pkl"), "wb") as f:
+            pickle.dump(args, f)
+        self.name, self.world, self.out_dir = name, world, out_dir
+        self.deadline = time.monotonic() + timeout
+        self.timeout = timeout
+        port = free_port()
+        self.procs, self.logs = [], []
+        for r in range(world):
+            env = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r),
+                       WORLD_SIZE=str(world), MASTER_ADDR="localhost",
+                       MASTER_PORT=str(port), OMP_NUM_THREADS="2",
+                       OMP_WAIT_POLICY="PASSIVE",
+                       PYTHONPATH=os.pathsep.join([REPO, HERE]))
+            log = os.path.join(out_dir, f"rank{r}.log")
+            self.logs.append(log)
+            with open(log, "wb") as out:
+                self.procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "torch_parallel_workers", name,
+                     out_dir], cwd=HERE, env=env, stdout=out,
+                    stderr=subprocess.STDOUT))
+
+    def _kill(self):
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
             p.wait()
-        raise TimeoutError(f"world of {world} running {name} passed its "
-                           f"{timeout} s limit")
-    bad = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode]
-    if bad:
-        raise RuntimeError(f"{name}: ranks {bad} failed:\n"
-                           + "\n".join(log[-3000:] for log in logs))
-    out = []
-    for r in range(world):
-        with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
-            out.append(pickle.load(f))
-    return out
+
+    def wait(self):
+        while True:
+            codes = [p.poll() for p in self.procs]
+            if all(c is not None for c in codes) or any(codes):
+                break
+            if time.monotonic() > self.deadline:
+                self._kill()
+                raise TimeoutError(f"world of {self.world} running "
+                                   f"{self.name} passed its {self.timeout} "
+                                   "s limit")
+            time.sleep(0.2)
+        self._kill()
+        bad = [(r, p.returncode) for r, p in enumerate(self.procs)
+               if p.returncode]
+        if bad:
+            logs = [open(log, errors="replace").read()[-3000:]
+                    for log in self.logs]
+            raise RuntimeError(f"{self.name}: ranks {bad} failed:\n"
+                               + "\n".join(logs))
+        out = []
+        for r in range(self.world):
+            path = os.path.join(self.out_dir, f"rank{r}.pkl")
+            with open(path, "rb") as f:
+                out.append(pickle.load(f))
+            os.remove(path)             # a step world's records take GBs
+        return out
 
 
 def _main(name, out_dir):
@@ -156,28 +195,35 @@ def masked_sl1(case):
 
 
 def guard(case):
-    """The guarded AdamW over a world (``n_fsdp`` from ``case``): steps
-    with this rank's gradients (``case["grads"][step][rank]``), one of
-    them NaN on rank 0 only.  Returns per step the decision and the
-    parameters, then the whole state dict and a reload of it."""
+    """The guarded AdamW over a world (``n_fsdp`` from ``case``; above 1
+    the parameters sharded as one unit): steps with this rank's gradients
+    (``case["grads"][step][rank]``), one of them NaN on rank 0 only.
+    Returns per step the decision and the whole parameters, then the
+    whole state dict and a reload of it."""
     from dsf_tpu_torch.config import Config
-    from dsf_tpu_torch.parallel import distributed
+    from dsf_tpu_torch.parallel import distributed, fsdp
     from dsf_tpu_torch.parallel import mesh as M
     from dsf_tpu_torch.training.trainer import make_optimizer
     mesh = M.make_mesh(case["n_fsdp"])
-    params = [torch.nn.Parameter(torch.from_numpy(w.copy()))
-              for w in case["w"]]
-    opt = make_optimizer(Config(), params, 10, mesh)
+    module = torch.nn.ParameterList(
+        [torch.nn.Parameter(torch.from_numpy(w.copy())) for w in case["w"]])
+    params = list(module)
+    # n_fsdp > 1: the parameters sharded too, the list one unit
+    held = (fsdp.shard(module, mesh, "cpu") if mesh.n_fsdp > 1
+            else params)
+    opt = make_optimizer(Config(), held, 10, mesh)
     rank = distributed.rank()
     out = []
     for per_rank in case["grads"]:
         for p, g in zip(params, per_rank[rank]):
             p.grad = torch.from_numpy(g.copy())
         accept = opt.step()
-        out.append((bool(accept), [_np(p) for p in params],
+        sd = fsdp.state_dict(module)
+        out.append((bool(accept), [sd[str(i)].numpy() for i in
+                                   range(len(params))],
                     int(opt.count), int(opt.notfinite_count)))
     sd = opt.state_dict()
-    opt2 = make_optimizer(Config(), params, 10, mesh)
+    opt2 = make_optimizer(Config(), held, 10, mesh)
     opt2.load_state_dict(sd)
     return dict(steps=out, state={k: (_np(v) if torch.is_tensor(v) else v)
                                   for k, v in sd.items()},
@@ -213,66 +259,136 @@ def _trainer(kw, mano, n_fsdp=1):
 
 
 def steps(case):
-    """One step of each run (``case["runs"]``: label, phase, Config
-    keywords, and whether BatchNorm keeps per-rank statistics, a mutation
-    the tests must catch) on this rank's stripe of the global batch, from
-    the trainers' seeded weights and draws: the step's metrics averaged
-    over the ranks, this rank's flat gradient (the ranks' mean is the
-    global one), the running statistics and the parameters after the
-    update.  The labels in ``case["remat"]`` run again with DSF_REMAT=1
-    (``{label}_remat``).  Then two Pretrain steps of ``n_fsdp`` 1 and 2
-    (``case["fsdp"]``): their parameters."""
+    """Each run of ``case["runs"]`` on this rank's stripe of the global
+    batch, from the trainers' seeded weights and draws (``step_run``):
+    label, phase, Config keywords, whether BatchNorm keeps per-rank
+    statistics (a mutation the tests must catch), and optionally
+    ``step_run``'s keywords (``n_fsdp``, ``remat``, ``steps``, ...).  The
+    labels in ``case["remat"]`` run again with DSF_REMAT=1
+    (``{label}_remat``)."""
+    runs = list(case["runs"])
+    runs += [(f"{label}_remat", phase, kw, local_bn, dict(*opt, remat=True))
+             for label, phase, kw, local_bn, *opt in case["runs"]
+             if label in case.get("remat", ())]
+    out = {}
+    for label, phase, kw, local_bn, *opt in runs:
+        out[label] = step_run(case["mano"], phase, kw, local_bn, **dict(*opt))
+    return out
+
+
+def digest(a) -> str:
+    """A float32 array's shape and bytes, hashed: bitwise equality of
+    large arrays without carrying them between processes."""
+    a = np.ascontiguousarray(a, np.float32)
+    return f"{a.shape}:{hashlib.sha1(a.tobytes()).hexdigest()}"
+
+
+def _ranks_mean(g):
+    """The ranks' mean of a flat float32 array, summed in rank order on
+    the host (the world's own mean at world 1)."""
+    from dsf_tpu_torch.parallel import distributed
+    world = distributed.world()
+    if world == 1:
+        return g
+    parts = [torch.empty_like(g) for _ in range(world)]
+    torch.distributed.all_gather(parts, g)
+    total = parts[0].numpy().copy()
+    for p in parts[1:]:
+        total += p.numpy()
+    return total / np.float32(world)
+
+
+def step_run(mano, phase, kw, local_bn=False, n_fsdp=1, remat=False,
+             steps=1, seed=1, skip=0, load=None, save=None, evaluate=False,
+             digests=False):
+    """``steps`` steps of ``phase`` (after drawing and dropping the inputs
+    of ``skip`` steps, so a resumed run sees the uninterrupted run's
+    next inputs), with ``n_fsdp`` ranks sharing the parameters (ZeRO-3)
+    and DSF_REMAT from ``remat``; the synth parameters from ``seed``, the
+    real batch from ``seed + 1``.  ``load``: a checkpoint restored before
+    the steps; ``save``: the checkpoint directory written after the
+    first step; ``evaluate``: the eval step on this rank's rows of a
+    seeded real batch at the end.  Returns the last step's metrics
+    averaged over the ranks, this rank's flat gradient (``grad``; under
+    ZeRO-3 ``mean_grad``, the ranks' mean the optimizer read), the
+    running statistics, the whole parameters, moments and guard counters
+    after it, every step's loss, each rank's parameter storage bytes
+    before the steps and after each, the most units held whole at once,
+    and under ZeRO-3 what ``net.state_dict()`` raised.  ``digests``: the
+    parameters, moments, statistics and the mean gradient (a data-parallel
+    run's: the ranks' own gathered and averaged on the host) as
+    ``digest``s, and no per-rank gradient."""
     from dsf_tpu_torch import demo
     from dsf_tpu_torch.data.synth_params import random_param_source
-    out = {}
-    runs = list(case["runs"])
-    runs += [(f"{label}_remat", phase, kw, local_bn)
-             for label, phase, kw, local_bn in case["runs"]
-             if label in case.get("remat", ())]
-    for label, phase, kw, local_bn in runs:
-        os.environ["DSF_REMAT"] = "1" if label.endswith("_remat") else "0"
-        tr = _trainer(kw, case["mano"])
+    from dsf_tpu_torch.parallel import fsdp
+    from dsf_tpu_torch.training import checkpoints as ckpt
+    os.environ["DSF_REMAT"] = "1" if remat else "0"
+    try:
+        tr = _trainer(kw, mano, n_fsdp)
         B = kw["batch_size"]
         state = tr.init_state()
         if local_bn:
             state.net.sync = None
-        para, cube = next(random_param_source(B, seed=1))
-        batch = {"model_para": para, "cube_synth": cube}
-        if phase != "Pretrain":
-            batch.update(demo.real_batch(tr.renderer, B,
-                                         np.random.RandomState(2)))
-        batch = {k: tr.mesh.stripe(v) for k, v in batch.items()}
-        state, metrics = tr.train_step_fn(phase)(state, tr.draw(B, phase),
-                                                 batch)
-        net = state.net
-        out[label] = dict(
-            metrics={k: float(v) for k, v in
-                     tr.global_metrics(metrics).items()},
-            grad=np.concatenate([_np(p.grad).ravel()
-                                 for p in net.parameters()]),
-            stats={n: _np(b) for n, b in net.named_buffers()
+        if load:
+            state, _ = ckpt.restore(load, tr, state)
+        net, opt = state.net, state.optimizer
+        src = random_param_source(B, seed=seed)
+        rng = np.random.RandomState(seed + 1)
+        rec = dict(loss=[], bytes=[fsdp.param_bytes(net)])
+        metrics = {}
+        for k in range(skip + steps):
+            batch = dict(zip(("model_para", "cube_synth"), next(src)))
+            if phase != "Pretrain":
+                batch.update(demo.real_batch(tr.renderer, B, rng))
+            batch = {key: tr.mesh.stripe(v) for key, v in batch.items()}
+            draws = tr.draw(B, phase)
+            if k < skip:
+                continue
+            state, metrics = tr.train_step_fn(phase)(state, draws, batch)
+            metrics = {key: float(v) for key, v in
+                       tr.global_metrics(metrics).items()}
+            rec["loss"].append(metrics["loss"])
+            rec["bytes"].append(fsdp.param_bytes(net))
+            if save and k == skip:
+                ckpt.save(save, tr, state, 0)
+                ckpt.wait_until_finished()
+        sd = fsdp.state_dict(net)
+        sharded = fsdp.sharded(net)
+        big = digest if digests else (lambda a: a)
+        rec.update(
+            metrics=metrics,
+            stats={n: big(_np(b)) for n, b in net.named_buffers()
                    if "running" in n},
-            params=np.concatenate([_np(p).ravel() for p in net.parameters()]))
-    os.environ.pop("DSF_REMAT", None)
-    if case.get("fsdp"):
-        kw = case["fsdp"]
-        for n_fsdp in (1, 2):
-            tr = _trainer(kw, case["mano"], n_fsdp)
-            B = kw["batch_size"]
-            state = tr.init_state()
-            src = random_param_source(B, seed=3)
-            for _ in range(2):
-                para, cube = next(src)
-                tr.train_step_fn("Pretrain")(
-                    state, tr.draw(B), {"model_para": tr.mesh.stripe(para),
-                                        "cube_synth": tr.mesh.stripe(cube)})
-            out[f"fsdp{n_fsdp}"] = dict(
-                params=np.concatenate([_np(p).ravel()
-                                       for p in state.net.parameters()]),
-                moments={k: _np(v) for k, v in
-                         state.optimizer.state_dict().items()
-                         if torch.is_tensor(v) and v.dim() == 1})
-    return out
+            params=big(np.concatenate([sd[n].numpy().ravel()
+                                       for n, _ in net.named_parameters()])),
+            moments={key: big(_np(v)) for key, v in opt.state_dict().items()
+                     if torch.is_tensor(v) and v.dim() == 1},
+            counters={key: int(getattr(opt, key)) for key in opt.COUNTERS})
+        if sharded is not None:
+            if steps:
+                rec["mean_grad"] = big(_np(sharded.whole_flat(sharded.grad)))
+            rec["peak_held"] = sharded.peak_held
+            rec["raised"] = []
+            for call in (net.state_dict, lambda: net.load_state_dict(sd)):
+                try:
+                    call()
+                except RuntimeError as e:
+                    rec["raised"].append(str(e))
+        elif steps:
+            grad = torch.cat([p.grad.reshape(-1) for p in net.parameters()])
+            if digests:
+                rec["mean_grad"] = digest(_ranks_mean(grad.float()))
+            else:
+                rec["grad"] = _np(grad)
+        if evaluate:
+            real = demo.real_batch(tr.renderer, B, np.random.RandomState(9))
+            errors, results = tr.eval_step_fn()(
+                state, {key: tr.mesh.stripe(v) for key, v in real.items()})
+            rec["eval"] = dict(errors=_np(errors),
+                               **{key: _np(v) for key, v in results.items()})
+        return rec
+    finally:
+        os.environ.pop("DSF_REMAT", None)
 
 
 def loop_run(case):
